@@ -1,0 +1,132 @@
+"""Mutable device-resident int8 embedding shards.
+
+Port of ``outline_rag_tpu/index/shard.py``. A shard is a capacity-padded
+int8 code matrix with per-row scales and an additive validity penalty
+(0 = live, NEG = tombstoned or unused), all preallocated on the index's
+device. Mutations write in place (``index_copy_`` / ``index_fill_``) — the
+port's analogue of the JAX package's donated buffers — so nothing is
+reallocated, and the scan always runs over the full capacity with the
+penalty masking dead rows.
+
+Only the int8 scan dtypes are ported: ``int8`` and ``int8r`` (int8 plus
+the q2 residual plane read by the rescore). The fp32, bf16 and f32x2
+modes are later work.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from outline_rag_tpu_torch.device import resolve_device
+from outline_rag_tpu_torch.ops.topk import NEG
+
+DTYPES = ("int8", "int8r")
+
+
+@dataclasses.dataclass
+class ShardState:
+    """Tensors of one shard.
+
+    ``vectors``  [capacity, dim]  int8 codes (the q1 plane).
+    ``scales``   [capacity]       f32 per-row scales.
+    ``penalty``  [capacity]       f32 additive mask: 0 live, NEG dead.
+    ``residual`` [capacity, rdim] int8 q2 plane: rdim == dim in ``int8r``
+                                  mode, 0 otherwise, so the structure is
+                                  the same in every mode.
+    """
+
+    vectors: torch.Tensor
+    scales: torch.Tensor
+    penalty: torch.Tensor
+    residual: torch.Tensor
+
+    @property
+    def capacity(self) -> int:
+        return self.vectors.shape[0]
+
+    @property
+    def dim(self) -> int:
+        return self.vectors.shape[1]
+
+
+def init_state(
+    capacity: int, dim: int, dtype: str, device: str | torch.device
+) -> ShardState:
+    if dtype not in DTYPES:
+        raise ValueError(f"index dtype {dtype!r} is not ported; use one of {DTYPES}")
+    dev = resolve_device(device)
+    return ShardState(
+        vectors=torch.zeros((capacity, dim), dtype=torch.int8, device=dev),
+        scales=torch.ones((capacity,), dtype=torch.float32, device=dev),
+        penalty=torch.full((capacity,), NEG, dtype=torch.float32, device=dev),
+        residual=torch.zeros(
+            (capacity, dim if dtype == "int8r" else 0), dtype=torch.int8, device=dev
+        ),
+    )
+
+
+class DeviceShard:
+    """Host-side manager for one shard: the write cursor, the live count
+    and the row -> chunk-id map (device row indices are translated
+    here)."""
+
+    def __init__(
+        self, capacity: int, dim: int, dtype: str, device: str | torch.device
+    ):
+        self.state = init_state(capacity, dim, dtype, device)
+        self.device = self.state.vectors.device
+        self.row_ids: np.ndarray = np.full(capacity, "", dtype=object)
+        self.cursor = 0  # next free row
+        self.live = 0
+
+    @property
+    def capacity(self) -> int:
+        return self.state.capacity
+
+    @property
+    def free(self) -> int:
+        return self.capacity - self.cursor
+
+    def append(
+        self,
+        chunk_ids: list[str],
+        codes: torch.Tensor,  # [n, dim] int8
+        scales: torch.Tensor,  # [n] f32
+        residual: torch.Tensor | None = None,  # [n, dim] int8 (int8r mode)
+    ) -> np.ndarray:
+        """Write rows at the cursor; returns the assigned row indices."""
+        n = codes.shape[0]
+        if n == 0:
+            return np.empty(0, np.int64)
+        if n > self.free:
+            raise IndexError(f"shard full: {n} rows requested, {self.free} free")
+        if self.state.residual.shape[1] and residual is None:
+            raise ValueError("int8r shard append requires the residual plane")
+        rows = torch.arange(self.cursor, self.cursor + n, device=self.device)
+        self.state.vectors.index_copy_(0, rows, codes.to(self.device, torch.int8))
+        self.state.scales.index_copy_(0, rows, scales.to(self.device, torch.float32))
+        self.state.penalty.index_fill_(0, rows, 0.0)
+        if self.state.residual.shape[1]:
+            self.state.residual.index_copy_(0, rows, residual.to(self.device, torch.int8))
+        assigned = np.arange(self.cursor, self.cursor + n)
+        self.row_ids[self.cursor : self.cursor + n] = chunk_ids
+        self.cursor += n
+        self.live += n
+        return assigned
+
+    def tombstone(self, rows: np.ndarray) -> None:
+        rows = np.asarray(rows, np.int64)
+        if rows.size == 0:
+            return
+        self.state.penalty.index_fill_(0, torch.as_tensor(rows, device=self.device), NEG)
+        self.row_ids[rows] = ""
+        self.live -= rows.size
+
+    def snapshot(self) -> tuple[ShardState, np.ndarray]:
+        """(state, row-id map) for a reader. The tensors are written in
+        place, so readers hold the index's read section while they use
+        them."""
+        return self.state, self.row_ids

@@ -1,0 +1,162 @@
+"""XLM-RoBERTa-family encoder (the BGE-m3 architecture) as an nn.Module.
+
+Port of ``outline_rag_tpu/models/encoder.py`` with its numerics:
+
+- weights in the compute dtype, except the layernorm parameters, which
+  stay f32 (the JAX package's cast rule), so the embedding sum runs in the
+  compute dtype;
+- layernorm statistics in f32, cast back;
+- RoBERTa position ids ``cumsum(mask) * mask + pad_id``;
+- additive key bias ``(1 - mask) * -1e9``;
+- attention logits and softmax in f32, probabilities cast to the compute
+  dtype before P.V;
+- exact-erf GELU.
+
+Attention is plain tensor code at the query and pair widths (64 and 128);
+the flash kernel that whole-document ingest uses is not ported yet, and
+neither are the sparse and ColBERT heads.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from outline_rag_tpu_torch.device import resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class EncoderConfig:
+    vocab_size: int = 250_002
+    hidden: int = 1024
+    layers: int = 24
+    heads: int = 16
+    intermediate: int = 4096
+    max_positions: int = 8194  # bge-m3 long-context variant
+    pad_id: int = 1
+    layer_norm_eps: float = 1e-5
+    dtype: torch.dtype = torch.bfloat16  # weight / activation compute dtype
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden // self.heads
+
+    @classmethod
+    def bge_m3(cls, dtype: torch.dtype = torch.bfloat16) -> "EncoderConfig":
+        return cls(dtype=dtype)
+
+    @classmethod
+    def tiny(cls, dtype: torch.dtype = torch.float32) -> "EncoderConfig":
+        """Small config for tests / CPU parity checks."""
+        return cls(
+            vocab_size=1024,
+            hidden=64,
+            layers=2,
+            heads=4,
+            intermediate=128,
+            max_positions=130,
+            dtype=dtype,
+        )
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm with f32 parameters and statistics, output in the input
+    dtype."""
+
+    def __init__(self, width: int, eps: float, device: torch.device):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(width, dtype=torch.float32, device=device))
+        self.bias = nn.Parameter(torch.zeros(width, dtype=torch.float32, device=device))
+        self.eps = eps
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x32 = x.float()
+        mu = x32.mean(dim=-1, keepdim=True)
+        var = (x32 - mu).square().mean(dim=-1, keepdim=True)
+        out = (x32 - mu) * torch.rsqrt(var + self.eps)
+        return (out * self.weight + self.bias).to(x.dtype)
+
+
+def zero_linear(n_in: int, n_out: int, cfg: EncoderConfig, device) -> nn.Linear:
+    """``nn.Linear`` in the compute dtype, zero-filled until loaded."""
+    lin = nn.Linear(n_in, n_out, device=device, dtype=cfg.dtype)
+    with torch.no_grad():
+        lin.weight.zero_()
+        lin.bias.zero_()
+    return lin
+
+
+class EncoderLayer(nn.Module):
+    """Post-layernorm transformer block: attention, then the GELU MLP."""
+
+    def __init__(self, cfg: EncoderConfig, device: torch.device):
+        super().__init__()
+        h = cfg.hidden
+        self.cfg = cfg
+        self.q = zero_linear(h, h, cfg, device)
+        self.k = zero_linear(h, h, cfg, device)
+        self.v = zero_linear(h, h, cfg, device)
+        self.o = zero_linear(h, h, cfg, device)
+        self.attn_ln = LayerNorm(h, cfg.layer_norm_eps, device)
+        self.mlp_in = zero_linear(h, cfg.intermediate, cfg, device)
+        self.mlp_out = zero_linear(cfg.intermediate, h, cfg, device)
+        self.mlp_ln = LayerNorm(h, cfg.layer_norm_eps, device)
+
+    def attention(self, x: torch.Tensor, mask_bias: torch.Tensor) -> torch.Tensor:
+        b, s, h = x.shape
+        nh, hd = self.cfg.heads, self.cfg.head_dim
+        q = self.q(x).reshape(b, s, nh, hd)
+        k = self.k(x).reshape(b, s, nh, hd)
+        v = self.v(x).reshape(b, s, nh, hd)
+        logits = torch.einsum("bqnd,bknd->bnqk", q.float(), k.float())
+        logits = logits / math.sqrt(hd) + mask_bias  # [B,1,1,S] broadcast
+        probs = torch.softmax(logits, dim=-1).to(x.dtype)
+        ctx = torch.einsum("bnqk,bknd->bqnd", probs, v).reshape(b, s, h)
+        return self.o(ctx)
+
+    def forward(self, x: torch.Tensor, mask_bias: torch.Tensor) -> torch.Tensor:
+        x = self.attn_ln(x + self.attention(x, mask_bias))
+        hmid = F.gelu(self.mlp_in(x), approximate="none")
+        return self.mlp_ln(x + self.mlp_out(hmid))
+
+
+class Encoder(nn.Module):
+    """Returns the final hidden states [B, S, H] in ``cfg.dtype``. Built
+    with zero weights: fill them with ``models.convert.init_encoder``
+    (seeded) or ``models.convert.encoder_from_jax``."""
+
+    def __init__(self, cfg: EncoderConfig, device: str | torch.device):
+        super().__init__()
+        dev = resolve_device(device)
+        self.cfg = cfg
+        self.word = nn.Parameter(torch.zeros(cfg.vocab_size, cfg.hidden, dtype=cfg.dtype, device=dev))
+        self.position = nn.Parameter(
+            torch.zeros(cfg.max_positions, cfg.hidden, dtype=cfg.dtype, device=dev)
+        )
+        self.token_type = nn.Parameter(torch.zeros(1, cfg.hidden, dtype=cfg.dtype, device=dev))
+        self.embed_ln = LayerNorm(cfg.hidden, cfg.layer_norm_eps, dev)
+        self.layers = nn.ModuleList(EncoderLayer(cfg, dev) for _ in range(cfg.layers))
+
+    def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
+        mask = attention_mask.long()
+        # RoBERTa position ids: cumulative count of non-pad tokens + pad_id
+        positions = torch.cumsum(mask, dim=1) * mask + self.cfg.pad_id
+        emb = self.word[input_ids.long()] + self.position[positions] + self.token_type[0]
+        x = self.embed_ln(emb)
+        # additive attention bias: 0 for real tokens, -1e9 for padding
+        mask_bias = ((1.0 - mask.float()) * -1e9)[:, None, None, :]
+        for layer in self.layers:
+            x = layer(x, mask_bias)
+        return x
+
+
+def pooled_embeddings(
+    encoder: Encoder, input_ids: torch.Tensor, attention_mask: torch.Tensor
+) -> torch.Tensor:
+    """BGE-m3 dense embedding: CLS hidden state, L2-normalized, f32 [B, H]."""
+    cls = encoder(input_ids, attention_mask)[:, 0, :].float()
+    return cls / torch.linalg.vector_norm(cls, dim=-1, keepdim=True).clamp_min(1e-9)

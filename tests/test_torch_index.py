@@ -1,0 +1,114 @@
+"""The port's VectorIndex (int8 / int8r) against the JAX package's: the same
+adds, deletes and queries return the same chunk ids."""
+
+import numpy as np
+import pytest
+import torch
+
+from outline_rag_tpu.index.store import VectorIndex as JaxIndex
+from outline_rag_tpu_torch.index import VectorIndex
+from outline_rag_tpu_torch.index.shard import DeviceShard
+from outline_rag_tpu_torch.ops.topk import NEG
+
+torch.set_num_threads(1)
+
+DIM, CAP = 64, 2048
+
+
+def _vectors(seed, n):
+    return np.random.default_rng(seed).standard_normal((n, DIM)).astype(np.float32)
+
+
+def _fill(index, seed=0, sources=6, per_source=40):
+    for s in range(sources):
+        vecs = _vectors(seed * 100 + s, per_source)
+        index.add_chunks([f"d{s}:{i}" for i in range(per_source)], vecs, source_id=f"d{s}")
+
+
+def _pair(dtype):
+    jax_index = JaxIndex(dim=DIM, capacity=CAP, dtype=dtype)
+    port_index = VectorIndex(dim=DIM, capacity=CAP, dtype=dtype, device="cpu")
+    _fill(jax_index)
+    _fill(port_index)
+    return jax_index, port_index
+
+
+def _assert_same_answers(jax_index, port_index, queries, k):
+    jids, jvals = jax_index.query(queries, k)
+    pids, pvals = port_index.query(queries, k)
+    assert pids == jids
+    live = pvals > NEG / 2
+    np.testing.assert_allclose(pvals[live], np.asarray(jvals)[live], rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", ["int8", "int8r"])
+def test_add_and_query_match_jax(dtype):
+    jax_index, port_index = _pair(dtype)
+    queries = _vectors(99, 9)
+    queries[0] = _vectors(3, 40)[7]  # an indexed vector: finds itself first
+    _assert_same_answers(jax_index, port_index, queries, 12)
+    assert port_index.query(queries[:1], 1)[0] == [["d3:7"]]
+    assert port_index.size == jax_index.size == 240
+
+
+@pytest.mark.parametrize("dtype", ["int8", "int8r"])
+def test_delete_and_replace_match_jax(dtype):
+    jax_index, port_index = _pair(dtype)
+    for index in (jax_index, port_index):
+        assert index.delete_source("d1") == 40
+        assert index.delete_chunks(["d2:0", "d2:5", "missing"]) == 2
+        # replace: the source's old chunks are tombstoned first
+        index.add_chunks(["d4:new"], _vectors(7, 1), source_id="d4")
+    queries = _vectors(98, 8)
+    _assert_same_answers(jax_index, port_index, queries, 12)
+    ids, _ = port_index.query(queries, 64)
+    flat = {c for row in ids for c in row}
+    assert not {c for c in flat if c.startswith("d1:")}
+    assert not flat & {"d2:0", "d2:5", "d4:0"}
+    assert port_index.size == jax_index.size == 240 - 40 - 2 - 40 + 1
+
+
+def test_fewer_live_rows_than_k_returns_each_once():
+    index = VectorIndex(dim=DIM, capacity=1024, dtype="int8r", device="cpu")
+    index.add_chunks([f"c{i}" for i in range(10)], _vectors(5, 10), source_id="s")
+    ids, vals = index.query(_vectors(6, 3), 12)
+    for row in ids:
+        assert len(row) == len(set(row)) == 10
+    assert (vals[:, 10:] == np.float32(NEG)).all()
+
+
+def test_add_past_capacity_raises_and_changes_nothing():
+    index = VectorIndex(dim=DIM, capacity=1024, dtype="int8", device="cpu")
+    index.add_chunks([f"a{i}" for i in range(1000)], _vectors(1, 1000), source_id="a")
+    with pytest.raises(IndexError, match="index full"):
+        index.add_chunks([f"b{i}" for i in range(30)], _vectors(2, 30), source_id="a")
+    assert index.size == 1000  # the refused replace tombstoned nothing
+    assert index.query(_vectors(1, 1000)[:1], 1)[0] == [["a0"]]
+
+
+def test_shard_state_layout():
+    int8 = DeviceShard(1024, DIM, "int8", "cpu").state
+    int8r = DeviceShard(1024, DIM, "int8r", "cpu").state
+    assert tuple(int8.residual.shape) == (1024, 0)
+    assert tuple(int8r.residual.shape) == (1024, DIM)
+    assert int8.vectors.dtype == torch.int8 and int8.penalty.dtype == torch.float32
+    assert (int8.penalty == NEG).all()
+    with pytest.raises(ValueError, match="not ported"):
+        DeviceShard(1024, DIM, "float32", "cpu")
+
+
+def test_token_cache_rows_written_at_assigned_rows():
+    index = VectorIndex(dim=DIM, capacity=1024, dtype="int8r", device="cpu", token_width=8)
+    ids = np.arange(3 * 10, dtype=np.int32).reshape(3, 10) + 3
+    rows = index.add_chunks(["x", "y", "z"], _vectors(4, 3), source_id="s", token_ids=ids)
+    cache = index.tokens.state
+    np.testing.assert_array_equal(cache.ids[rows].numpy(), ids[:, :8])
+    assert cache.mask[rows].sum().item() == 24
+    assert (cache.ids[3:].numpy() == 1).all() and cache.mask[3:].sum().item() == 0
+
+
+def test_cuda_device_refused_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA: the refusal cannot be shown")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        VectorIndex(dim=DIM, capacity=1024, device="cuda")
