@@ -29,6 +29,52 @@ printing one JSON line; any failure raises and the exit code is non-zero:
            query's retrieval top-12 equals the plain path's on the same
            query embeddings, and its recall@12 against an exact fp32 top-12
            over the f32 corpus (kept on the card) is at least 0.99.
+5. kernel_float  ``topk_float`` (the CUDA kernel) against
+           ``topk_float_plain`` for each of its modes (fp32, bf16, f32x2),
+           each over a seeded 1,048,576 x 1024 corpus of unit rows in that
+           mode's storage (4 GiB, 2 GiB, 4 GiB; one at a time), 1% rows
+           tombstoned and 12 copies of one row, at B in {1, 32, 128} and K
+           in {12, 64}, plus a case with fewer live rows than K. Values
+           within 1e-5 and rows equal wherever the twin's neighbouring
+           values are further apart (the sums run in another order); the
+           copies tie exactly and come lowest row first. Median of 10
+           CUDA-event timings of both at B = 32 and 128, K = 64, TF32 off.
+           Then a 65,536-row ``VectorIndex`` of the dtype that scans in the
+           mode (float32, bfloat16, f32x2) answers a query through the
+           kernel.
+6. flash   ``flash_attention`` (the CUDA kernel) against
+           ``flash_attention_plain`` in bf16 at H = 16, D = 64: S in
+           {2048, 4096, 8192} at B = 1, and a B = 2 batch at S = 4096
+           holding a 3,000-token document and an all-padding row (exactly
+           zero). Every element within 2e-3 + 2 bf16 ulps of the twin's
+           (P is rounded against a running max over key tiles in the
+           kernel, the row max in the twin) and the error's norm within
+           1e-2 of the output's; a dropped key tile or a missing rescale
+           fails both. Median of 5 timings of both at each S, B = 1. The
+           f32 instantiation at S = 2048, B = 1 within 1e-5.
+7. long    whole-document ingest and f32x2 serving at bge-m3 width. The
+           seeded encoder embeds one 8,192-token document with the kernel
+           and with the twin for attention (pooled-vector cosine >= 0.999:
+           a check that the kernel runs inside the encoder, not a test of
+           attention, since random weights pull whole-document embeddings
+           together; the flash phase tests the kernel).
+           ``ingest_long``: 24 documents, one per
+           ``EncoderEmbedder(max_tokens=8192).embed`` call, 8 in each of the
+           2048, 4096 and 8192 buckets, with lengths away from the bucket
+           edges (fully padded key tiles occur); every layer of every
+           forward goes through the flash kernel (24 x 24 launches). They,
+           and seeded unit vectors up to 1,000,000 live rows, fill an f32x2
+           ``VectorIndex`` of capacity 1,048,576 x 1024 (bf16 pairs, 4 GiB,
+           64-wide token cache); one document is deleted. ``serve_f32x2``:
+           64 concurrent requests through ``QueryBatcher(max_batch=32)``,
+           each answered with 3 distinct live chunks, with ``topk_float``
+           f32x2 launches on the way (counted over the measured burst,
+           after a warm-up one); one batch's fused top-12 equals the plain
+           path's (tie-aware, 1e-5) and has recall@12 >= 0.99 against an
+           exact fp32 top-12, also when rows within 1e-5 of the exact 12th
+           score count as ties (random weights put whole-document
+           embeddings within ~1e-6 of one another); 32 seeded unit queries
+           through ``VectorIndex.query`` have recall@12 >= 0.99.
 
 The last lines are the kernel summary, the card's name and power limit as
 ``nvidia-smi`` prints them, and ``{"ok": true, "device": {...}}``.
@@ -49,6 +95,12 @@ LIVE_ROWS, TEXT_CHUNKS, BLOCK = 1_000_000, 4096, 4096
 TOKEN_WIDTH, TOP_K, RERANK_K, CANDIDATES = 64, 12, 3, 64
 REQUESTS, MAX_BATCH = 64, 32
 VALUE_TOL, RECALL_MIN = 1e-6, 0.99
+FLOAT_TOL = 1e-5  # float scan: sums in another order than the twin's
+N_DUPS = 12
+FLASH_HEADS, COSINE_MIN = 16, 0.999
+# flash kernel vs twin, per dtype: (atol, bf16 ulps, error norm / output norm)
+FLASH_BOUNDS = {"bf16": (2e-3, 2.0, 1e-2), "f32": (1e-5, 0.0, 1e-5)}
+LONG_DOCS_PER_BUCKET, LONG_MAX_TOKENS = 8, 8192
 
 
 def emit(phase: str, **fields) -> None:
@@ -139,6 +191,45 @@ def kernel_phase(torch, dev, seed: int) -> dict:
     return {"max_abs_err": max_err, "ms": timed[32]["ms"], "plain_ms": timed[32]["plain_ms"]}
 
 
+def serve_burst(service, queries: list[str]):
+    """All ``queries`` at once through a ``QueryBatcher(max_batch=32)`` over
+    ``service.retrieve_batch``: ([(answer, seconds)], wall seconds)."""
+    from outline_rag_tpu_torch.engine import QueryBatcher
+
+    async def serve():
+        batcher = QueryBatcher(service.retrieve_batch, max_batch=MAX_BATCH)
+
+        async def one(q):
+            t = time.perf_counter()
+            res = await batcher.retrieve(q)
+            return res, time.perf_counter() - t
+
+        try:
+            t = time.perf_counter()
+            out = await asyncio.gather(*(one(q) for q in queries))
+            return out, time.perf_counter() - t
+        finally:
+            await batcher.stop()
+
+    return asyncio.run(serve())
+
+
+def check_answers(np, answers, deleted: set[str]) -> None:
+    for res, _ in answers:
+        ids = [c.chunk_id for c in res]
+        require(len(ids) == RERANK_K, f"{RERANK_K} chunks per answer, got {ids}")
+        require(len(set(ids)) == len(ids), f"no duplicate ids in {ids}")
+        require(not deleted & set(ids), f"no deleted ids in {ids}")
+        require(all(np.isfinite([c.score, c.rerank_score]).all() for c in res), "finite scores")
+
+
+def latency_fields(answers, wall_s: float) -> dict:
+    lat = sorted(t for _, t in answers)
+    return {"requests": len(lat), "max_batch": MAX_BATCH, "p50_ms": 1e3 * lat[len(lat) // 2],
+            "p95_ms": 1e3 * lat[min(len(lat) - 1, int(0.95 * len(lat)))],
+            "answers_per_s": len(lat) / wall_s, "wall_s": wall_s}
+
+
 def make_texts(rng, n: int, vocab: list[str]) -> list[str]:
     return [" ".join(rng.choice(vocab, size=int(rng.integers(20, 60)))) for _ in range(n)]
 
@@ -149,7 +240,6 @@ def slice_phase(torch, dev, seed: int) -> int:
     from outline_rag_tpu_torch.engine import (
         CrossEncoderReranker,
         EncoderEmbedder,
-        QueryBatcher,
         RetrievalService,
         fused_query,
     )
@@ -233,37 +323,14 @@ def slice_phase(torch, dev, seed: int) -> int:
     service = RetrievalService(index, embedder, cross, top_k=TOP_K, rerank_k=RERANK_K)
     require(service.fused, "the service runs the fused path")
 
-    async def serve(batch: list[str]):
-        batcher = QueryBatcher(service.retrieve_batch, max_batch=MAX_BATCH)
-
-        async def one(q):
-            t = time.perf_counter()
-            res = await batcher.retrieve(q)
-            return res, time.perf_counter() - t
-
-        try:
-            t = time.perf_counter()
-            out = await asyncio.gather(*(one(q) for q in batch))
-            return out, time.perf_counter() - t
-        finally:
-            await batcher.stop()
-
-    asyncio.run(serve(queries[:MAX_BATCH]))  # warm-up: cuBLAS handles, allocator
+    serve_burst(service, queries[:MAX_BATCH])  # warm-up: cuBLAS handles, allocator
     topk_int8.launches = 0
-    answers, wall_s = asyncio.run(serve(queries))
+    answers, wall_s = serve_burst(service, queries)
     launches = topk_int8.launches
     require(launches > 0, "the main path launched the topk_int8 kernel")
     deleted = {f"text7:{i}" for i in range(64)} | {f"rand{gone}:{i}" for i in range(BLOCK)}
-    for res, _ in answers:
-        ids = [c.chunk_id for c in res]
-        require(len(ids) == RERANK_K, f"{RERANK_K} chunks per answer, got {ids}")
-        require(len(set(ids)) == len(ids), f"no duplicate ids in {ids}")
-        require(not deleted & set(ids), f"no deleted ids in {ids}")
-        require(all(np.isfinite([c.score, c.rerank_score]).all() for c in res), "finite scores")
-    lat = sorted(t for _, t in answers)
-    emit("serve", requests=REQUESTS, max_batch=MAX_BATCH, p50_ms=1e3 * lat[len(lat) // 2],
-         p95_ms=1e3 * lat[min(len(lat) - 1, int(0.95 * len(lat)))],
-         answers_per_s=REQUESTS / wall_s, wall_s=wall_s, topk_int8_launches=launches)
+    check_answers(np, answers, deleted)
+    emit("serve", **latency_fields(answers, wall_s), topk_int8_launches=launches)
 
     # the retrieval stage of one batch, against the plain path and fp32
     tb = tok.batch(queries[:MAX_BATCH], TOKEN_WIDTH, buckets=(TOKEN_WIDTH,))
@@ -296,6 +363,345 @@ def slice_phase(torch, dev, seed: int) -> int:
     return launches
 
 
+def unit_rows(torch, n: int, gen, dev):
+    x = torch.randn((n, DIM), generator=gen, device=dev)
+    return x.div_(x.norm(dim=1, keepdim=True))
+
+
+def float_storage(torch, x, mode: str):
+    """f32 rows ``x`` as ``mode`` stores them (and takes its queries)."""
+    from outline_rag_tpu_torch.ops.topk import split_f32_bf16x2
+
+    if mode == "fp32":
+        return x
+    if mode == "bf16":
+        return x.to(torch.bfloat16)
+    return split_f32_bf16x2(x)
+
+
+def kernel_float_phase(torch, dev, seed: int) -> dict:
+    from outline_rag_tpu_torch.index import VectorIndex
+    from outline_rag_tpu_torch.ops.topk import (
+        FLOAT_MODES,
+        NEG,
+        topk_float,
+        topk_float_plain,
+    )
+    from outline_rag_tpu_torch.testing import tie_aware_mismatches
+
+    g = torch.Generator(device=dev).manual_seed(seed + 3)
+    out = {}
+    for mode in FLOAT_MODES:
+        # the corpus: seeded unit rows, N_DUPS copies of row src, 1% tombstones
+        corpus = unit_rows(torch, N_ROWS, g, dev)
+        src = int(torch.randint(0, N_ROWS, (1,), generator=g, device=dev))
+        dups = torch.randperm(N_ROWS, generator=g, device=dev)[: N_DUPS + 1]
+        dups = dups[dups != src][:N_DUPS]
+        corpus[dups] = corpus[src].clone()
+        anchor = corpus[src].clone()
+        corpus = float_storage(torch, corpus, mode)
+        torch.cuda.empty_cache()
+        penalty = torch.where(torch.rand(N_ROWS, generator=g, device=dev) < 0.01, NEG, 0.0).float()
+        penalty[dups] = 0.0
+        penalty[src] = 0.0
+        tied = sorted({src, *dups.tolist()})
+        few_live = torch.full((N_ROWS,), NEG, device=dev)
+        few_live[torch.randperm(N_ROWS, generator=g, device=dev)[:10]] = 0.0
+
+        cases = [(b, k, penalty) for b in (1, 32, 128) for k in (12, 64)]
+        cases.append((32, 64, few_live))
+        max_err, timed = 0.0, {}
+        for b, k, pen in cases:
+            qf = unit_rows(torch, b, g, dev)
+            qf[0] = anchor  # query 0 is row src: its copies tie at the top
+            q = float_storage(torch, qf, mode)
+            args = (q, corpus, k, pen, mode)
+            vals, idx = topk_float(*args)
+            torch.cuda.synchronize()
+            # K + 1 columns: the tie-aware check knows the K-th slot's neighbour
+            pv, pi = topk_float_plain(q, corpus, k + 1, pen, mode)
+            err = float((vals - pv[:, :k]).abs().max())
+            max_err = max(max_err, err)
+            row = {
+                "mode": mode, "B": b, "K": k, "live": int((pen == 0).sum()),
+                "mismatches": tie_aware_mismatches(vals, idx, pv, pi, FLOAT_TOL),
+                "idx_equal": bool(torch.equal(idx, pi[:, :k])), "max_abs_err": err,
+            }
+            require(row["mismatches"] == 0 and err <= FLOAT_TOL,
+                    f"float kernel agrees with the plain version within {FLOAT_TOL} at {row}")
+            if pen is penalty:
+                head = min(k, len(tied))
+                require(idx[0, :head].tolist() == tied[:head]
+                        and bool((vals[0, :head] == vals[0, 0]).all()),
+                        f"{mode}: the copies tie exactly and come lowest row first")
+            else:
+                require(bool((idx[:, 10:] == 0).all() and (vals[:, 10:] == NEG).all()),
+                        f"{mode}: slots past the 10 live rows are (NEG, 0)")
+            if k == 64 and b in (32, 128) and pen is penalty:
+                row["ms"] = cuda_ms(torch, lambda: topk_float(*args))
+                row["plain_ms"] = cuda_ms(torch, lambda: topk_float_plain(*args))
+                timed[b] = row
+            emit("kernel_float", **row)
+        del corpus, penalty, few_live
+        torch.cuda.empty_cache()
+
+        # the index dtype that scans in this mode, through VectorIndex.query
+        dtype = {"fp32": "float32", "bf16": "bfloat16", "f32x2": "f32x2"}[mode]
+        index = VectorIndex(dim=DIM, capacity=1 << 16, dtype=dtype, device=dev)
+        vecs = unit_rows(torch, 1 << 16, g, dev)
+        index.add_chunks([f"v{i}" for i in range(1 << 16)], vecs, "s")
+        before = topk_float.launches[mode]
+        ids, _ = index.query(vecs[:8], TOP_K)
+        require(topk_float.launches[mode] == before + 1, f"{dtype} index query launched the kernel")
+        require([r[0] for r in ids] == [f"v{i}" for i in range(8)],
+                f"{dtype} index: each stored row is its own top match")
+        del index, vecs
+        torch.cuda.empty_cache()
+        out[mode] = {"max_abs_err": max_err, "ms": timed[32]["ms"],
+                     "plain_ms": timed[32]["plain_ms"], "ms_b128": timed[128]["ms"],
+                     "plain_ms_b128": timed[128]["plain_ms"]}
+    return out
+
+
+def flash_phase(torch, dev, seed: int) -> dict:
+    from outline_rag_tpu_torch.ops.attention import (
+        NEG_BIAS,
+        flash_attention,
+        flash_attention_plain,
+    )
+    from outline_rag_tpu_torch.testing import flash_errors
+
+    g = torch.Generator(device=dev).manual_seed(seed + 4)
+    dtypes = {"bf16": torch.bfloat16, "f32": torch.float32}
+
+    def case(b, s, lengths, dtype):
+        q, k, v = (torch.randn((b, s, FLASH_HEADS, 64), generator=g, device=dev)
+                   .to(dtypes[dtype]) for _ in range(3))
+        bias = torch.zeros((b, s), device=dev)
+        for i, n in enumerate(lengths):
+            bias[i, n:] = NEG_BIAS
+        return q, k, v, bias
+
+    cases = [(1, s, [s], "bf16") for s in (2048, 4096, 8192)]
+    cases += [(2, 4096, [3000, 0], "bf16"), (1, 2048, [2048], "f32")]
+    max_err, times = 0.0, {}
+    for b, s, lengths, dtype in cases:
+        args = case(b, s, lengths, dtype)
+        out = flash_attention(*args)
+        torch.cuda.synchronize()
+        plain = flash_attention_plain(*args)
+        atol, ulps, rel_rms = FLASH_BOUNDS[dtype]
+        row = {"dtype": dtype, "B": b, "S": s, "H": FLASH_HEADS, "lengths": lengths,
+               **flash_errors(out, plain, atol, ulps), "max_abs_plain": float(plain.abs().max())}
+        if dtype == "bf16":
+            max_err = max(max_err, row["max_abs_err"])
+        require(row["worst_vs_bound"] <= 1.0 and row["rel_rms_err"] <= rel_rms,
+                f"flash kernel within {atol} + {ulps} ulps, error norm within {rel_rms}, at {row}")
+        for i, n in enumerate(lengths):
+            if n == 0:
+                require(bool((out[i] == 0).all()), "a row with no live key is exactly zero")
+        if b == 1:
+            row["ms"] = cuda_ms(torch, lambda: flash_attention(*args), runs=5)
+            row["plain_ms"] = cuda_ms(torch, lambda: flash_attention_plain(*args), runs=5)
+            row["kernel_tflops"] = 4 * s * s * 64 * FLASH_HEADS / row["ms"] / 1e9
+            if dtype == "bf16":
+                times[s] = row
+        emit("flash", **row)
+        del args, out, plain
+    return {"max_abs_err": max_err, "ms": times[8192]["ms"], "plain_ms": times[8192]["plain_ms"],
+            "by_S": {s: (r["ms"], r["plain_ms"]) for s, r in times.items()}}
+
+
+def long_lengths(rng) -> list[int]:
+    """Words per document, LONG_DOCS_PER_BUCKET in each of the 2048, 4096
+    and 8192 buckets, at least one 64-key tile clear of either bucket edge
+    (so fully padded key tiles occur); the tokenizer adds CLS and EOS."""
+    lengths = []
+    for lo, hi in ((1024, 2048), (2048, 4096), (4096, 8192)):
+        lengths += [int(n) for n in rng.integers(lo + 64, hi - 66, LONG_DOCS_PER_BUCKET)]
+    return lengths
+
+
+def long_phase(torch, dev, seed: int) -> dict:
+    """Whole-document ingest through the flash kernel, then f32x2 serving."""
+    import numpy as np
+
+    import outline_rag_tpu_torch.models.encoder as encoder_module
+    from outline_rag_tpu_torch.engine import (
+        CrossEncoderReranker,
+        EncoderEmbedder,
+        RetrievalService,
+        fused_query,
+    )
+    from outline_rag_tpu_torch.index import VectorIndex
+    from outline_rag_tpu_torch.index.store import normalize_rows
+    from outline_rag_tpu_torch.models import (
+        EncoderConfig,
+        init_encoder,
+        init_reranker,
+        pooled_embeddings,
+    )
+    from outline_rag_tpu_torch.models.tokenizer import HashTokenizer
+    from outline_rag_tpu_torch.ops.attention import flash_attention, flash_attention_plain
+    from outline_rag_tpu_torch.ops.topk import (
+        split_f32_bf16x2,
+        topk_float,
+        topk_float_plain,
+        topk_plain,
+    )
+    from outline_rag_tpu_torch.testing import tie_aware_mismatches
+
+    cfg = EncoderConfig.bge_m3()
+    gen = torch.Generator(device=dev).manual_seed(seed + 5)
+    encoder = init_encoder(cfg, gen, dev)
+    reranker = init_reranker(cfg, gen, dev)
+    tok = HashTokenizer(vocab_size=cfg.vocab_size)
+    embedder = EncoderEmbedder(encoder, tok, max_tokens=LONG_MAX_TOKENS)
+    require(embedder.seq_buckets[-3:] == (2048, 4096, 8192), "whole-document bucket ladder")
+    cross = CrossEncoderReranker(reranker, tok)
+    rng = np.random.default_rng(seed + 5)
+    vocab = [f"w{i}" for i in rng.permutation(50_000)[:20_000]]
+
+    # one 8,192-token document through the encoder, kernel against twin: a
+    # check that the kernel runs inside the encoder, not a test of attention
+    # (random weights pull whole-document embeddings together; the flash
+    # phase holds the kernel to the twin)
+    doc = " ".join(rng.choice(vocab, LONG_MAX_TOKENS - 2))
+    tb = tok.batch([doc], LONG_MAX_TOKENS, embedder.seq_buckets)
+    require(tb.input_ids.shape == (1, LONG_MAX_TOKENS), "an 8,192-token document")
+    ids = torch.as_tensor(tb.input_ids, device=dev)
+    mask = torch.as_tensor(tb.attention_mask, device=dev)
+    with torch.inference_mode():
+        got = pooled_embeddings(encoder, ids, mask)
+        encoder_module.flash_attention = flash_attention_plain
+        try:
+            want = pooled_embeddings(encoder, ids, mask)
+        finally:
+            encoder_module.flash_attention = flash_attention
+        forward_ms = cuda_ms(torch, lambda: pooled_embeddings(encoder, ids, mask), runs=3)
+    cosine = float((got * want).sum())
+    emit("encoder_8192", cosine_kernel_vs_plain=cosine, forward_ms=forward_ms)
+    require(cosine >= COSINE_MIN, f"pooled cosine {cosine} >= {COSINE_MIN}")
+
+    index = VectorIndex(dim=DIM, capacity=CAPACITY, dtype="f32x2", device=dev,
+                        token_width=TOKEN_WIDTH)
+    oracle = torch.zeros((CAPACITY, DIM), dtype=torch.float32, device=dev)
+    lengths = long_lengths(rng)
+    docs = [" ".join(rng.choice(vocab, n)) for n in lengths]
+
+    # the main path, counted from here: ingest, one document per embed call
+    flash_attention.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    embed_s, tokens, padded = 0.0, 0, 0
+    for i, text in enumerate(docs):
+        t1 = time.perf_counter()
+        vec = embedder.embed([text])
+        embed_s += time.perf_counter() - t1
+        width = tok.batch([text], LONG_MAX_TOKENS, embedder.seq_buckets).input_ids.shape[1]
+        tokens += lengths[i] + 2
+        padded += width
+        tb = tok.batch([text], TOKEN_WIDTH, buckets=(TOKEN_WIDTH,))
+        rows = index.add_chunks([f"long{i}:0"], vec, f"long{i}",
+                                token_ids=tb.input_ids, token_mask=tb.attention_mask)
+        oracle[torch.as_tensor(rows, device=dev)] = normalize_rows(torch.as_tensor(vec, device=dev))
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0
+    flash_launches = flash_attention.launches
+    require(flash_launches == len(docs) * cfg.layers,
+            f"every layer of every document ran the flash kernel: {flash_launches}")
+    emit("ingest_long", docs=len(docs), buckets=sorted(set(embedder.seq_buckets[-3:])),
+         tokens=tokens, padded_tokens=padded, embed_s=embed_s, ingest_s=ingest_s,
+         docs_per_s=len(docs) / ingest_s, tokens_per_s=tokens / embed_s,
+         flash_launches=flash_launches)
+
+    # seeded unit vectors with random token rows up to LIVE_ROWS
+    positions = torch.arange(TOKEN_WIDTH, device=dev)
+    n_src = 0
+    t0 = time.perf_counter()
+    while index.size < LIVE_ROWS:
+        n = min(BLOCK, LIVE_ROWS - index.size)
+        v = torch.randn((n, DIM), generator=gen, device=dev)
+        lens = torch.randint(8, TOKEN_WIDTH + 1, (n, 1), generator=gen, device=dev)
+        tmask = (positions[None, :] < lens).to(torch.int32)
+        tids = torch.randint(3, cfg.vocab_size, (n, TOKEN_WIDTH), generator=gen, device=dev,
+                             dtype=torch.int32)
+        tids = torch.where(tmask.bool(), tids, tok.pad_id)
+        tids[:, 0] = tok.cls_id
+        rows = index.add_chunks([f"rand{n_src}:{i}" for i in range(n)], v, f"rand{n_src}",
+                                token_ids=tids, token_mask=tmask)
+        oracle[torch.as_tensor(rows, device=dev)] = normalize_rows(v)
+        n_src += 1
+    gone = len(docs) // 2
+    require(index.delete_source(f"long{gone}") == 1, "delete_source removed the document")
+    torch.cuda.synchronize()
+    require(index.size == LIVE_ROWS - 1, f"live rows {index.size}")
+    emit("ingest_vectors", seconds=time.perf_counter() - t0, live_rows=index.size,
+         capacity=CAPACITY, dtype=index.dtype,
+         device_mem_gb=torch.cuda.memory_allocated(dev) / 1e9)
+
+    # serve_f32x2: phrases cut from the documents (the deleted one's too)
+    picks = rng.integers(0, len(docs), REQUESTS)
+    queries = []
+    for j in picks:
+        words = docs[j].split()
+        at = int(rng.integers(0, len(words) - 12))
+        queries.append(" ".join(words[at : at + 12]))
+    service = RetrievalService(index, embedder, cross, top_k=TOP_K, rerank_k=RERANK_K)
+    require(service.fused, "the service runs the fused path")
+    serve_burst(service, queries[:MAX_BATCH])  # warm-up: cuBLAS handles, allocator
+    topk_float.launches = dict.fromkeys(topk_float.launches, 0)
+    answers, wall_s = serve_burst(service, queries)
+    scan_launches = topk_float.launches["f32x2"]
+    require(scan_launches > 0, "the main path launched the f32x2 topk_float kernel")
+    require(flash_attention.launches == flash_launches, "queries (64 tokens) ran einsum attention")
+    check_answers(np, answers, {f"long{gone}:0"})
+    emit("serve_f32x2", **latency_fields(answers, wall_s), topk_float_f32x2_launches=scan_launches)
+
+    # the retrieval stage of one batch, against the plain path and fp32
+    tb = tok.batch(queries[:MAX_BATCH], TOKEN_WIDTH, buckets=(TOKEN_WIDTH,))
+    q_ids = torch.as_tensor(tb.input_ids, device=dev)
+    q_mask = torch.as_tensor(tb.attention_mask, device=dev)
+    with torch.inference_mode():
+        state, _ = index.snapshot()
+        tokens_state = index.tokens.state
+        _, _, _, idx, vals = fused_query(
+            encoder, reranker, q_ids, q_mask, state.vectors, state.scales, state.penalty,
+            tokens_state.ids, tokens_state.mask, top_k=TOP_K, rerank_k=RERANK_K,
+        )
+        q_emb = pooled_embeddings(encoder, q_ids, q_mask)
+        pv, pi = topk_float_plain(split_f32_bf16x2(q_emb), state.vectors, TOP_K + 1,
+                                  state.penalty, "f32x2")
+        ov, oi = topk_plain(q_emb, oracle, TOP_K + 1, state.penalty)
+        exact = torch.einsum("bkd,bd->bk", oracle[idx.long()], q_emb)  # fp32 scores of idx
+        # the scan through VectorIndex.query for seeded unit queries, whose
+        # exact top-12 is well separated, against fp32
+        probe = unit_rows(torch, MAX_BATCH, gen, dev)
+        probe_ids, _ = index.query(probe, TOP_K)
+        _, probe_oi = topk_plain(probe, oracle, TOP_K, state.penalty)
+    mismatches = tie_aware_mismatches(vals, idx, pv, pi, FLOAT_TOL)
+    err = float((vals - pv[:, :TOP_K]).abs().max())
+    hits = [len(set(a) & set(b[:TOP_K])) for a, b in zip(idx.tolist(), oi.tolist())]
+    recall = sum(hits) / (TOP_K * len(hits))
+    # random weights pull whole-document embeddings to within ~1e-6 of one
+    # another, below f32x2's rounding: a row within FLOAT_TOL of the exact
+    # 12th score is a tie there, and counts as a hit
+    tie_recall = float((exact >= ov[:, TOP_K - 1 : TOP_K] - FLOAT_TOL).float().mean())
+    row_of = index.snapshot()[1]
+    probe_hits = [len(set(a) & {str(row_of[r]) for r in b})
+                  for a, b in zip(probe_ids, probe_oi.tolist())]
+    probe_recall = sum(probe_hits) / (TOP_K * len(probe_hits))
+    emit("retrieval_f32x2", batch=len(hits), recall_at_12=recall,
+         tie_aware_recall_at_12=tie_recall, vector_query_recall_at_12=probe_recall,
+         mismatches_vs_plain=mismatches, max_abs_err_vs_plain=err,
+         min_oracle_gap_12_13=float((ov[:, TOP_K - 1] - ov[:, TOP_K]).min()))
+    require(mismatches == 0, "fused top-12 equals the plain path's (tie-aware)")
+    require(recall >= RECALL_MIN, f"recall@12 {recall} >= {RECALL_MIN}")
+    require(tie_recall >= RECALL_MIN, f"tie-aware recall@12 {tie_recall} >= {RECALL_MIN}")
+    require(probe_recall >= RECALL_MIN, f"vector-query recall@12 {probe_recall} >= {RECALL_MIN}")
+    return {"flash_launches": flash_attention.launches, "scan_launches": scan_launches}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -326,13 +732,34 @@ def main() -> int:
     kernel = kernel_phase(torch, dev, args.seed)
     torch.cuda.empty_cache()
     launches = slice_phase(torch, dev, args.seed)
+    torch.cuda.empty_cache()
+    floats = kernel_float_phase(torch, dev, args.seed)
+    flash = flash_phase(torch, dev, args.seed)
+    torch.cuda.empty_cache()
+    long = long_phase(torch, dev, args.seed)
 
+    # ms / plain_ms: topk_* at B = 32, K = 64 (topk_float in the f32x2 mode
+    # the path runs; every mode under "modes"); flash_attention at S = 8192
     print(json.dumps({"kernels": [{
         "name": "topk_int8", "route": "cuda",
         "source": "outline_rag_tpu_torch/csrc/topk_int8.cu",
         "replaces": "outline_rag_tpu/ops/topk.py:346",
         "launches": launches, "max_abs_err": kernel["max_abs_err"],
         "ms": kernel["ms"], "plain_ms": kernel["plain_ms"],
+    }, {
+        "name": "topk_float", "route": "cuda",
+        "source": "outline_rag_tpu_torch/csrc/topk_float.cu",
+        "replaces": "outline_rag_tpu/ops/topk.py:346",
+        "launches": long["scan_launches"],
+        "max_abs_err": max(m["max_abs_err"] for m in floats.values()),
+        "ms": floats["f32x2"]["ms"], "plain_ms": floats["f32x2"]["plain_ms"],
+        "modes": floats,
+    }, {
+        "name": "flash_attention", "route": "cuda",
+        "source": "outline_rag_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "outline_rag_tpu/ops/attention.py:43",
+        "launches": long["flash_launches"], "max_abs_err": flash["max_abs_err"],
+        "ms": flash["ms"], "plain_ms": flash["plain_ms"], "by_S": flash["by_S"],
     }]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -36,12 +36,12 @@
 //     sorted running top-K list in shared memory; after warm-up most rows
 //     fail the k-th-value test and cost one ballot. The list is written out
 //     as the chunk's partial top-K.
-//   pass 2 (merge_kernel): one block per query merges the chunks' partial
-//     lists with the same warp insertion, then merges the eight warp lists.
+//   pass 2 (merge_kernel, topk_common.cuh): one block per query merges the
+//     chunks' partial lists with the same warp insertion, then merges the
+//     eight warp lists.
 // Row offsets are 64-bit: N * D passes 2^31 at 10M x 1024.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "topk_common.cuh"
 
 namespace {
 
@@ -50,52 +50,7 @@ constexpr int TN = 128;         // rows per pass-1 tile
 constexpr int DC = 128;         // bytes of each row staged per step
 constexpr int CW = DC / 4 + 4;  // words per staged row; the 4 padding words
                                 // make the 16-byte shared reads conflict-free
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
-constexpr int KMAX = 64;
-constexpr float NEG = -1e30f;
-constexpr float DEAD = -5e29f;  // NEG / 2: scores at or below are never kept
-
-__device__ __forceinline__ bool ranks_before(float va, int ia, float vb, int ib) {
-  return va > vb || (va == vb && ia < ib);
-}
-
-// One warp offers up to 32 candidates, one per lane (`valid` marks the real
-// ones), to a list in shared memory: lv/li hold n entries (n is the same in
-// every lane) sorted by (value desc, index asc), at most k of them. Accepted
-// candidates are inserted one at a time at their rank.
-__device__ __forceinline__ void warp_offer(float* lv, int* li, int& n, int k,
-                                           float v, int i, bool valid) {
-  const unsigned full = 0xffffffffu;
-  const int lane = threadIdx.x & 31;
-  const bool want =
-      valid && v > DEAD && (n < k || ranks_before(v, i, lv[k - 1], li[k - 1]));
-  unsigned pending = __ballot_sync(full, want);
-  while (pending) {
-    const int src = __ffs(pending) - 1;
-    pending &= pending - 1;
-    const float cv = __shfl_sync(full, v, src);
-    const int ci = __shfl_sync(full, i, src);
-    // the k-th entry may have risen since the ballot
-    if (n == k && !ranks_before(cv, ci, lv[k - 1], li[k - 1])) continue;
-    const int e0 = lane, e1 = lane + 32;
-    float v0 = 0.f, v1 = 0.f;
-    int i0 = 0, i1 = 0;
-    if (e0 < n) { v0 = lv[e0]; i0 = li[e0]; }
-    if (e1 < n) { v1 = lv[e1]; i1 = li[e1]; }
-    const int pos =
-        __popc(__ballot_sync(full, e0 < n && ranks_before(v0, i0, cv, ci))) +
-        __popc(__ballot_sync(full, e1 < n && ranks_before(v1, i1, cv, ci)));
-    const int nn = n < k ? n + 1 : k;
-    __syncwarp();
-    // entries pos .. nn-2 move down one slot; the last one drops when full
-    if (e0 >= pos && e0 + 1 < nn) { lv[e0 + 1] = v0; li[e0 + 1] = i0; }
-    if (e1 >= pos && e1 + 1 < nn) { lv[e1 + 1] = v1; li[e1 + 1] = i1; }
-    if (lane == 0) { lv[pos] = cv; li[pos] = ci; }
-    __syncwarp();
-    n = nn;
-  }
-}
+constexpr int THREADS = SEL_THREADS;
 
 __global__ void __launch_bounds__(THREADS)
 scan_kernel(const int8_t* __restrict__ q, const float* __restrict__ qscale,
@@ -212,49 +167,8 @@ scan_kernel(const int8_t* __restrict__ q, const float* __restrict__ qscale,
     if (q0 + qq >= B) break;
     const int n = cnt[qq];
     const long long base = (chunk * B + (q0 + qq)) * (long long)K;
-    for (int e = lane; e < K; e += 32) {
-      part_v[base + e] = e < n ? lv[qq * KMAX + e] : NEG;
-      part_i[base + e] = e < n ? li[qq * KMAX + e] : 0;
-    }
-  }
-}
-
-__global__ void __launch_bounds__(THREADS)
-merge_kernel(const float* __restrict__ part_v, const int* __restrict__ part_i,
-             int B, int K, int n_chunks, float* __restrict__ out_v,
-             int* __restrict__ out_i) {
-  __shared__ float lv[WARPS][KMAX];
-  __shared__ int li[WARPS][KMAX];
-  __shared__ int cnt[WARPS];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int b = blockIdx.x;
-
-  int n = 0;
-  for (int c = warp; c < n_chunks; c += WARPS) {
-    const long long base = ((long long)c * B + b) * K;
-    for (int e0 = 0; e0 < K; e0 += 32) {
-      const int e = e0 + lane;
-      const bool valid = e < K;
-      warp_offer(lv[warp], li[warp], n, K, valid ? part_v[base + e] : NEG,
-                 valid ? part_i[base + e] : 0, valid);
-    }
-  }
-  if (lane == 0) cnt[warp] = n;
-  __syncthreads();
-  if (warp != 0) return;
-
-  for (int w = 1; w < WARPS; ++w) {
-    const int m = cnt[w];
-    for (int e0 = 0; e0 < m; e0 += 32) {
-      const int e = e0 + lane;
-      const bool valid = e < m;
-      warp_offer(lv[0], li[0], n, K, valid ? lv[w][e] : NEG,
-                 valid ? li[w][e] : 0, valid);
-    }
-  }
-  for (int e = lane; e < K; e += 32) {
-    out_v[(long long)b * K + e] = e < n ? lv[0][e] : NEG;
-    out_i[(long long)b * K + e] = e < n ? li[0][e] : 0;
+    warp_write(lv + qq * KMAX, li + qq * KMAX, n, K, part_v + base,
+               part_i + base, 1);
   }
 }
 
@@ -291,6 +205,6 @@ extern "C" int topk_int8_launch(const void* q, const void* qscale,
   if (err != cudaSuccess) return static_cast<int>(err);
   merge_kernel<<<B, THREADS, 0, s>>>(
       static_cast<const float*>(part_v), static_cast<const int*>(part_i), B, K,
-      n_chunks, static_cast<float*>(out_v), static_cast<int*>(out_i));
+      n_chunks, 0, static_cast<float*>(out_v), static_cast<int*>(out_i));
   return static_cast<int>(cudaGetLastError());
 }

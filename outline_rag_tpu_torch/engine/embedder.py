@@ -3,8 +3,12 @@
 Port of ``outline_rag_tpu/engine/embedder.py``: ``embed(texts) ->
 np.ndarray [n, dim]`` through the XLM-R encoder with CLS pooling.
 Sequences are padded to the tokenizer's bucket ladder, and a batch is
-split by a token budget so long buckets run at small batch. The JAX
-package also padded the batch dimension to a ladder, to bound
+split by a token budget so long buckets run at small batch. With
+``max_tokens`` past the ladder's top (bge-m3 reads 8,192 tokens), the
+embedder is in whole-document mode: the ladder runs up to ``max_tokens``
+(``buckets_for``), one document becomes one vector, and attention at
+those widths goes through the flash kernel (``EncoderConfig.attn_impl``).
+The JAX package also padded the batch dimension to a ladder, to bound
 recompiles; eager PyTorch has none, so batches run at their real size.
 """
 
@@ -14,7 +18,7 @@ import numpy as np
 import torch
 
 from outline_rag_tpu_torch.models.encoder import Encoder, pooled_embeddings
-from outline_rag_tpu_torch.models.tokenizer import DEFAULT_BUCKETS
+from outline_rag_tpu_torch.models.tokenizer import DEFAULT_BUCKETS, buckets_for
 
 # token budget per encoder forward: activations (B x S x intermediate)
 # stay bounded for the long buckets
@@ -34,6 +38,8 @@ class EncoderEmbedder:
         self.device = encoder.word.device
         self.tokenizer = tokenizer
         self.max_tokens = max_tokens
+        if max_tokens > max(seq_buckets):
+            seq_buckets = buckets_for(max_tokens)  # whole-document mode
         self.seq_buckets = seq_buckets
 
     @property

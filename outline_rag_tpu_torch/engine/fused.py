@@ -1,13 +1,15 @@
-"""The fused query: embed -> int8 scan -> exact rescore -> gather -> rerank,
-over device-resident state.
+"""The fused query: embed -> scan -> gather -> rerank, over device-resident
+state.
 
-Port of ``outline_rag_tpu/engine/fused.py`` for the default configuration
-(int8/int8r index, no lexical or ColBERT terms). Stages:
+Port of ``outline_rag_tpu/engine/fused.py`` without the lexical and ColBERT
+terms. Stages:
 
 1. query encoder forward + CLS pooling -> [B, H] unit vectors;
-2. int8 quantization of the queries and the int8 scan for the top
-   ``rescore_m`` candidates (``topk_int8``: the CUDA kernel on a GPU),
-   rescored exactly in f32 from the q1 (and q2) planes -> top ``top_k``;
+2. the retrieval top ``top_k``: for an int8 index, int8 quantization of
+   the queries and the int8 scan for the top ``rescore_m`` candidates
+   (``topk_int8``: the CUDA kernel on a GPU), rescored exactly in f32
+   from the q1 (and q2) planes; for a float index (f32, bf16, f32x2
+   pairs), ``cosine_topk`` directly (``topk_float``: the CUDA kernel);
 3. on-device gather of the candidates' chunk tokens from the token cache;
 4. cross-encoder over the B*K (query, chunk) pairs;
 5. top ``rerank_k`` by cross-encoder score, dead candidates masked.
@@ -23,7 +25,7 @@ from outline_rag_tpu_torch.index.store import VectorIndex
 from outline_rag_tpu_torch.models.encoder import Encoder, pooled_embeddings
 from outline_rag_tpu_torch.models.reranker import Reranker
 from outline_rag_tpu_torch.ops.quant import int8_topk, quantize_rows_int8
-from outline_rag_tpu_torch.ops.topk import NEG
+from outline_rag_tpu_torch.ops.topk import NEG, cosine_topk
 
 Q_WIDTH = 64  # query tokens: the encoder runs every query at this width
 
@@ -33,8 +35,8 @@ def fused_query(
     reranker: Reranker,
     q_ids: torch.Tensor,  # [B, Tq] int
     q_mask: torch.Tensor,  # [B, Tq] int
-    vectors: torch.Tensor,  # [N, D] int8 (q1 plane)
-    scales: torch.Tensor,  # [N] f32
+    vectors: torch.Tensor,  # [N, D] int8 (q1 plane), f32 or bf16; [N, 2D] bf16 pairs
+    scales: torch.Tensor,  # [N] f32 (int8 modes; unused otherwise)
     penalty: torch.Tensor,  # [N] f32
     tok_ids: torch.Tensor,  # [N, Tc] int32
     tok_mask: torch.Tensor,  # [N, Tc] int32
@@ -47,17 +49,19 @@ def fused_query(
     """Stages 1-5. Returns ``(r_rows [B, rerank_k], r_vals (cross-encoder
     scores), retr_vals (their retrieval scores), idx [B, top_k],
     vals [B, top_k])``; dead slots carry values <= NEG/2."""
-    if vectors.dtype != torch.int8:
-        raise ValueError(f"fused_query scans int8 indexes; got {vectors.dtype}")
     # 1. encode queries
     q_emb = pooled_embeddings(encoder, q_ids, q_mask)
 
-    # 2. int8 scan for candidates + exact f32 rescore -> top_k
-    qq, qs = quantize_rows_int8(q_emb)
-    vals, idx = int8_topk(
-        qq, qs, vectors, scales, top_k, penalty, rescore_queries=q_emb,
-        rescore_residual=residual,
-    )
+    # 2. retrieval top_k
+    if vectors.dtype == torch.int8:
+        # int8 scan for candidates + exact f32 rescore
+        qq, qs = quantize_rows_int8(q_emb)
+        vals, idx = int8_topk(
+            qq, qs, vectors, scales, top_k, penalty, rescore_queries=q_emb,
+            rescore_residual=residual,
+        )
+    else:
+        vals, idx = cosine_topk(q_emb, vectors, top_k, penalty)
 
     # 3. gather the candidates' chunk tokens on the device
     rows = idx.long()

@@ -1,16 +1,18 @@
-"""Mutable device-resident int8 embedding shards.
+"""Mutable device-resident embedding shards.
 
 Port of ``outline_rag_tpu/index/shard.py``. A shard is a capacity-padded
-int8 code matrix with per-row scales and an additive validity penalty
+row matrix with per-row scales and an additive validity penalty
 (0 = live, NEG = tombstoned or unused), all preallocated on the index's
 device. Mutations write in place (``index_copy_`` / ``index_fill_``) — the
 port's analogue of the JAX package's donated buffers — so nothing is
 reallocated, and the scan always runs over the full capacity with the
 penalty masking dead rows.
 
-Only the int8 scan dtypes are ported: ``int8`` and ``int8r`` (int8 plus
-the q2 residual plane read by the rescore). The fp32, bf16 and f32x2
-modes are later work.
+Dtypes, as in the JAX package: ``float32`` and ``bfloat16`` rows;
+``f32x2``, rows stored pre-split as compensated bf16 pairs
+``[capacity, 2 * dim]`` (``ops/topk.py::split_f32_bf16x2``: fp32-class
+scores, 4 bytes per dimension); ``int8`` codes, and ``int8r`` (int8 plus
+the q2 residual plane read by the rescore).
 """
 
 from __future__ import annotations
@@ -23,15 +25,26 @@ import torch
 from outline_rag_tpu_torch.device import resolve_device
 from outline_rag_tpu_torch.ops.topk import NEG
 
-DTYPES = ("int8", "int8r")
+# index dtype -> (storage dtype, row width in units of dim)
+_STORAGE = {
+    "float32": (torch.float32, 1),
+    "bfloat16": (torch.bfloat16, 1),
+    "f32x2": (torch.bfloat16, 2),
+    "int8": (torch.int8, 1),
+    "int8r": (torch.int8, 1),
+}
+DTYPES = tuple(_STORAGE)
 
 
 @dataclasses.dataclass
 class ShardState:
     """Tensors of one shard.
 
-    ``vectors``  [capacity, dim]  int8 codes (the q1 plane).
-    ``scales``   [capacity]       f32 per-row scales.
+    ``vectors``  [capacity, w]    rows: f32 or bf16 (w = dim), bf16 pairs
+                                  (f32x2, w = 2 dim), or int8 codes (the
+                                  q1 plane).
+    ``scales``   [capacity]       f32 per-row scales (int8 modes; ones
+                                  otherwise).
     ``penalty``  [capacity]       f32 additive mask: 0 live, NEG dead.
     ``residual`` [capacity, rdim] int8 q2 plane: rdim == dim in ``int8r``
                                   mode, 0 otherwise, so the structure is
@@ -47,19 +60,15 @@ class ShardState:
     def capacity(self) -> int:
         return self.vectors.shape[0]
 
-    @property
-    def dim(self) -> int:
-        return self.vectors.shape[1]
-
-
 def init_state(
     capacity: int, dim: int, dtype: str, device: str | torch.device
 ) -> ShardState:
     if dtype not in DTYPES:
-        raise ValueError(f"index dtype {dtype!r} is not ported; use one of {DTYPES}")
+        raise ValueError(f"index dtype {dtype!r}: use one of {DTYPES}")
     dev = resolve_device(device)
+    storage, width = _STORAGE[dtype]
     return ShardState(
-        vectors=torch.zeros((capacity, dim), dtype=torch.int8, device=dev),
+        vectors=torch.zeros((capacity, width * dim), dtype=storage, device=dev),
         scales=torch.ones((capacity,), dtype=torch.float32, device=dev),
         penalty=torch.full((capacity,), NEG, dtype=torch.float32, device=dev),
         residual=torch.zeros(
@@ -93,24 +102,25 @@ class DeviceShard:
     def append(
         self,
         chunk_ids: list[str],
-        codes: torch.Tensor,  # [n, dim] int8
+        rows: torch.Tensor,  # [n, w] in the storage dtype (cast exactly)
         scales: torch.Tensor,  # [n] f32
         residual: torch.Tensor | None = None,  # [n, dim] int8 (int8r mode)
     ) -> np.ndarray:
         """Write rows at the cursor; returns the assigned row indices."""
-        n = codes.shape[0]
+        n = rows.shape[0]
         if n == 0:
             return np.empty(0, np.int64)
         if n > self.free:
             raise IndexError(f"shard full: {n} rows requested, {self.free} free")
         if self.state.residual.shape[1] and residual is None:
             raise ValueError("int8r shard append requires the residual plane")
-        rows = torch.arange(self.cursor, self.cursor + n, device=self.device)
-        self.state.vectors.index_copy_(0, rows, codes.to(self.device, torch.int8))
-        self.state.scales.index_copy_(0, rows, scales.to(self.device, torch.float32))
-        self.state.penalty.index_fill_(0, rows, 0.0)
+        at = torch.arange(self.cursor, self.cursor + n, device=self.device)
+        vectors = self.state.vectors
+        vectors.index_copy_(0, at, rows.to(self.device, vectors.dtype))
+        self.state.scales.index_copy_(0, at, scales.to(self.device, torch.float32))
+        self.state.penalty.index_fill_(0, at, 0.0)
         if self.state.residual.shape[1]:
-            self.state.residual.index_copy_(0, rows, residual.to(self.device, torch.int8))
+            self.state.residual.index_copy_(0, at, residual.to(self.device, torch.int8))
         assigned = np.arange(self.cursor, self.cursor + n)
         self.row_ids[self.cursor : self.cursor + n] = chunk_ids
         self.cursor += n

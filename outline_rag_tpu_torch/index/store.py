@@ -1,12 +1,14 @@
 """VectorIndex: the queryable, mutable vector store.
 
-Port of ``outline_rag_tpu/index/store.py`` for the int8 scan dtypes:
+Port of ``outline_rag_tpu/index/store.py``:
 
 - ``add_chunks`` / ``delete_source`` implement the delete-then-add per-doc
   update protocol as tombstone + append on the device shard; rows are
-  L2-normalized and quantized on the index's device.
-- ``query`` runs the int8 scan (the CUDA kernel on a GPU), the exact fp32
-  candidate rescore, and translates device rows back to chunk ids.
+  L2-normalized on the index's device, then quantized (int8 modes), cast
+  (bfloat16) or split into bf16 pairs once (f32x2).
+- ``query`` runs the scan (a CUDA kernel on a GPU): for the int8 modes the
+  int8 scan and the exact fp32 candidate rescore, for the float modes
+  ``cosine_topk``; then it translates device rows back to chunk ids.
 
 Not ported yet: growth and compaction (``add_chunks`` past capacity
 raises, as ``DeviceShard.append`` does), ``save``/``load`` snapshots,
@@ -33,7 +35,9 @@ from outline_rag_tpu_torch.ops.quant import (
     quantize_rows_int8,
     quantize_rows_int8_residual,
 )
-from outline_rag_tpu_torch.ops.topk import NEG
+from outline_rag_tpu_torch.ops.topk import NEG, cosine_topk, split_f32_bf16x2
+
+INT8_DTYPES = ("int8", "int8r")
 
 
 def normalize_rows(x: torch.Tensor) -> torch.Tensor:
@@ -95,7 +99,7 @@ class VectorIndex:
         self,
         dim: int,
         capacity: int = 1 << 17,
-        dtype: str = "int8r",
+        dtype: str = "float32",
         *,
         device: str | torch.device,
         token_width: int | None = None,
@@ -149,11 +153,16 @@ class VectorIndex:
         # preparation outside the write section: concurrent queries only
         # wait for the in-place writes below
         vecs = normalize_rows(vecs)
+        scales = torch.ones(len(chunk_ids), dtype=torch.float32, device=self.device)
         residual = None
         if self.dtype == "int8r":
-            codes, scales, residual = quantize_rows_int8_residual(vecs)
+            rows, scales, residual = quantize_rows_int8_residual(vecs)
+        elif self.dtype == "int8":
+            rows, scales = quantize_rows_int8(vecs)
+        elif self.dtype == "f32x2":
+            rows = split_f32_bf16x2(vecs)  # paid once here, not per query
         else:
-            codes, scales = quantize_rows_int8(vecs)
+            rows = vecs  # float32, or rounded to bfloat16 by the append
         with self._rw.write():
             # checked before the tombstones: a refused add changes nothing
             if len(chunk_ids) > self._shard.free:
@@ -165,7 +174,7 @@ class VectorIndex:
             if replace:
                 self._delete_source_locked(source_id)
             start = self._shard.cursor
-            rows = self._shard.append(chunk_ids, codes, scales, residual)
+            rows = self._shard.append(chunk_ids, rows, scales, residual)
             if self.tokens is not None and token_ids is not None:
                 if token_mask is None:
                     token_mask = torch.as_tensor(token_ids) != self.token_pad_id
@@ -207,17 +216,22 @@ class VectorIndex:
         self, queries: np.ndarray | torch.Tensor, k: int
     ) -> tuple[list[list[str]], np.ndarray]:
         """Top-k chunk ids + cosine scores per query. ``queries`` [B, dim].
-        The scan's top 64 candidates are rescored exactly in f32 (from q1,
-        plus q2 in ``int8r``) before the final k."""
+        In the int8 modes the scan's top 64 candidates are rescored exactly
+        in f32 (from q1, plus q2 in ``int8r``) before the final k; the
+        float modes score through ``cosine_topk``."""
         q = normalize_rows(torch.as_tensor(queries, device=self.device).reshape(-1, self.dim))
-        qq, qs = quantize_rows_int8(q)
         with self._rw.read():
             state, row_ids = self._shard.snapshot()
-            vals, idx = int8_topk(
-                qq, qs, state.vectors, state.scales, min(k, state.capacity),
-                state.penalty, rescore_queries=q,
-                rescore_residual=state.residual if self.dtype == "int8r" else None,
-            )
+            k_eff = min(k, state.capacity)
+            if self.dtype in INT8_DTYPES:
+                qq, qs = quantize_rows_int8(q)
+                vals, idx = int8_topk(
+                    qq, qs, state.vectors, state.scales, k_eff, state.penalty,
+                    rescore_queries=q,
+                    rescore_residual=state.residual if self.dtype == "int8r" else None,
+                )
+            else:
+                vals, idx = cosine_topk(q, state.vectors, k_eff, state.penalty)
             vals = vals.cpu().numpy()
             idx = idx.cpu().numpy()
             # translate row -> chunk id inside the read section: the

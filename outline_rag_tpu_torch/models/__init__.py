@@ -2,6 +2,7 @@
 the hash tokenizer and the JAX-params converter."""
 
 from outline_rag_tpu_torch.models.convert import (
+    config_from_jax,
     encoder_from_jax,
     init_encoder,
     init_reranker,
@@ -14,6 +15,7 @@ __all__ = [
     "Encoder",
     "EncoderConfig",
     "Reranker",
+    "config_from_jax",
     "encoder_from_jax",
     "init_encoder",
     "init_reranker",

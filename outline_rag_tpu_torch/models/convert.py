@@ -7,7 +7,9 @@ arrays and come back as :class:`Encoder` / :class:`Reranker` modules that
 compute the same function. JAX stores dense weights as ``[in, out]`` for
 ``x @ w``; ``nn.Linear`` holds ``[out, in]``, so every dense weight is
 transposed. Values are cast to the config's dtype the way the JAX
-package's ``cast_params`` casts them (round to nearest even).
+package's ``cast_params`` casts them (round to nearest even). A JAX
+``EncoderConfig`` is translated field by field, ``attn_impl`` included
+(:func:`config_from_jax`).
 """
 
 from __future__ import annotations
@@ -20,6 +22,27 @@ from torch import nn
 
 from outline_rag_tpu_torch.models.encoder import Encoder, EncoderConfig
 from outline_rag_tpu_torch.models.reranker import Reranker
+
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def config_from_jax(jcfg) -> EncoderConfig:
+    """The port's :class:`EncoderConfig` for a JAX package ``EncoderConfig``
+    (read by attribute, so jax is not imported here): the same widths,
+    depth, positions, eps, compute dtype and attention route."""
+    return EncoderConfig(
+        vocab_size=jcfg.vocab_size,
+        hidden=jcfg.hidden,
+        layers=jcfg.layers,
+        heads=jcfg.heads,
+        intermediate=jcfg.intermediate,
+        max_positions=jcfg.max_positions,
+        pad_id=jcfg.pad_id,
+        layer_norm_eps=jcfg.layer_norm_eps,
+        dtype=_DTYPES[np.dtype(jcfg.dtype).name],
+        attn_impl=jcfg.attn_impl,
+    )
 
 
 def _t(x) -> torch.Tensor:

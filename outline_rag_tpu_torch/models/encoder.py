@@ -12,9 +12,12 @@ Port of ``outline_rag_tpu/models/encoder.py`` with its numerics:
   dtype before P.V;
 - exact-erf GELU.
 
-Attention is plain tensor code at the query and pair widths (64 and 128);
-the flash kernel that whole-document ingest uses is not ported yet, and
-neither are the sparse and ColBERT heads.
+Attention has two routes, chosen per call by ``EncoderConfig.attn_impl``
+(:func:`use_flash`): plain einsum tensor code, which materialises the
+``[B, H, S, S]`` logits (the query and pair widths, 64 and 128), and
+``ops/attention.py::flash_attention``, the streaming kernel that
+whole-document ingest needs at S >= 2048. The sparse and ColBERT heads
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -27,6 +30,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from outline_rag_tpu_torch.device import resolve_device
+from outline_rag_tpu_torch.ops.attention import flash_attention
+
+ATTN_IMPLS = ("auto", "flash", "einsum")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,17 +46,25 @@ class EncoderConfig:
     pad_id: int = 1
     layer_norm_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16  # weight / activation compute dtype
+    # "einsum" = plain attention (materialises [B, H, S, S]; fine to ~512),
+    # "flash" = ops/attention.py::flash_attention (O(S*D) memory),
+    # "auto" = flash where use_flash() says so, einsum otherwise.
+    attn_impl: str = "auto"
+
+    def __post_init__(self):
+        if self.attn_impl not in ATTN_IMPLS:
+            raise ValueError(f"attn_impl {self.attn_impl!r}: use one of {ATTN_IMPLS}")
 
     @property
     def head_dim(self) -> int:
         return self.hidden // self.heads
 
     @classmethod
-    def bge_m3(cls, dtype: torch.dtype = torch.bfloat16) -> "EncoderConfig":
-        return cls(dtype=dtype)
+    def bge_m3(cls, dtype: torch.dtype = torch.bfloat16, attn_impl: str = "auto") -> "EncoderConfig":
+        return cls(dtype=dtype, attn_impl=attn_impl)
 
     @classmethod
-    def tiny(cls, dtype: torch.dtype = torch.float32) -> "EncoderConfig":
+    def tiny(cls, dtype: torch.dtype = torch.float32, attn_impl: str = "auto") -> "EncoderConfig":
         """Small config for tests / CPU parity checks."""
         return cls(
             vocab_size=1024,
@@ -60,7 +74,21 @@ class EncoderConfig:
             intermediate=128,
             max_positions=130,
             dtype=dtype,
+            attn_impl=attn_impl,
         )
+
+
+def use_flash(cfg: EncoderConfig, batch: int, seq_len: int, device: torch.device) -> bool:
+    """Whether attention runs through the flash kernel. ``"flash"`` and
+    ``"einsum"`` force a route. ``"auto"`` takes flash on a CUDA device
+    once S >= 2048 or the f32 logits would pass 4 GiB (where plain
+    attention stops fitting: at S = 8192 and batch 8 they are 34 GB a
+    layer), in either compute dtype; einsum otherwise, the CPU included
+    (as the JAX package's auto is einsum off the TPU)."""
+    if cfg.attn_impl != "auto":
+        return cfg.attn_impl == "flash"
+    logits_bytes = batch * cfg.heads * seq_len * seq_len * 4
+    return device.type == "cuda" and (seq_len >= 2048 or logits_bytes > (4 << 30))
 
 
 class LayerNorm(nn.Module):
@@ -112,10 +140,13 @@ class EncoderLayer(nn.Module):
         q = self.q(x).reshape(b, s, nh, hd)
         k = self.k(x).reshape(b, s, nh, hd)
         v = self.v(x).reshape(b, s, nh, hd)
-        logits = torch.einsum("bqnd,bknd->bnqk", q.float(), k.float())
-        logits = logits / math.sqrt(hd) + mask_bias  # [B,1,1,S] broadcast
-        probs = torch.softmax(logits, dim=-1).to(x.dtype)
-        ctx = torch.einsum("bnqk,bknd->bqnd", probs, v).reshape(b, s, h)
+        if use_flash(self.cfg, b, s, x.device):
+            ctx = flash_attention(q, k, v, mask_bias[:, 0, 0, :]).reshape(b, s, h)
+        else:
+            logits = torch.einsum("bqnd,bknd->bnqk", q.float(), k.float())
+            logits = logits / math.sqrt(hd) + mask_bias  # [B,1,1,S] broadcast
+            probs = torch.softmax(logits, dim=-1).to(x.dtype)
+            ctx = torch.einsum("bnqk,bknd->bqnd", probs, v).reshape(b, s, h)
         return self.o(ctx)
 
     def forward(self, x: torch.Tensor, mask_bias: torch.Tensor) -> torch.Tensor:

@@ -1,8 +1,9 @@
 """Build and load the package's CUDA kernels.
 
-``nvcc`` compiles every ``csrc/*.cu`` of the package into one shared library
-with a plain C interface (no PyTorch headers, so a build takes seconds), for
-``sm_90a``. The build happens at first use, into ``build/`` beside
+``nvcc`` compiles every ``csrc/*.cu`` of the package for ``sm_90a``, one
+process per source, all started together, and links the objects into one
+shared library with a plain C interface (no PyTorch headers, so a build
+takes seconds). The build happens at first use, into ``build/`` beside
 ``csrc/`` (listed in ``.gitignore``), under a file name keyed by a hash of
 the sources and the flags, so an edited source never loads a stale library.
 The library is loaded with ``ctypes``. A failed build raises; nothing falls
@@ -19,14 +20,15 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "build"
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # registers, shared memory and spills per kernel
 )
 
@@ -60,6 +62,10 @@ def _nvcc() -> str:
     return found
 
 
+def _run(cmd: list[str]) -> subprocess.CompletedProcess:
+    return subprocess.run(cmd, capture_output=True, text=True)
+
+
 def build_library() -> BuildResult:
     """Compile the kernels unless a library for these exact sources and
     flags is already built; thread-safe, and safe across processes (the
@@ -80,17 +86,26 @@ def build_library() -> BuildResult:
             return _built
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *(str(s) for s in sources if s.suffix == ".cu")]
+        nvcc = _nvcc()
+        cus = [s for s in sources if s.suffix == ".cu"]
+        objects = [tmp.with_name(f"{tmp.name}.{s.stem}.o") for s in cus]
+        compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)] for s, o in zip(cus, objects)]
+        link = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objects)]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        try:
+            with ThreadPoolExecutor(len(compiles)) as pool:  # every source at once
+                runs = list(zip(compiles, pool.map(_run, compiles)))
+            if all(r.returncode == 0 for _, r in runs):
+                runs.append((link, _run(link)))
+            log = "".join(r.stdout + r.stderr for _, r in runs)
+            for cmd, r in runs:
+                if r.returncode != 0:
+                    tmp.unlink(missing_ok=True)
+                    raise RuntimeError(f"nvcc failed (exit {r.returncode}):\n{' '.join(cmd)}\n{log}")
+        finally:
+            for obj in objects:
+                obj.unlink(missing_ok=True)
         seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(
-                f"nvcc failed (exit {proc.returncode}):\n{' '.join(cmd)}\n{log}"
-            )
         os.replace(tmp, path)
         _built = BuildResult(path, seconds, log)
         return _built

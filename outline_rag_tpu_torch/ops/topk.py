@@ -1,20 +1,27 @@
 """Score + top-K selection.
 
-Port of ``outline_rag_tpu/ops/topk.py`` for the int8 index scan:
+Port of ``outline_rag_tpu/ops/topk.py``:
 
-- :func:`topk_plain`      — exact fp32 cosine top-K (the oracle; the
-                            counterpart of ``topk_xla``).
-- :func:`topk_int8`       — the int8 scan top-K. On a CUDA tensor it
-                            launches the hand-written kernel in
-                            ``csrc/topk_int8.cu`` (or raises); on a CPU
-                            tensor it runs :func:`topk_int8_plain`.
-- :func:`topk_int8_plain` — the same function in plain PyTorch.
-- :func:`merge_topk`      — top-k of the union of two top lists.
+- :func:`topk_plain`       — exact fp32 cosine top-K (the oracle; the
+                             counterpart of ``topk_xla``).
+- :func:`topk_int8`        — the int8 scan top-K. On a CUDA tensor it
+                             launches the hand-written kernel in
+                             ``csrc/topk_int8.cu`` (or raises); on a CPU
+                             tensor it runs :func:`topk_int8_plain`.
+- :func:`topk_float`       — the fp32 / bf16 / f32x2 scan top-K over
+                             ``csrc/topk_float.cu`` the same way, with
+                             :func:`topk_float_plain` as its twin.
+- :func:`cosine_topk`      — the float dispatcher: picks the mode from the
+                             query and corpus dtypes as the JAX package does.
+- :func:`split_f32_bf16x2` / :func:`join_bf16x2` — the compensated layout.
+- :func:`merge_topk`       — top-k of the union of two top lists.
 
 Conventions carried over from the JAX package: invalid rows (tombstones,
 capacity padding) carry an additive ``[N]`` f32 penalty of ``NEG``; the
 lower row index wins a tie. ``torch.topk`` does not promise that, so every
-selection here is a stable descending sort.
+selection here is a stable descending sort. The kernels emit the Pallas
+kernel's dead slots: a row scoring <= NEG/2 is never selected, and unfilled
+slots are ``(NEG, 0)``.
 """
 
 from __future__ import annotations
@@ -29,10 +36,17 @@ NEG = -1e30
 # corpus slice and the [B, rows] score matrix.
 PLAIN_ROWS_PER_STEP = 1 << 18
 
-# Tile sizes of csrc/topk_int8.cu (TB queries x TN rows) and its limit on K.
+# Tile sizes of csrc/topk_int8.cu and csrc/topk_float.cu (TB queries x TN
+# rows) and their limit on K.
 _KERNEL_TB = 32
 _KERNEL_TN = 128
 KERNEL_MAX_K = 64
+
+# The float scan's modes, by their code in csrc/topk_float.cu, and its step
+# over the dimensions (D must be a multiple).
+FLOAT_MODES = {"fp32": 0, "bf16": 1, "f32x2": 2}
+_FLOAT_KERNEL_DC = 32
+ORIENTATIONS = ("qmajor", "cmajor")
 
 
 def _select(scores: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -217,3 +231,197 @@ def topk_int8(
 
 
 topk_int8.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# float scan: fp32, bf16 and the compensated bf16x2 layout
+# ---------------------------------------------------------------------------
+
+
+def split_f32_bf16x2(x: torch.Tensor) -> torch.Tensor:
+    """f32 [..., D] -> compensated bf16 pair [..., 2D] (hi ++ lo), with
+    ``hi = bf16(x)`` and ``lo = bf16(x - f32(hi))``, both rounded to
+    nearest even. The dot of two such pairs as ``hi.hi + hi.lo + lo.hi``
+    carries about 2^-22 relative error. Storage is 4 bytes per dimension,
+    as in f32."""
+    x = x.float()
+    hi = x.to(torch.bfloat16)
+    lo = (x - hi.float()).to(torch.bfloat16)
+    return torch.cat([hi, lo], dim=-1)
+
+
+def join_bf16x2(x2: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`split_f32_bf16x2` (up to 2^-24 rounding)."""
+    d = x2.shape[-1] // 2
+    return x2[..., :d].float() + x2[..., d:].float()
+
+
+def _check_mode(mode: str) -> None:
+    if mode not in FLOAT_MODES:
+        raise ValueError(f"float scan mode {mode!r}: use one of {tuple(FLOAT_MODES)}")
+
+
+def topk_float_plain(
+    queries: torch.Tensor,  # [B, W]: f32 (fp32), bf16 (bf16), bf16 pairs (f32x2)
+    corpus: torch.Tensor,  # [N, W] in the same type
+    k: int,
+    penalty: torch.Tensor | None = None,  # [N] f32
+    mode: str = "fp32",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The float scan top-K in plain PyTorch: what ``csrc/topk_float.cu``
+    computes. Scores are f32 dots plus the penalty; bf16 inputs are widened
+    to f32 first (every bf16 product is exact in f32); in ``f32x2`` mode,
+    ``(hi.hi + hi.lo) + lo.hi`` over ``[*, 2D]`` pairs (the Pallas
+    ``_dot_compensated``). Callers keep TF32 off. Rows scoring <= NEG/2
+    are never selected: their slots come out as ``(NEG, 0)``."""
+    _check_mode(mode)
+    n = corpus.shape[0]
+    k = min(k, n)
+    d = queries.shape[1] // 2
+    q = queries.float()
+
+    def score_rows(start, stop):
+        c = corpus[start:stop].float()
+        if mode == "f32x2":
+            qh, ql, ch, cl = q[:, :d], q[:, d:], c[:, :d], c[:, d:]
+            s = (qh @ ch.T + qh @ cl.T) + ql @ ch.T
+        else:
+            s = q @ c.T
+        return s if penalty is None else s + penalty[start:stop][None, :]
+
+    vals, idx = _stepped_topk(score_rows, n, k)
+    dead = vals <= NEG / 2
+    return vals.masked_fill(dead, NEG), idx.masked_fill(dead, 0)
+
+
+_float_launch_fn = None
+
+
+def _float_launcher():
+    global _float_launch_fn
+    if _float_launch_fn is None:
+        from outline_rag_tpu_torch.ops._build import load_library  # noqa: PLC0415
+
+        fn = load_library().topk_float_launch
+        p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [i32, p, p, p, i32, i64, i32, i32, i32, i64, i32, p, p, p, p, p]
+        fn.restype = ctypes.c_int
+        _float_launch_fn = fn
+    return _float_launch_fn
+
+
+def _check_float_inputs(queries, corpus, penalty, k, mode):
+    dev = corpus.device
+    dtype = torch.float32 if mode == "fp32" else torch.bfloat16
+    for name, t, want, shape in (
+        ("queries", queries, dtype, (queries.shape[0], corpus.shape[1])),
+        ("corpus", corpus, dtype, tuple(corpus.shape)),
+        ("penalty", penalty, torch.float32, (corpus.shape[0],)),
+    ):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, corpus on {dev}")
+        if t.dtype != want or tuple(t.shape) != shape:
+            raise ValueError(
+                f"{name}: {mode} mode wants {want} {shape}, got {t.dtype} {tuple(t.shape)}"
+            )
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+    b, width = queries.shape
+    d = width // 2 if mode == "f32x2" else width
+    n = corpus.shape[0]
+    if (b < 1 or d % _FLOAT_KERNEL_DC or (mode == "f32x2" and width % 2)
+            or not 1 <= k <= min(KERNEL_MAX_K, n) or n >= 1 << 31):
+        raise ValueError(
+            f"topk_float kernel takes B>=1, D%{_FLOAT_KERNEL_DC}==0, "
+            f"1<=K<=min(64, N), N<2^31; got B={b} D={d} K={k} N={n} ({mode})"
+        )
+    return b, d, n
+
+
+def topk_float(
+    queries: torch.Tensor,
+    corpus: torch.Tensor,
+    k: int,
+    penalty: torch.Tensor | None = None,
+    mode: str = "fp32",
+    orientation: str = "qmajor",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-query top-k of the float scan (``mode`` fp32, bf16 or f32x2; see
+    :func:`topk_float_plain` for the inputs): [B, k] f32 values, [B, k]
+    int32 rows, sorted descending, lower row first on ties, dead slots
+    ``(NEG, 0)``. On CUDA tensors this launches ``csrc/topk_float.cu`` and
+    counts the launch in ``topk_float.launches[mode]``; on CPU tensors it
+    runs :func:`topk_float_plain`.
+
+    ``orientation``: ``"qmajor"`` has the kernel write [B, k];
+    ``"cmajor"`` has it write [k, B], the output layout of the Pallas
+    ``_fused_topk_kernel``, returned transposed back as the JAX wrapper
+    does. Both compute the same function."""
+    _check_mode(mode)
+    if orientation not in ORIENTATIONS:
+        raise ValueError(f"orientation {orientation!r}: use one of {ORIENTATIONS}")
+    if penalty is None:
+        penalty = torch.zeros(corpus.shape[0], dtype=torch.float32, device=corpus.device)
+    if corpus.device.type == "cpu":
+        return topk_float_plain(queries, corpus, k, penalty, mode)
+    if corpus.device.type != "cuda":
+        raise ValueError(f"topk_float runs on cpu or cuda tensors, not {corpus.device}")
+    b, d, n = _check_float_inputs(queries, corpus, penalty, k, mode)
+    dev = corpus.device
+    cmajor = orientation == "cmajor"
+    chunks, rows_per_chunk = _kernel_plan(b, n, dev)
+    part_v = torch.empty((chunks, b, k), dtype=torch.float32, device=dev)
+    part_i = torch.empty((chunks, b, k), dtype=torch.int32, device=dev)
+    out_shape = (k, b) if cmajor else (b, k)
+    out_v = torch.empty(out_shape, dtype=torch.float32, device=dev)
+    out_i = torch.empty(out_shape, dtype=torch.int32, device=dev)
+    launch = _float_launcher()
+    with torch.cuda.device(dev):
+        rc = launch(
+            FLOAT_MODES[mode], queries.data_ptr(), corpus.data_ptr(), penalty.data_ptr(),
+            b, n, d, k, chunks, rows_per_chunk, int(cmajor), part_v.data_ptr(),
+            part_i.data_ptr(), out_v.data_ptr(), out_i.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"topk_float kernel launch failed with CUDA error {rc}")
+    topk_float.launches[mode] += 1
+    return (out_v.T, out_i.T) if cmajor else (out_v, out_i)
+
+
+topk_float.launches = dict.fromkeys(FLOAT_MODES, 0)
+
+
+def float_mode(queries: torch.Tensor, corpus: torch.Tensor) -> str:
+    """The float scan mode for f32 ``queries`` against ``corpus``, as the
+    JAX package's ``_is_compensated`` decides it: an f32 corpus is fp32; a
+    bf16 corpus twice as wide as the queries is the f32x2 pair layout;
+    another bf16 corpus is bf16."""
+    if corpus.dtype == torch.float32:
+        return "fp32"
+    if corpus.dtype != torch.bfloat16:
+        raise ValueError(f"cosine_topk scans f32 or bf16 corpora, not {corpus.dtype}")
+    if queries.dtype == torch.float32 and corpus.shape[1] == 2 * queries.shape[1]:
+        return "f32x2"
+    return "bf16"
+
+
+def cosine_topk(
+    queries: torch.Tensor,  # [B, D] (f32 unit rows)
+    corpus: torch.Tensor,  # [N, D] f32 / bf16, or [N, 2D] bf16 pairs
+    k: int,
+    penalty: torch.Tensor | None = None,  # [N] f32
+    orientation: str = "qmajor",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-k cosine matches of each query: [B, min(k, N)] values and int32
+    rows. The mode follows :func:`float_mode`; bf16 queries are cast to
+    bf16 first, f32x2 queries split into pairs. A float corpus always goes
+    through :func:`topk_float` (the kernel on CUDA): the JAX package's
+    XLA crossover was measured on a TPU and has no counterpart here."""
+    mode = float_mode(queries, corpus)
+    if mode == "f32x2":
+        q = split_f32_bf16x2(queries)
+    else:
+        q = queries.to(corpus.dtype).contiguous()
+    return topk_float(q, corpus, min(k, corpus.shape[0]), penalty, mode, orientation)
+

@@ -1,6 +1,7 @@
 """The port's slice end to end against the JAX package on tiny models: the
-fused query, the retrieval service (fused and staged) and the micro-batcher
-give the same retrieval ids, and rerank scores within 1e-4."""
+fused query (over int8r and f32x2 indexes), the retrieval service (fused
+and staged) and the micro-batcher give the same retrieval ids, and rerank
+scores within 1e-4."""
 
 import asyncio
 import subprocess
@@ -31,6 +32,7 @@ from outline_rag_tpu_torch.index import VectorIndex
 from outline_rag_tpu_torch.models.convert import encoder_from_jax, reranker_from_jax
 from outline_rag_tpu_torch.models.encoder import EncoderConfig
 from outline_rag_tpu_torch.models.tokenizer import HashTokenizer
+from outline_rag_tpu_torch.testing import tie_aware_mismatches
 
 torch.set_num_threads(1)
 
@@ -144,6 +146,71 @@ def test_fused_query_matches_jax(stacks):
     np.testing.assert_allclose(got[4].numpy(), vals, rtol=0, atol=1e-5)
     np.testing.assert_allclose(got[1].numpy(), r_vals, rtol=0, atol=TOL)
     np.testing.assert_allclose(got[2].numpy(), retr_vals, rtol=0, atol=TOL)
+
+
+@pytest.fixture(scope="module")
+def f32x2_stacks(stacks):
+    """(jax_service, port_service) over f32x2 indexes of the same docs."""
+    jsvc, psvc = stacks
+    j_idx = JaxIndex(dim=64, capacity=2048, dtype="f32x2", token_width=WIDTH)
+    p_idx = VectorIndex(dim=64, capacity=2048, dtype="f32x2", device="cpu", token_width=WIDTH)
+    tok = psvc.embedder.tokenizer
+    _ingest(j_idx, jsvc.embedder, tok, _docs())
+    _ingest(p_idx, psvc.embedder, tok, _docs())
+    for index in (j_idx, p_idx):
+        index.delete_source("doc30")
+    return (
+        JaxService(j_idx, jsvc.embedder, jsvc.reranker, top_k=12, rerank_k=3),
+        RetrievalService(p_idx, psvc.embedder, psvc.reranker, top_k=12, rerank_k=3),
+    )
+
+
+def test_fused_query_f32x2_matches_jax(f32x2_stacks):
+    """The float branch of stage 2: cosine_topk over bf16 pairs, top_k
+    taken directly (no rescore). Retrieval scores within 1e-5 (the sums run
+    in another order than XLA's), rows tie-aware equal."""
+    jsvc, psvc = f32x2_stacks
+    tb = psvc.embedder.tokenizer.batch(QUERIES, 64, buckets=(64,))
+    jstate, _, _ = jsvc.index._shard.snapshot()
+    jtok = jsvc.index.tokens.state
+    want = jax_fused_query(
+        jsvc.embedder.params, jsvc.reranker.params, tb.input_ids, tb.attention_mask,
+        jstate.vectors, jstate.scales, jstate.penalty, jtok.ids, jtok.mask,
+        enc_cfg=jsvc.embedder.cfg, rr_cfg=jsvc.reranker.cfg, top_k=12, rerank_k=3,
+    )
+    state, _ = psvc.index.snapshot()
+    assert state.vectors.dtype == torch.bfloat16 and state.vectors.shape[1] == 128
+    ptok = psvc.index.tokens.state
+    with torch.no_grad():
+        got = fused_query(
+            psvc.embedder.encoder, psvc.reranker.model, torch.from_numpy(tb.input_ids),
+            torch.from_numpy(tb.attention_mask), state.vectors, state.scales,
+            state.penalty, ptok.ids, ptok.mask, top_k=12, rerank_k=3,
+        )
+    r_rows, r_vals, retr_vals, idx, vals = (np.array(x) for x in want)
+    assert tie_aware_mismatches(got[4], got[3], vals, idx, 1e-5) == 0
+    np.testing.assert_array_equal(got[0].numpy(), r_rows)
+    np.testing.assert_allclose(got[1].numpy(), r_vals, rtol=0, atol=TOL)
+    np.testing.assert_allclose(got[2].numpy(), retr_vals, rtol=0, atol=TOL)
+
+
+def test_service_f32x2_through_batcher_matches_jax(f32x2_stacks):
+    jsvc, psvc = f32x2_stacks
+    assert psvc.fused and jsvc.fused
+
+    async def run():
+        batcher = QueryBatcher(psvc.retrieve_batch, window_ms=50, max_batch=4)
+        try:
+            return await asyncio.gather(*(batcher.retrieve(q) for q in QUERIES))
+        finally:
+            await batcher.stop()
+
+    port_rows = asyncio.run(run())
+    _assert_rows_match(jsvc.retrieve_batch(QUERIES), port_rows)
+    for row in port_rows:
+        ids = [c.chunk_id for c in row]
+        assert len(ids) == 3 == len(set(ids))
+        assert not any(c.startswith("doc30:") for c in ids)
 
 
 def test_service_through_batcher_matches_jax(stacks):

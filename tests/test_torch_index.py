@@ -1,5 +1,6 @@
-"""The port's VectorIndex (int8 / int8r) against the JAX package's: the same
-adds, deletes and queries return the same chunk ids."""
+"""The port's VectorIndex (every dtype: float32, bfloat16, f32x2, int8,
+int8r) against the JAX package's: the same adds, deletes and queries return
+the same chunk ids, and scores within 1e-5 (1e-6 in the int8 modes)."""
 
 import numpy as np
 import pytest
@@ -13,6 +14,7 @@ from outline_rag_tpu_torch.ops.topk import NEG
 torch.set_num_threads(1)
 
 DIM, CAP = 64, 2048
+DTYPES = ["float32", "bfloat16", "f32x2", "int8", "int8r"]
 
 
 def _vectors(seed, n):
@@ -34,14 +36,17 @@ def _pair(dtype):
 
 
 def _assert_same_answers(jax_index, port_index, queries, k):
+    """Same ids and scores. Float modes sum in another order than the JAX
+    package's XLA dot: 1e-5; the int8 modes' exact rescore: 1e-6."""
     jids, jvals = jax_index.query(queries, k)
     pids, pvals = port_index.query(queries, k)
     assert pids == jids
     live = pvals > NEG / 2
-    np.testing.assert_allclose(pvals[live], np.asarray(jvals)[live], rtol=0, atol=1e-6)
+    tol = 1e-6 if port_index.dtype in ("int8", "int8r") else 1e-5
+    np.testing.assert_allclose(pvals[live], np.asarray(jvals)[live], rtol=0, atol=tol)
 
 
-@pytest.mark.parametrize("dtype", ["int8", "int8r"])
+@pytest.mark.parametrize("dtype", DTYPES)
 def test_add_and_query_match_jax(dtype):
     jax_index, port_index = _pair(dtype)
     queries = _vectors(99, 9)
@@ -51,7 +56,7 @@ def test_add_and_query_match_jax(dtype):
     assert port_index.size == jax_index.size == 240
 
 
-@pytest.mark.parametrize("dtype", ["int8", "int8r"])
+@pytest.mark.parametrize("dtype", DTYPES)
 def test_delete_and_replace_match_jax(dtype):
     jax_index, port_index = _pair(dtype)
     for index in (jax_index, port_index):
@@ -69,7 +74,15 @@ def test_delete_and_replace_match_jax(dtype):
 
 
 def test_fewer_live_rows_than_k_returns_each_once():
-    index = VectorIndex(dim=DIM, capacity=1024, dtype="int8r", device="cpu")
+    _assert_fewer_live_rows_than_k_returns_each_once("int8r")
+
+
+def test_fewer_live_rows_than_k_returns_each_once_f32x2():
+    _assert_fewer_live_rows_than_k_returns_each_once("f32x2")
+
+
+def _assert_fewer_live_rows_than_k_returns_each_once(dtype):
+    index = VectorIndex(dim=DIM, capacity=1024, dtype=dtype, device="cpu")
     index.add_chunks([f"c{i}" for i in range(10)], _vectors(5, 10), source_id="s")
     ids, vals = index.query(_vectors(6, 3), 12)
     for row in ids:
@@ -87,14 +100,50 @@ def test_add_past_capacity_raises_and_changes_nothing():
 
 
 def test_shard_state_layout():
+    """Storage as the JAX package's init_state lays it out."""
     int8 = DeviceShard(1024, DIM, "int8", "cpu").state
     int8r = DeviceShard(1024, DIM, "int8r", "cpu").state
     assert tuple(int8.residual.shape) == (1024, 0)
     assert tuple(int8r.residual.shape) == (1024, DIM)
     assert int8.vectors.dtype == torch.int8 and int8.penalty.dtype == torch.float32
     assert (int8.penalty == NEG).all()
-    with pytest.raises(ValueError, match="not ported"):
-        DeviceShard(1024, DIM, "float32", "cpu")
+    for dtype, storage, width in (
+        ("float32", torch.float32, DIM),
+        ("bfloat16", torch.bfloat16, DIM),
+        ("f32x2", torch.bfloat16, 2 * DIM),
+    ):
+        state = DeviceShard(1024, DIM, dtype, "cpu").state
+        assert state.vectors.dtype == storage and tuple(state.vectors.shape) == (1024, width)
+        assert tuple(state.residual.shape) == (1024, 0) and (state.scales == 1).all()
+    with pytest.raises(ValueError, match="index dtype"):
+        DeviceShard(1024, DIM, "float16", "cpu")
+
+
+def test_default_dtype_matches_jax():
+    """Both packages default to a float32 index, with the same answers."""
+    jax_index = JaxIndex(dim=DIM, capacity=CAP)
+    port_index = VectorIndex(dim=DIM, capacity=CAP, device="cpu")
+    assert port_index.dtype == jax_index.dtype == "float32"
+    assert port_index.snapshot()[0].vectors.dtype == torch.float32
+    _fill(jax_index)
+    _fill(port_index)
+    _assert_same_answers(jax_index, port_index, _vectors(97, 6), 12)
+
+
+def test_f32x2_rows_are_split_once_at_ingest():
+    """The f32x2 index stores the normalized rows as the JAX package's
+    split_f32_bf16x2 lays them out (the norms themselves may round 1 ulp
+    apart between numpy and torch)."""
+    from outline_rag_tpu.ops.topk import split_f32_bf16x2 as jax_split
+    from outline_rag_tpu_torch.index.store import normalize_rows
+
+    index = VectorIndex(dim=DIM, capacity=1024, dtype="f32x2", device="cpu")
+    vecs = _vectors(8, 5)
+    rows = index.add_chunks([f"c{i}" for i in range(5)], vecs, source_id="s")
+    unit = normalize_rows(torch.from_numpy(vecs)).numpy()
+    want = np.asarray(jax_split(unit)).view(np.uint16)
+    got = index.snapshot()[0].vectors[rows].view(torch.int16).numpy().view(np.uint16)
+    np.testing.assert_array_equal(got, want)
 
 
 def test_token_cache_rows_written_at_assigned_rows():
