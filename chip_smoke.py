@@ -76,8 +76,57 @@ printing one JSON line; any failure raises and the exit code is non-zero:
            embeddings within ~1e-6 of one another); 32 seeded unit queries
            through ``VectorIndex.query`` have recall@12 >= 0.99.
 
-The last lines are the kernel summary, the card's name and power limit as
-``nvidia-smi`` prints them, and ``{"ok": true, "device": {...}}``.
+8. kernel_paged  ``paged_attention`` (the CUDA kernel) against
+           ``paged_attention_plain`` at TinyLlama-1.1B's shape (H 32, KvH 4,
+           Dh 64, page 128, MAXP 16, a pool of 1,025 pages): B in {1, 8, 64}
+           at T = 1 with seeded row lengths from 1 to 2,047, scattered page
+           ids and inactive rows (table all 0), and T = 256 prefill chunks at
+           B = 1 from ``pos`` 0 and 512; bf16 and int8 pools. bf16: every
+           element within 2e-3 + 2 bf16 ulps of the twin's and the error's
+           norm within 1e-2 of the output's (the kernel rounds p against a
+           running max over key tiles, the twin against the row max). int8
+           pool (f32 products): 1e-4 + 1 bf16 ulp of the bf16 output, error
+           norm within 1e-3. Two runs on the same inputs are bit-equal.
+           Median of 10 timings of both at B = 64, T = 1.
+9. kernel_kv_write  ``paged_kv_write`` against ``paged_kv_write_plain``:
+           every page but the scratch page 0 byte-equal, bf16 and int8, T = 1
+           at B = 64, T = 256 at B = 1 straddling pages, and a chunk whose
+           tail passes the row's capacity (it must land in page 0).
+10. kernel_int8_linear  ``int8_linear`` against ``int8_linear_plain`` at the
+           decoder's projections, (M, K, N) = (64, 2048, 2560),
+           (64, 2048, 11264), (64, 5632, 2048), (64, 2048, 32000), and M = 8:
+           bf16 outputs within 1e-5 of the output's scale + 1 bf16 ulp (exact
+           products in both, f32 sums in another order). Times, the weight
+           bytes a second, and one ``F.linear`` on a weight dequantized
+           beforehand (it reads twice the bytes) as the library yardstick.
+11. decoder  the local chat decoder at TinyLlama-1.1B width (22 layers, 32
+           heads, 4 KV heads, vocab 32,000; seeded random bf16 weights)
+           served by ``LocalChatProvider(batch_slots=64, kv_pages=1025,
+           page_size=128, chunk_tokens=16, max_new_tokens=64)`` with the
+           ``ByteTokenizer``: 64 concurrent chats through ``provider.stream``
+           (asyncio), 48 of 600-1,500 tokens sharing a 512-token system
+           prefix and 16 of 200-500 tokens without it, every third one
+           sampled (temperature 0.8, top_p 0.9), the rest greedy. Every
+           stream ends and yields text; ``paged_attention`` and
+           ``paged_kv_write`` launch 22 times a forward; prefix hits > 0; a
+           repeat of one greedy chat after the burst (warm prefix pages, other
+           neighbours) equals its first answer, and a prompt submitted twice
+           to the batcher gives the same tokens cold and warm; every page
+           returns to the free list or the prefix cache. One prefill and one
+           decode forward with the kernels against the same forwards with
+           the plain twins patched in: the error's norm within 3e-2 of the
+           logits' (22 bf16 layers). ``decode_profile``: decode steps with all
+           64 rows live at lengths of 256-1,900 through ``generate_chunk``:
+           ms a step, and under ``torch.profiler`` the device's busy share
+           and its top kernels. Then the same with ``kv_int8=True``, and
+           a shorter burst (16 chats, 32 new tokens) with ``int8_weights=True``
+           in ``DECODER_INT8_MODE=kernel`` (``int8_linear`` launches
+           4 x 22 + 1 times a forward).
+
+The last lines are the kernel summary (each kernel's time beside its bound:
+the larger of its bytes over 3.35 TB/s and its operations over the card's
+peak for their type), the card's name and power limit as ``nvidia-smi``
+prints them, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -85,6 +134,7 @@ from __future__ import annotations
 import argparse
 import asyncio
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -101,6 +151,23 @@ FLASH_HEADS, COSINE_MIN = 16, 0.999
 # flash kernel vs twin, per dtype: (atol, bf16 ulps, error norm / output norm)
 FLASH_BOUNDS = {"bf16": (2e-3, 2.0, 1e-2), "f32": (1e-5, 0.0, 1e-5)}
 LONG_DOCS_PER_BUCKET, LONG_MAX_TOKENS = 8, 8192
+# the card's published peaks (NVIDIA H100 SXM, dense): bytes/s, and ops/s by type
+HBM_RATE = 3.35e12
+PEAK = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+# TinyLlama-1.1B's attention shape and the pool the decoder phase serves from
+DEC_HEADS, DEC_KV_HEADS, DEC_HD, PAGE, MAXP, KV_PAGES = 32, 4, 64, 128, 16, 1025
+DEC_SLOTS, DEC_CHUNK, DEC_NEW = 64, 16, 64
+# paged attention vs twin, per pool: (atol, bf16 ulps, error norm / output norm)
+PAGED_BOUNDS = {"bf16": (2e-3, 2.0, 1e-2), "int8": (1e-4, 1.0, 1e-3)}
+LOGITS_REL_RMS = 3e-2  # one forward, kernels vs twins, 22 bf16 layers
+
+
+def bound(bytes_moved: float, ops: float, kind: str) -> dict:
+    """The least time the card could take: the larger of bytes over the
+    memory rate and operations over the peak rate for their type."""
+    by_bytes, by_ops = 1e3 * bytes_moved / HBM_RATE, 1e3 * ops / PEAK[kind]
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
 
 def emit(phase: str, **fields) -> None:
@@ -188,7 +255,10 @@ def kernel_phase(torch, dev, seed: int) -> dict:
         results.append(row)
         emit("kernel", **row)
     timed = {r["B"]: r for r in results if "ms" in r}
-    return {"max_abs_err": max_err, "ms": timed[32]["ms"], "plain_ms": timed[32]["plain_ms"]}
+    # B = 32: the corpus, its scales and the penalty read once; 2*B*N*D int8 ops
+    moved = N_ROWS * (DIM + 8) + 32 * (DIM + 4) + 32 * 64 * 8
+    return {"max_abs_err": max_err, "ms": timed[32]["ms"], "plain_ms": timed[32]["plain_ms"],
+            **bound(moved, 2 * 32 * N_ROWS * DIM, "int8")}
 
 
 def serve_burst(service, queries: list[str]):
@@ -457,9 +527,15 @@ def kernel_float_phase(torch, dev, seed: int) -> dict:
                 f"{dtype} index: each stored row is its own top match")
         del index, vecs
         torch.cuda.empty_cache()
+        # B = 32: the stored rows and the penalty read once; true-f32 FMAs,
+        # three products a pair in f32x2
+        row_bytes = {"fp32": 4, "bf16": 2, "f32x2": 4}[mode] * DIM
+        products = 3 if mode == "f32x2" else 1
         out[mode] = {"max_abs_err": max_err, "ms": timed[32]["ms"],
                      "plain_ms": timed[32]["plain_ms"], "ms_b128": timed[128]["ms"],
-                     "plain_ms_b128": timed[128]["plain_ms"]}
+                     "plain_ms_b128": timed[128]["plain_ms"],
+                     **bound(N_ROWS * (row_bytes + 4) + 32 * row_bytes + 32 * 64 * 8,
+                             2 * products * 32 * N_ROWS * DIM, "f32")}
     return out
 
 
@@ -505,11 +581,22 @@ def flash_phase(torch, dev, seed: int) -> dict:
             row["plain_ms"] = cuda_ms(torch, lambda: flash_attention_plain(*args), runs=5)
             row["kernel_tflops"] = 4 * s * s * 64 * FLASH_HEADS / row["ms"] / 1e9
             if dtype == "bf16":
+                # the library yardstick, used nowhere in the port: one fused
+                # attention call with the bias as an additive mask
+                qh, kh, vh = (x.transpose(1, 2) for x in args[:3])
+                mask = args[3].to(torch.bfloat16)[:, None, None, :]
+                row["library_ms"] = cuda_ms(
+                    torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+                        qh, kh, vh, attn_mask=mask), runs=5)
                 times[s] = row
         emit("flash", **row)
         del args, out, plain
-    return {"max_abs_err": max_err, "ms": times[8192]["ms"], "plain_ms": times[8192]["plain_ms"],
-            "by_S": {s: (r["ms"], r["plain_ms"]) for s, r in times.items()}}
+    top = 8192  # q, k, v read and the output written once; 4*S*S*D*H flops
+    return {"max_abs_err": max_err, "ms": times[top]["ms"], "plain_ms": times[top]["plain_ms"],
+            "library_ms": times[top]["library_ms"],
+            **bound(4 * top * FLASH_HEADS * 64 * 2 + top * 4, 4 * top * top * 64 * FLASH_HEADS,
+                    "bf16"),
+            "by_S": {s: (r["ms"], r["plain_ms"], r["library_ms"]) for s, r in times.items()}}
 
 
 def long_lengths(rng) -> list[int]:
@@ -702,11 +789,457 @@ def long_phase(torch, dev, seed: int) -> dict:
     return {"flash_launches": flash_attention.launches, "scan_launches": scan_launches}
 
 
+def paged_case(torch, dev, g, b: int, t: int, kv: str, pos=None):
+    """Seeded inputs of ``paged_attention`` at the decoder's shape: scattered
+    page ids from a pool of KV_PAGES pages, row lengths from 1 to 2,047, and
+    (at b > 2) inactive rows whose table is all 0."""
+    from outline_rag_tpu_torch.testing import paged_attention_case
+
+    return paged_attention_case(
+        dev, g, b, t, kv, heads=DEC_HEADS, kv_heads=DEC_KV_HEADS, hd=DEC_HD, page=PAGE,
+        maxp=MAXP, pages=KV_PAGES, pos=pos, inactive_every=7 if b > 2 else 0)
+
+
+def paged_bound(b, t, kv, pos) -> dict:
+    """What this run's rows need: each live K and V slot (and its scales)
+    read once, q read and the output written once; 4 * H * Dh flops a slot
+    a query position (slots past a position are masked but computed only up
+    to the horizon: count the causal triangle)."""
+    slots = [min(int(p) + t, MAXP * PAGE) for p in pos.tolist()]
+    elem = 1 if kv == "int8" else 2
+    moved = sum(slots) * DEC_KV_HEADS * 2 * (DEC_HD * elem + (4 if kv == "int8" else 0))
+    moved += 2 * b * t * DEC_HEADS * DEC_HD * 2 + b * (MAXP + 1) * 4
+    seen = sum(sum(min(int(p) + i + 1, MAXP * PAGE) for i in range(t)) for p in pos.tolist())
+    return bound(moved, 4 * DEC_HEADS * DEC_HD * seen, "bf16")
+
+
+def kernel_paged_phase(torch, dev, seed: int) -> dict:
+    from outline_rag_tpu_torch.ops.paged_attention import paged_attention, paged_attention_plain
+    from outline_rag_tpu_torch.testing import flash_errors
+
+    g = torch.Generator(device=dev).manual_seed(seed + 6)
+    out = {}
+    for kv in ("bf16", "int8"):
+        atol, ulps, rel_rms = PAGED_BOUNDS[kv]
+        cases = [(1, 1, None), (8, 1, None), (64, 1, None), (1, 256, [0]), (1, 256, [512])]
+        max_err = 0.0
+        for b, t, pos in cases:
+            args = paged_case(torch, dev, g, b, t, kv, pos)
+            got = paged_attention(*args)
+            torch.cuda.synchronize()
+            again = paged_attention(*args)
+            plain = paged_attention_plain(*args)
+            row = {"pool": kv, "B": b, "T": t, "mean_len": float(args[4].float().mean()) + t,
+                   **flash_errors(got, plain, atol, ulps),
+                   "bit_equal_rerun": bool(torch.equal(got, again))}
+            max_err = max(max_err, row["max_abs_err"])
+            require(row["worst_vs_bound"] <= 1.0 and row["rel_rms_err"] <= rel_rms,
+                    f"paged kernel within {atol} + {ulps} ulps, error norm within {rel_rms}: {row}")
+            require(row["bit_equal_rerun"], f"two runs on the same inputs are bit-equal: {row}")
+            require(bool(torch.isfinite(got.float()).all()), "inactive rows give finite numbers")
+            emit("kernel_paged", **row)
+        # timed at B = 64, T = 1, row lengths around 1,024
+        lens = torch.randint(1, MAXP * PAGE, (DEC_SLOTS,), generator=g, device=dev)
+        args = paged_case(torch, dev, g, DEC_SLOTS, 1, kv, lens - 1)
+        args[3][:] = (torch.randperm(KV_PAGES - 1, generator=g, device=dev)[: DEC_SLOTS * MAXP]
+                      + 1).reshape(DEC_SLOTS, MAXP)  # every row active
+        row = {"pool": kv, "B": DEC_SLOTS, "T": 1, "mean_len": float(lens.float().mean()),
+               "ms": cuda_ms(torch, lambda: paged_attention(*args)),
+               "plain_ms": cuda_ms(torch, lambda: paged_attention_plain(*args)),
+               **paged_bound(DEC_SLOTS, 1, kv, args[4])}
+        pre = paged_case(torch, dev, g, 1, 256, kv, [512])
+        row["prefill_256_ms"] = cuda_ms(torch, lambda: paged_attention(*pre))
+        emit("kernel_paged", **row)
+        out[kv] = {"max_abs_err": max_err, **row}
+        del args, pre
+        torch.cuda.empty_cache()
+    return out
+
+
+def kernel_kv_write_phase(torch, dev, seed: int) -> dict:
+    from outline_rag_tpu_torch.ops.paged_attention import paged_kv_write, paged_kv_write_plain
+
+    g = torch.Generator(device=dev).manual_seed(seed + 7)
+    out = {}
+    for kv in ("bf16", "int8"):
+        dt = torch.int8 if kv == "int8" else torch.bfloat16
+        shape = (KV_PAGES, DEC_KV_HEADS, PAGE, DEC_HD)
+
+        def draw(*sh):
+            return torch.randint(-127, 128, sh, generator=g, device=dev).to(dt)
+
+        # (B, T, start): decode at 64 rows; a prefill chunk straddling pages; a
+        # chunk whose tail passes the row's capacity (2,048) by 100 tokens
+        for b, t, start in ((DEC_SLOTS, 1, None), (1, 256, 100), (2, 256, MAXP * PAGE - 156)):
+            pools = [draw(*shape), draw(*shape)]
+            new = [draw(b, t, DEC_KV_HEADS, DEC_HD), draw(b, t, DEC_KV_HEADS, DEC_HD)]
+            table = (torch.randperm(KV_PAGES - 1, generator=g, device=dev)[: b * MAXP] + 1)
+            table = table.reshape(b, MAXP).to(torch.int32)
+            pos = (torch.randint(0, MAXP * PAGE - t, (b,), generator=g, device=dev)
+                   if start is None else torch.full((b,), start, device=dev)).to(torch.int32)
+            scales = []
+            if kv == "int8":
+                scales = [torch.rand(sh, generator=g, device=dev) for sh in
+                          (shape[:3], shape[:3], (b, t, DEC_KV_HEADS), (b, t, DEC_KV_HEADS))]
+            want = paged_kv_write_plain(*(x.clone() for x in pools), table, pos, *new,
+                                        *(x.clone() for x in scales))
+            untouched = [x.clone() for x in pools]
+            got = paged_kv_write(*pools, table, pos, *new, *scales)
+            torch.cuda.synchronize()
+            equal = all(torch.equal(a[1:], w[1:]) for a, w in zip(got, want))
+            written = int((pools[0][1:] != untouched[0][1:]).any(dim=-1).sum())
+            in_range = int(((pos.long()[:, None] + torch.arange(t, device=dev)) < MAXP * PAGE).sum())
+            row = {"pool": kv, "B": b, "T": t, "start": start, "equal_but_page0": equal,
+                   "max_abs_err": 0.0 if equal else 1.0,
+                   "rows_written": written, "rows_in_range": in_range * DEC_KV_HEADS}
+            require(equal, f"every page but page 0 byte-equal to the twin's: {row}")
+            # a new row can equal the old one by chance (1 in 255^64): allow none
+            require(written == in_range * DEC_KV_HEADS,
+                    f"exactly the in-range tokens landed outside page 0: {row}")
+            if (b, t) == (DEC_SLOTS, 1):
+                args = (*pools, table, pos, *new, *scales)
+                elem = 1 if kv == "int8" else 2
+                moved = 2 * 2 * b * t * DEC_KV_HEADS * (DEC_HD * elem + (4 if scales else 0))
+                row.update(ms=cuda_ms(torch, lambda: paged_kv_write(*args)),
+                           plain_ms=cuda_ms(torch, lambda: paged_kv_write_plain(*args)),
+                           **bound(moved + b * (MAXP + 1) * 4, 0, "bf16"))
+                out[kv] = row
+            emit("kernel_kv_write", **row)
+        torch.cuda.empty_cache()
+    return out
+
+
+def kernel_int8_linear_phase(torch, dev, seed: int) -> dict:
+    from outline_rag_tpu_torch.ops.int8_linear import (
+        int8_linear,
+        int8_linear_plain,
+        quantize_linear_weight,
+    )
+    from outline_rag_tpu_torch.testing import flash_errors
+
+    g = torch.Generator(device=dev).manual_seed(seed + 8)
+    shapes = [(64, 2048, 2560), (64, 2048, 11264), (64, 5632, 2048), (64, 2048, 32000),
+              (8, 2048, 2560), (8, 2048, 32000)]
+    out, max_err = {}, 0.0
+    for m, k, n in shapes:
+        x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+        q, s = quantize_linear_weight(torch.randn((k, n), generator=g, device=dev) * 0.02)
+        got = int8_linear(x, q, s)
+        torch.cuda.synchronize()
+        plain = int8_linear_plain(x, q, s)
+        errs = flash_errors(got, plain, 1e-5 * float(plain.abs().max()), 1.0)
+        max_err = max(max_err, errs["max_abs_err"])
+        w_deq = (q.to(torch.bfloat16) * s.to(torch.bfloat16)[:, None])  # the yardstick's weight
+        row = {"M": m, "K": k, "N": n, **errs,
+               "ms": cuda_ms(torch, lambda: int8_linear(x, q, s)),
+               "plain_ms": cuda_ms(torch, lambda: int8_linear_plain(x, q, s)),
+               "library_ms": cuda_ms(torch, lambda: torch.nn.functional.linear(x, w_deq)),
+               **bound(n * k + n * 4 + m * k * 2 + m * n * 2, 2 * m * n * k, "bf16")}
+        row["weight_gb_per_s"] = n * k / row["ms"] / 1e6
+        require(errs["worst_vs_bound"] <= 1.0,
+                f"int8_linear within 1e-5 of the output's scale + 1 bf16 ulp of the twin: {row}")
+        emit("kernel_int8_linear", **row)
+        out[(m, n)] = row
+    return {"max_abs_err": max_err, **out[(64, 11264)], "by_shape": {
+        f"{m}x{k}x{n}": (out[(m, n)]["ms"], out[(m, n)]["plain_ms"], out[(m, n)]["library_ms"],
+                         out[(m, n)]["bound_ms"]) for m, k, n in shapes}}
+
+
+def chat_messages(rng, system: str, vocab: list[str], n_tokens: int) -> list[dict]:
+    """A chat whose rendered prompt is about ``n_tokens`` bytes long."""
+    words, size = [], 0
+    while size < n_tokens:
+        words.append(str(rng.choice(vocab)))
+        size += len(words[-1]) + 1
+    user = " ".join(words)[: max(8, n_tokens)]
+    head = [{"role": "system", "content": system}] if system else []
+    return head + [{"role": "user", "content": user}]
+
+
+def stream_burst(provider, chats: list[tuple[list[dict], float]]):
+    """Every chat at once through ``provider.stream``:
+    ([(text, seconds to the first delta, seconds)], wall seconds)."""
+
+    async def one(messages, temperature):
+        t0 = time.perf_counter()
+        first, parts = None, []
+        async for delta in provider.stream("local", messages, temperature=temperature, top_p=0.9):
+            if first is None:
+                first = time.perf_counter() - t0
+            parts.append(delta["content"])
+        return "".join(parts), first, time.perf_counter() - t0
+
+    async def burst():
+        t0 = time.perf_counter()
+        got = await asyncio.wait_for(asyncio.gather(*(one(m, t) for m, t in chats)), 600)
+        return got, time.perf_counter() - t0
+
+    return asyncio.run(burst())
+
+
+def logits_kernels_vs_twins(torch, dev, decoder, params, cfg, kv_dtype, seed: int) -> dict:
+    """One prefill (4 rows x 64 tokens) and one decode forward through a
+    small pool at the model's full depth, with the kernels and with the
+    plain twins patched into the decoder module; the error's norm over the
+    logits' norm, the larger of the two forwards."""
+    from outline_rag_tpu_torch.ops.int8_linear import int8_linear_plain
+    from outline_rag_tpu_torch.ops.paged_attention import (
+        paged_attention_plain,
+        paged_kv_write_plain,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    toks = torch.randint(3, cfg.vocab_size, (4, 64), generator=g, device=dev)
+    step = torch.randint(3, cfg.vocab_size, (4, 1), generator=g, device=dev)
+
+    def run():
+        n = 4 * (cfg.max_cache // PAGE)  # every row's pages, scattered (7 and n are coprime)
+        cache = decoder.init_paged_cache(cfg, 4, n + 1, PAGE, kv_dtype=kv_dtype, device=dev)
+        cache.table[:] = (torch.arange(n, device=dev) * 7 % n + 1).reshape(4, -1)
+        with torch.inference_mode():
+            a, _ = decoder.decoder_forward(
+                params, toks, cache, torch.zeros(4, dtype=torch.int32, device=dev), cfg)
+            b, _ = decoder.decoder_forward(
+                params, step, cache, torch.full((4,), 64, dtype=torch.int32, device=dev), cfg)
+        return a, b
+
+    got = run()
+    kernels = (decoder.paged_attention, decoder.paged_kv_write, decoder.int8_linear)
+    decoder.paged_attention = paged_attention_plain
+    decoder.paged_kv_write = paged_kv_write_plain
+    decoder.int8_linear = int8_linear_plain
+    try:
+        want = run()
+    finally:
+        decoder.paged_attention, decoder.paged_kv_write, decoder.int8_linear = kernels
+    rel = max(float((a - w).norm() / w.norm()) for a, w in zip(got, want))
+    worst = max(float((a - w).abs().max()) for a, w in zip(got, want))
+    require(all(bool(torch.isfinite(a).all()) and a.shape[-1] == cfg.vocab_size for a in got),
+            "finite logits over the vocabulary")
+    return {"logits_rel_rms_vs_twins": rel, "logits_max_abs_err_vs_twins": worst,
+            "logits_max_abs": float(want[0].abs().max())}
+
+
+def decode_profile(torch, dev, decoder, params, cfg, kv_dtype, seed: int) -> dict:
+    """Decode steps with all DEC_SLOTS rows live at seeded lengths of
+    256-1,900 tokens (a full pool, every row its own 16 pages), through
+    ``generate_chunk``: milliseconds a step from CUDA events over one chunk,
+    then one chunk under ``torch.profiler`` for the device's busy share, the
+    launches a step and the kernels that take the device's time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    cache = decoder.init_paged_cache(cfg, DEC_SLOTS, KV_PAGES, PAGE, kv_dtype=kv_dtype, device=dev)
+    cache.table[:] = (torch.randperm(KV_PAGES - 1, generator=g, device=dev) + 1).reshape(
+        DEC_SLOTS, MAXP)
+    pos = torch.randint(256, 1900, (DEC_SLOTS,), generator=g, device=dev).to(torch.int32)
+    tok = torch.randint(3, cfg.vocab_size, (DEC_SLOTS,), generator=g, device=dev).to(torch.int32)
+    temp = torch.where(torch.arange(DEC_SLOTS, device=dev) % 3 == 2, 0.8, 0.0)
+    key = decoder.make_key(seed, dev)
+
+    def chunk():
+        return decoder.generate_chunk(params, cache, tok, pos, key, cfg, n_steps=DEC_CHUNK,
+                                      temperature=temp, top_p=0.9, eos_id=-1)
+
+    with torch.inference_mode():
+        step_ms = cuda_ms(torch, chunk, runs=3) / DEC_CHUNK
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            chunk()
+            torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    kernels = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us = getattr(e, "self_device_time_total", None)
+            us = e.self_cuda_time_total if us is None else us
+            kernels[e.key] = (us / 1e3, e.count)
+    busy_ms = sum(ms for ms, _ in kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:6]
+    # the busy share is the kernels' time over the step's time without the
+    # profiler (tracing slows the host, not the kernels); None: the profiler
+    # saw no device activity here (not measured)
+    return {"decode_step_ms": step_ms, "mean_len": float(pos.float().mean()),
+            "profiled_wall_ms_per_step": wall_ms / DEC_CHUNK,
+            "device_busy_share": busy_ms / DEC_CHUNK / step_ms if busy_ms else None,
+            "device_ms_per_step": busy_ms / DEC_CHUNK if busy_ms else None,
+            "launches_per_step": sum(n for _, n in kernels.values()) / DEC_CHUNK,
+            "top_kernels_ms_per_step": {k[:60]: ms / DEC_CHUNK for k, (ms, _) in top}}
+
+
+def decoder_phase(torch, dev, seed: int) -> dict:
+    """The slice: 64 concurrent chats at TinyLlama-1.1B width through the
+    paged pool, in three configurations."""
+    import numpy as np
+
+    import outline_rag_tpu_torch.models.decoder as decoder
+    import outline_rag_tpu_torch.serve.decode_batcher as batcher_module
+    from outline_rag_tpu_torch.ops.int8_linear import int8_linear
+    from outline_rag_tpu_torch.ops.paged_attention import paged_attention, paged_kv_write
+    from outline_rag_tpu_torch.serve import DONE, LocalChatProvider
+    from outline_rag_tpu_torch.testing import ByteTokenizer
+
+    require(decoder._INT8_MODE == "kernel", "DECODER_INT8_MODE=kernel was read at import")
+    cfg = decoder.DecoderConfig.tinyllama_1b()
+    t0 = time.perf_counter()
+    params = decoder.init_decoder(cfg, torch.Generator(device=dev).manual_seed(seed + 9), dev)
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in [params["embed"], params["lm_head"]]
+                   + [v for layer in params["layers"] for v in layer.values()])
+    emit("decoder_init", params=n_params, seconds=time.perf_counter() - t0,
+         device_mem_gb=torch.cuda.memory_allocated(dev) / 1e9)
+    class CountingTokenizer(ByteTokenizer):
+        """Remembers how many ids each stream has decoded so far (a stream
+        decodes its one growing list), so a burst's tokens can be counted."""
+
+        def __init__(self):
+            self.lengths = {}
+
+        def decode(self, ids):
+            self.lengths[id(ids)] = len(ids)
+            return super().decode(ids)
+
+    tok = CountingTokenizer()
+    rng = np.random.default_rng(seed + 9)
+    vocab = [f"w{i}" for i in rng.permutation(20_000)[:5000]]
+    system = " ".join(rng.choice(vocab, 200))[:504]  # "system: " + 504 bytes = 4 full pages
+
+    forwards = [0]
+    real_forward = batcher_module.decoder_forward
+
+    def counted_forward(*args, **kwargs):
+        forwards[0] += 1
+        return real_forward(*args, **kwargs)
+
+    configs = [("bf16", {}, DEC_SLOTS, DEC_NEW), ("kv_int8", {"kv_int8": True}, DEC_SLOTS, DEC_NEW),
+               ("int8_weights", {"int8_weights": True}, 16, 32)]
+    out = {}
+    for name, kw, n_chats, max_new in configs:
+        provider = LocalChatProvider(
+            params, cfg, tok, batch_slots=DEC_SLOTS, kv_pages=KV_PAGES, page_size=PAGE,
+            chunk_tokens=DEC_CHUNK, max_new_tokens=max_new, device=dev, **kw)
+        b = provider._batcher
+        check = logits_kernels_vs_twins(
+            torch, dev, decoder, provider.params, cfg, "int8" if kw.get("kv_int8") else None,
+            seed + 10)
+        require(check["logits_rel_rms_vs_twins"] <= LOGITS_REL_RMS,
+                f"{name}: logits with the kernels within {LOGITS_REL_RMS} of the twins': {check}")
+
+        # time the two device programs where the worker runs them
+        steps, prefills = [], []
+        real_step, real_prefill = b._step_chunk, b._prefill_paged
+
+        def timed_step(*a, _real=real_step, _b=b):
+            active = sum(r is not None for r in _b.active)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = _real(*a)
+            torch.cuda.synchronize()
+            steps.append((active, (time.perf_counter() - t) / DEC_CHUNK))
+            return res
+
+        def timed_prefill(table, toks, start, _real=real_prefill):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = _real(table, toks, start)
+            torch.cuda.synchronize()
+            prefills.append(time.perf_counter() - t)
+            return res
+
+        b._step_chunk, b._prefill_paged = timed_step, timed_prefill
+        chats = []
+        for i in range(n_chats):
+            shared = i % 4 != 3  # 3 in 4 carry the system prefix
+            n = int(rng.integers(600, 1500)) if shared else int(rng.integers(200, 500))
+            messages = chat_messages(rng, system if shared else "", vocab, n - (520 if shared else 20))
+            chats.append((messages, 0.8 if i % 3 == 2 else 0.0))
+        prompt_tokens = [len(provider._encode_prompt(provider._render(m))) for m, _ in chats]
+
+        torch.cuda.reset_peak_memory_stats(dev)
+        batcher_module.decoder_forward = counted_forward
+        forwards[0] = 0
+        paged_attention.launches = paged_kv_write.launches = int8_linear.launches = 0
+        tok.lengths.clear()
+        try:
+            answers, wall_s = stream_burst(provider, chats)
+            generated = sum(tok.lengths.values())
+            launches = (paged_attention.launches, paged_kv_write.launches, int8_linear.launches)
+            n_forwards = forwards[0]
+            stats = provider.stats()
+            # after the burst: the first greedy chat again (its prefix pages are
+            # cached now, its neighbours gone), and one prompt twice over
+            # the batcher's own interface, cold then warm
+            repeat, _ = stream_burst(provider, [chats[0]])
+            fresh = [int(x) for x in rng.integers(3, 259, 700)]
+            pair = []
+            for _ in range(2):
+                q, ids = b.submit(fresh, 0.0, 1.0, 32), []
+                while (item := q.get(timeout=300)) is not DONE:
+                    require(not isinstance(item, Exception), f"{name}: the batcher failed: {item!r}")
+                    ids.extend(item)
+                pair.append(ids)
+            end = provider.stats()
+        finally:
+            batcher_module.decoder_forward = real_forward
+            provider.close()
+        require(len(answers) == n_chats and all(text and first is not None
+                                                for text, first, _ in answers),
+                f"{name}: every stream ended and yielded text")
+        require(launches[0] == launches[1] == cfg.layers * n_forwards and n_forwards > 0,
+                f"{name}: paged_attention and paged_kv_write ran {cfg.layers} times in each of "
+                f"{n_forwards} forwards: {launches}")
+        per_forward = 4 * cfg.layers + 1 if "int8_weights" in kw else 0
+        require(launches[2] == per_forward * n_forwards,
+                f"{name}: int8_linear ran {per_forward} times a forward: {launches[2]}")
+        require(stats["prefix_hits"] > 0, f"{name}: the shared system prefix hit the cache")
+        require(repeat[0][0] == answers[0][0], f"{name}: a warm repeat equals the cold answer")
+        require(pair[0] == pair[1] and len(pair[0]) > 0,
+                f"{name}: cold and warm token streams are equal: {pair}")
+        require(end["prefix_hits"] >= stats["prefix_hits"] + 4 + 5,
+                f"{name}: the repeats found their prompt pages in the cache: {end}")
+        require(end["active"] == 0 and end["queued"] == 0
+                and end["pages_free"] + end["pages_cached"] == end["pages_total"],
+                f"{name}: every page is free or cached at the end: {end}")
+        firsts = sorted(first for _, first, _ in answers)
+        full = [ms for active, ms in steps if active == max(a for a, _ in steps)]
+        out_chars = sum(len(text) for text, _, _ in answers)
+        row = {"config": name, "chats": n_chats, "slots": DEC_SLOTS, "max_new_tokens": max_new,
+               "prompt_tokens": sum(prompt_tokens), "wall_s": wall_s,
+               "ttft_p50_ms": 1e3 * firsts[len(firsts) // 2],
+               "ttft_p95_ms": 1e3 * firsts[min(len(firsts) - 1, int(0.95 * len(firsts)))],
+               "generated_tokens": generated, "output_chars": out_chars,
+               "tokens_per_s": generated / wall_s,
+               "decode_step_ms": 1e3 * statistics.median(full),
+               "decode_step_rows": max(a for a, _ in steps), "decode_chunks": len(steps),
+               "prefill_chunks": len(prefills),
+               "prefill_tokens_per_s": (sum(prompt_tokens) - PAGE * stats["prefix_hits"])
+               / sum(prefills),
+               "forwards": n_forwards, "paged_attention_launches": launches[0],
+               "paged_kv_write_launches": launches[1], "int8_linear_launches": launches[2],
+               "prefix_hits": stats["prefix_hits"], "prefix_lookups": stats["prefix_lookups"],
+               "backpressure_waits": stats["backpressure_waits"],
+               "pages_cached_at_end": end["pages_cached"], "kv_dtype": stats["kv_dtype"],
+               "peak_device_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9, **check}
+        emit("decoder", **row)
+        out[name] = row
+        run_params = provider.params
+        del provider, b, real_step, real_prefill, timed_step, timed_prefill  # frees the pool
+        torch.cuda.empty_cache()
+        emit("decode_profile", config=name, slots=DEC_SLOTS, **decode_profile(
+            torch, dev, decoder, run_params, cfg, "int8" if kw.get("kv_int8") else None, seed + 11))
+        del run_params
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
     args = parser.parse_args()
 
+    # the decoder reads its int8 strategy once, at import: the w8a16 kernel
+    os.environ["DECODER_INT8_MODE"] = "kernel"
     import torch
 
     if not torch.cuda.is_available():
@@ -737,15 +1270,27 @@ def main() -> int:
     flash = flash_phase(torch, dev, args.seed)
     torch.cuda.empty_cache()
     long = long_phase(torch, dev, args.seed)
+    torch.cuda.empty_cache()
+    paged = kernel_paged_phase(torch, dev, args.seed)
+    kv_write = kernel_kv_write_phase(torch, dev, args.seed)
+    linear = kernel_int8_linear_phase(torch, dev, args.seed)
+    torch.cuda.empty_cache()
+    chat = decoder_phase(torch, dev, args.seed)
 
-    # ms / plain_ms: topk_* at B = 32, K = 64 (topk_float in the f32x2 mode
-    # the path runs; every mode under "modes"); flash_attention at S = 8192
+    # ms / plain_ms / bound_ms: topk_* at B = 32, K = 64 (topk_float in the
+    # f32x2 mode the path runs; every mode under "modes"); flash_attention at
+    # S = 8192; paged_attention and paged_kv_write at B = 64, T = 1 on a bf16
+    # pool; int8_linear at the gate/up projection, M = 64. library_ms: one
+    # PyTorch call computing the same function, where there is one (no single
+    # call scans with a penalty and selects, walks a page table, or scatters
+    # by one); launches: the count over that kernel's main-path run.
     print(json.dumps({"kernels": [{
         "name": "topk_int8", "route": "cuda",
         "source": "outline_rag_tpu_torch/csrc/topk_int8.cu",
         "replaces": "outline_rag_tpu/ops/topk.py:346",
         "launches": launches, "max_abs_err": kernel["max_abs_err"],
         "ms": kernel["ms"], "plain_ms": kernel["plain_ms"],
+        "bound_ms": kernel["bound_ms"], "bound_by": kernel["bound_by"], "library_ms": None,
     }, {
         "name": "topk_float", "route": "cuda",
         "source": "outline_rag_tpu_torch/csrc/topk_float.cu",
@@ -753,13 +1298,45 @@ def main() -> int:
         "launches": long["scan_launches"],
         "max_abs_err": max(m["max_abs_err"] for m in floats.values()),
         "ms": floats["f32x2"]["ms"], "plain_ms": floats["f32x2"]["plain_ms"],
-        "modes": floats,
+        "bound_ms": floats["f32x2"]["bound_ms"], "bound_by": floats["f32x2"]["bound_by"],
+        "library_ms": None, "modes": floats,
     }, {
         "name": "flash_attention", "route": "cuda",
         "source": "outline_rag_tpu_torch/csrc/flash_attention.cu",
         "replaces": "outline_rag_tpu/ops/attention.py:43",
         "launches": long["flash_launches"], "max_abs_err": flash["max_abs_err"],
-        "ms": flash["ms"], "plain_ms": flash["plain_ms"], "by_S": flash["by_S"],
+        "ms": flash["ms"], "plain_ms": flash["plain_ms"],
+        "bound_ms": flash["bound_ms"], "bound_by": flash["bound_by"],
+        "library_ms": flash["library_ms"], "by_S": flash["by_S"],
+    }, {
+        "name": "paged_attention", "route": "cuda",
+        "source": "outline_rag_tpu_torch/csrc/paged_attention.cu",
+        "replaces": "outline_rag_tpu/ops/paged_attention.py:679",
+        "launches": chat["bf16"]["paged_attention_launches"],
+        "max_abs_err": max(p["max_abs_err"] for p in paged.values()),
+        "ms": paged["bf16"]["ms"], "plain_ms": paged["bf16"]["plain_ms"],
+        "bound_ms": paged["bf16"]["bound_ms"], "bound_by": paged["bf16"]["bound_by"],
+        "library_ms": None, "int8_pool": {k: paged["int8"][k] for k in
+                                          ("ms", "plain_ms", "bound_ms", "bound_by")},
+        "prefill_256_ms": paged["bf16"]["prefill_256_ms"],
+    }, {
+        "name": "paged_kv_write", "route": "cuda",
+        "source": "outline_rag_tpu_torch/csrc/paged_kv_write.cu",
+        "replaces": "outline_rag_tpu/ops/paged_attention.py:892",
+        "launches": chat["bf16"]["paged_kv_write_launches"],
+        "max_abs_err": max(w["max_abs_err"] for w in kv_write.values()),
+        "ms": kv_write["bf16"]["ms"], "plain_ms": kv_write["bf16"]["plain_ms"],
+        "bound_ms": kv_write["bf16"]["bound_ms"], "bound_by": kv_write["bf16"]["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "int8_linear", "route": "cuda",
+        "source": "outline_rag_tpu_torch/csrc/int8_linear.cu",
+        "replaces": "outline_rag_tpu/ops/int8_linear.py:94",
+        "launches": chat["int8_weights"]["int8_linear_launches"],
+        "max_abs_err": linear["max_abs_err"],
+        "ms": linear["ms"], "plain_ms": linear["plain_ms"],
+        "bound_ms": linear["bound_ms"], "bound_by": linear["bound_by"],
+        "library_ms": linear["library_ms"], "by_shape": linear["by_shape"],
     }]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -10,6 +10,13 @@ transposed. Values are cast to the config's dtype the way the JAX
 package's ``cast_params`` casts them (round to nearest even). A JAX
 ``EncoderConfig`` is translated field by field, ``attn_impl`` included
 (:func:`config_from_jax`).
+
+The decoder's parameters stay a dictionary (``models/decoder.py``), so
+:func:`decoder_from_jax` only turns leaves into tensors: dense weights keep
+the JAX layout ``[K, N]``, int8 ``{"q", "s"}`` leaves are taken as they
+are, stacked ``[L, ...]`` layers are split into the per-layer list, and a
+JAX ``PagedKV`` is re-laid from position-minor pages to the port's
+``[L, P, KvH, page, Dh]`` (:func:`paged_kv_from_jax`).
 """
 
 from __future__ import annotations
@@ -20,6 +27,11 @@ import numpy as np
 import torch
 from torch import nn
 
+from outline_rag_tpu_torch.models.decoder import (
+    DecoderConfig,
+    PagedKV,
+    cast_decoder_params,
+)
 from outline_rag_tpu_torch.models.encoder import Encoder, EncoderConfig
 from outline_rag_tpu_torch.models.reranker import Reranker
 
@@ -128,3 +140,129 @@ def init_reranker(
     rr = Reranker(cfg, device)
     fill_normal_(rr, generator)
     return rr.eval()
+
+
+# ---------------------------------------------------------------------------
+# Decoder LM (Llama / Qwen2 family) -> models/decoder.py params
+# ---------------------------------------------------------------------------
+
+
+def decoder_config_from_jax(jcfg) -> DecoderConfig:
+    """The port's :class:`DecoderConfig` for a JAX package ``DecoderConfig``
+    (read by attribute, so jax is not imported here)."""
+    return DecoderConfig(
+        vocab_size=jcfg.vocab_size,
+        hidden=jcfg.hidden,
+        layers=jcfg.layers,
+        heads=jcfg.heads,
+        kv_heads=jcfg.kv_heads,
+        intermediate=jcfg.intermediate,
+        head_dim=jcfg.head_dim,
+        rope_theta=jcfg.rope_theta,
+        norm_eps=jcfg.norm_eps,
+        attn_bias=jcfg.attn_bias,
+        tie_embeddings=jcfg.tie_embeddings,
+        max_cache=jcfg.max_cache,
+        dtype=_DTYPES[np.dtype(jcfg.dtype).name],
+    )
+
+
+def _leaf(x, device) -> torch.Tensor:
+    """A numpy leaf as a tensor of the same values: integers keep their
+    dtype, floats (bfloat16 arrays included) arrive as f32."""
+    arr = np.asarray(x)
+    if arr.dtype.kind not in "iu":
+        arr = arr.astype(np.float32)
+    return torch.from_numpy(np.array(arr, order="C")).to(device)  # a writable copy
+
+
+def decoder_from_jax(
+    params_np: Mapping[str, Any], cfg: DecoderConfig, device: str | torch.device = "cpu"
+) -> dict:
+    """The JAX package's decoder parameters (numpy leaves) as the port's.
+
+    ``params_np["layers"]`` may be the per-layer list or the stacked
+    dictionary of ``[L, ...]`` leaves; names may be fused (``wqkv``,
+    ``wgu``, ``bqkv``) or not; a weight may be dense ``[K, N]`` or an int8
+    ``{"q": [N, K], "s": [N]}`` leaf. Dense weights and the embedding table
+    are cast to ``cfg.dtype`` as ``cast_decoder_params`` casts them (round
+    to nearest even); norm scales, biases and int8 leaves are kept."""
+
+    def convert(x):
+        if isinstance(x, Mapping):
+            if "q4" in x:
+                raise NotImplementedError("int4 weights are not ported yet (slice 4)")
+            return {k: _leaf(v, device) for k, v in x.items()}
+        return _leaf(x, device)
+
+    layers = params_np["layers"]
+    if isinstance(layers, Mapping):  # stacked: split the leading layer axis
+        def pick(x, i):
+            return {k: pick(v, i) for k, v in x.items()} if isinstance(x, Mapping) else x[i]
+
+        layers = [{k: pick(v, i) for k, v in layers.items()} for i in range(cfg.layers)]
+    if len(layers) != cfg.layers:
+        raise ValueError(f"{len(layers)} layers for a {cfg.layers}-layer config")
+    out = {k: convert(v) for k, v in params_np.items() if k != "layers"}
+    out["layers"] = [{k: convert(v) for k, v in layer.items()} for layer in layers]
+    return cast_decoder_params(out, cfg.dtype)
+
+
+def paged_kv_from_jax(cache_np, device: str | torch.device = "cpu") -> PagedKV:
+    """A JAX ``PagedKV`` whose leaves are numpy arrays (read by attribute)
+    as the port's: pools ``[L, P, KvH, Dh, page]`` (position minor) become
+    ``[L, P, KvH, page, Dh]``; the table and the int8 pool's scales
+    ``[L, P, KvH, page]`` keep their layout. A tensor-parallel pool is not
+    ported yet."""
+    if getattr(cache_np, "mesh", None) is not None:
+        raise NotImplementedError("tensor-parallel KV pools are not ported yet (slice 4)")
+
+    def pool(x):
+        return _leaf(x, device).permute(0, 1, 2, 4, 3).contiguous()
+
+    quant = cache_np.k_scale is not None
+    return PagedKV(
+        k=pool(cache_np.k),
+        v=pool(cache_np.v),
+        table=_leaf(cache_np.table, device).to(torch.int32),
+        k_scale=_leaf(cache_np.k_scale, device) if quant else None,
+        v_scale=_leaf(cache_np.v_scale, device) if quant else None,
+    )
+
+
+def decoder_params_from_state_dict(
+    sd: Mapping[str, Any], cfg: DecoderConfig, device: str | torch.device = "cpu"
+) -> dict:
+    """An HF ``LlamaForCausalLM`` / ``Qwen2ForCausalLM`` state dict (tensors
+    or arrays) as the port's unfused decoder parameters, in f32 (cast with
+    ``cast_decoder_params``). ``nn.Linear`` holds ``[out, in]``; the
+    decoder multiplies ``x @ w``, so every projection is transposed."""
+
+    def get(name):
+        x = sd[name]
+        x = x.detach().to(torch.float32) if isinstance(x, torch.Tensor) else _t(x)
+        return x.to(device)
+
+    p = {
+        "embed": get("model.embed_tokens.weight"),
+        "final_norm": get("model.norm.weight"),
+        "layers": [],
+    }
+    if not cfg.tie_embeddings and "lm_head.weight" in sd:
+        p["lm_head"] = get("lm_head.weight").T.contiguous()
+    names = (("wq", "self_attn.q_proj"), ("wk", "self_attn.k_proj"), ("wv", "self_attn.v_proj"),
+             ("wo", "self_attn.o_proj"), ("wg", "mlp.gate_proj"), ("wu", "mlp.up_proj"),
+             ("wd", "mlp.down_proj"))
+    for i in range(cfg.layers):
+        pre = f"model.layers.{i}."
+        layer = {
+            "ln1": get(pre + "input_layernorm.weight"),
+            "ln2": get(pre + "post_attention_layernorm.weight"),
+        }
+        for ours, theirs in names:
+            layer[ours] = get(f"{pre}{theirs}.weight").T.contiguous()
+        if cfg.attn_bias:
+            for ours, theirs in names[:3]:
+                layer["b" + ours[1]] = get(f"{pre}{theirs}.bias")
+        p["layers"].append(layer)
+    return p

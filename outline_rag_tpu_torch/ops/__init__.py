@@ -1,11 +1,25 @@
-"""Retrieval ops: the int8 and float scan top-Ks (CUDA kernels + plain
-twins), the flash attention of whole-document ingest (CUDA kernel + plain
-twin), the row quantizers and the exact fp32 candidate rescore."""
+"""Ops: the int8 and float scan top-Ks, the flash attention of
+whole-document ingest, the decoder's paged attention, KV page write and
+w8a16 linear (each a CUDA kernel with its plain twin), the row and weight
+quantizers, the w8a8 product and the exact fp32 candidate rescore."""
 
 from outline_rag_tpu_torch.ops.attention import (
     NEG_BIAS,
     flash_attention,
     flash_attention_plain,
+)
+# ``int8_linear`` and ``paged_attention`` are imported from their modules of
+# the same name, not re-exported here: a package attribute would shadow the
+# submodule for ``import outline_rag_tpu_torch.ops.paged_attention as m``.
+from outline_rag_tpu_torch.ops.int8_linear import (
+    int8_linear_plain,
+    quantize_linear_weight,
+    w8a8_matmul,
+)
+from outline_rag_tpu_torch.ops.paged_attention import (
+    paged_attention_plain,
+    paged_kv_write,
+    paged_kv_write_plain,
 )
 from outline_rag_tpu_torch.ops.quant import (
     dequantize_rows_int8,
@@ -35,9 +49,14 @@ __all__ = [
     "dequantize_rows_int8",
     "flash_attention",
     "flash_attention_plain",
+    "int8_linear_plain",
     "int8_topk",
     "join_bf16x2",
     "merge_topk",
+    "paged_attention_plain",
+    "paged_kv_write",
+    "paged_kv_write_plain",
+    "quantize_linear_weight",
     "quantize_rows_int8",
     "quantize_rows_int8_residual",
     "rescore_candidates",
@@ -48,4 +67,5 @@ __all__ = [
     "topk_int8",
     "topk_int8_plain",
     "topk_plain",
+    "w8a8_matmul",
 ]

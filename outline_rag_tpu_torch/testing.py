@@ -1,5 +1,6 @@
-"""Comparisons that hold a kernel to its plain version, shared by the tests
-and ``chip_smoke.py``. Nothing on the serving or ingest path imports this."""
+"""Comparisons that hold a kernel to its plain version, and a tokenizer
+that needs no files, shared by the tests and ``chip_smoke.py``. Nothing on
+the serving or ingest path imports this."""
 
 from __future__ import annotations
 
@@ -58,3 +59,52 @@ def flash_errors(out: torch.Tensor, plain: torch.Tensor, atol: float, ulps: floa
         "worst_vs_bound": float((diff / bound).max()),
         "rel_rms_err": float(diff.norm() / plain.norm().clamp_min(1e-30)),
     }
+
+
+class ByteTokenizer:
+    """A reversible tokenizer over UTF-8 bytes for driving the chat decoder
+    where no tokenizer files exist: id ``b + 3`` for byte ``b``, ids 0-2
+    reserved (pad, bos, eos). ``decode`` drops the reserved ids and maps
+    ids past 258 onto printable ASCII, so the output of a model with a
+    larger vocabulary (random weights included) decodes to text that never
+    ends in a broken UTF-8 sequence."""
+
+    pad_token_id, bos_token_id, eos_token_id = 0, 1, 2
+    vocab_size = 259
+
+    def encode(self, text: str) -> list[int]:
+        return [b + 3 for b in text.encode("utf-8")]
+
+    def decode(self, ids) -> str:
+        data = bytes(i - 3 if i < 259 else 32 + (i - 259) % 95 for i in ids if i >= 3)
+        return data.decode("utf-8", errors="replace")
+
+
+def paged_attention_case(
+    dev, g: torch.Generator, b: int, t: int, kv: str, *, heads: int = 32, kv_heads: int = 4,
+    hd: int = 64, page: int = 128, maxp: int = 16, pages: int = 1025, pos=None,
+    inactive_every: int = 0,
+):
+    """Seeded arguments of ``paged_attention`` (TinyLlama-1.1B's shape by
+    default): bf16 q, a pool of ``pages`` pages that is bf16 (``kv="bf16"``)
+    or int8 with f32 scales (``kv="int8"``), distinct scattered page ids per
+    row (``b * maxp <= pages - 1``), ``pos`` given or drawn so that row
+    lengths run from ``t`` to ``maxp * page - 1``. ``inactive_every=n`` makes
+    rows 1, 1 + n, ... inactive (table all 0: they read the scratch page)."""
+    q = torch.randn((b, t, heads, hd), generator=g, device=dev).to(torch.bfloat16)
+    shape = (pages, kv_heads, page, hd)
+    if kv == "int8":
+        pools = [torch.randint(-127, 128, shape, generator=g, device=dev, dtype=torch.int8)
+                 for _ in range(2)]
+        scales = [(torch.rand(shape[:3], generator=g, device=dev) + 0.5) / 127 for _ in range(2)]
+    else:
+        pools = [torch.randn(shape, generator=g, device=dev).to(torch.bfloat16) for _ in range(2)]
+        scales = []
+    ids = torch.randperm(pages - 1, generator=g, device=dev)[: b * maxp] + 1
+    table = ids.reshape(b, maxp).to(torch.int32)
+    if pos is None:
+        pos = torch.randint(0, maxp * page - t, (b,), generator=g, device=dev)
+    pos = torch.as_tensor(pos, device=dev).to(torch.int32)
+    if inactive_every:
+        table[1::inactive_every] = 0
+    return (q, *pools, table, pos, *scales)

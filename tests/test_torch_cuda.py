@@ -19,7 +19,11 @@ from outline_rag_tpu_torch.ops.topk import (
     topk_int8,
     topk_int8_plain,
 )
-from outline_rag_tpu_torch.testing import flash_errors, tie_aware_mismatches
+from outline_rag_tpu_torch.testing import (
+    flash_errors,
+    paged_attention_case,
+    tie_aware_mismatches,
+)
 
 pytestmark = pytest.mark.cuda
 torch.set_num_threads(1)
@@ -38,7 +42,8 @@ def test_kernel_library_builds(cuda):
     built = _build.build_library()
     assert built.path.exists()
     lib = _build.load_library()
-    for name in ("topk_int8_launch", "topk_float_launch", "flash_attention_launch"):
+    for name in ("topk_int8_launch", "topk_float_launch", "flash_attention_launch",
+                 "paged_attention_launch", "paged_kv_write_launch", "int8_linear_launch"):
         assert getattr(lib, name) is not None
 
 
@@ -209,3 +214,193 @@ def test_flash_kernel_refuses_bad_shapes(cuda):
                         v[..., :32].contiguous(), bias)  # D != 64
     with pytest.raises(ValueError):
         flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), bias)
+
+
+# ----------------------------------------------------------------------
+# the decoder's kernels: paged attention, the KV page write, w8a16 linear
+# ----------------------------------------------------------------------
+
+
+def _paged_case(dev, b, t, kv, seed, h=32, kvh=4, dh=64):
+    from outline_rag_tpu_torch.ops.paged_attention import paged_attention, paged_attention_plain
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    args = list(paged_attention_case(dev, g, b, t, "int8" if kv == "int8" else "bf16", heads=h,
+                                     kv_heads=kvh, hd=dh, pages=300,
+                                     inactive_every=7 if b > 2 else 0))
+    if kv == "f32":
+        args[:3] = [x.float() for x in args[:3]]
+    if b > 2:
+        args[4][2] = 0  # a row that sees a single slot
+    return tuple(args), paged_attention, paged_attention_plain
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8", "f32"])
+@pytest.mark.parametrize("b,t,dh", [(1, 1, 64), (8, 1, 64), (5, 3, 64), (1, 256, 64), (3, 40, 128)])
+def test_paged_attention_kernel_matches_plain(cuda, kv, b, t, dh):
+    """bf16: the flash bound's form (the kernel rounds p against a running
+    max over key tiles, the twin against the row max). int8 pool: f32
+    products, 1e-4 plus one bf16 ulp of the bf16 output. f32: 1e-5."""
+    args, kernel, plain = _paged_case(cuda, b, t, kv, seed=b * 1000 + t, dh=dh,
+                                      h=8 if dh == 128 else 32, kvh=2 if dh == 128 else 4)
+    before = kernel.launches
+    out = kernel(*args)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert torch.equal(out, kernel(*args))  # no dependence on block order
+    atol, ulps, rms = {"bf16": (2e-3, 2.0, 1e-2), "int8": (1e-4, 1.0, 1e-3),
+                       "f32": (1e-5, 0.0, 1e-5)}[kv]
+    errs = flash_errors(out, plain(*args), atol, ulps)
+    assert errs["worst_vs_bound"] <= 1.0 and errs["rel_rms_err"] <= rms, errs
+    assert bool(torch.isfinite(out.float()).all())
+
+
+def test_paged_attention_row_is_independent_of_batch_and_chunk(cuda):
+    """A position's output is bit-equal whether it is computed alone (T = 1),
+    inside a 64-token chunk, or beside other rows: what warm == cold needs."""
+    from outline_rag_tpu_torch.ops.paged_attention import paged_attention
+
+    args, *_ = _paged_case(cuda, 4, 64, "bf16", seed=9)
+    q, pk, pv, table, pos = args
+    pos = torch.tensor([100, 0, 700, 1500], device=cuda, dtype=torch.int32)
+    full = paged_attention(q, pk, pv, table, pos)
+    for r, t in ((0, 0), (2, 17), (3, 63)):
+        one = paged_attention(q[r : r + 1, t : t + 1].contiguous(), pk, pv,
+                              table[r : r + 1].contiguous(), pos[r : r + 1] + t)
+        assert torch.equal(one[0, 0], full[r, t])
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8", "f32"])
+@pytest.mark.parametrize("b,t,start", [(64, 1, None), (1, 256, 100), (2, 256, 1900), (3, 7, 125)])
+def test_paged_kv_write_kernel_matches_plain(cuda, kv, b, t, start):
+    from outline_rag_tpu_torch.ops.paged_attention import paged_kv_write, paged_kv_write_plain
+
+    g = torch.Generator(device=cuda).manual_seed(b + t)
+    dt = {"bf16": torch.bfloat16, "int8": torch.int8, "f32": torch.float32}[kv]
+    pages, kvh, page, dh, maxp = 1200, 4, 128, 64, 16
+
+    def draw(*shape):
+        return torch.randint(-127, 128, shape, generator=g, device=cuda).to(dt)
+
+    pools = [draw(pages, kvh, page, dh), draw(pages, kvh, page, dh)]
+    new = [draw(b, t, kvh, dh), draw(b, t, kvh, dh)]
+    table = (torch.randperm(pages - 1, generator=g, device=cuda)[: b * maxp] + 1).reshape(b, maxp)
+    table = table.to(torch.int32)
+    pos = (torch.randint(0, maxp * page - t, (b,), generator=g, device=cuda) if start is None
+           else torch.full((b,), start, device=cuda)).to(torch.int32)
+    scales = []
+    if kv == "int8":
+        scales = [torch.rand(s, generator=g, device=cuda)
+                  for s in ((pages, kvh, page), (pages, kvh, page), (b, t, kvh), (b, t, kvh))]
+    want = paged_kv_write_plain(*(p.clone() for p in pools), table, pos, *new,
+                                *(s.clone() for s in scales))
+    before = paged_kv_write.launches
+    got = paged_kv_write(*pools, table, pos, *new, *scales)
+    torch.cuda.synchronize()
+    assert paged_kv_write.launches == before + 1 and got[0] is pools[0]
+    assert len(got) == len(want)
+    for g_, w_ in zip(got, want):  # page 0 is garbage by contract
+        assert torch.equal(g_[1:], w_[1:])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,k,n", [(8, 2048, 2560), (64, 2048, 11264), (64, 5632, 2048),
+                                   (256, 2048, 32000), (24, 2064, 40)])
+def test_int8_linear_kernel_matches_plain(cuda, m, k, n, dtype):
+    """Products are exact in f32 in both; the sums run in another order:
+    f32 outputs within 1e-5 of the output's scale, bf16 within one ulp."""
+    from outline_rag_tpu_torch.ops.int8_linear import (
+        int8_linear, int8_linear_plain, quantize_linear_weight)
+
+    g = torch.Generator(device=cuda).manual_seed(m + n)
+    x = torch.randn((m, k), generator=g, device=cuda).to(dtype)
+    q, s = quantize_linear_weight(torch.randn((k, n), generator=g, device=cuda) * 0.02)
+    before = int8_linear.launches
+    out = int8_linear(x, q, s)
+    torch.cuda.synchronize()
+    assert int8_linear.launches == before + 1 and out.dtype == dtype
+    ref = int8_linear_plain(x, q, s)
+    errs = flash_errors(out, ref, 1e-5 * float(ref.abs().max()), 1.0 if dtype == torch.bfloat16 else 0.0)
+    assert errs["worst_vs_bound"] <= 1.0, errs
+    with pytest.raises(ValueError, match="K % 16"):
+        int8_linear(x[:, :24].contiguous(), q[:, :24].contiguous(), s)
+
+
+def test_w8a8_matmul_on_the_card_is_exact(cuda):
+    from outline_rag_tpu_torch.ops.int8_linear import quantize_linear_weight, w8a8_matmul
+
+    g = torch.Generator(device=cuda).manual_seed(1)
+    for m, k, n in ((5, 2048, 72), (64, 5632, 2048), (300, 64, 24)):
+        x = torch.randn((m, k), generator=g, device=cuda)
+        q, s = quantize_linear_weight(torch.randn((k, n), generator=g, device=cuda) * 0.02)
+        got = w8a8_matmul(x, q, s)
+        want = w8a8_matmul(x.cpu(), q.cpu(), s.cpu())
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-6, atol=1e-9)
+
+
+def _small_decoder(dev, dtype=torch.bfloat16):
+    from outline_rag_tpu_torch.models.decoder import DecoderConfig, init_decoder
+
+    cfg = DecoderConfig(vocab_size=512, hidden=256, layers=2, heads=4, kv_heads=2,
+                        intermediate=512, max_cache=512, dtype=dtype)
+    return cfg, init_decoder(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"])
+def test_decoder_forward_kernels_against_twins(cuda, kv_dtype, monkeypatch):
+    """One paged forward with the kernels and the same forward with the
+    plain twins patched in: bf16 logits within 2e-2 of logits of order 1."""
+    import outline_rag_tpu_torch.models.decoder as dec
+    from outline_rag_tpu_torch.ops.paged_attention import (
+        paged_attention, paged_attention_plain, paged_kv_write, paged_kv_write_plain)
+
+    cfg, params = _small_decoder(cuda)
+    toks = torch.randint(1, 512, (2, 40), generator=torch.Generator(device=cuda).manual_seed(1),
+                         device=cuda)
+    zero = torch.zeros(2, dtype=torch.int32, device=cuda)
+
+    def run():
+        cache = dec.init_paged_cache(cfg, 2, 9, 128, kv_dtype=kv_dtype, device=cuda)
+        cache.table[:] = torch.tensor([[3, 5, 1, 7], [2, 4, 6, 8]], device=cuda)
+        with torch.inference_mode():
+            return dec.decoder_forward(params, toks, cache, zero, cfg)[0]
+
+    a0, w0 = paged_attention.launches, paged_kv_write.launches
+    got = run()
+    assert (paged_attention.launches - a0, paged_kv_write.launches - w0) == (2, 2)
+    monkeypatch.setattr(dec, "paged_attention", paged_attention_plain)
+    monkeypatch.setattr(dec, "paged_kv_write", paged_kv_write_plain)
+    want = run()
+    assert float((got - want).abs().max()) <= 2e-2 * max(1.0, float(want.abs().max()))
+
+
+def test_batcher_on_the_card_warm_equals_cold_and_reclaims_pages(cuda):
+    from outline_rag_tpu_torch.serve.decode_batcher import DONE, DecodeBatcher
+
+    cfg, params = _small_decoder(cuda)
+    b = DecodeBatcher(params, cfg, slots=4, chunk_tokens=4, eos_id=0, kv_pages=17,
+                      page_size=128, device=cuda)
+
+    def collect(q):
+        out = []
+        while True:
+            item = q.get(timeout=120)
+            if item is DONE:
+                return out
+            if isinstance(item, Exception):
+                raise item
+            out.extend(item)
+
+    try:
+        prompt = [(7 * i) % 500 + 1 for i in range(300)]
+        cold = collect(b.submit(prompt, 0.0, 1.0, 12))
+        others = [b.submit([(11 * i + j) % 500 + 1 for i in range(150)], 0.9, 0.95, 12, seed=j + 1)
+                  for j in range(3)]
+        warm = collect(b.submit(prompt, 0.0, 1.0, 12))  # beside sampled neighbours
+        assert all(len(collect(q)) > 0 for q in others)
+        st = b.stats()
+    finally:
+        b.close()
+    assert warm == cold and len(cold) > 0
+    assert st["prefix_hits"] >= 2 and st["active"] == 0
+    assert st["pages_free"] + st["pages_cached"] == st["pages_total"]
