@@ -94,8 +94,8 @@ printing one JSON line; any failure raises and the exit code is non-zero:
            tail passes the row's capacity (it must land in page 0).
 10. kernel_int8_linear  ``int8_linear`` against ``int8_linear_plain`` at the
            decoder's projections, (M, K, N) = (64, 2048, 2560),
-           (64, 2048, 11264), (64, 5632, 2048), (64, 2048, 32000), and M = 8:
-           bf16 outputs within 1e-5 of the output's scale + 1 bf16 ulp (exact
+           (64, 2048, 11264), (64, 5632, 2048), (64, 2048, 32000), at M = 8, and at the
+           M = 256 of a prefill chunk on all four widths: bf16 outputs within 1e-5 of the output's scale + 1 bf16 ulp (exact
            products in both, f32 sums in another order). Times, the weight
            bytes a second, and one ``F.linear`` on a weight dequantized
            beforehand (it reads twice the bytes) as the library yardstick.
@@ -115,7 +115,11 @@ printing one JSON line; any failure raises and the exit code is non-zero:
            returns to the free list or the prefix cache. One prefill and one
            decode forward with the kernels against the same forwards with
            the plain twins patched in: the error's norm within 3e-2 of the
-           logits' (22 bf16 layers). ``decode_profile``: decode steps with all
+           logits' (22 bf16 layers). The burst's wall time, tokens a second
+           and time to first token come from that burst as served; a second
+           burst of new chats, read for nothing end to end, has the worker's
+           step and prefill programs wrapped in synchronized timers for the
+           ms a step and the prefill tokens a second. ``decode_profile``: decode steps with all
            64 rows live at lengths of 256-1,900 through ``generate_chunk``:
            ms a step, and under ``torch.profiler`` the device's busy share
            and its top kernels. Then the same with ``kv_int8=True``, and
@@ -527,15 +531,17 @@ def kernel_float_phase(torch, dev, seed: int) -> dict:
                 f"{dtype} index: each stored row is its own top match")
         del index, vecs
         torch.cuda.empty_cache()
-        # B = 32: the stored rows and the penalty read once; true-f32 FMAs,
-        # three products a pair in f32x2
+        # B = 32: the stored rows and the penalty read once; the operands are
+        # f32 in fp32 mode and bf16 (hi/lo pairs, three products a pair, in
+        # f32x2) otherwise, so each mode is held to its own type's peak
         row_bytes = {"fp32": 4, "bf16": 2, "f32x2": 4}[mode] * DIM
         products = 3 if mode == "f32x2" else 1
         out[mode] = {"max_abs_err": max_err, "ms": timed[32]["ms"],
                      "plain_ms": timed[32]["plain_ms"], "ms_b128": timed[128]["ms"],
                      "plain_ms_b128": timed[128]["plain_ms"],
                      **bound(N_ROWS * (row_bytes + 4) + 32 * row_bytes + 32 * 64 * 8,
-                             2 * products * 32 * N_ROWS * DIM, "f32")}
+                             2 * products * 32 * N_ROWS * DIM,
+                             "f32" if mode == "fp32" else "bf16")}
     return out
 
 
@@ -919,7 +925,9 @@ def kernel_int8_linear_phase(torch, dev, seed: int) -> dict:
 
     g = torch.Generator(device=dev).manual_seed(seed + 8)
     shapes = [(64, 2048, 2560), (64, 2048, 11264), (64, 5632, 2048), (64, 2048, 32000),
-              (8, 2048, 2560), (8, 2048, 32000)]
+              (8, 2048, 2560), (8, 2048, 32000),
+              # a 256-token prefill chunk at one row: M = 256 on all four widths
+              (256, 2048, 2560), (256, 2048, 11264), (256, 5632, 2048), (256, 2048, 32000)]
     out, max_err = {}, 0.0
     for m, k, n in shapes:
         x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
@@ -1126,35 +1134,17 @@ def decoder_phase(torch, dev, seed: int) -> dict:
         require(check["logits_rel_rms_vs_twins"] <= LOGITS_REL_RMS,
                 f"{name}: logits with the kernels within {LOGITS_REL_RMS} of the twins': {check}")
 
-        # time the two device programs where the worker runs them
-        steps, prefills = [], []
-        real_step, real_prefill = b._step_chunk, b._prefill_paged
+        def make_chats():
+            chats = []
+            for i in range(n_chats):
+                shared = i % 4 != 3  # 3 in 4 carry the system prefix
+                n = int(rng.integers(600, 1500)) if shared else int(rng.integers(200, 500))
+                messages = chat_messages(
+                    rng, system if shared else "", vocab, n - (520 if shared else 20))
+                chats.append((messages, 0.8 if i % 3 == 2 else 0.0))
+            return chats, [len(provider._encode_prompt(provider._render(m))) for m, _ in chats]
 
-        def timed_step(*a, _real=real_step, _b=b):
-            active = sum(r is not None for r in _b.active)
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            res = _real(*a)
-            torch.cuda.synchronize()
-            steps.append((active, (time.perf_counter() - t) / DEC_CHUNK))
-            return res
-
-        def timed_prefill(table, toks, start, _real=real_prefill):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            res = _real(table, toks, start)
-            torch.cuda.synchronize()
-            prefills.append(time.perf_counter() - t)
-            return res
-
-        b._step_chunk, b._prefill_paged = timed_step, timed_prefill
-        chats = []
-        for i in range(n_chats):
-            shared = i % 4 != 3  # 3 in 4 carry the system prefix
-            n = int(rng.integers(600, 1500)) if shared else int(rng.integers(200, 500))
-            messages = chat_messages(rng, system if shared else "", vocab, n - (520 if shared else 20))
-            chats.append((messages, 0.8 if i % 3 == 2 else 0.0))
-        prompt_tokens = [len(provider._encode_prompt(provider._render(m))) for m, _ in chats]
+        chats, prompt_tokens = make_chats()
 
         torch.cuda.reset_peak_memory_stats(dev)
         batcher_module.decoder_forward = counted_forward
@@ -1180,9 +1170,41 @@ def decoder_phase(torch, dev, seed: int) -> dict:
                     ids.extend(item)
                 pair.append(ids)
             end = provider.stats()
+            batcher_module.decoder_forward = real_forward
+
+            # a second burst of new chats, outside the counts and the end-to-end
+            # numbers, with the worker's two device programs timed where it
+            # runs them; the synchronize calls take away the overlap of host
+            # and device, so nothing end to end is read from this burst
+            steps, prefills = [], []
+            real_step, real_prefill = b._step_chunk, b._prefill_paged
+
+            def timed_step(*a, _real=real_step, _b=b):
+                active = sum(r is not None for r in _b.active)
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                res = _real(*a)
+                torch.cuda.synchronize()
+                steps.append((active, (time.perf_counter() - t) / DEC_CHUNK))
+                return res
+
+            def timed_prefill(table, toks, start, _real=real_prefill):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                res = _real(table, toks, start)
+                torch.cuda.synchronize()
+                prefills.append(time.perf_counter() - t)
+                return res
+
+            b._step_chunk, b._prefill_paged = timed_step, timed_prefill
+            timed_chats, timed_prompt_tokens = make_chats()
+            timed_answers, timed_wall_s = stream_burst(provider, timed_chats)
+            timed_hits = provider.stats()["prefix_hits"] - end["prefix_hits"]
         finally:
             batcher_module.decoder_forward = real_forward
             provider.close()
+        require(len(timed_answers) == n_chats and all(text for text, _, _ in timed_answers),
+                f"{name}: every stream of the timed burst ended and yielded text")
         require(len(answers) == n_chats and all(text and first is not None
                                                 for text, first, _ in answers),
                 f"{name}: every stream ended and yielded text")
@@ -1213,8 +1235,9 @@ def decoder_phase(torch, dev, seed: int) -> dict:
                "decode_step_ms": 1e3 * statistics.median(full),
                "decode_step_rows": max(a for a, _ in steps), "decode_chunks": len(steps),
                "prefill_chunks": len(prefills),
-               "prefill_tokens_per_s": (sum(prompt_tokens) - PAGE * stats["prefix_hits"])
+               "prefill_tokens_per_s": (sum(timed_prompt_tokens) - PAGE * timed_hits)
                / sum(prefills),
+               "timed_burst_wall_s": timed_wall_s,
                "forwards": n_forwards, "paged_attention_launches": launches[0],
                "paged_kv_write_launches": launches[1], "int8_linear_launches": launches[2],
                "prefix_hits": stats["prefix_hits"], "prefix_lookups": stats["prefix_lookups"],

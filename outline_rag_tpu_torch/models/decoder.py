@@ -212,7 +212,8 @@ def _mm(x: torch.Tensor, w, dt: torch.dtype) -> torch.Tensor:
         # per-row activation scales: a token's result never depends on its
         # neighbours, so prefill stays independent of chunk boundaries
         return w8a8_matmul(x.reshape(m, k), q, s).reshape(*lead, n).to(dt)
-    if m <= 256 and n % 8 == 0 and k % 16 == 0:
+    if m <= 256:
+        # a width the kernel cannot take raises there: never the plain product
         x2 = x.reshape(m, k)
         pad = (-m) % 8
         if pad:

@@ -326,6 +326,25 @@ def test_int8_linear_kernel_matches_plain(cuda, m, k, n, dtype):
         int8_linear(x[:, :24].contiguous(), q[:, :24].contiguous(), s)
 
 
+@pytest.mark.parametrize("k,n,what", [(64, 44, "N % 8"), (72, 48, "K % 16")])
+def test_kernel_mode_refuses_a_width_the_kernel_cannot_take(cuda, monkeypatch, k, n, what):
+    """``_mm`` in ``kernel`` mode on the card: an N or K the kernel cannot
+    take raises and launches nothing, it never gives way to the plain
+    product."""
+    import outline_rag_tpu_torch.models.decoder as dec
+    from outline_rag_tpu_torch.ops.int8_linear import int8_linear
+
+    monkeypatch.setattr(dec, "_INT8_MODE", "kernel")
+    g = torch.Generator(device=cuda).manual_seed(k + n)
+    w = {"q": torch.randint(-127, 128, (n, k), generator=g, device=cuda, dtype=torch.int8),
+         "s": torch.rand(n, generator=g, device=cuda) / 127}
+    x = torch.randn((2, 3, k), generator=g, device=cuda).bfloat16()
+    before = int8_linear.launches
+    with pytest.raises(ValueError, match=what):
+        dec._mm(x, w, torch.bfloat16)
+    assert int8_linear.launches == before
+
+
 def test_w8a8_matmul_on_the_card_is_exact(cuda):
     from outline_rag_tpu_torch.ops.int8_linear import quantize_linear_weight, w8a8_matmul
 

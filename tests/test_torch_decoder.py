@@ -183,6 +183,20 @@ def test_large_m_kernel_mode_dequantizes_then_multiplies(monkeypatch):
     np.testing.assert_allclose(tdec._mm(torch.from_numpy(x), w, torch.float32).numpy(), want, atol=1e-5)
 
 
+@pytest.mark.parametrize("n", [44, 250])
+def test_kernel_mode_refuses_a_width_the_kernel_cannot_take(monkeypatch, n):
+    """At M <= 256 ``kernel`` mode goes to ``int8_linear`` whatever the
+    widths are: an N that is no multiple of 8 raises, it never takes the
+    dequantize-then-matmul route behind the caller's back."""
+    monkeypatch.setattr(tdec, "_INT8_MODE", "kernel")
+    g = torch.Generator().manual_seed(n)
+    w = {"q": torch.randint(-127, 128, (n, 64), generator=g, dtype=torch.int8),
+         "s": torch.rand(n, generator=g) / 127}
+    x = torch.randn((2, 3, 64), generator=g)
+    with pytest.raises(ValueError, match="N % 8"):
+        tdec._mm(x, w, torch.float32)
+
+
 def test_paged_pool_is_updated_in_place_and_matches_jax_pool():
     jcfg, jparams = jax_model()
     cfg = decoder_config_from_jax(jcfg)
