@@ -125,7 +125,43 @@ printing one JSON line; any failure raises and the exit code is non-zero:
            and its top kernels. Then the same with ``kv_int8=True``, and
            a shorter burst (16 chats, 32 new tokens) with ``int8_weights=True``
            in ``DECODER_INT8_MODE=kernel`` (``int8_linear`` launches
-           4 x 22 + 1 times a forward).
+           4 x 22 + 1 times a forward). Then four more configurations:
+           ``int4_weights`` (``int4_weights=True``, ``DECODER_INT4_MODE=w4a8``,
+           32 slots so that a decode step has 32 rows and takes the kernel
+           under the JAX package's rule, 32 chats of the same mix, 64 new
+           tokens: ``w4a8_matmul`` launches 4 x 22 + 1 times a decode forward
+           and never in a prefill chunk; the logits of one 32-row step with
+           the int4 kernels equal to the same step with their twins bit for
+           bit, and with every twin within 5e-2 of the logits' norm: both
+           sides quantize the activations alike, and a flipped int8 rounding
+           carries the paged kernel's bf16 noise); ``int4_kernel`` (the first 8
+           of those chats in mode ``kernel``: ``w4a16_matmul`` counted alike,
+           its logits within 3e-2 of its twin's like the other bf16 kernels');
+           ``spec`` (bf16 weights, ``spec_k=3``, 8 slots, 8 chats, 64 new
+           tokens: ``paged_attention`` and ``paged_kv_write`` run on windows of
+           T = 4, ``spec_tokens_per_step >= 1``; printed without a gate: the
+           share of greedy chats whose text equals the ``spec_k=0`` run's,
+           since the dense products may take another algorithm at 32 rows
+           than at 8, and one ``force_accept=True`` chunk as the all-accepted
+           ceiling) and ``spec_int4`` (the same with int4 weights: the 8 x 4
+           window rows take the w4a8 kernel).
+12. kernel_int4  ``w4a8_matmul`` and ``w4a16_matmul`` (bf16 and f32) against
+           their twins at TinyLlama's five (K, N), at (4096, 22016) and
+           (11008, 4096), groups of 128, and at (2048, 2560) with groups of
+           256 and 512; M in {1, 8, 32, 64, 256}: within 1e-5 of the output's
+           scale + 1e-5 relative (exact integer group sums, or the same
+           decoded weights; f32 sums in another order), two runs bit-equal, a
+           row at M = 1 bit-equal to the same row inside M = 32. Times at
+           M = 32, with ``F.linear`` on a weight dequantized to bf16
+           beforehand (four times the bytes) as the library yardstick and the
+           grouped product of ``_mm_int4`` at M = 32, 64 and 128 beside them.
+13. kernel_int4_floor  ``int4_stream_floor`` against its twin (exact), then
+           the package's ``tools/bench_int4_kernel.py`` at those shapes:
+           floor / w4a16 / w4a8 / int8 side by side at M = 32.
+14. kernel_topk_floor  inside phase 5, on each mode's corpus: ``topk_floor``
+           against its twin (1e-5), ``nomerge`` bit-equal to the first column
+           of ``topk_float``'s values, then the package's
+           ``tools/bench_topk_kernel.py``: full / nomerge / matmul at B = 32.
 
 The last lines are the kernel summary (each kernel's time beside its bound:
 the larger of its bytes over 3.35 TB/s and its operations over the card's
@@ -140,7 +176,6 @@ import asyncio
 import json
 import os
 import statistics
-import subprocess
 import sys
 import time
 
@@ -164,6 +199,10 @@ DEC_SLOTS, DEC_CHUNK, DEC_NEW = 64, 16, 64
 # paged attention vs twin, per pool: (atol, bf16 ulps, error norm / output norm)
 PAGED_BOUNDS = {"bf16": (2e-3, 2.0, 1e-2), "int8": (1e-4, 1.0, 1e-3)}
 LOGITS_REL_RMS = 3e-2  # one forward, kernels vs twins, 22 bf16 layers
+# the same with int4 weights: w4a8 rounds the activations to int8 on both
+# sides, and a rounding flipped by the paged kernel's bf16 noise moves a logit
+# by a quantization step
+INT4_LOGITS_REL_RMS = 5e-2
 
 
 def bound(bytes_moved: float, ops: float, kind: str) -> dict:
@@ -183,29 +222,12 @@ def require(cond: bool, what: str) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
-def nvidia_smi() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip()
-
-
 def cuda_ms(torch, fn, runs: int = 10) -> float:
     """Median milliseconds of ``fn`` over ``runs`` CUDA-event timings,
-    after one warm-up call."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    after one warm-up call (the package's timer, shared with its tools)."""
+    from outline_rag_tpu_torch.tools.timing import cuda_ms as timed
+
+    return timed(fn, runs)
 
 
 def kernel_phase(torch, dev, seed: int) -> dict:
@@ -463,8 +485,12 @@ def kernel_float_phase(torch, dev, seed: int) -> dict:
     )
     from outline_rag_tpu_torch.testing import tie_aware_mismatches
 
+    from outline_rag_tpu_torch.ops.topk import topk_floor, topk_floor_plain
+    from outline_rag_tpu_torch.tools.bench_topk_kernel import bench_mode
+
     g = torch.Generator(device=dev).manual_seed(seed + 3)
     out = {}
+    floor_launches = 0  # counted over the tool's runs only
     for mode in FLOAT_MODES:
         # the corpus: seeded unit rows, N_DUPS copies of row src, 1% tombstones
         corpus = unit_rows(torch, N_ROWS, g, dev)
@@ -516,6 +542,28 @@ def kernel_float_phase(torch, dev, seed: int) -> dict:
                 row["plain_ms"] = cuda_ms(torch, lambda: topk_float_plain(*args))
                 timed[b] = row
             emit("kernel_float", **row)
+        # the floors on the same corpus: against their twins, nomerge against
+        # the full scan's best score, then the tool's timings (its launches
+        # are the ones counted)
+        q = float_storage(torch, unit_rows(torch, 32, g, dev), mode)
+        floor_err = 0.0
+        for variant in ("nomerge",) if mode == "f32x2" else ("nomerge", "matmul"):
+            got = topk_floor(q, corpus, mode, variant)
+            torch.cuda.synchronize()
+            floor_err = max(floor_err, float(
+                (got - topk_floor_plain(q, corpus, mode, variant)).abs().max()))
+        best, _ = topk_float(q, corpus, TOP_K, None, mode)
+        nomerge = topk_floor(q, corpus, mode)
+        floor_row = {"max_abs_err": floor_err,
+                     "nomerge_equals_scan_top": bool(torch.equal(nomerge, best[:, 0])),
+                     "plain_ms": cuda_ms(torch, lambda: topk_floor_plain(q, corpus, mode), runs=3)}
+        require(floor_err <= FLOAT_TOL, f"{mode}: topk_floor within {FLOAT_TOL} of its twin")
+        require(floor_row["nomerge_equals_scan_top"],
+                f"{mode}: the nomerge floor is bit-equal to the scan's best score")
+        topk_floor.launches = 0
+        floor_row.update(bench_mode(q, corpus, mode))
+        floor_launches += topk_floor.launches
+        emit("kernel_topk_floor", **floor_row)
         del corpus, penalty, few_live
         torch.cuda.empty_cache()
 
@@ -541,8 +589,13 @@ def kernel_float_phase(torch, dev, seed: int) -> dict:
                      "plain_ms_b128": timed[128]["plain_ms"],
                      **bound(N_ROWS * (row_bytes + 4) + 32 * row_bytes + 32 * 64 * 8,
                              2 * products * 32 * N_ROWS * DIM,
-                             "f32" if mode == "fp32" else "bf16")}
-    return out
+                             "f32" if mode == "fp32" else "bf16"),
+                     # the floor reads the rows and the queries and writes B maxima
+                     "floor": {**floor_row, **bound(N_ROWS * row_bytes + 32 * row_bytes + 32 * 4,
+                                                    2 * products * 32 * N_ROWS * DIM,
+                                                    "f32" if mode == "fp32" else "bf16")}}
+    require(floor_launches > 0, "the scan tool launched the topk_floor kernel")
+    return out, floor_launches
 
 
 def flash_phase(torch, dev, seed: int) -> dict:
@@ -827,7 +880,9 @@ def kernel_paged_phase(torch, dev, seed: int) -> dict:
     out = {}
     for kv in ("bf16", "int8"):
         atol, ulps, rel_rms = PAGED_BOUNDS[kv]
-        cases = [(1, 1, None), (8, 1, None), (64, 1, None), (1, 256, [0]), (1, 256, [512])]
+        # (8, 4): the verify window of speculative decoding at spec_k = 3
+        cases = [(1, 1, None), (8, 1, None), (64, 1, None), (8, 4, None), (1, 256, [0]),
+                 (1, 256, [512])]
         max_err = 0.0
         for b, t, pos in cases:
             args = paged_case(torch, dev, g, b, t, kv, pos)
@@ -876,7 +931,8 @@ def kernel_kv_write_phase(torch, dev, seed: int) -> dict:
 
         # (B, T, start): decode at 64 rows; a prefill chunk straddling pages; a
         # chunk whose tail passes the row's capacity (2,048) by 100 tokens
-        for b, t, start in ((DEC_SLOTS, 1, None), (1, 256, 100), (2, 256, MAXP * PAGE - 156)):
+        for b, t, start in ((DEC_SLOTS, 1, None), (8, 4, None), (1, 256, 100),
+                            (2, 256, MAXP * PAGE - 156)):
             pools = [draw(*shape), draw(*shape)]
             new = [draw(b, t, DEC_KV_HEADS, DEC_HD), draw(b, t, DEC_KV_HEADS, DEC_HD)]
             table = (torch.randperm(KV_PAGES - 1, generator=g, device=dev)[: b * MAXP] + 1)
@@ -951,6 +1007,133 @@ def kernel_int8_linear_phase(torch, dev, seed: int) -> dict:
     return {"max_abs_err": max_err, **out[(64, 11264)], "by_shape": {
         f"{m}x{k}x{n}": (out[(m, n)]["ms"], out[(m, n)]["plain_ms"], out[(m, n)]["library_ms"],
                          out[(m, n)]["bound_ms"]) for m, k, n in shapes}}
+
+
+INT4_SHAPES = [  # (K, N, group size): TinyLlama's projections, two 7B ones, wider groups
+    (2048, 2560, 128), (2048, 2048, 128), (2048, 11264, 128), (5632, 2048, 128),
+    (2048, 32000, 128), (4096, 22016, 128), (11008, 4096, 128),
+    (2048, 2560, 256), (2048, 2560, 512),
+]
+INT4_MS, INT4_TIMED_M = (1, 8, 32, 64, 256), 32
+INT4_TOL = 1e-5  # of the output's scale, plus as much relative
+
+
+def kernel_int4_phase(torch, dev, seed: int) -> dict:
+    import outline_rag_tpu_torch.models.decoder as decoder
+    import outline_rag_tpu_torch.ops.int4_linear as int4
+    from outline_rag_tpu_torch.testing import scaled_errors
+
+    g = torch.Generator(device=dev).manual_seed(seed + 12)
+    kernels = {
+        "w4a8": (lambda x, q4, s4: int4.w4a8_matmul(x.to(torch.bfloat16), q4, s4),
+                 lambda x, q4, s4: int4.w4a8_matmul_plain(x.to(torch.bfloat16), q4, s4)),
+        "w4a16_bf16": (lambda x, q4, s4: int4.w4a16_matmul(x.to(torch.bfloat16), q4, s4),
+                       lambda x, q4, s4: int4.w4a16_matmul_plain(x.to(torch.bfloat16), q4, s4)),
+        "w4a16_f32": (lambda x, q4, s4: int4.w4a16_matmul(x, q4, s4),
+                      lambda x, q4, s4: int4.w4a16_matmul_plain(x, q4, s4)),
+    }
+    out, max_err = {}, dict.fromkeys(kernels, 0.0)
+    for k, n, gsz in INT4_SHAPES:
+        w = torch.randn((k, n), generator=g, device=dev) * 0.02
+        q4, s4 = int4.quantize_int4_weight(w, gsz)
+        w_deq = int4._dequant(q4, s4, torch.bfloat16)  # the yardstick's weight, [N, K] bf16
+        del w
+        x = torch.randn((max(INT4_MS), k), generator=g, device=dev)
+        row = {"K": k, "N": n, "group_size": gsz}
+        for name, (kernel, twin) in kernels.items():
+            worst, at_32 = 0.0, None
+            for m in INT4_MS:
+                got = kernel(x[:m], q4, s4)
+                torch.cuda.synchronize()
+                errs = scaled_errors(got, twin(x[:m], q4, s4), INT4_TOL)
+                worst = max(worst, errs["worst_vs_bound"])
+                max_err[name] = max(max_err[name], errs["max_abs_err"])
+                require(errs["worst_vs_bound"] <= 1.0,
+                        f"{name} within {INT4_TOL} of scale + {INT4_TOL} relative of its twin at "
+                        f"M={m} {row}: {errs}")
+                require(bool(torch.equal(got, kernel(x[:m], q4, s4))),
+                        f"{name}: two runs are bit-equal at M={m} {row}")
+                at_32 = got if m == 32 else at_32
+            for r in (0, 31):
+                require(bool(torch.equal(kernel(x[r : r + 1], q4, s4)[0], at_32[r])),
+                        f"{name}: row {r} at M = 1 is bit-equal to itself inside M = 32 {row}")
+            row[f"{name}_worst_vs_bound"] = worst
+        # times at M = 32 (the wrappers as the decoder calls them), the plain
+        # twins, the library yardstick and the grouped product beside them
+        xb = x[:INT4_TIMED_M].to(torch.bfloat16)
+        m = INT4_TIMED_M
+        xq, _ = int4._quantize_activations(xb)
+        raw = torch.empty((m, n), dtype=torch.float32, device=dev)
+        launch = int4._launcher("w4a8")
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        row.update(
+            w4a8_ms=cuda_ms(torch, lambda: int4.w4a8_matmul(xb, q4, s4)),
+            # the kernel alone, its rows quantized beforehand (no count: not the wrapper)
+            w4a8_kernel_only_ms=cuda_ms(torch, lambda: launch(
+                xq.data_ptr(), q4.data_ptr(), s4.data_ptr(), raw.data_ptr(), m, n, k, gsz, stream)),
+            w4a8_plain_ms=cuda_ms(torch, lambda: int4.w4a8_matmul_plain(xb, q4, s4)),
+            w4a16_ms=cuda_ms(torch, lambda: int4.w4a16_matmul(xb, q4, s4)),
+            w4a16_plain_ms=cuda_ms(torch, lambda: int4.w4a16_matmul_plain(xb, q4, s4)),
+            library_ms=cuda_ms(torch, lambda: torch.nn.functional.linear(xb, w_deq)),
+        )
+        moved = n * k // 2 + s4.numel() * 4 + m * k * 2 + m * n * 4
+        row["w4a8_bound"] = bound(moved, 2 * m * n * k, "int8")
+        row["w4a16_bound"] = bound(moved, 2 * m * n * k, "bf16")
+        row["w4a8_weight_gb_per_s"] = n * k / 2 / row["w4a8_kernel_only_ms"] / 1e6
+        mode = decoder._INT4_MODE
+        decoder._INT4_MODE = "xla"  # the grouped product at every M
+        try:
+            for gm in (32, 64, 128):
+                xg = x[:gm].to(torch.bfloat16)
+                row[f"grouped_ms_m{gm}"] = cuda_ms(
+                    torch, lambda: decoder._mm_int4(xg, q4, s4, torch.bfloat16), runs=5)
+        finally:
+            decoder._INT4_MODE = mode
+        for gm in (64, 128):
+            xg = x[:gm].to(torch.bfloat16)
+            row[f"w4a8_ms_m{gm}"] = cuda_ms(torch, lambda: int4.w4a8_matmul(xg, q4, s4), runs=5)
+        emit("kernel_int4", **row)
+        out[(k, n, gsz)] = row
+        del q4, s4, w_deq, x
+        torch.cuda.empty_cache()
+    top = out[(2048, 11264, 128)]  # the gate/up projection, as for int8_linear
+    return {"max_abs_err": max_err, "top": top, "by_shape": {
+        f"{k}x{n}g{gsz}": {key: r[key] for key in (
+            "w4a8_ms", "w4a8_kernel_only_ms", "w4a16_ms", "library_ms", "grouped_ms_m32")}
+        for (k, n, gsz), r in out.items()}}
+
+
+def kernel_int4_floor_phase(torch, dev, seed: int) -> dict:
+    import outline_rag_tpu_torch.ops.int4_linear as int4
+    from outline_rag_tpu_torch.tools.bench_int4_kernel import bench_shape
+
+    g = torch.Generator(device=dev).manual_seed(seed + 13)
+    shapes = [(k, n) for k, n, gsz in INT4_SHAPES if gsz == 128]
+    plain_ms = {}
+    for k, n in shapes:
+        q4 = torch.randint(0, 256, (n, k // 2), generator=g, device=dev, dtype=torch.uint8)
+        x = torch.randn((INT4_TIMED_M, k), generator=g, device=dev).to(torch.bfloat16)
+        value, fold = int4.int4_stream_floor(x, q4)
+        torch.cuda.synchronize()
+        want_value, want_fold = int4.int4_stream_floor_plain(x, q4)
+        require(bool(torch.equal(value, want_value) and torch.equal(fold, want_fold)),
+                f"int4_stream_floor equals its twin exactly at K={k} N={n}")
+        plain_ms[(k, n)] = cuda_ms(torch, lambda: int4.int4_stream_floor_plain(x, q4), runs=5)
+    # the tool's run is the floor's main path: counted from here
+    int4.int4_stream_floor.launches = 0
+    out = {}
+    for k, n in shapes:
+        row = bench_shape(f"{k}x{n}", k, n, INT4_TIMED_M, dev)
+        row.update(floor_plain_ms=plain_ms[(k, n)],
+                   **bound(n * k // 2 + 2 + n * 8, 0, "int8"))  # q4, x[0, 0]; value and fold out
+        row["floor_share_of_memory_rate"] = row["bound_ms"] / row["floor_ms"]
+        emit("kernel_int4_floor", **row)
+        out[(k, n)] = row
+    launches = int4.int4_stream_floor.launches
+    require(launches > 0, "the int4 tool launched the int4_stream_floor kernel")
+    return {"launches": launches, **out[(2048, 11264)], "by_shape": {
+        f"{k}x{n}": (r["floor_ms"], r["w4a16_ms"], r["w4a8_ms"], r["int8_ms"])
+        for (k, n), r in out.items()}}
 
 
 def chat_messages(rng, system: str, vocab: list[str], n_tokens: int) -> list[dict]:
@@ -1028,21 +1211,99 @@ def logits_kernels_vs_twins(torch, dev, decoder, params, cfg, kv_dtype, seed: in
             "logits_max_abs": float(want[0].abs().max())}
 
 
-def decode_profile(torch, dev, decoder, params, cfg, kv_dtype, seed: int) -> dict:
-    """Decode steps with all DEC_SLOTS rows live at seeded lengths of
-    256-1,900 tokens (a full pool, every row its own 16 pages), through
+def int4_logits_check(torch, dev, decoder, params, cfg, seed: int) -> dict:
+    """One 32-row decode step at the model's full depth, after a short
+    prefill, three ways: as served; with the int4 kernels' plain twins
+    patched into the decoder module (the paged kernels kept); with every
+    twin patched in. The error's norm over the logits' norm."""
+    import outline_rag_tpu_torch.ops.int4_linear as int4
+    from outline_rag_tpu_torch.ops.paged_attention import (
+        paged_attention_plain,
+        paged_kv_write_plain,
+    )
+
+    rows = 32
+    g = torch.Generator(device=dev).manual_seed(seed)
+    toks = torch.randint(3, cfg.vocab_size, (rows, 8), generator=g, device=dev)
+    step = torch.randint(3, cfg.vocab_size, (rows, 1), generator=g, device=dev)
+    n = rows * (cfg.max_cache // PAGE)
+
+    def run(patches: dict):
+        cache = decoder.init_paged_cache(cfg, rows, n + 1, PAGE, device=dev)
+        cache.table[:] = (torch.arange(n, device=dev) * 7 % n + 1).reshape(rows, -1)
+        kept = {name: getattr(decoder, name) for name in patches}
+        for name, fn in patches.items():
+            setattr(decoder, name, fn)
+        try:
+            with torch.inference_mode():
+                decoder.decoder_forward(
+                    params, toks, cache, torch.zeros(rows, dtype=torch.int32, device=dev), cfg)
+                out, _ = decoder.decoder_forward(
+                    params, step, cache, torch.full((rows,), 8, dtype=torch.int32, device=dev), cfg)
+            return out
+        finally:
+            for name, fn in kept.items():
+                setattr(decoder, name, fn)
+
+    int4_twins = {"w4a8_matmul": int4.w4a8_matmul_plain, "w4a16_matmul": int4.w4a16_matmul_plain}
+    got = run({})
+    want = run(int4_twins)
+    every = run({**int4_twins, "paged_attention": paged_attention_plain,
+                 "paged_kv_write": paged_kv_write_plain})
+    require(bool(torch.isfinite(got).all()) and got.shape[-1] == cfg.vocab_size,
+            "finite logits over the vocabulary")
+    return {"logits_rel_rms_vs_int4_twins": float((got - want).norm() / want.norm()),
+            "logits_rel_rms_vs_twins": float((got - every).norm() / every.norm()),
+            "logits_bit_equal_vs_int4_twins": bool(torch.equal(got, want)),
+            "logits_max_abs": float(want.abs().max())}
+
+
+def spec_ceiling(torch, dev, decoder, params, cfg, seed: int) -> dict:
+    """The all-accepted ceiling of speculative decoding: one chunk of
+    ``generate_chunk_spec(force_accept=True)`` over 8 live rows at seeded
+    lengths, every verify step emitting 1 + spec_k tokens whatever the model
+    says. It changes the text and never serves; it says what a verify step
+    would yield if every draft were right."""
+    slots, spec_k = 8, 3
+    g = torch.Generator(device=dev).manual_seed(seed)
+    cache = decoder.init_paged_cache(cfg, slots, slots * MAXP + 1, PAGE, device=dev)
+    cache.table[:] = (torch.randperm(slots * MAXP, generator=g, device=dev) + 1).reshape(slots, MAXP)
+    pos = torch.randint(256, 1500, (slots,), generator=g, device=dev).to(torch.int32)
+    tok = torch.randint(3, cfg.vocab_size, (slots,), generator=g, device=dev).to(torch.int32)
+    buf = torch.randint(3, cfg.vocab_size, (slots, cfg.max_cache), generator=g, device=dev).to(
+        torch.int32)
+
+    def chunk():
+        return decoder.generate_chunk_spec(
+            params, cache, buf, tok, pos, decoder.make_key(seed, dev), cfg, n_steps=DEC_CHUNK,
+            draft_k=spec_k, temperature=0.0, top_p=1.0, eos_id=-1, force_accept=True)
+
+    with torch.inference_mode():
+        ms = cuda_ms(torch, chunk, runs=3)
+        counts = chunk()[1]
+    per_step = float(counts.float().mean()) / DEC_CHUNK
+    require(per_step == spec_k + 1, f"force_accept emits {spec_k + 1} tokens a step: {per_step}")
+    return {"label": "force_accept ceiling, not served", "slots": slots, "spec_k": spec_k,
+            "verify_step_ms": ms / DEC_CHUNK, "tokens_per_step": per_step,
+            "ceiling_tokens_per_s": slots * per_step / (ms / DEC_CHUNK) * 1e3}
+
+
+def decode_profile(torch, dev, decoder, params, cfg, kv_dtype, seed: int,
+                   slots: int = DEC_SLOTS) -> dict:
+    """Decode steps with all ``slots`` rows live at seeded lengths of
+    256-1,900 tokens (every row its own 16 pages), through
     ``generate_chunk``: milliseconds a step from CUDA events over one chunk,
     then one chunk under ``torch.profiler`` for the device's busy share, the
     launches a step and the kernels that take the device's time."""
     from torch.profiler import ProfilerActivity, profile
 
     g = torch.Generator(device=dev).manual_seed(seed)
-    cache = decoder.init_paged_cache(cfg, DEC_SLOTS, KV_PAGES, PAGE, kv_dtype=kv_dtype, device=dev)
-    cache.table[:] = (torch.randperm(KV_PAGES - 1, generator=g, device=dev) + 1).reshape(
-        DEC_SLOTS, MAXP)
-    pos = torch.randint(256, 1900, (DEC_SLOTS,), generator=g, device=dev).to(torch.int32)
-    tok = torch.randint(3, cfg.vocab_size, (DEC_SLOTS,), generator=g, device=dev).to(torch.int32)
-    temp = torch.where(torch.arange(DEC_SLOTS, device=dev) % 3 == 2, 0.8, 0.0)
+    cache = decoder.init_paged_cache(cfg, slots, KV_PAGES, PAGE, kv_dtype=kv_dtype, device=dev)
+    cache.table[:] = (torch.randperm(KV_PAGES - 1, generator=g, device=dev)[: slots * MAXP]
+                      + 1).reshape(slots, MAXP)
+    pos = torch.randint(256, 1900, (slots,), generator=g, device=dev).to(torch.int32)
+    tok = torch.randint(3, cfg.vocab_size, (slots,), generator=g, device=dev).to(torch.int32)
+    temp = torch.where(torch.arange(slots, device=dev) % 3 == 2, 0.8, 0.0)
     key = decoder.make_key(seed, dev)
 
     def chunk():
@@ -1077,18 +1338,22 @@ def decode_profile(torch, dev, decoder, params, cfg, kv_dtype, seed: int) -> dic
 
 
 def decoder_phase(torch, dev, seed: int) -> dict:
-    """The slice: 64 concurrent chats at TinyLlama-1.1B width through the
-    paged pool, in three configurations."""
+    """The slice: concurrent chats at TinyLlama-1.1B width through the paged
+    pool, in seven configurations: bf16, an int8 pool and int8 weights at 64
+    slots; int4 weights through the w4a8 and the w4a16 kernel at 32 slots;
+    speculative decoding with bf16 and with int4 weights at 8 slots."""
     import numpy as np
 
     import outline_rag_tpu_torch.models.decoder as decoder
     import outline_rag_tpu_torch.serve.decode_batcher as batcher_module
+    from outline_rag_tpu_torch.ops.int4_linear import w4a8_matmul, w4a16_matmul
     from outline_rag_tpu_torch.ops.int8_linear import int8_linear
     from outline_rag_tpu_torch.ops.paged_attention import paged_attention, paged_kv_write
     from outline_rag_tpu_torch.serve import DONE, LocalChatProvider
     from outline_rag_tpu_torch.testing import ByteTokenizer
 
     require(decoder._INT8_MODE == "kernel", "DECODER_INT8_MODE=kernel was read at import")
+    require(decoder._INT4_MODE == "w4a8", "DECODER_INT4_MODE=w4a8 was read at import")
     cfg = decoder.DecoderConfig.tinyllama_1b()
     t0 = time.perf_counter()
     params = decoder.init_decoder(cfg, torch.Generator(device=dev).manual_seed(seed + 9), dev)
@@ -1113,26 +1378,58 @@ def decoder_phase(torch, dev, seed: int) -> dict:
     vocab = [f"w{i}" for i in rng.permutation(20_000)[:5000]]
     system = " ".join(rng.choice(vocab, 200))[:504]  # "system: " + 504 bytes = 4 full pages
 
-    forwards = [0]
+    # forwards by rows fed (B * T): the batcher's name serves prefill chunks
+    # and plain steps, the decoder module's the speculative verify windows
+    forwards: dict[int, int] = {}
     real_forward = batcher_module.decoder_forward
 
-    def counted_forward(*args, **kwargs):
-        forwards[0] += 1
-        return real_forward(*args, **kwargs)
+    def counted_forward(p, tokens, *args, **kwargs):
+        forwards[tokens.numel()] = forwards.get(tokens.numel(), 0) + 1
+        return real_forward(p, tokens, *args, **kwargs)
 
-    configs = [("bf16", {}, DEC_SLOTS, DEC_NEW), ("kv_int8", {"kv_int8": True}, DEC_SLOTS, DEC_NEW),
-               ("int8_weights", {"int8_weights": True}, 16, 32)]
+    def patch_forward(fn):
+        batcher_module.decoder_forward = decoder.decoder_forward = fn
+
+    # (name, provider options, slots, chats, new tokens, DECODER_INT4_MODE)
+    configs = [("bf16", {}, DEC_SLOTS, DEC_SLOTS, DEC_NEW, "w4a8"),
+               ("kv_int8", {"kv_int8": True}, DEC_SLOTS, DEC_SLOTS, DEC_NEW, "w4a8"),
+               ("int8_weights", {"int8_weights": True}, DEC_SLOTS, 16, 32, "w4a8"),
+               ("int4_weights", {"int4_weights": True}, 32, 32, DEC_NEW, "w4a8"),
+               ("int4_kernel", {"int4_weights": True}, 32, 8, DEC_NEW, "kernel"),
+               ("spec", {"spec_k": 3}, 8, 8, DEC_NEW, "w4a8"),
+               ("spec_int4", {"spec_k": 3, "int4_weights": True}, 8, 8, DEC_NEW, "w4a8")]
     out = {}
-    for name, kw, n_chats, max_new in configs:
+    shared_rng = rng  # the first three configurations draw their chats from one stream
+    # each later pair serves the same chats (a burst of 8 is the first 8 of 32)
+    pair_seed = {"int4_weights": 20, "int4_kernel": 20, "spec": 21, "spec_int4": 21}
+    for name, kw, slots, n_chats, max_new, int4_mode in configs:
+        # the mode is a module attribute read at import; switching it here is
+        # what the CPU tests do (monkeypatch), undone at the end of the config
+        decoder._INT4_MODE = int4_mode
+        int4, spec_k = "int4_weights" in kw, kw.get("spec_k", 0)
+        rows_fed = slots * (1 + spec_k)  # what one decode forward feeds
+        rng = (np.random.default_rng(seed + pair_seed[name]) if name in pair_seed
+               else shared_rng)
         provider = LocalChatProvider(
-            params, cfg, tok, batch_slots=DEC_SLOTS, kv_pages=KV_PAGES, page_size=PAGE,
+            params, cfg, tok, batch_slots=slots, kv_pages=KV_PAGES, page_size=PAGE,
             chunk_tokens=DEC_CHUNK, max_new_tokens=max_new, device=dev, **kw)
         b = provider._batcher
-        check = logits_kernels_vs_twins(
-            torch, dev, decoder, provider.params, cfg, "int8" if kw.get("kv_int8") else None,
-            seed + 10)
-        require(check["logits_rel_rms_vs_twins"] <= LOGITS_REL_RMS,
-                f"{name}: logits with the kernels within {LOGITS_REL_RMS} of the twins': {check}")
+        if int4:
+            check = int4_logits_check(torch, dev, decoder, provider.params, cfg, seed + 10)
+            # w4a8 is bit-equal to its twin (exact integers, one f32 order); the
+            # w4a16 kernel's f32 sums run in another order, which flips bf16
+            # roundings through 22 layers like the other bf16 kernels'
+            int4_bound = 0.0 if int4_mode == "w4a8" else LOGITS_REL_RMS
+            require(check["logits_rel_rms_vs_int4_twins"] <= int4_bound
+                    and check["logits_rel_rms_vs_twins"] <= INT4_LOGITS_REL_RMS,
+                    f"{name}: logits with the int4 kernels within {int4_bound} of their twins', "
+                    f"within {INT4_LOGITS_REL_RMS} with every twin: {check}")
+        else:
+            check = logits_kernels_vs_twins(
+                torch, dev, decoder, provider.params, cfg, "int8" if kw.get("kv_int8") else None,
+                seed + 10)
+            require(check["logits_rel_rms_vs_twins"] <= LOGITS_REL_RMS,
+                    f"{name}: logits with the kernels within {LOGITS_REL_RMS} of the twins': {check}")
 
         def make_chats():
             chats = []
@@ -1145,17 +1442,35 @@ def decoder_phase(torch, dev, seed: int) -> dict:
             return chats, [len(provider._encode_prompt(provider._render(m))) for m, _ in chats]
 
         chats, prompt_tokens = make_chats()
+        same_as_plain = None
+        if spec_k:
+            # the same chats without speculation, for the share of greedy
+            # texts that come out equal (printed, not gated)
+            plain = LocalChatProvider(
+                params, cfg, tok, batch_slots=slots, kv_pages=KV_PAGES, page_size=PAGE,
+                chunk_tokens=DEC_CHUNK, max_new_tokens=max_new, device=dev,
+                **{k: v for k, v in kw.items() if k != "spec_k"})
+            try:
+                plain_answers, _ = stream_burst(plain, chats)
+            finally:
+                plain.close()
+            del plain
+            torch.cuda.empty_cache()
 
         torch.cuda.reset_peak_memory_stats(dev)
-        batcher_module.decoder_forward = counted_forward
-        forwards[0] = 0
+        patch_forward(counted_forward)
+        forwards.clear()
         paged_attention.launches = paged_kv_write.launches = int8_linear.launches = 0
+        w4a8_matmul.launches = w4a16_matmul.launches = 0
         tok.lengths.clear()
         try:
             answers, wall_s = stream_burst(provider, chats)
             generated = sum(tok.lengths.values())
-            launches = (paged_attention.launches, paged_kv_write.launches, int8_linear.launches)
-            n_forwards = forwards[0]
+            launches = (paged_attention.launches, paged_kv_write.launches, int8_linear.launches,
+                        w4a8_matmul.launches, w4a16_matmul.launches)
+            by_rows = dict(forwards)
+            n_forwards = sum(by_rows.values())
+            decode_forwards = by_rows.get(rows_fed, 0)
             stats = provider.stats()
             # after the burst: the first greedy chat again (its prefix pages are
             # cached now, its neighbours gone), and one prompt twice over
@@ -1170,14 +1485,15 @@ def decoder_phase(torch, dev, seed: int) -> dict:
                     ids.extend(item)
                 pair.append(ids)
             end = provider.stats()
-            batcher_module.decoder_forward = real_forward
+            patch_forward(real_forward)
 
             # a second burst of new chats, outside the counts and the end-to-end
             # numbers, with the worker's two device programs timed where it
             # runs them; the synchronize calls take away the overlap of host
             # and device, so nothing end to end is read from this burst
             steps, prefills = [], []
-            real_step, real_prefill = b._step_chunk, b._prefill_paged
+            step_name = "_step_spec" if spec_k else "_step_chunk"
+            real_step, real_prefill = getattr(b, step_name), b._prefill_paged
 
             def timed_step(*a, _real=real_step, _b=b):
                 active = sum(r is not None for r in _b.active)
@@ -1196,12 +1512,14 @@ def decoder_phase(torch, dev, seed: int) -> dict:
                 prefills.append(time.perf_counter() - t)
                 return res
 
-            b._step_chunk, b._prefill_paged = timed_step, timed_prefill
+            setattr(b, step_name, timed_step)
+            b._prefill_paged = timed_prefill
             timed_chats, timed_prompt_tokens = make_chats()
             timed_answers, timed_wall_s = stream_burst(provider, timed_chats)
             timed_hits = provider.stats()["prefix_hits"] - end["prefix_hits"]
         finally:
-            batcher_module.decoder_forward = real_forward
+            patch_forward(real_forward)
+            decoder._INT4_MODE = "w4a8"
             provider.close()
         require(len(timed_answers) == n_chats and all(text for text, _, _ in timed_answers),
                 f"{name}: every stream of the timed burst ended and yielded text")
@@ -1211,9 +1529,24 @@ def decoder_phase(torch, dev, seed: int) -> dict:
         require(launches[0] == launches[1] == cfg.layers * n_forwards and n_forwards > 0,
                 f"{name}: paged_attention and paged_kv_write ran {cfg.layers} times in each of "
                 f"{n_forwards} forwards: {launches}")
-        per_forward = 4 * cfg.layers + 1 if "int8_weights" in kw else 0
-        require(launches[2] == per_forward * n_forwards,
+        per_forward = 4 * cfg.layers + 1
+        require(launches[2] == (per_forward * n_forwards if "int8_weights" in kw else 0),
                 f"{name}: int8_linear ran {per_forward} times a forward: {launches[2]}")
+        # int4: the kernel in every projection of every decode forward (32 rows
+        # fed), never in a prefill chunk (256 rows: the grouped product)
+        want_int4 = per_forward * decode_forwards if int4 else 0
+        want = (want_int4, 0) if int4_mode == "w4a8" else (0, want_int4)
+        require(launches[3:] == want and (decode_forwards > 0 or not (int4 or spec_k)),
+                f"{name}: the int4 kernels ran {per_forward} times in each of {decode_forwards} "
+                f"decode forwards and in no prefill chunk: {launches[3:]}, forwards {by_rows}")
+        if spec_k:
+            require(set(by_rows) <= {rows_fed, 256} and decode_forwards > 0,
+                    f"{name}: every decode forward was a verify window of T = {1 + spec_k}: "
+                    f"{by_rows}")
+            require(end["spec_tokens_per_step"] is not None and end["spec_tokens_per_step"] >= 1.0,
+                    f"{name}: spec_tokens_per_step >= 1: {end}")
+            greedy = [i for i, (_, temperature) in enumerate(chats) if temperature == 0.0]
+            same_as_plain = sum(answers[i][0] == plain_answers[i][0] for i in greedy) / len(greedy)
         require(stats["prefix_hits"] > 0, f"{name}: the shared system prefix hit the cache")
         require(repeat[0][0] == answers[0][0], f"{name}: a warm repeat equals the cold answer")
         require(pair[0] == pair[1] and len(pair[0]) > 0,
@@ -1226,7 +1559,8 @@ def decoder_phase(torch, dev, seed: int) -> dict:
         firsts = sorted(first for _, first, _ in answers)
         full = [ms for active, ms in steps if active == max(a for a, _ in steps)]
         out_chars = sum(len(text) for text, _, _ in answers)
-        row = {"config": name, "chats": n_chats, "slots": DEC_SLOTS, "max_new_tokens": max_new,
+        row = {"config": name, "chats": n_chats, "slots": slots, "max_new_tokens": max_new,
+               "int4_mode": int4_mode if int4 else None, "spec_k": spec_k,
                "prompt_tokens": sum(prompt_tokens), "wall_s": wall_s,
                "ttft_p50_ms": 1e3 * firsts[len(firsts) // 2],
                "ttft_p95_ms": 1e3 * firsts[min(len(firsts) - 1, int(0.95 * len(firsts)))],
@@ -1240,6 +1574,10 @@ def decoder_phase(torch, dev, seed: int) -> dict:
                "timed_burst_wall_s": timed_wall_s,
                "forwards": n_forwards, "paged_attention_launches": launches[0],
                "paged_kv_write_launches": launches[1], "int8_linear_launches": launches[2],
+               "w4a8_launches": launches[3], "w4a16_launches": launches[4],
+               "decode_forwards": decode_forwards, "forwards_by_rows_fed": by_rows,
+               "spec_tokens_per_step": end.get("spec_tokens_per_step"),
+               "greedy_texts_equal_to_plain_share": same_as_plain,
                "prefix_hits": stats["prefix_hits"], "prefix_lookups": stats["prefix_lookups"],
                "backpressure_waits": stats["backpressure_waits"],
                "pages_cached_at_end": end["pages_cached"], "kv_dtype": stats["kv_dtype"],
@@ -1249,8 +1587,18 @@ def decoder_phase(torch, dev, seed: int) -> dict:
         run_params = provider.params
         del provider, b, real_step, real_prefill, timed_step, timed_prefill  # frees the pool
         torch.cuda.empty_cache()
-        emit("decode_profile", config=name, slots=DEC_SLOTS, **decode_profile(
-            torch, dev, decoder, run_params, cfg, "int8" if kw.get("kv_int8") else None, seed + 11))
+        decoder._INT4_MODE = int4_mode
+        try:
+            if spec_k:
+                if not int4:
+                    emit("spec_ceiling", config=name,
+                         **spec_ceiling(torch, dev, decoder, run_params, cfg, seed + 11))
+            else:
+                emit("decode_profile", config=name, slots=slots, **decode_profile(
+                    torch, dev, decoder, run_params, cfg, "int8" if kw.get("kv_int8") else None,
+                    seed + 11, slots))
+        finally:
+            decoder._INT4_MODE = "w4a8"
         del run_params
         torch.cuda.empty_cache()
     return out
@@ -1263,6 +1611,7 @@ def main() -> int:
 
     # the decoder reads its int8 strategy once, at import: the w8a16 kernel
     os.environ["DECODER_INT8_MODE"] = "kernel"
+    os.environ["DECODER_INT4_MODE"] = "w4a8"  # and its int4 strategy (the default)
     import torch
 
     if not torch.cuda.is_available():
@@ -1274,7 +1623,9 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = resolve_device("cuda")
-    smi = nvidia_smi()
+    from outline_rag_tpu_torch.tools.timing import card
+
+    smi = card()
     emit("env", python=sys.version.split()[0], torch=torch.__version__,
          cuda=torch.version.cuda, device=torch.cuda.get_device_name(dev),
          device_count=torch.cuda.device_count(), nvidia_smi=smi,
@@ -1289,7 +1640,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches = slice_phase(torch, dev, args.seed)
     torch.cuda.empty_cache()
-    floats = kernel_float_phase(torch, dev, args.seed)
+    floats, scan_floor_launches = kernel_float_phase(torch, dev, args.seed)
     flash = flash_phase(torch, dev, args.seed)
     torch.cuda.empty_cache()
     long = long_phase(torch, dev, args.seed)
@@ -1298,12 +1649,19 @@ def main() -> int:
     kv_write = kernel_kv_write_phase(torch, dev, args.seed)
     linear = kernel_int8_linear_phase(torch, dev, args.seed)
     torch.cuda.empty_cache()
+    int4 = kernel_int4_phase(torch, dev, args.seed)
+    int4_floor = kernel_int4_floor_phase(torch, dev, args.seed)
+    torch.cuda.empty_cache()
     chat = decoder_phase(torch, dev, args.seed)
 
     # ms / plain_ms / bound_ms: topk_* at B = 32, K = 64 (topk_float in the
     # f32x2 mode the path runs; every mode under "modes"); flash_attention at
     # S = 8192; paged_attention and paged_kv_write at B = 64, T = 1 on a bf16
-    # pool; int8_linear at the gate/up projection, M = 64. library_ms: one
+    # pool; int8_linear at the gate/up projection, M = 64; w4a8_matmul,
+    # w4a16_matmul (bf16) and int4_stream_floor at the gate/up projection,
+    # M = 32 (launches: the int4_weights and int4_kernel bursts, and the int4
+    # tool's run); topk_floor in its f32x2 nomerge variant at B = 32
+    # (launches: the scan tool's runs over the three modes). library_ms: one
     # PyTorch call computing the same function, where there is one (no single
     # call scans with a penalty and selects, walks a page table, or scatters
     # by one); launches: the count over that kernel's main-path run.
@@ -1360,6 +1718,42 @@ def main() -> int:
         "ms": linear["ms"], "plain_ms": linear["plain_ms"],
         "bound_ms": linear["bound_ms"], "bound_by": linear["bound_by"],
         "library_ms": linear["library_ms"], "by_shape": linear["by_shape"],
+    }, {
+        "name": "w4a8_matmul", "route": "cuda",
+        "source": "outline_rag_tpu_torch/csrc/int4_linear.cu",
+        "replaces": "outline_rag_tpu/ops/int4_linear.py:203",
+        "launches": chat["int4_weights"]["w4a8_launches"],
+        "max_abs_err": int4["max_abs_err"]["w4a8"],
+        "ms": int4["top"]["w4a8_ms"], "plain_ms": int4["top"]["w4a8_plain_ms"],
+        **int4["top"]["w4a8_bound"], "library_ms": int4["top"]["library_ms"],
+        "kernel_only_ms": int4["top"]["w4a8_kernel_only_ms"], "by_shape": int4["by_shape"],
+        "launches_with_speculation": chat["spec_int4"]["w4a8_launches"],
+    }, {
+        "name": "w4a16_matmul", "route": "cuda",
+        "source": "outline_rag_tpu_torch/csrc/int4_linear.cu",
+        "replaces": "outline_rag_tpu/ops/int4_linear.py:409",
+        "launches": chat["int4_kernel"]["w4a16_launches"],
+        "max_abs_err": max(int4["max_abs_err"]["w4a16_bf16"], int4["max_abs_err"]["w4a16_f32"]),
+        "ms": int4["top"]["w4a16_ms"], "plain_ms": int4["top"]["w4a16_plain_ms"],
+        **int4["top"]["w4a16_bound"], "library_ms": int4["top"]["library_ms"],
+    }, {
+        "name": "int4_stream_floor", "route": "cuda",
+        "source": "outline_rag_tpu_torch/csrc/int4_linear.cu",
+        "replaces": "tools/bench_int4_kernel.py:85",
+        "launches": int4_floor["launches"], "max_abs_err": 0.0,
+        "ms": int4_floor["floor_ms"], "plain_ms": int4_floor["floor_plain_ms"],
+        "bound_ms": int4_floor["bound_ms"], "bound_by": int4_floor["bound_by"],
+        "library_ms": None, "by_shape": int4_floor["by_shape"],
+    }, {
+        "name": "topk_floor", "route": "cuda",
+        "source": "outline_rag_tpu_torch/csrc/topk_floor.cu",
+        "replaces": "tools/bench_topk_kernel.py:117",
+        "launches": scan_floor_launches,
+        "max_abs_err": max(m["floor"]["max_abs_err"] for m in floats.values()),
+        "ms": floats["f32x2"]["floor"]["nomerge_ms"], "plain_ms": floats["f32x2"]["floor"]["plain_ms"],
+        "bound_ms": floats["f32x2"]["floor"]["bound_ms"],
+        "bound_by": floats["f32x2"]["floor"]["bound_by"], "library_ms": None,
+        "modes": {mode: m["floor"] for mode, m in floats.items()},
     }]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

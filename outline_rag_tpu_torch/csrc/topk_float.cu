@@ -37,7 +37,8 @@
 // Design (the two passes of topk_int8.cu, simple first; wgmma, TMA and a
 // fused single pass are later work):
 //   pass 1 (scan_kernel): a block owns 32 queries and a contiguous chunk of
-//     rows, walked in 128-row tiles. For each 32-dimension step, coalesced
+//     rows, walked in 128-row tiles (the score pass is topk_float_tile.cuh,
+//     shared with topk_floor.cu). For each 32-dimension step, coalesced
 //     16-byte loads stage a [32 queries][32] and a [128 rows][32] slab in
 //     shared memory as f32 (bf16 widens exactly); each of the 256 threads
 //     forms a 4-row x 4-query block of dots with fmaf, in d order. Every
@@ -49,62 +50,9 @@
 //     chunks' lists; it writes [B, K] or, for cmajor, [K, B].
 // Row offsets are 64-bit.
 
-#include "topk_common.cuh"
-
-#include <cuda_bf16.h>
+#include "topk_float_tile.cuh"
 
 namespace {
-
-constexpr int TB = 32;         // queries per pass-1 block
-constexpr int TN = 128;        // rows per pass-1 tile
-constexpr int DC = 32;         // dimensions staged per step
-constexpr int CW = DC + 4;     // floats per staged row; the 4 padding floats
-                               // make the 16-byte shared reads conflict-free
-constexpr int THREADS = SEL_THREADS;
-
-enum Mode { FP32 = 0, BF16 = 1, F32X2 = 2 };
-
-// Elements per 16-byte load, and their widening to f32.
-template <typename T> struct Chunk;
-template <> struct Chunk<float> {
-  static constexpr int N = 4;
-  __device__ static void widen(const float* src, float* dst) {
-    *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(src);
-  }
-};
-template <> struct Chunk<__nv_bfloat16> {
-  static constexpr int N = 8;
-  __device__ static void widen(const __nv_bfloat16* src, float* dst) {
-    const uint4 u = *reinterpret_cast<const uint4*>(src);
-    const unsigned w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {  // little-endian: element 2j is the low half
-      dst[2 * j] = __uint_as_float(w[j] << 16);
-      dst[2 * j + 1] = __uint_as_float(w[j] & 0xffff0000u);
-    }
-  }
-};
-
-// rows [first, first + rows) of `src` (row stride `stride` elements),
-// columns [col, col + DC), widened into dst[rows][CW]; rows at or past `end`
-// are zero.
-template <typename T>
-__device__ __forceinline__ void stage(const T* __restrict__ src,
-                                      long long stride, long long first,
-                                      long long end, int rows, int col,
-                                      float* dst) {
-  constexpr int E = Chunk<T>::N, PER_ROW = DC / E;
-  for (int v = threadIdx.x; v < rows * PER_ROW; v += THREADS) {
-    const int r = v / PER_ROW, c = (v % PER_ROW) * E;
-    float* out = dst + r * CW + c;
-    if (first + r < end) {
-      Chunk<T>::widen(src + (first + r) * stride + col + c, out);
-    } else {
-#pragma unroll
-      for (int j = 0; j < E; ++j) out[j] = 0.f;
-    }
-  }
-}
 
 template <typename T, bool COMP>
 __global__ void __launch_bounds__(THREADS)
@@ -135,67 +83,8 @@ scan_kernel(const T* __restrict__ q, const T* __restrict__ corpus,
   // queries 4*warp + b of the block; warp w also selects for those queries
   for (long long tile = row_begin; tile < row_end; tile += TN) {
     float acc[4][4], acc_hl[4][4], acc_lh[4][4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int b = 0; b < 4; ++b) acc[a][b] = acc_hl[a][b] = acc_lh[a][b] = 0.f;
-
-    for (int d0 = 0; d0 < D; d0 += DC) {
-#pragma unroll
-      for (int p = 0; p < PLANES; ++p) {
-        stage<T>(corpus, W, tile, row_end, TN, d0 + p * D, cs + p * TN * CW);
-        stage<T>(q, W, q0, B, TB, d0 + p * D, qs + p * TB * CW);
-      }
-      __syncthreads();
-      const float* qbase = qs + (warp * 4) * CW;
-#pragma unroll 2
-      for (int w = 0; w < DC; w += 4) {
-        float4 ch[4], qh[4];
-#pragma unroll
-        for (int a = 0; a < 4; ++a)
-          ch[a] = *reinterpret_cast<const float4*>(cs + (lane + 32 * a) * CW + w);
-#pragma unroll
-        for (int b = 0; b < 4; ++b)
-          qh[b] = *reinterpret_cast<const float4*>(qbase + b * CW + w);
-        if constexpr (COMP) {
-          float4 cl[4], ql[4];
-#pragma unroll
-          for (int a = 0; a < 4; ++a)
-            cl[a] = *reinterpret_cast<const float4*>(cs + TN * CW + (lane + 32 * a) * CW + w);
-#pragma unroll
-          for (int b = 0; b < 4; ++b)
-            ql[b] = *reinterpret_cast<const float4*>(qbase + TB * CW + b * CW + w);
-#pragma unroll
-          for (int a = 0; a < 4; ++a)
-#pragma unroll
-            for (int b = 0; b < 4; ++b) {
-              acc[a][b] = __fmaf_rn(qh[b].x, ch[a].x, acc[a][b]);
-              acc[a][b] = __fmaf_rn(qh[b].y, ch[a].y, acc[a][b]);
-              acc[a][b] = __fmaf_rn(qh[b].z, ch[a].z, acc[a][b]);
-              acc[a][b] = __fmaf_rn(qh[b].w, ch[a].w, acc[a][b]);
-              acc_hl[a][b] = __fmaf_rn(qh[b].x, cl[a].x, acc_hl[a][b]);
-              acc_hl[a][b] = __fmaf_rn(qh[b].y, cl[a].y, acc_hl[a][b]);
-              acc_hl[a][b] = __fmaf_rn(qh[b].z, cl[a].z, acc_hl[a][b]);
-              acc_hl[a][b] = __fmaf_rn(qh[b].w, cl[a].w, acc_hl[a][b]);
-              acc_lh[a][b] = __fmaf_rn(ql[b].x, ch[a].x, acc_lh[a][b]);
-              acc_lh[a][b] = __fmaf_rn(ql[b].y, ch[a].y, acc_lh[a][b]);
-              acc_lh[a][b] = __fmaf_rn(ql[b].z, ch[a].z, acc_lh[a][b]);
-              acc_lh[a][b] = __fmaf_rn(ql[b].w, ch[a].w, acc_lh[a][b]);
-            }
-        } else {
-#pragma unroll
-          for (int a = 0; a < 4; ++a)
-#pragma unroll
-            for (int b = 0; b < 4; ++b) {
-              acc[a][b] = __fmaf_rn(qh[b].x, ch[a].x, acc[a][b]);
-              acc[a][b] = __fmaf_rn(qh[b].y, ch[a].y, acc[a][b]);
-              acc[a][b] = __fmaf_rn(qh[b].z, ch[a].z, acc[a][b]);
-              acc[a][b] = __fmaf_rn(qh[b].w, ch[a].w, acc[a][b]);
-            }
-        }
-      }
-      __syncthreads();
-    }
+    score_tile<T, COMP>(q, corpus, W, tile, row_end, q0, B, D, cs, qs, acc,
+                        acc_hl, acc_lh);
 
     // epilogue: (hi.hi + hi.lo) + lo.hi, then + penalty, each rounded alone
 #pragma unroll
@@ -205,9 +94,7 @@ scan_kernel(const T* __restrict__ q, const T* __restrict__ corpus,
       const float pen = in_range ? penalty[row] : NEG;
 #pragma unroll
       for (int b = 0; b < 4; ++b) {
-        float dot = acc[a][b];
-        if constexpr (COMP)
-          dot = __fadd_rn(__fadd_rn(dot, acc_hl[a][b]), acc_lh[a][b]);
+        const float dot = tile_dot<COMP>(acc[a][b], acc_hl[a][b], acc_lh[a][b]);
         st[(warp * 4 + b) * TN + lane + 32 * a] = in_range ? __fadd_rn(dot, pen) : NEG;
       }
     }

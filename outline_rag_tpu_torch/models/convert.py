@@ -183,15 +183,15 @@ def decoder_from_jax(
 
     ``params_np["layers"]`` may be the per-layer list or the stacked
     dictionary of ``[L, ...]`` leaves; names may be fused (``wqkv``,
-    ``wgu``, ``bqkv``) or not; a weight may be dense ``[K, N]`` or an int8
-    ``{"q": [N, K], "s": [N]}`` leaf. Dense weights and the embedding table
-    are cast to ``cfg.dtype`` as ``cast_decoder_params`` casts them (round
-    to nearest even); norm scales, biases and int8 leaves are kept."""
+    ``wgu``, ``bqkv``) or not; a weight may be dense ``[K, N]``, an int8
+    ``{"q": [N, K], "s": [N]}`` leaf or an int4 ``{"q4": [N, K/2], "s4":
+    [N, G]}`` leaf (the port keeps the JAX package's packing, so the bytes
+    are copied). Dense weights and the embedding table are cast to
+    ``cfg.dtype`` as ``cast_decoder_params`` casts them (round to nearest
+    even); norm scales, biases and quantized leaves are kept."""
 
     def convert(x):
         if isinstance(x, Mapping):
-            if "q4" in x:
-                raise NotImplementedError("int4 weights are not ported yet (slice 4)")
             return {k: _leaf(v, device) for k, v in x.items()}
         return _leaf(x, device)
 
@@ -215,7 +215,7 @@ def paged_kv_from_jax(cache_np, device: str | torch.device = "cpu") -> PagedKV:
     ``[L, P, KvH, page]`` keep their layout. A tensor-parallel pool is not
     ported yet."""
     if getattr(cache_np, "mesh", None) is not None:
-        raise NotImplementedError("tensor-parallel KV pools are not ported yet (slice 4)")
+        raise NotImplementedError("tensor-parallel KV pools are not ported yet: a later slice")
 
     def pool(x):
         return _leaf(x, device).permute(0, 1, 2, 4, 3).contiguous()

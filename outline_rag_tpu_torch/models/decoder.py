@@ -8,7 +8,9 @@ SwiGLU MLP, optional attention biases (Qwen2), optional tied embeddings.
 Parameters are a dictionary like the JAX package's, with ``"layers"`` a list
 of per-layer dictionaries (a Python loop over layers takes the place of
 ``lax.scan``). Dense weights keep the JAX layout ``[K, N]`` (``x @ w``);
-int8 weights are ``{"q": [N, K] int8, "s": [N] f32}``.
+int8 weights are ``{"q": [N, K] int8, "s": [N] f32}``, int4 weights
+``{"q4": [N, K/2] uint8, "s4": [N, G] f32}`` (``ops/int4_linear.py`` documents
+the packing).
 
 Two caches:
 
@@ -27,8 +29,9 @@ that position's logits, never on the batch it shares, the chunk boundary or
 the slot. The numbers differ from ``jax.random``'s; greedy decoding
 (``temperature <= 0``) is ``argmax`` in both.
 
-Not ported yet: int4 weights, prompt-lookup speculative decoding
-(``generate_chunk_spec``) and tensor-parallel pools.
+Prompt-lookup speculative decoding (:func:`propose_ngram`,
+:func:`generate_chunk_spec`) rests on that contract: it emits the tokens the
+plain loop would. Not ported yet: tensor-parallel pools.
 """
 
 from __future__ import annotations
@@ -40,6 +43,13 @@ from typing import Any
 
 import torch
 
+from outline_rag_tpu_torch.ops.int4_linear import (
+    int4_kernel_eligible,
+    quantize_int4_weight,
+    unpack_int4,
+    w4a8_matmul,
+    w4a16_matmul,
+)
 from outline_rag_tpu_torch.ops.int8_linear import (
     int8_linear,
     quantize_linear_weight,
@@ -140,7 +150,7 @@ def init_decoder(
 
 def cast_decoder_params(params: Params, dtype: torch.dtype) -> Params:
     """Weights and the embedding table in ``dtype``; norm scales, biases and
-    already quantized ``{"q", "s"}`` leaves as they are."""
+    already quantized ``{"q", "s"}`` / ``{"q4", "s4"}`` leaves as they are."""
 
     def cast(name, x):
         if isinstance(x, dict) or name in _NORM_NAMES or name.startswith("b"):
@@ -190,6 +200,84 @@ def quantize_decoder_params(params: Params) -> Params:
     return out
 
 
+def quantize_decoder_params_int4(params: Params, group_size: int = 128) -> Params:
+    """int4-quantize every projection matrix (attention, MLP, ``lm_head``)
+    to ``{"q4": [N, K/2] uint8, "s4": [N, G] f32}``: symmetric scales over
+    groups of ``group_size`` along the contraction dimension, codes in
+    ``[-8, 7]``, packed as ``ops/int4_linear.py`` documents. Norm scales,
+    biases and the embedding table stay as they are. Apply after casting
+    and fusing; never cast the result again."""
+
+    def quant(w):
+        q4, s4 = quantize_int4_weight(w, group_size)
+        return {"q4": q4, "s4": s4}
+
+    out = dict(params)
+    if "lm_head" in params:
+        out["lm_head"] = quant(params["lm_head"])
+    out["layers"] = [
+        {k: quant(v) if k in _INT8_WEIGHT_NAMES else v for k, v in layer.items()}
+        for layer in params["layers"]
+    ]
+    return out
+
+
+def init_quantized_decoder_params(
+    cfg: DecoderConfig,
+    generator: torch.Generator,
+    device: str | torch.device,
+    *,
+    mode: str = "int4",
+    group_size: int = 128,
+) -> Params:
+    """Seeded random parameters, quantized a layer at a time, for models
+    whose float tree would not fit beside the quantized one: each layer is
+    drawn in f32, cast, fused and quantized (``mode`` ``"int4"`` or
+    ``"int8"``) before the next is drawn, so one layer's float weights are
+    alive at a time. The layout is that of :func:`init_decoder` followed by
+    :func:`fuse_decoder_params` and :func:`quantize_decoder_params_int4` (or
+    :func:`quantize_decoder_params`); the draws are not those of
+    :func:`init_decoder` for the same seed."""
+    if mode not in ("int4", "int8"):
+        raise ValueError(f"mode must be int4|int8, got {mode!r}")
+    hd = cfg.hd
+
+    def w(*shape):
+        draw = torch.randn(shape, generator=generator, dtype=torch.float32, device=device)
+        return (draw * 0.02).to(cfg.dtype)
+
+    def quant(x):
+        if mode == "int4":
+            q4, s4 = quantize_int4_weight(x, group_size)
+            return {"q4": q4, "s4": s4}
+        q, s = quantize_linear_weight(x)
+        return {"q": q, "s": s}
+
+    def ones(n):
+        return torch.ones((n,), dtype=torch.float32, device=device)
+
+    p: Params = {"embed": w(cfg.vocab_size, cfg.hidden), "final_norm": ones(cfg.hidden),
+                 "layers": []}
+    if not cfg.tie_embeddings:
+        p["lm_head"] = quant(w(cfg.hidden, cfg.vocab_size))
+    for _ in range(cfg.layers):
+        layer = {
+            "ln1": ones(cfg.hidden),
+            "ln2": ones(cfg.hidden),
+            "wqkv": quant(torch.cat([w(cfg.hidden, cfg.heads * hd), w(cfg.hidden, cfg.kv_heads * hd),
+                                     w(cfg.hidden, cfg.kv_heads * hd)], dim=-1)),
+            "wo": quant(w(cfg.heads * hd, cfg.hidden)),
+            "wgu": quant(torch.cat([w(cfg.hidden, cfg.intermediate),
+                                    w(cfg.hidden, cfg.intermediate)], dim=-1)),
+            "wd": quant(w(cfg.intermediate, cfg.hidden)),
+        }
+        if cfg.attn_bias:
+            layer["bqkv"] = torch.zeros(((cfg.heads + 2 * cfg.kv_heads) * hd,),
+                                        dtype=torch.float32, device=device)
+        p["layers"].append(layer)
+    return p
+
+
 # int8 matmul strategy, read once like the JAX package reads it:
 #   "w8a8"   — per-row int8 activations, an exact integer product, f32
 #              rescale (ops/int8_linear.py::w8a8_matmul), for every M.
@@ -199,11 +287,68 @@ def quantize_decoder_params(params: Params) -> Params:
 _INT8_MODE = os.environ.get("DECODER_INT8_MODE", "w8a8")
 
 
+# int4 matmul strategy at decode-size M, read once the same way:
+#   "w4a8"   — per-row int8 activations, exact integer dots a scale group
+#              (ops/int4_linear.py::w4a8_matmul). The default.
+#   "kernel" — exact activations against weights decoded tile by tile on the
+#              chip (ops/int4_linear.py::w4a16_matmul).
+#   "xla"    — never a kernel: the grouped product below for every small M
+#              (the JAX package's name for its plain path, kept).
+_INT4_MODE = os.environ.get("DECODER_INT4_MODE", "w4a8")
+
+# The most rows that go to an int4 kernel. This is the JAX package's rule,
+# carried over so that a given M gets the numerics it gets there (w4a8
+# quantizes the activations, the grouped product does not); it is not a
+# crossover measured on this card. The kernels themselves take up to 256 rows.
+INT4_KERNEL_MAX_M = 32
+
+
+def _mm_int4(x: torch.Tensor, q4: torch.Tensor, s4: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """``x @ dequant(q4, s4)`` for int4 weights, by the JAX package's rule:
+    a kernel for up to ``INT4_KERNEL_MAX_M`` rows on the card when the mode
+    and the shape allow it; else up to 256 rows one f32 product a scale
+    group on the unpacked codes, the scales applied to the ``[G, M, N]``
+    partial sums; above that one full dequantization to ``dt`` and a plain
+    product. A CPU tensor takes the grouped product, as the JAX package
+    does off the TPU."""
+    n, kp = q4.shape
+    k = kp * 2
+    g = s4.shape[-1]
+    gsz = k // g
+    lead = x.shape[:-1]
+    m = math.prod(lead)
+    x2 = x.reshape(m, k)
+    if (
+        m <= INT4_KERNEL_MAX_M
+        and _INT4_MODE in ("kernel", "w4a8")
+        and x.device.type == "cuda"
+        and int4_kernel_eligible(m, k, n, gsz)
+    ):
+        # the shape rule is no fallback: a launch that fails raises
+        if _INT4_MODE == "w4a8":
+            out = w4a8_matmul(x2, q4, s4)
+        else:
+            out = w4a16_matmul(x2, q4, s4, dt)
+        return out.reshape(*lead, n).to(dt)
+    if m <= 256:
+        # operands rounded to the model dtype, products and sums in f32
+        # (int4 codes are exact in either)
+        lhs = x2.to(dt).to(torch.float32).reshape(m, g, gsz).permute(1, 0, 2)  # [G, M, gsz]
+        rhs = unpack_int4(q4).to(torch.float32).reshape(n, g, gsz).permute(1, 2, 0)  # [G, gsz, N]
+        raw = torch.bmm(lhs, rhs)  # [G, M, N] partial sums, one a scale group
+        out = (raw * s4.T[:, None, :]).sum(dim=0)
+        return out.reshape(*lead, n).to(dt)
+    wd = (unpack_int4(q4).reshape(n, g, gsz).to(dt) * s4.to(dt)[:, :, None]).reshape(n, k)
+    return x @ wd.T
+
+
 def _mm(x: torch.Tensor, w, dt: torch.dtype) -> torch.Tensor:
-    """``x @ w`` for dense weights (``[K, N]``) or int8 ``{"q": [N, K],
-    "s": [N]}``."""
+    """``x @ w`` for dense weights (``[K, N]``), int8 ``{"q": [N, K],
+    "s": [N]}`` or int4 ``{"q4": [N, K/2], "s4": [N, G]}``."""
     if not isinstance(w, dict):
         return x @ w.to(dt)
+    if "q4" in w:
+        return _mm_int4(x, w["q4"], w["s4"], dt)
     q, s = w["q"], w["s"]
     lead, k = x.shape[:-1], x.shape[-1]
     m = math.prod(lead)
@@ -548,6 +693,139 @@ def _sample_one(logits, key, temperature, top_p, top_k_cap: int = 64) -> torch.T
     """Single-row sampler ([V] logits, one key): the same math as
     :func:`sample_token` with that key as the row's own."""
     return sample_token(logits[None], key.reshape(1), temperature, top_p, top_k_cap)[0]
+
+
+def propose_ngram(
+    buf: torch.Tensor,  # [B, C] int32 — tokens 0..pos are trustworthy
+    pos: torch.Tensor,  # [B] int32 — position of the current (fed) token
+    *,
+    gram: int,
+    k: int,
+) -> torch.Tensor:
+    """Prompt-lookup draft proposal: finds the most recent earlier
+    occurrence of the ``gram`` tokens ending at ``pos`` and proposes the
+    ``k`` tokens that followed it, ``[B, k]`` (hypotheses for positions
+    ``pos + 1 .. pos + k``). Answers over retrieved context quote it, so the
+    continuation of a repeated n-gram is a strong draft; a wrong draft costs
+    nothing, since acceptance compares the model's own samples with it.
+    Without a match the drafts are arbitrary tokens that fail acceptance.
+    Tensor code on ``buf``'s device: shifted compares over ``[B, C]``."""
+    b, c = buf.shape
+    dev = buf.device
+    pos = pos.long()
+    start = (pos - (gram - 1)).clamp(0, c - gram)
+    suffix = torch.gather(buf, 1, start[:, None] + torch.arange(gram, device=dev)[None, :])
+    nj = c - gram - k + 1  # candidate gram starts with a full draft slice
+    eq = torch.ones((b, nj), dtype=torch.bool, device=dev)
+    for i in range(gram):
+        eq = eq & (buf[:, i : i + nj] == suffix[:, i : i + 1])
+    j_idx = torch.arange(nj, device=dev)
+    # the gram (and at least its first draft token) must lie in the known
+    # region, and must not be the current suffix itself
+    valid = eq & (j_idx[None, :] <= (pos - gram)[:, None])
+    best = torch.where(valid, j_idx[None, :], -1).amax(dim=1)
+    first = torch.where(best >= 0, best + gram, 0)
+    return torch.gather(buf, 1, first[:, None] + torch.arange(k, device=dev)[None, :])
+
+
+def generate_chunk_spec(
+    params: Params,
+    cache,
+    tok_buf: torch.Tensor,  # [B, C] int32 — all tokens so far (prompt + emitted)
+    token: torch.Tensor,  # [B] int32 — next token to feed (already emitted)
+    pos: torch.Tensor,  # [B] int32 — its absolute position
+    key: torch.Tensor,  # int64 scalar base key; per-position keys are folded in
+    cfg: DecoderConfig,
+    *,
+    n_steps: int,
+    draft_k: int,
+    gram: int = 3,
+    temperature,  # float, or [B] tensor for mixed-request batches
+    top_p,
+    eos_id: int,
+    done0: torch.Tensor | None = None,  # [B] bool — rows to skip (the batcher's idle slots)
+    force_accept: bool = False,
+    seeds: torch.Tensor | None = None,  # [B] integers — per-row sampler streams
+):
+    """Speculative generation: ``n_steps`` verify steps with no host
+    synchronisation.
+
+    Each step proposes ``draft_k`` prompt-lookup drafts, runs one
+    ``[B, 1 + draft_k]`` forward, samples every position q with
+    ``key_at(base, q)``, and accepts the longest prefix where the sample
+    equals the draft: between 1 and ``draft_k + 1`` tokens a forward. The
+    emitted tokens are always the model's own samples, drawn with the keys
+    the plain positional loop draws with, so the output is that loop's.
+    ``base`` is ``key`` itself, or ``fold_in(key, seeds[b])`` a row.
+
+    Cache discipline: a verify writes slots ``pos .. pos + draft_k``;
+    rejected slots are stale, but every later window starts at the first
+    stale slot and rewrites forward, and the position mask hides slots
+    beyond the current token. The token buffer follows the same rule. A row
+    whose window would pass the capacity is frozen (its count stays 0).
+
+    ``force_accept`` accepts every draft whatever the samples say, to time
+    the all-accepted ceiling; it changes the text and must never serve.
+
+    **``cache`` and ``tok_buf`` are updated in place.** Returns ``(emitted
+    [B, n_steps * (draft_k + 1)], count [B], cache, tok_buf, next_token,
+    next_pos)``; the caller consumes ``emitted[b, :count[b]]`` and stops at
+    the first eos."""
+    b = token.shape[0]
+    dev = token.device
+    c = cfg.max_cache
+    kk = draft_k + 1
+    offs = torch.arange(kk, device=dev)
+    rows = torch.arange(b, device=dev)
+    out = torch.zeros((b, n_steps * kk), dtype=torch.int32, device=dev)
+    temp_b = torch.as_tensor(temperature, dtype=torch.float32, device=dev).expand(b)
+    tp_b = torch.as_tensor(top_p, dtype=torch.float32, device=dev).expand(b)
+    # per-row base keys: mixed-request batches must not share randomness
+    base_rows = key.expand(b) if seeds is None else fold_in(key, seeds.to(dev))
+    tok = token.to(torch.int32)
+    pos = pos.to(torch.int32)
+    done = torch.zeros((b,), dtype=torch.bool, device=dev) if done0 is None else done0.clone()
+    cursor = torch.zeros((b,), dtype=torch.long, device=dev)
+    for _ in range(n_steps):
+        # capacity guard: a window needs slots pos .. pos + draft_k
+        done = done | (pos + kk > c)
+        posf = pos.clamp(max=c - kk)
+        tok_buf[rows, posf.long()] = tok
+        drafts = propose_ngram(tok_buf, posf, gram=gram, k=draft_k)
+        window = torch.cat([tok[:, None], drafts], dim=1)
+        logits, cache = decoder_forward(params, window, cache, posf, cfg)
+        sample_pos = posf.long()[:, None] + 1 + offs[None, :]
+        keys = key_at(base_rows[:, None], sample_pos)
+        # e[:, i] is the sample for position posf + 1 + i
+        e = sample_token(
+            logits.reshape(b * kk, -1), keys.reshape(-1),
+            temp_b.repeat_interleave(kk), tp_b.repeat_interleave(kk),
+        ).reshape(b, kk)
+        if force_accept:
+            match = torch.ones((b, draft_k), dtype=torch.bool, device=dev)
+        else:
+            match = e[:, :draft_k] == drafts
+        cnt = torch.cumprod(match.long(), dim=1).sum(dim=1) + 1  # accepted drafts + bonus sample
+        # truncate at the first emitted eos (inclusive), freeze after
+        is_eos = (e == eos_id) & (offs[None, :] < cnt[:, None])
+        has_eos = is_eos.any(dim=1)
+        cnt = torch.where(has_eos, is_eos.long().argmax(dim=1) + 1, cnt)
+        cnt = torch.where(done, torch.zeros_like(cnt), cnt)
+        newdone = done | has_eos
+        last = torch.gather(e, 1, (cnt - 1).clamp_min(0)[:, None])[:, 0]
+        tok = torch.where(cnt > 0, torch.where(newdone, torch.full_like(last, eos_id), last), tok)
+        # unmasked window writes: slots beyond cnt are stale but every later
+        # window starts at the first stale slot and rewrites. Only the first
+        # draft_k samples are written (the accepted prefix is at most draft_k
+        # past posf; the bonus sample becomes the next fed token and is
+        # written at the new posf next step), so the last write lands at
+        # posf + draft_k <= c - 1
+        tok_buf[rows[:, None], posf.long()[:, None] + 1 + offs[None, :draft_k]] = e[:, :draft_k]
+        out[rows[:, None], cursor[:, None] + offs[None, :]] = e
+        cursor = cursor + cnt
+        pos = pos + cnt.to(torch.int32)
+        done = newdone
+    return out, cursor.to(torch.int32), cache, tok_buf, tok, pos
 
 
 def generate_chunk(

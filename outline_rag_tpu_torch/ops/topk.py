@@ -13,6 +13,9 @@ Port of ``outline_rag_tpu/ops/topk.py``:
                              :func:`topk_float_plain` as its twin.
 - :func:`cosine_topk`      — the float dispatcher: picks the mode from the
                              query and corpus dtypes as the JAX package does.
+- :func:`topk_floor`       — the float scan with its selection taken out
+                             (``csrc/topk_floor.cu``): what the score pass
+                             alone costs, with :func:`topk_floor_plain`.
 - :func:`split_f32_bf16x2` / :func:`join_bf16x2` — the compensated layout.
 - :func:`merge_topk`       — top-k of the union of two top lists.
 
@@ -313,11 +316,13 @@ def _float_launcher():
 def _check_float_inputs(queries, corpus, penalty, k, mode):
     dev = corpus.device
     dtype = torch.float32 if mode == "fp32" else torch.bfloat16
-    for name, t, want, shape in (
+    operands = [
         ("queries", queries, dtype, (queries.shape[0], corpus.shape[1])),
         ("corpus", corpus, dtype, tuple(corpus.shape)),
-        ("penalty", penalty, torch.float32, (corpus.shape[0],)),
-    ):
+    ]
+    if penalty is not None:  # the floors take none
+        operands.append(("penalty", penalty, torch.float32, (corpus.shape[0],)))
+    for name, t, want, shape in operands:
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, corpus on {dev}")
         if t.dtype != want or tuple(t.shape) != shape:
@@ -390,6 +395,114 @@ def topk_float(
 
 
 topk_float.launches = dict.fromkeys(FLOAT_MODES, 0)
+
+
+# ---------------------------------------------------------------------------
+# the scan's floors: the score pass with nothing but a running maximum
+# ---------------------------------------------------------------------------
+
+FLOOR_VARIANTS = ("nomerge", "matmul")
+FLOOR_INIT = -1e30  # the running maximum's first value
+
+
+def _check_floor(mode: str, variant: str, tile_rows: int) -> None:
+    _check_mode(mode)
+    if variant not in FLOOR_VARIANTS:
+        raise ValueError(f"floor variant {variant!r}: use one of {FLOOR_VARIANTS}")
+    if mode == "f32x2" and variant != "nomerge":
+        raise ValueError("the f32x2 floor has the nomerge variant only")
+    if tile_rows < 1:
+        raise ValueError(f"tile_rows must be positive, got {tile_rows}")
+
+
+def topk_floor_plain(
+    queries: torch.Tensor,
+    corpus: torch.Tensor,
+    mode: str = "fp32",
+    variant: str = "nomerge",
+    tile_rows: int = _KERNEL_TN,
+) -> torch.Tensor:
+    """:func:`topk_floor` in plain PyTorch: ``[B]`` f32. Callers keep TF32
+    off."""
+    _check_floor(mode, variant, tile_rows)
+    d = queries.shape[1] // 2
+    q = queries.float()
+    best = torch.full((queries.shape[0],), FLOOR_INIT, dtype=torch.float32, device=corpus.device)
+    step = PLAIN_ROWS_PER_STEP // tile_rows * tile_rows or tile_rows
+    for start in range(0, corpus.shape[0], step):
+        c = corpus[start : start + step]
+        if variant == "matmul":
+            c = c[::tile_rows]  # start is a multiple of tile_rows
+        c = c.float()
+        if mode == "f32x2":
+            qh, ql, ch, cl = q[:, :d], q[:, d:], c[:, :d], c[:, d:]
+            s = (qh @ ch.T + qh @ cl.T) + ql @ ch.T
+        else:
+            s = q @ c.T
+        best = torch.maximum(best, s.amax(dim=1))
+    return best
+
+
+_floor_launch_fn = None
+
+
+def _floor_launcher():
+    global _floor_launch_fn
+    if _floor_launch_fn is None:
+        from outline_rag_tpu_torch.ops._build import load_library  # noqa: PLC0415
+
+        fn = load_library().topk_floor_launch
+        p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [i32, p, p, i32, i64, i32, i32, i64, i32, i32, p, p, p]
+        fn.restype = ctypes.c_int
+        _floor_launch_fn = fn
+    return _floor_launch_fn
+
+
+def topk_floor(
+    queries: torch.Tensor,
+    corpus: torch.Tensor,
+    mode: str = "fp32",
+    variant: str = "nomerge",
+    tile_rows: int = _KERNEL_TN,
+) -> torch.Tensor:
+    """The float scan's floor: every score of :func:`topk_float` (same
+    inputs, no penalty) is computed, and all that is kept is a running
+    maximum per query from ``-1e30``: ``[B]`` f32.
+
+    ``variant="nomerge"``: the maximum over all rows, which is the first
+    column of :func:`topk_float`'s values. ``variant="matmul"``: the maximum
+    over the rows that are multiples of ``tile_rows`` only (by default the
+    kernel's own 128-row tile; the JAX tool's tiles are 1024 rows), the
+    cheapest use of a tile that still needs all of it computed. The f32x2
+    mode has ``nomerge`` only, as in the JAX tool. The full scan's time
+    minus this one's is what selecting the top K costs. On CUDA tensors
+    this launches ``csrc/topk_floor.cu`` and counts the launch in
+    ``topk_floor.launches``; on CPU tensors it runs
+    :func:`topk_floor_plain`."""
+    _check_floor(mode, variant, tile_rows)
+    if corpus.device.type == "cpu":
+        return topk_floor_plain(queries, corpus, mode, variant, tile_rows)
+    if corpus.device.type != "cuda":
+        raise ValueError(f"topk_floor runs on cpu or cuda tensors, not {corpus.device}")
+    dev = corpus.device
+    b, d, n = _check_float_inputs(queries, corpus, None, 1, mode)
+    chunks, rows_per_chunk = _kernel_plan(b, n, dev)
+    part = torch.empty((chunks, b), dtype=torch.float32, device=dev)
+    out = torch.empty((b,), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        rc = _floor_launcher()(
+            FLOAT_MODES[mode], queries.data_ptr(), corpus.data_ptr(), b, n, d, chunks,
+            rows_per_chunk, int(variant == "matmul"), int(tile_rows), part.data_ptr(),
+            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"topk_floor kernel launch failed with CUDA error {rc}")
+    topk_floor.launches += 1
+    return out
+
+
+topk_floor.launches = 0
 
 
 def float_mode(queries: torch.Tensor, corpus: torch.Tensor) -> str:

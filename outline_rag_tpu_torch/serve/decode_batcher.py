@@ -37,8 +37,13 @@ drawn with ``key_at(make_key(row_seed), q)`` — per-request randomness,
 reproducible given (seed, prompt), independent of the batch, the chunk
 boundary and the slot.
 
-Not ported yet: speculative steps (``spec_k > 0``) and tensor-parallel
-meshes raise ``NotImplementedError``.
+Speculative mode (``spec_k > 0``): each of a chunk's steps is a verify step
+of ``models/decoder.py::generate_chunk_spec`` that advances a row by 1 to
+``spec_k + 1`` tokens (prompt-lookup drafts); by the sampler contract the
+streams are those of ``spec_k = 0``. Rows diverge freely: positions, cursors
+and counts are per row.
+
+Not ported yet: tensor-parallel meshes raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -59,6 +64,7 @@ from outline_rag_tpu_torch.models.decoder import (
     PagedKV,
     _sample_one,
     decoder_forward,
+    generate_chunk_spec,
     init_cache,
     init_paged_cache,
     key_at,
@@ -89,7 +95,8 @@ class DecodeBatcher:
         chunk_tokens: int = 8,
         eos_id: int = 2,
         prompt_buckets: tuple = (64, 128, 256, 512, 1024, 2048),
-        spec_k: int = 0,  # speculative steps: not ported yet
+        spec_k: int = 0,  # >0 -> prompt-lookup speculative steps
+        spec_gram: int = 3,
         kv_pages: int = 0,  # >0 -> paged KV pool of this many pages
         page_size: int = 128,
         prefix_cache: bool = True,  # paged mode: share full prompt pages
@@ -98,13 +105,9 @@ class DecodeBatcher:
         mesh=None,  # tensor parallelism: not ported yet
         device: str | torch.device = "cuda",
     ):
-        if spec_k:
-            raise NotImplementedError(
-                "speculative decoding (spec_k > 0) is not ported yet: it comes with slice 4"
-            )
         if mesh is not None:
             raise NotImplementedError(
-                "tensor-parallel decoding (mesh) is not ported yet: it comes with slice 4"
+                "tensor-parallel decoding (mesh) is not ported yet: it comes with a later slice"
             )
         self.device = resolve_device(device)
         if params["embed"].device != self.device:
@@ -135,6 +138,9 @@ class DecodeBatcher:
         self.prefix_hits = 0  # prompt pages served from cache (stats)
         self.prefix_lookups = 0
         self.backpressure_waits = 0  # admissions deferred for lack of pages
+        # speculative acceptance (stats): tokens emitted per verify step
+        self.spec_emitted = 0
+        self.spec_steps = 0
         if kv_int8 and self.kv_pages <= 0:
             raise ValueError(
                 "kv_int8 requires the paged pool (set kv_pages > 0); refusing to "
@@ -184,6 +190,16 @@ class DecodeBatcher:
         self._wake = threading.Event()
         self._stop = False
         self.dead: Exception | None = None  # set when the worker crashes
+        # every row's base key is fold_in(_key0, row seed) == make_key(seed),
+        # in the plain and in the speculative step alike
+        self._key0 = torch.zeros((), dtype=torch.int64, device=self.device)
+        self.spec_k = int(spec_k)
+        self.spec_gram = int(spec_gram)
+        # speculative mode keeps every row's tokens so far (prompt + emitted)
+        self.tok_buf = (
+            torch.zeros((slots, cfg.max_cache), dtype=torch.int32, device=self.device)
+            if self.spec_k > 0 else None
+        )
 
         self._thread = threading.Thread(target=self._run, daemon=True)
         self._thread.start()
@@ -227,6 +243,18 @@ class DecodeBatcher:
             tok = nxt
             out.append(nxt)
         return torch.stack(out, dim=1), tok, pos
+
+    def _step_spec(self, tok, pos, seeds, temp, tp, active):
+        """``chunk_tokens`` verify steps over every slot, each advancing a
+        row by 1 to ``spec_k + 1`` tokens, with no host synchronisation.
+        Returns (tokens [slots, chunk * (spec_k + 1)], count [slots], next
+        token, next position)."""
+        emitted, cnt, self.cache, self.tok_buf, tok, pos = generate_chunk_spec(
+            self.params, self.cache, self.tok_buf, tok, pos, self._key0, self.cfg,
+            n_steps=self.chunk_tokens, draft_k=self.spec_k, gram=self.spec_gram,
+            temperature=temp, top_p=tp, eos_id=self.eos_id, done0=~active, seeds=seeds,
+        )
+        return emitted, cnt, tok, pos
 
     # -- public API (thread-safe) -----------------------------------------
 
@@ -300,6 +328,10 @@ class DecodeBatcher:
                 prefix_lookups=self.prefix_lookups,
                 backpressure_waits=self.backpressure_waits,
             )
+        if self.spec_k > 0:
+            out["spec_tokens_per_step"] = (
+                round(self.spec_emitted / self.spec_steps, 3) if self.spec_steps else None
+            )
         return out
 
     def flush_prefix_cache(self) -> None:
@@ -362,8 +394,13 @@ class DecodeBatcher:
         return int(first)  # one int per admission crosses to the host
 
     def _set_row_state(self, req: _Request, row: int, first_id: int) -> None:
+        t = len(req.prompt_ids)
+        if self.tok_buf is not None:
+            row_buf = np.zeros((self.cfg.max_cache,), np.int32)
+            row_buf[:t] = req.prompt_ids
+            self.tok_buf[row] = torch.from_numpy(row_buf).to(self.device)
         self.tok[row] = first_id
-        self.pos[row] = len(req.prompt_ids)
+        self.pos[row] = t
         self.seed[row] = self._row_seed(req)
         self.temp[row] = req.temperature
         self.tp[row] = req.top_p
@@ -467,9 +504,9 @@ class DecodeBatcher:
         self.prefix_lookups += 1
         self.prefix_hits += len(shared)
 
-        # worst-case pages for prompt + generation, so the row can never
-        # starve mid-flight
-        span = t + req.max_new + 1
+        # worst-case pages for prompt + generation (+ the speculative
+        # window), so the row can never starve mid-flight
+        span = t + req.max_new + 1 + self.spec_k
         need = min(-(-span // s), self._maxp)
         fresh_needed = need - len(shared)
         while len(self._free_pages) < fresh_needed:
@@ -623,7 +660,7 @@ class DecodeBatcher:
             try:
                 active_mask = np.asarray([r is not None for r in self.active], bool)
                 dev = self.device
-                toks, tok_dev, pos_dev = self._step_chunk(
+                state = (
                     torch.from_numpy(self.tok).to(dev),
                     torch.from_numpy(self.pos).to(dev),
                     torch.from_numpy(self.seed).to(dev),
@@ -631,9 +668,23 @@ class DecodeBatcher:
                     torch.from_numpy(self.tp).to(dev),
                     torch.from_numpy(active_mask).to(dev),
                 )
-                # one fetch a chunk: [slots, chunk + 2]
-                fetched = torch.cat([toks, tok_dev[:, None], pos_dev[:, None]], dim=1).cpu().numpy()
-                toks_np = fetched[:, :-2]
+                counts = None
+                if self.tok_buf is not None:
+                    toks, cnt, tok_dev, pos_dev = self._step_spec(*state)
+                    # one fetch a chunk: [slots, chunk * (spec_k + 1) + 3]
+                    fetched = torch.cat(
+                        [toks, cnt[:, None], tok_dev[:, None], pos_dev[:, None]], dim=1
+                    ).cpu().numpy()
+                    toks_np, counts = fetched[:, :-3], fetched[:, -3]
+                    self.spec_emitted += int(counts[active_mask].sum())
+                    self.spec_steps += int(active_mask.sum()) * self.chunk_tokens
+                else:
+                    toks, tok_dev, pos_dev = self._step_chunk(*state)
+                    # one fetch a chunk: [slots, chunk + 2]
+                    fetched = torch.cat(
+                        [toks, tok_dev[:, None], pos_dev[:, None]], dim=1
+                    ).cpu().numpy()
+                    toks_np = fetched[:, :-2]
                 self.tok = fetched[:, -2].astype(np.int32)
                 self.pos = fetched[:, -1].astype(np.int32)
                 for row, req in enumerate(self.active):
@@ -643,6 +694,11 @@ class DecodeBatcher:
                         self._finish(row)  # reclaims slot and pages; DONE
                         continue
                     ids = toks_np[row].tolist()
+                    if counts is not None:
+                        ids = ids[: int(counts[row])]
+                        if not ids:  # a row the capacity guard froze: end the stream
+                            self._finish(row)
+                            continue
                     stop = self.eos_id in ids
                     if stop:
                         ids = ids[: ids.index(self.eos_id)]

@@ -9,8 +9,12 @@ deltas. Generation runs in token chunks (``models/decoder.py``), and each
 chunk's new text streams out as a delta. With ``batch_slots > 1`` requests
 share a :class:`~outline_rag_tpu_torch.serve.decode_batcher.DecodeBatcher`.
 
-Not ported yet: ``int4_weights``, ``spec_k`` and ``tp_devices`` raise
-``NotImplementedError``.
+``int8_weights`` / ``int4_weights`` quantize the projections at start-up
+(``DECODER_INT8_MODE`` / ``DECODER_INT4_MODE`` pick the product), and
+``spec_k > 0`` turns on prompt-lookup speculative decoding, in the batcher
+or, single-stream, in :meth:`LocalChatProvider._generate_spec`.
+
+Not ported yet: ``tp_devices > 1`` raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -28,9 +32,12 @@ from outline_rag_tpu_torch.models.decoder import (
     fold_in,
     fuse_decoder_params,
     generate_chunk,
+    generate_chunk_spec,
     init_cache,
+    key_at,
     make_key,
     quantize_decoder_params,
+    quantize_decoder_params_int4,
     sample_token,
 )
 from outline_rag_tpu_torch.serve.decode_batcher import DONE, DecodeBatcher
@@ -64,8 +71,9 @@ class LocalChatProvider:
         prompt_buckets: tuple = (64, 128, 256, 512, 1024, 2048),
         batch_slots: int = 0,  # >1 -> continuous batching across requests
         int8_weights: bool = False,  # int8 projections (DECODER_INT8_MODE picks the product)
-        int4_weights: bool = False,  # not ported yet
-        spec_k: int = 0,  # speculative decoding: not ported yet
+        int4_weights: bool = False,  # int4 projections (DECODER_INT4_MODE picks the product)
+        spec_k: int = 0,  # >0 -> prompt-lookup speculative decoding
+        spec_gram: int = 3,
         kv_pages: int = 0,  # >0 -> paged KV pool for the batcher
         page_size: int = 128,
         prefix_cache: bool = True,  # paged mode: share repeated prompt prefixes
@@ -74,28 +82,32 @@ class LocalChatProvider:
         prequantized: bool = False,  # params already cast, fused and quantized
         device: str | torch.device = "cuda",
     ):
-        if int4_weights:
-            raise NotImplementedError("int4 weights are not ported yet: they come with slice 4")
-        if spec_k:
-            raise NotImplementedError(
-                "speculative decoding (spec_k > 0) is not ported yet: it comes with slice 4"
+        if int8_weights and int4_weights:
+            raise ValueError(
+                "int8_weights and int4_weights are mutually exclusive "
+                "(pick one weight quantization)"
             )
         if tp_devices and int(tp_devices) > 1:
             raise NotImplementedError(
                 "tensor-parallel decoding (tp_devices > 1) is not ported yet: "
-                "it comes with slice 4"
+                "it comes with a later slice"
             )
         self.cfg = cfg
         self.device = resolve_device(device)
         params = _to_device(params, self.device)
         if prequantized:
-            if not int8_weights:
-                raise ValueError("prequantized=True needs int8_weights to say what the tree carries")
-            self.params = params  # casting or re-quantizing would clobber the int8 leaves
+            if not (int8_weights or int4_weights):
+                raise ValueError(
+                    "prequantized=True needs int8_weights or int4_weights "
+                    "to say which layout the tree carries"
+                )
+            self.params = params  # casting or re-quantizing would clobber the integer leaves
         else:
             self.params = fuse_decoder_params(cast_decoder_params(params, cfg.dtype))
             if int8_weights:
                 self.params = quantize_decoder_params(self.params)
+            elif int4_weights:
+                self.params = quantize_decoder_params_int4(self.params)
         self.tokenizer = tokenizer
         self.eos_id = eos_id if eos_id is not None else getattr(tokenizer, "eos_token_id", 2)
         self.chunk_tokens = chunk_tokens
@@ -105,6 +117,11 @@ class LocalChatProvider:
         if not kept or kept[-1] < cfg.max_cache:  # the ladder reaches max_cache
             kept = kept + (cfg.max_cache,)
         self.prompt_buckets = kept
+        # speculative decoding: with batch_slots > 1 the batcher runs its own
+        # speculative step (per-row counts); single-stream requests go
+        # through _generate_spec
+        self.spec_k = int(spec_k)
+        self.spec_gram = int(spec_gram)
         self._batcher = None
         if batch_slots and batch_slots > 1:
             self._batcher = DecodeBatcher(
@@ -114,6 +131,8 @@ class LocalChatProvider:
                 chunk_tokens=chunk_tokens,
                 eos_id=self.eos_id,
                 prompt_buckets=self.prompt_buckets,
+                spec_k=self.spec_k,
+                spec_gram=self.spec_gram,
                 kv_pages=int(kv_pages),
                 page_size=int(page_size),
                 prefix_cache=bool(prefix_cache),
@@ -194,6 +213,9 @@ class LocalChatProvider:
         temp = float(temperature or 0.0)
         tp = float(top_p if top_p is not None else 1.0)
         key = make_key(abs(hash(tuple(ids))) % (2**31), dev)
+        if self.spec_k > 0:
+            yield from self._generate_spec(ids, t, cache, logits, key, temp, tp, max_new)
+            return
         tok = sample_token(logits[:, t - 1, :], key, temp, tp)
         out_ids: list[int] = []
         flush = self._flusher(out_ids)
@@ -241,6 +263,69 @@ class LocalChatProvider:
                 pending += 1
             chunk = inflight[0].tolist()
             pending -= 1
+            stop = self.eos_id in chunk
+            if stop:
+                chunk = chunk[: chunk.index(self.eos_id)]
+            room = max_new - len(out_ids)
+            if len(chunk) >= room:
+                chunk = chunk[:room]
+                stop = True
+            out_ids.extend(chunk)
+            piece = flush()
+            if piece:
+                yield piece
+            inflight = None if stop else nxt
+
+    def _generate_spec(self, ids, t, cache, logits, key, temp, tp, max_new):
+        """Single-stream speculative (prompt-lookup) generation. The
+        streaming contract is the plain loop's; each dispatch runs
+        ``chunk_tokens`` verify steps that return 1 to ``spec_k + 1`` tokens
+        each. The token at position q is drawn with ``key_at(key, q)``, so
+        the stream is a function of (seed, prompt) alone: chunk boundaries,
+        and the one chunk that may be dispatched and then discarded, cannot
+        change the text. Greedy streams equal the plain loop's."""
+        dev = self.device
+        row_buf = torch.zeros((1, self.cfg.max_cache), dtype=torch.int32)
+        row_buf[0, :t] = torch.tensor(ids, dtype=torch.int32)  # the bucket's padding stays out
+        tok_buf = row_buf.to(dev)
+        tok = sample_token(logits[:, t - 1, :], key_at(key, t).reshape(1), temp, tp)
+        if int(tok[0]) == self.eos_id:
+            return
+        out_ids = [int(tok[0])]
+        flush = self._flusher(out_ids)
+        piece = flush()
+        if piece:
+            yield piece
+        pos = torch.full((1,), t, dtype=torch.int32, device=dev)
+
+        # one chunk of lookahead, as in the plain loop. Each dispatch advances
+        # at least chunk_tokens tokens (one a verify step) unless the
+        # capacity guard froze the row, so gating on that minimum keeps the
+        # lookahead bounded.
+        def dispatch():
+            nonlocal cache, tok_buf, tok, pos
+            chunk_out, cnt, cache, tok_buf, tok, pos = generate_chunk_spec(
+                self.params, cache, tok_buf, tok, pos, key, self.cfg,
+                n_steps=self.chunk_tokens, draft_k=self.spec_k, gram=self.spec_gram,
+                temperature=temp, top_p=tp, eos_id=self.eos_id,
+            )
+            return torch.cat([cnt[:, None], chunk_out], dim=1)  # one fetch a chunk
+
+        pending = 0
+        inflight = None
+        if len(out_ids) < max_new:
+            inflight = dispatch()
+            pending = 1
+        while inflight is not None:
+            nxt = None
+            if len(out_ids) + pending * self.chunk_tokens < max_new:
+                nxt = dispatch()
+                pending += 1
+            n, *chunk = inflight[0].tolist()
+            pending -= 1
+            if n == 0:  # the cache is full (the capacity guard froze the row)
+                break
+            chunk = chunk[:n]
             stop = self.eos_id in chunk
             if stop:
                 chunk = chunk[: chunk.index(self.eos_id)]

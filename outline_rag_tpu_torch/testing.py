@@ -61,6 +61,17 @@ def flash_errors(out: torch.Tensor, plain: torch.Tensor, atol: float, ulps: floa
     }
 
 
+def scaled_errors(out: torch.Tensor, plain: torch.Tensor, tol: float = 1e-5) -> dict:
+    """``out`` (a kernel) against ``plain`` (its plain version) where only
+    the order of f32 sums may differ: ``max_abs_err``, and
+    ``worst_vs_bound``, the largest ``|out - plain|`` over its bound
+    ``tol * max|plain| + tol * |plain|`` (the check passes at <= 1)."""
+    plain = plain.float()
+    diff = (out.float() - plain).abs()
+    bound = tol * plain.abs().max().clamp_min(1e-30) + tol * plain.abs()
+    return {"max_abs_err": float(diff.max()), "worst_vs_bound": float((diff / bound).max())}
+
+
 class ByteTokenizer:
     """A reversible tokenizer over UTF-8 bytes for driving the chat decoder
     where no tokenizer files exist: id ``b + 3`` for byte ``b``, ids 0-2

@@ -1,0 +1,85 @@
+"""What the float scan's selection costs on the card: the full scan beside
+its floors.
+
+    python -m outline_rag_tpu_torch.tools.bench_topk_kernel [N] [B] [MODE ...]
+
+The port's counterpart of the JAX package's ``tools/bench_topk_kernel.py``.
+Run it on a machine with one CUDA card and ``nvcc``. Variants a mode (fp32,
+bf16, f32x2; default all three):
+
+  full    — ``topk_float`` at K = 12, the serving scan
+  nomerge — ``topk_floor``: every score, then only a running maximum
+  matmul  — ``topk_floor(variant="matmul")``: the maximum over each tile's
+            first row only (fp32 and bf16; the f32x2 floor has ``nomerge``
+            alone, as in the JAX tool)
+
+over a seeded corpus of N unit rows x 1024 (default 1,048,576) and B queries
+(default 32). ``full - nomerge`` is the selection's cost. Each time is the
+median of 10 CUDA-event timings (``BENCH_RUNS``). One JSON line a mode, with
+the card's name and power limit.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import sys
+
+import torch
+
+from outline_rag_tpu_torch.ops.topk import FLOAT_MODES, split_f32_bf16x2, topk_float, topk_floor
+from outline_rag_tpu_torch.tools.timing import card, cuda_ms
+
+DIM, TOP_K = 1024, 12
+
+
+def bench_mode(queries: torch.Tensor, corpus: torch.Tensor, mode: str, runs: int = 10) -> dict:
+    """Times of the variants for ``queries`` and ``corpus`` as ``mode``
+    stores them: ``{variant}_ms``, and the corpus bytes a second of each."""
+    calls = {"full": lambda: topk_float(queries, corpus, TOP_K, None, mode),
+             "nomerge": lambda: topk_floor(queries, corpus, mode, "nomerge")}
+    if mode != "f32x2":
+        calls["matmul"] = lambda: topk_floor(queries, corpus, mode, "matmul")
+    row = {"mode": mode, "N": corpus.shape[0], "B": queries.shape[0], "D": DIM, "K": TOP_K}
+    for variant, call in calls.items():
+        ms = cuda_ms(call, runs)
+        row[f"{variant}_ms"] = ms
+        row[f"{variant}_gb_per_s"] = corpus.numel() * corpus.element_size() / ms / 1e6
+    row["selection_ms"] = row["full_ms"] - row["nomerge_ms"]
+    return row
+
+
+def store(x: torch.Tensor, mode: str) -> torch.Tensor:
+    """f32 rows as ``mode`` stores them."""
+    if mode == "fp32":
+        return x
+    return x.to(torch.bfloat16) if mode == "bf16" else split_f32_bf16x2(x)
+
+
+def main(argv: list[str]) -> int:
+    if not torch.cuda.is_available():
+        print("bench_topk_kernel: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", torch.cuda.current_device())
+    n = int(argv[0]) if argv else 1_048_576
+    b = int(argv[1]) if len(argv) > 1 else 32
+    modes = argv[2:] or list(FLOAT_MODES)
+    runs = int(os.environ.get("BENCH_RUNS", 10))
+    g = torch.Generator(device=dev).manual_seed(0)
+    corpus = torch.randn((n, DIM), generator=g, device=dev)
+    corpus.div_(corpus.norm(dim=1, keepdim=True))
+    queries = torch.randn((b, DIM), generator=g, device=dev)
+    queries.div_(queries.norm(dim=1, keepdim=True))
+    smi = card()
+    for mode in modes:
+        stored = store(corpus, mode)
+        print(json.dumps({**bench_mode(store(queries, mode), stored, mode, runs), "card": smi}),
+              flush=True)
+        del stored
+        torch.cuda.empty_cache()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -43,7 +43,9 @@ def test_kernel_library_builds(cuda):
     assert built.path.exists()
     lib = _build.load_library()
     for name in ("topk_int8_launch", "topk_float_launch", "flash_attention_launch",
-                 "paged_attention_launch", "paged_kv_write_launch", "int8_linear_launch"):
+                 "paged_attention_launch", "paged_kv_write_launch", "int8_linear_launch",
+                 "int4_w4a8_launch", "int4_w4a16_launch", "int4_stream_floor_launch",
+                 "topk_floor_launch"):
         assert getattr(lib, name) is not None
 
 
@@ -422,4 +424,207 @@ def test_batcher_on_the_card_warm_equals_cold_and_reclaims_pages(cuda):
         b.close()
     assert warm == cold and len(cold) > 0
     assert st["prefix_hits"] >= 2 and st["active"] == 0
+    assert st["pages_free"] + st["pages_cached"] == st["pages_total"]
+
+
+# ----------------------------------------------------------------------
+# int4 linears and the floors
+# ----------------------------------------------------------------------
+
+INT4_SHAPES = [(2048, 2560, 128), (5632, 2048, 128), (2048, 32000, 128), (512, 384, 256),
+               (2048, 512, 512), (768, 256, 384)]
+
+
+def _int4_case(dev, k, n, gsz, m, seed=0):
+    import outline_rag_tpu_torch.ops.int4_linear as int4
+
+    g = torch.Generator(device=dev).manual_seed(seed + k + n)
+    q4, s4 = int4.quantize_int4_weight(torch.randn((k, n), generator=g, device=dev) * 0.02, gsz)
+    return int4, torch.randn((m, k), generator=g, device=dev), q4, s4
+
+
+@pytest.mark.parametrize("m", [1, 8, 32, 64, 256])
+@pytest.mark.parametrize("k,n,gsz", INT4_SHAPES)
+def test_w4a8_kernel_matches_plain(cuda, k, n, gsz, m):
+    """Exact integer group sums, the f32 sum over groups in one order: 1e-5
+    of the output's scale + 1e-5 relative (bit-equal is the expectation)."""
+    from outline_rag_tpu_torch.testing import scaled_errors
+
+    int4, x, q4, s4 = _int4_case(cuda, k, n, gsz, m)
+    before = int4.w4a8_matmul.launches
+    got = int4.w4a8_matmul(x.to(torch.bfloat16), q4, s4)
+    torch.cuda.synchronize()
+    assert int4.w4a8_matmul.launches == before + 1
+    assert got.dtype == torch.float32 and tuple(got.shape) == (m, n)
+    e = scaled_errors(got, int4.w4a8_matmul_plain(x.to(torch.bfloat16), q4, s4))
+    assert e["worst_vs_bound"] <= 1.0, e
+    assert torch.equal(got, int4.w4a8_matmul(x.to(torch.bfloat16), q4, s4))
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m", [1, 8, 32, 64, 256])
+@pytest.mark.parametrize("k,n,gsz", INT4_SHAPES)
+def test_w4a16_kernel_matches_plain(cuda, k, n, gsz, m, dt):
+    """The same decoded weights, f32 sums in another order (tensor cores in
+    bf16, a thread's FMA chain in f32): 1e-5 of the output's scale + 1e-5
+    relative, also at bf16 (the output is f32)."""
+    from outline_rag_tpu_torch.testing import scaled_errors
+
+    int4, x, q4, s4 = _int4_case(cuda, k, n, gsz, m)
+    got = int4.w4a16_matmul(x.to(dt), q4, s4, variant="v2")
+    torch.cuda.synchronize()
+    e = scaled_errors(got, int4.w4a16_matmul_plain(x.to(dt), q4, s4))
+    assert got.dtype == torch.float32 and e["worst_vs_bound"] <= 1.0, e
+    assert torch.equal(got, int4.w4a16_matmul(x.to(dt), q4, s4))
+
+
+def test_int4_rows_do_not_depend_on_m(cuda):
+    """A row at M = 1 is bit-equal to the same row inside M = 32 and M = 256
+    (other row tiles, other instantiations): what warm == cold rests on."""
+    int4, x, q4, s4 = _int4_case(cuda, 2048, 2560, 128, 256)
+    for fn in (int4.w4a8_matmul, lambda *a: int4.w4a16_matmul(a[0].to(torch.bfloat16), *a[1:])):
+        whole = fn(x, q4, s4)
+        assert torch.equal(fn(x[:32], q4, s4), whole[:32])
+        for row in (0, 17, 31):
+            assert torch.equal(fn(x[row : row + 1], q4, s4)[0], whole[row])
+
+
+def test_int4_kernels_refuse_what_they_cannot_take(cuda):
+    int4, x, q4, s4 = _int4_case(cuda, 512, 256, 128, 4)
+    with pytest.raises(ValueError, match="share a device"):
+        int4.w4a8_matmul(x, q4.cpu(), s4)
+    for k, n, gsz in ((384, 128, 128), (512, 192, 128), (512, 256, 64)):  # K % 256, N % 128, gsz % 128
+        _, xb, qb, sb = _int4_case(cuda, k, n, gsz, 4)
+        for fn in (int4.w4a8_matmul, int4.w4a16_matmul):
+            with pytest.raises(ValueError, match="kernel needs"):
+                fn(xb, qb, sb)
+    with pytest.raises(ValueError, match="kernel needs"):
+        int4.w4a8_matmul(torch.zeros((300, 512), device=cuda), q4, s4)
+
+
+@pytest.mark.parametrize("mode", ["w4a8", "kernel", "xla"])
+def test_mm_int4_dispatch_on_the_card(cuda, monkeypatch, mode):
+    """Up to 32 rows of an eligible shape launch the mode's kernel; more rows,
+    an ineligible shape and the ``xla`` mode take the grouped product."""
+    import outline_rag_tpu_torch.models.decoder as dec
+
+    monkeypatch.setattr(dec, "_INT4_MODE", mode)
+    int4, x, q4, s4 = _int4_case(cuda, 512, 256, 128, 64)
+    _, x2, q2, s2 = _int4_case(cuda, 384, 128, 128, 8)
+    counts = lambda: (int4.w4a8_matmul.launches, int4.w4a16_matmul.launches)  # noqa: E731
+    c0 = counts()
+    small = dec._mm(x[:32].to(torch.bfloat16), {"q4": q4, "s4": s4}, torch.bfloat16)
+    c1 = counts()
+    dec._mm(x.to(torch.bfloat16), {"q4": q4, "s4": s4}, torch.bfloat16)  # M = 64
+    dec._mm(x2.to(torch.bfloat16), {"q4": q2, "s4": s2}, torch.bfloat16)  # K % 256 != 0
+    assert counts() == c1
+    want = {"w4a8": (1, 0), "kernel": (0, 1), "xla": (0, 0)}[mode]
+    assert (c1[0] - c0[0], c1[1] - c0[1]) == want and small.dtype == torch.bfloat16
+    ref = int4.w4a16_matmul_plain(x[:32].to(torch.bfloat16), q4, s4)
+    assert float((small.float() - ref).abs().max()) <= 0.03 * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("k,n", [(2048, 2560), (5632, 2048), (256, 8)])
+def test_int4_stream_floor_kernel_is_exact(cuda, k, n):
+    import outline_rag_tpu_torch.ops.int4_linear as int4
+
+    g = torch.Generator(device=cuda).manual_seed(k)
+    q4 = torch.randint(0, 256, (n, k // 2), generator=g, device=cuda, dtype=torch.uint8)
+    x = torch.randn((3, k), generator=g, device=cuda).to(torch.bfloat16)
+    before = int4.int4_stream_floor.launches
+    value, fold = int4.int4_stream_floor(x, q4)
+    torch.cuda.synchronize()
+    assert int4.int4_stream_floor.launches == before + 1
+    want_value, want_fold = int4.int4_stream_floor_plain(x, q4)
+    assert torch.equal(value, want_value) and torch.equal(fold, want_fold)
+    assert tuple(value.shape) == (n, 1) and fold.dtype == torch.int32
+
+
+@pytest.mark.parametrize("mode,variant", [("fp32", "nomerge"), ("fp32", "matmul"),
+                                          ("bf16", "nomerge"), ("bf16", "matmul"),
+                                          ("f32x2", "nomerge")])
+@pytest.mark.parametrize("n,b", [(5000, 3), (40_000, 33)])
+def test_topk_floor_kernel_matches_plain(cuda, mode, variant, n, b):
+    """The floor against its twin within 1e-5; `nomerge` bit-equal to the
+    first column of the full scan (the same score pass; a maximum does not
+    depend on order)."""
+    from outline_rag_tpu_torch.ops.topk import topk_floor, topk_floor_plain
+
+    q, c, _ = _float_case(cuda, n, 128, b, mode, seed=3)[:3]
+    before = topk_floor.launches
+    for tile_rows in (128, 1024):
+        got = topk_floor(q, c, mode, variant, tile_rows)
+        torch.cuda.synchronize()
+        want = topk_floor_plain(q, c, mode, variant, tile_rows)
+        assert float((got - want).abs().max()) <= 1e-5
+        assert torch.equal(got, topk_floor(q, c, mode, variant, tile_rows))
+    assert topk_floor.launches == before + 4
+    if variant == "nomerge":
+        vals, _ = topk_float(q, c, 4, None, mode)
+        assert torch.equal(vals[:, 0], topk_floor(q, c, mode))
+
+
+def test_int4_decoder_forward_kernels_against_twins(cuda, monkeypatch):
+    """A 32-row decode step with int4 weights: the w4a8 kernel is bit-equal
+    to its twin, so with the paged kernels kept the logits are equal; w4a16
+    within 1e-2 of logits of order 1."""
+    import outline_rag_tpu_torch.models.decoder as dec
+    import outline_rag_tpu_torch.ops.int4_linear as int4
+
+    cfg, params = _small_decoder(cuda)
+    params = dec.quantize_decoder_params_int4(dec.fuse_decoder_params(params))
+    toks = torch.randint(1, 512, (32, 1), generator=torch.Generator(device=cuda).manual_seed(1),
+                         device=cuda)
+    pos = torch.arange(32, dtype=torch.int32, device=cuda)
+
+    def run():
+        cache = dec.init_paged_cache(cfg, 32, 129, 128, device=cuda)
+        cache.table[:] = torch.arange(1, 129, device=cuda).reshape(32, 4)
+        with torch.inference_mode():
+            return dec.decoder_forward(params, toks, cache, pos, cfg)[0]
+
+    for mode, name, twin, tol in (("w4a8", "w4a8_matmul", int4.w4a8_matmul_plain, 0.0),
+                                  ("kernel", "w4a16_matmul", int4.w4a16_matmul_plain, 1e-2)):
+        with monkeypatch.context() as mp:
+            mp.setattr(dec, "_INT4_MODE", mode)
+            kernel = getattr(int4, name)
+            before = kernel.launches
+            got = run()
+            assert kernel.launches == before + 4 * cfg.layers + 1
+            mp.setattr(dec, name, twin)
+            want = run()
+        assert float((got - want).abs().max()) <= tol * max(1.0, float(want.abs().max()))
+
+
+def test_spec_batcher_on_the_card_runs_windows_through_the_paged_kernels(cuda):
+    """spec_k = 3 with int4 weights on the card: every stream ends, a
+    repeated prompt is reproducible (warm == cold), the paged kernels saw
+    T = 4 windows, the pages come back."""
+    import outline_rag_tpu_torch.models.decoder as dec
+    from outline_rag_tpu_torch.serve.decode_batcher import DONE, DecodeBatcher
+
+    cfg, params = _small_decoder(cuda)
+    params = dec.quantize_decoder_params_int4(dec.fuse_decoder_params(params))
+    b = DecodeBatcher(params, cfg, slots=4, chunk_tokens=4, eos_id=0, kv_pages=17, page_size=128,
+                      spec_k=3, spec_gram=2, device=cuda)
+
+    def collect(q):
+        out = []
+        while True:
+            item = q.get(timeout=120)
+            if item is DONE:
+                return out
+            if isinstance(item, Exception):
+                raise item
+            out.extend(item)
+
+    try:
+        prompt = [(7 * i) % 500 + 1 for i in range(300)]
+        cold = collect(b.submit(prompt, 0.8, 0.9, 12, seed=5))
+        warm = collect(b.submit(prompt, 0.8, 0.9, 12, seed=5))
+        st = b.stats()
+    finally:
+        b.close()
+    assert warm == cold and 0 < len(cold) <= 12
+    assert st["spec_tokens_per_step"] >= 1.0 and st["active"] == 0
     assert st["pages_free"] + st["pages_cached"] == st["pages_total"]

@@ -2,7 +2,9 @@
 f32 decoder on the CPU: batched greedy decoding equals solo decoding and the
 JAX package's ``DecodeBatcher`` token for token; admission, slot reuse, the
 paged pool's allocator, prefix cache, cancellation and teardown behave as
-the JAX package's do. Every wait on a queue or a thread has a time limit of
+the JAX package's do. Speculative steps (``spec_k > 0``) give the streams of
+``spec_k = 0``, alone and with int4 weights, the paged pool and an int8 pool
+together. Every wait on a queue or a thread has a time limit of
 its own."""
 
 import asyncio
@@ -418,10 +420,130 @@ def test_kv_int8_requires_paged_pool(setup):
         make(setup, slots=2, kv_int8=True)
 
 
-@pytest.mark.parametrize("kw", [{"spec_k": 2}, {"mesh": object()}], ids=["spec_k", "mesh"])
+@pytest.mark.parametrize("kw", [{"mesh": object()}], ids=["mesh"])
 def test_unported_options_raise(setup, kw):
-    with pytest.raises(NotImplementedError, match="slice 4"):
+    with pytest.raises(NotImplementedError, match="later slice"):
         make(setup, slots=2, **kw)
+
+
+# ----------------------------------------------------------------------
+# speculative steps
+# ----------------------------------------------------------------------
+
+REPEATING = [(7 * i) % 200 + 1 for i in range(20)]
+
+
+def run_requests(setup, requests, **kw):
+    """[(prompt, temperature, top_p, max_new, seed)] through one batcher, all
+    submitted at once: (token lists, the batcher's final stats)."""
+    b = make(setup, **kw)
+    try:
+        queues = [b.submit(p, t, tp, n, seed=s) for p, t, tp, n, s in requests]
+        out = [collect(q) for q in queues]
+        deadline = time.time() + WAIT
+        while b.stats()["active"] and time.time() < deadline:
+            time.sleep(0.01)
+        return out, b.stats()
+    finally:
+        b.close()
+
+
+@pytest.mark.parametrize("pool", [{}, {"kv_pages": 16, "page_size": 16, "prefill_chunk": 16}],
+                         ids=["ring", "paged"])
+def test_spec_streams_equal_plain_streams(setup, pool):
+    """Greedy and sampled requests sharing a batch: speculation changes how
+    many tokens a forward yields, never which."""
+    rng = random.Random(3)
+    requests = [(REPEATING, 0.0, 1.0, 24, 0),
+                ([rng.randrange(1, 250) for _ in range(11)], 0.9, 0.95, 20, 7),
+                ([5, 9, 5, 9, 5, 9, 5], 0.0, 1.0, 30, 0),
+                ([rng.randrange(1, 250) for _ in range(30)], 1.2, 0.8, 12, 9)]
+    plain, plain_stats = run_requests(setup, requests, slots=3, chunk_tokens=3, **pool)
+    spec, stats = run_requests(setup, requests, slots=3, chunk_tokens=3, spec_k=3, spec_gram=2, **pool)
+    assert spec == plain and all(len(ids) > 0 for ids in spec)
+    assert "spec_tokens_per_step" not in plain_stats
+    assert stats["spec_tokens_per_step"] >= 1.0
+    if pool:
+        assert stats["pages_free"] + stats["pages_cached"] == stats["pages_total"]
+
+
+def test_spec_accepts_drafts_on_a_repeating_stream(setup):
+    out, stats = run_requests(setup, [([5, 9, 5, 9, 5, 9, 5], 0.0, 1.0, 40, 0)], slots=2,
+                              chunk_tokens=4, spec_k=3, spec_gram=2)
+    assert out[0] == solo_greedy(setup, [5, 9, 5, 9, 5, 9, 5], 40)
+    assert stats["spec_tokens_per_step"] > 1.0  # the tiny model falls into a cycle
+
+
+def test_spec_composes_with_int4_weights_paged_pool_and_int8_kv():
+    """The whole quantized stack in one batcher (the JAX package's
+    ``test_int4_composes_with_spec_paged_int8kv``, at its sizes): the streams
+    equal the ``spec_k = 0`` streams, warm equals cold, a rerun reproduces
+    them, the pages come back and the acceptance is reported."""
+    from outline_rag_tpu_torch.models import decoder as tdec
+
+    cfg = tdec.DecoderConfig(vocab_size=512, hidden=256, layers=2, heads=4, kv_heads=2,
+                             intermediate=512, max_cache=64, dtype=torch.float32)
+    params = tdec.quantize_decoder_params_int4(tdec.fuse_decoder_params(
+        tdec.init_decoder(cfg, torch.Generator().manual_seed(3), "cpu")))
+
+    def run(spec_k):
+        b = DecodeBatcher(params, cfg, slots=2, chunk_tokens=4, eos_id=0, spec_k=spec_k,
+                          spec_gram=2, kv_pages=16, page_size=16, kv_int8=True,
+                          prefill_chunk=16, device="cpu")
+        try:
+            cold = collect(b.submit(REPEATING, 0.8, 0.95, 10, seed=7))
+            warm = collect(b.submit(REPEATING, 0.8, 0.95, 10, seed=7))
+            greedy = collect(b.submit(REPEATING, 0.0, 1.0, 10, seed=7))
+            assert b.prefix_hits >= 2
+            deadline = time.time() + WAIT
+            while b.stats()["active"] and time.time() < deadline:
+                time.sleep(0.01)
+            return cold, warm, greedy, b.stats()
+        finally:
+            b.close()
+
+    cold, warm, greedy, stats = run(2)
+    assert cold == warm and 0 < len(cold) <= 10
+    assert run(2)[:3] == (cold, warm, greedy)
+    assert run(0)[:3] == (cold, warm, greedy)
+    assert stats["pages_free"] + stats["pages_cached"] == stats["pages_total"]
+    assert stats["kv_dtype"] == "int8" and stats["spec_tokens_per_step"] >= 1.0
+
+
+def test_spec_window_never_writes_a_shared_prefix_page(setup):
+    """A verify window starts at or past the prompt's end, so its K/V lands
+    in the row's own pages: the shared prompt pages of a warm admission stay
+    bit-equal while it speculates."""
+    b = make(setup, slots=2, chunk_tokens=2, spec_k=3, spec_gram=2, kv_pages=16, page_size=16,
+             prefill_chunk=16)
+    try:
+        prompt = [(3 * i) % 97 + 1 for i in range(37)]  # two full pages and a tail
+        first = collect(b.submit(prompt, 0.0, 1.0, 12))
+        shared = [pg for pg in b._prefix_map.values()]
+        assert len(shared) == 2
+        before = b.cache.k[:, shared].clone()
+        again = collect(b.submit(prompt, 0.0, 1.0, 12))
+        assert again == first and b.prefix_hits == 2
+        assert torch.equal(b.cache.k[:, shared], before)
+    finally:
+        b.close()
+
+
+def test_spec_span_reserves_the_window(setup):
+    """The pool grants ``spec_k`` more positions a request than without
+    speculation, so a window never runs past the row's pages."""
+    needs = {}
+    for spec_k in (0, 3):
+        b = make(setup, slots=1, chunk_tokens=2, spec_k=spec_k, kv_pages=16, page_size=16)
+        try:
+            b.submit(list(range(1, 14)), 0.0, 1.0, 18)  # 13 + 18 + 1 = 32 positions
+            deadline = time.time() + WAIT
+            while not b._row_pages[0] and time.time() < deadline:
+                time.sleep(0.005)
+            needs[spec_k] = len(b._row_pages[0])
+        finally:
+            b.close()
+    assert needs == {0: 2, 3: 3}
 
 
 def test_device_mismatch_raises(setup):

@@ -4,7 +4,10 @@ weights (through ``decoder_from_jax``) and the same numpy tokens give
 logits within 1e-4 (f32 sums in another order; logits are of order 0.1) on
 the ring and the paged cache, and the same greedy tokens. int8 weights are
 held to 1e-5 per projection on the same input, and through the whole
-forward to a bound that allows for a flipped activation rounding. The sampler draws other numbers than ``jax.random``, so it is held
+forward to a bound that allows for a flipped activation rounding. int4
+weights quantized by the JAX package keep the activations exact on the CPU
+(both packages take the grouped product there), so their logits are held
+to 1e-4 as well. The sampler draws other numbers than ``jax.random``, so it is held
 to its own contract: the nucleus distribution and the position rule."""
 
 import dataclasses
@@ -311,6 +314,118 @@ def test_init_decoder_is_seeded_and_casts_like_jax():
 
 
 # ----------------------------------------------------------------------
+# int4 weights
+# ----------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("kind", ["ring", "paged", "paged_int8"])
+def test_logits_match_jax_int4_weights(kind):
+    """``{"q4", "s4"}`` leaves quantized by the JAX package, carried across by
+    ``decoder_from_jax``. On the CPU both packages take the grouped product
+    (exact activations, f32 sums in another order): 1e-4 as for dense
+    weights, prefill (M = 14) and steps (M = 2)."""
+    jcfg, jparams = jax_model()
+    jq = jdec.quantize_decoder_params_int4(jdec.fuse_decoder_params(jparams))
+    for jl, tl in run_both(jcfg, jq, kind):
+        np.testing.assert_allclose(tl, jl, atol=TOL, rtol=0)
+
+
+def test_logits_track_jax_int4_weights_bf16():
+    """A bf16 model rounds every activation, and a last-bit difference
+    upstream flips such a rounding, so 1e-4 cannot hold; the two packages
+    stay closer to each other than the int4 model is to the float one, with
+    a per-position cosine above 0.999."""
+    jcfg, jparams = jax_model(dtype=jnp.bfloat16)
+    fused = jdec.fuse_decoder_params(jdec.cast_decoder_params(jparams, jnp.bfloat16))
+    floats = run_both(jcfg, fused, "ring", steps=0)
+    quants = run_both(jcfg, jdec.quantize_decoder_params_int4(fused), "ring", steps=2)
+    (_, fl), (jl0, tl0) = floats[0], quants[0]
+    assert np.abs(tl0 - jl0).max() < np.abs(tl0 - fl).max()
+    for jl, tl in quants:
+        cos = (jl * tl).sum(-1) / (np.linalg.norm(jl, axis=-1) * np.linalg.norm(tl, axis=-1))
+        assert cos.min() > 0.999, cos.min()
+
+
+def test_quantize_decoder_params_int4_matches_jax_codes():
+    jcfg, jparams = jax_model()
+    cfg = decoder_config_from_jax(jcfg)
+    fused = jdec.fuse_decoder_params(jparams)
+    want = to_np(jdec.quantize_decoder_params_int4(fused))
+    got = tdec.quantize_decoder_params_int4(decoder_from_jax(to_np(fused), cfg))
+    assert set(got["layers"][0]) == set(want["layers"])
+    for name in ("wqkv", "wo", "wgu", "wd"):
+        for li in range(cfg.layers):
+            for leaf in ("q4", "s4"):
+                np.testing.assert_array_equal(got["layers"][li][name][leaf].numpy(),
+                                              want["layers"][name][leaf][li])
+    np.testing.assert_array_equal(got["lm_head"]["q4"].numpy(), want["lm_head"]["q4"])
+    assert got["embed"].dtype == torch.float32 and not isinstance(got["layers"][0]["ln1"], dict)
+    again = tdec.cast_decoder_params(got, torch.bfloat16)  # quantized leaves are never cast
+    assert again["layers"][0]["wo"]["s4"].dtype == torch.float32
+
+
+def test_int4_decode_and_prefill_paths_agree():
+    """Small M goes through the grouped product and M > 256 through one full
+    dequantization: the same function on two schedules, to f32 summation
+    order (the JAX package's test of the same name, at its sizes)."""
+    cfg = tdec.DecoderConfig(vocab_size=512, hidden=256, layers=2, heads=4, kv_heads=2,
+                             intermediate=512, max_cache=64, dtype=torch.float32)
+    params = tdec.quantize_decoder_params_int4(tdec.fuse_decoder_params(
+        tdec.init_decoder(cfg, torch.Generator().manual_seed(3), "cpu")))
+    assert tuple(params["layers"][0]["wgu"]["q4"].shape) == (1024, 128)
+    assert tuple(params["layers"][0]["wgu"]["s4"].shape) == (1024, 2)
+    toks = torch.from_numpy(np.random.default_rng(9).integers(0, 512, (1, 12)))
+    with torch.inference_mode():
+        big, _ = tdec.decoder_forward(params, toks.repeat(32, 1), tdec.init_cache(cfg, 32, "cpu"),
+                                      torch.zeros(32, dtype=torch.int32), cfg)  # M = 384
+        small, _ = tdec.decoder_forward(params, toks, tdec.init_cache(cfg, 1, "cpu"),
+                                        torch.zeros(1, dtype=torch.int32), cfg)
+    np.testing.assert_allclose(big[0].numpy(), small[0].numpy(), rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("mode", ["int4", "int8"])
+def test_init_quantized_decoder_params_layout_equals_fuse_then_quantize(mode):
+    cfg = dataclasses.replace(tdec.DecoderConfig.tiny(dtype=torch.bfloat16), attn_bias=True)
+    got = tdec.init_quantized_decoder_params(cfg, torch.Generator().manual_seed(0), "cpu", mode=mode)
+    fused = tdec.fuse_decoder_params(tdec.init_decoder(cfg, torch.Generator().manual_seed(0), "cpu"))
+    want = (tdec.quantize_decoder_params_int4 if mode == "int4" else tdec.quantize_decoder_params)(fused)
+
+    def layout(tree):
+        if isinstance(tree, dict):
+            return {k: layout(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [layout(v) for v in tree]
+        return (tuple(tree.shape), tree.dtype)
+
+    assert layout(got) == layout(want)
+    again = tdec.init_quantized_decoder_params(cfg, torch.Generator().manual_seed(0), "cpu", mode=mode)
+    leaf = "q4" if mode == "int4" else "q"
+    assert torch.equal(got["layers"][1]["wd"][leaf], again["layers"][1]["wd"][leaf])
+    with torch.inference_mode():  # and the tree runs
+        logits, _ = tdec.decoder_forward(got, torch.tensor([[3, 4, 5]]), tdec.init_cache(cfg, 1, "cpu"),
+                                         torch.zeros(1, dtype=torch.int32), cfg)
+    assert bool(torch.isfinite(logits).all())
+    with pytest.raises(ValueError, match="int4\\|int8"):
+        tdec.init_quantized_decoder_params(cfg, torch.Generator().manual_seed(0), "cpu", mode="fp8")
+
+
+@pytest.mark.parametrize("mode", ["w4a8", "kernel", "xla"])
+def test_int4_mode_never_reaches_a_kernel_on_the_cpu(monkeypatch, mode):
+    """Where the JAX package asks for its TPU backend the port asks for the
+    tensor's device: a CPU tensor takes the grouped product in every mode,
+    at an eligible shape too."""
+    import outline_rag_tpu_torch.ops.int4_linear as int4_module
+
+    monkeypatch.setattr(tdec, "_INT4_MODE", mode)
+    q4, s4 = int4_module.quantize_int4_weight(torch.randn((256, 128), generator=torch.Generator().manual_seed(1)))
+    x = torch.randn((2, 3, 256), generator=torch.Generator().manual_seed(2))
+    got = tdec._mm(x, {"q4": q4, "s4": s4}, torch.float32)
+    want = int4_module.w4a16_matmul_plain(x.reshape(6, 256), q4, s4).reshape(2, 3, 128)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5 * float(want.abs().max()))
+    assert int4_module.w4a8_matmul.launches == 0 and int4_module.w4a16_matmul.launches == 0
+
+
+# ----------------------------------------------------------------------
 # the sampler
 # ----------------------------------------------------------------------
 
@@ -400,9 +515,13 @@ def test_decoder_from_jax_takes_list_or_stacked_and_rejects_int4():
     assert bf["layers"][0]["ln1"].dtype == torch.float32
     with pytest.raises(ValueError, match="layers"):
         decoder_from_jax(to_np(jlist), dataclasses.replace(cfg, layers=3))
-    q4 = jdec.quantize_decoder_params_int4(jdec.stack_decoder_params(jlist))
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        decoder_from_jax(to_np(q4), cfg)
+    # an int4 tree is taken as it is (the name dates from when it was refused)
+    q4 = to_np(jdec.quantize_decoder_params_int4(jdec.stack_decoder_params(jlist)))
+    got = decoder_from_jax(q4, cfg)
+    leaf = got["layers"][1]["wd"]
+    assert leaf["q4"].dtype == torch.uint8 and leaf["s4"].dtype == torch.float32
+    np.testing.assert_array_equal(leaf["q4"].numpy(), q4["layers"]["wd"]["q4"][1])
+    np.testing.assert_array_equal(got["lm_head"]["s4"].numpy(), q4["lm_head"]["s4"])
 
 
 def test_decoder_params_from_state_dict_synthesized():

@@ -1,6 +1,7 @@
 """The port's ``LocalChatProvider`` (tiny f32 decoder, CPU): streaming deltas,
 termination, greedy parity with the JAX package's provider, the batched
-route, early close, and the options that are not ported yet. With a tiny
+route, early close, int4 weights, single-stream and batched speculative
+decoding, and the option that is not ported yet. With a tiny
 random decoder the text is gibberish; these tests pin the plumbing. Every
 wait has a time limit of its own."""
 
@@ -218,13 +219,97 @@ def test_prequantized_params_are_taken_as_they_are(setup):
         provider((setup[0], prov.params), prequantized=True)
 
 
-@pytest.mark.parametrize(
-    "kw", [{"spec_k": 2}, {"int4_weights": True}, {"tp_devices": 2}],
-    ids=["spec_k", "int4_weights", "tp_devices"],
-)
+@pytest.mark.parametrize("kw", [{"tp_devices": 2}], ids=["tp_devices"])
 def test_unported_options_raise(setup, kw):
-    with pytest.raises(NotImplementedError, match="slice 4"):
+    with pytest.raises(NotImplementedError, match="later slice"):
         provider(setup, **kw)
+
+
+# ----------------------------------------------------------------------
+# int4 weights and speculative decoding
+# ----------------------------------------------------------------------
+
+
+def test_int4_provider_stream_and_exclusivity(setup):
+    import torch
+
+    prov = provider(setup, int4_weights=True, chunk_tokens=4, max_new_tokens=8)
+    leaf = prov.params["layers"][0]["wqkv"]
+    assert leaf["q4"].dtype == torch.uint8 and set(leaf) == {"q4", "s4"}
+    a = run(stream_text(prov, "hello int4"))
+    assert 0 < len(a) <= 8 and a == run(stream_text(prov, "hello int4"))
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        provider(setup, int8_weights=True, int4_weights=True)
+
+
+def test_int4_prequantized_params_are_taken_as_they_are(setup):
+    prov = provider(setup, int4_weights=True)
+    again = provider((setup[0], prov.params), int4_weights=True, prequantized=True)
+    assert again.params["layers"][0]["wo"]["q4"] is prov.params["layers"][0]["wo"]["q4"]
+    assert run(stream_text(again, "same tree")) == run(stream_text(prov, "same tree"))
+
+
+def test_int4_batched_streams_equal_single_stream(setup):
+    solo = provider(setup, int4_weights=True, chunk_tokens=4, max_new_tokens=8)
+    batched = provider(setup, int4_weights=True, chunk_tokens=4, max_new_tokens=8, batch_slots=2,
+                       kv_pages=8, page_size=16)
+    try:
+        async def both():
+            return await asyncio.gather(stream_text(batched, "alpha"), stream_text(batched, "beta beta"))
+
+        assert run(both()) == [run(stream_text(solo, "alpha")), run(stream_text(solo, "beta beta"))]
+    finally:
+        batched.close()
+
+
+@pytest.mark.parametrize("kw", [{}, {"int4_weights": True}], ids=["dense", "int4"])
+@pytest.mark.parametrize("text", ["hello", "abababababab", "the quick brown fox " * 3])
+def test_single_stream_spec_equals_the_plain_loop(setup, kw, text):
+    """Greedy: ``_generate_spec`` emits the plain loop's text, whatever it
+    accepts and wherever the chunks end (max_new = 21 is no multiple of the
+    chunk, and the lookahead discards a chunk at the stop)."""
+    plain = provider(setup, chunk_tokens=4, max_new_tokens=21, **kw)
+    spec = provider(setup, chunk_tokens=4, max_new_tokens=21, spec_k=3, spec_gram=2, **kw)
+    want = run(stream_text(plain, text))
+    assert run(stream_text(spec, text)) == want and len(want) == 21
+    assert spec.stats()["mode"] == "single-stream"
+
+
+def test_single_stream_spec_sampled_is_reproducible_and_honours_max_tokens(setup):
+    spec = provider(setup, chunk_tokens=4, max_new_tokens=24, spec_k=2)
+    a = run(stream_text(spec, "sample me", temperature=0.9, top_p=0.9))
+    assert a == run(stream_text(spec, "sample me", temperature=0.9, top_p=0.9)) and 0 < len(a) <= 24
+    msg = [{"role": "user", "content": "short"}]
+    assert len(run(spec.complete("m", msg, max_tokens=5))) == 5
+
+
+def test_single_stream_spec_stops_at_the_cache_capacity(setup):
+    """A prompt that leaves less room than the budget: the speculative loop
+    ends at the capacity (the guard freezes the row) with the plain loop's
+    text up to there."""
+    text = "y" * 100  # the stub caps prompts at 120 ids; the cache holds 64
+    plain = provider(setup, chunk_tokens=4, max_new_tokens=12)
+    spec = provider(setup, chunk_tokens=4, max_new_tokens=12, spec_k=3)
+    want, got = run(stream_text(plain, text)), run(stream_text(spec, text))
+    assert 0 < len(got) <= 12 and want.startswith(got) and len(got) >= len(want) - 4
+
+
+def test_batched_spec_provider_equals_plain_and_reports_acceptance(setup):
+    plain = provider(setup, chunk_tokens=4, max_new_tokens=20, batch_slots=2, kv_pages=12, page_size=16)
+    spec = provider(setup, chunk_tokens=4, max_new_tokens=20, batch_slots=2, kv_pages=12,
+                    page_size=16, spec_k=3, spec_gram=2, int4_weights=True)
+    plain4 = provider(setup, chunk_tokens=4, max_new_tokens=20, batch_slots=2, kv_pages=12,
+                      page_size=16, int4_weights=True)
+    try:
+        async def both(prov):
+            return await asyncio.gather(stream_text(prov, "abababababab"), stream_text(prov, "other"))
+
+        assert run(both(spec)) == run(both(plain4))
+        assert len(run(both(plain))) == 2
+        assert spec.stats()["spec_tokens_per_step"] >= 1.0 and spec.stats()["mode"] == "paged"
+    finally:
+        for prov in (plain, spec, plain4):
+            prov.close()
 
 
 def test_default_device_is_the_card(setup):
