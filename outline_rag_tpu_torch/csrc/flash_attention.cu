@@ -24,20 +24,46 @@
 //
 // What bounds it on the card: 4 * S^2 * D * H flops per batch row (275 GFLOP
 // per layer at S = 8192, H = 16), so the bf16 tensor cores (989 TFLOP/s
-// dense) are the ceiling; the inputs are O(S * D) bytes. The design keeps
-// the [S, S] logits out of device memory entirely.
+// dense) are the ceiling; the inputs are O(S * D) bytes. At D = 64 the
+// softmax is as long as the products: a 64 x 64 tile of logits is 128
+// cycles of tensor-core time twice (Q K^T, P V) and 4,096 exponentials at 16
+// a cycle an SM, and the five or six other instructions an element fill the
+// issue slots for as long again. So the three must run side by side, K and V
+// must not be re-read from L2 more often than need be, and no thread may
+// spend an instruction on a copy. The [S, S] logits never reach device
+// memory.
 //
-// bf16 design (FlashAttention-2 shape, simple first; wgmma, TMA, double-buffered
-// tiles and warp specialisation are later work):
-//   one block of 4 warps per (batch * head, 64-query tile); each warp owns
-//   16 query rows, whose Q fragments stay in registers. The block walks the
-//   64-key tiles: K is staged row-major and V transposed in shared memory
-//   (so both feed mma.sync's B operand with conflict-free 32-bit reads),
-//   S = Q K^T and O += P V run on mma.sync.m16n8k16 (bf16 in, f32
-//   accumulate), and the softmax statistics of each row live in the 4 lanes
-//   that hold it (reduced with two shuffles). P goes from the S accumulator
-//   registers straight into the A fragments of P V.
+// bf16 design:
+//   - One block per (batch * head, 256 query rows): four consumer warpgroups
+//     of 64 rows each and one producer warp. K and V are read from L2 once
+//     per 256 rows, and while one warpgroup waits for its products the other
+//     three have the issue slots and the exponential unit.
+//   - The producer warp walks the key tiles of 64 keys. It reads the tile's
+//     64 biases; a tile with no live key is neither loaded nor multiplied
+//     (the bias need not be a prefix mask). For a live tile it waits for a
+//     free slot of a 4-stage ring, writes the biases (times log2 e) beside
+//     it, and issues two TMA copies (cp.async.bulk.tensor, 128-byte swizzle:
+//     a head's row is 64 bf16 = 128 bytes, one swizzle atom; the tensor map
+//     over [B, S, H, D] has the head as its own dimension and zero-fills
+//     rows past S) that complete on the slot's mbarrier. No thread of a
+//     consumer ever touches a K or V byte, and no load is synchronous. An
+//     end marker in the slot after the last live tile ends the consumers.
+//   - A consumer warpgroup computes S = Q K^T with wgmma.mma_async
+//     m64n64k16 (Q and the K tile from shared memory as they lie, both
+//     K-major), the softmax in the wgmma accumulator layout (a row lives in
+//     four lanes; exp2 of s * (scale * log2 e) + bias * log2 e - m, one
+//     MUFU instruction an element; in a tile without padding the maximum is
+//     taken of s itself and the rest is one fused multiply-add; the row sum
+//     stays a per-lane partial sum until the end; O is rescaled only when a
+//     maximum moved), and O += P V with P packed to bf16 straight from the
+//     accumulator registers as the A operand and the V tile [key][d] as an
+//     MN-major B operand (the instruction's transpose flag): there is no
+//     transposed copy of V anywhere.
+//   - Fixed order, no atomics, no split over keys: two runs are bit-equal.
+//
+// The f32 instantiation (one query row a thread, f32 FMAs) is further down.
 
+#include <cuda.h>  // CUtensorMap and its enums; no driver symbol is linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -45,180 +71,371 @@
 namespace {
 
 constexpr int HD = 64;           // head dim
-constexpr int BQ = 64;           // query rows per block (16 per warp)
+constexpr int BQ = 256;          // query rows per block: 64 a consumer warpgroup
 constexpr int BK = 64;           // keys per tile
-constexpr int KP = HD + 8;       // Ks row stride (bf16): conflict-free reads
-constexpr int VP = BK + 8;       // Vt row stride (bf16)
-constexpr int THREADS = 128;
+constexpr int STAGES = 4;        // K/V tiles in flight
+constexpr int CONSUMERS = 4;     // warpgroups
+constexpr int THREADS = CONSUMERS * 128 + 32;  // and one producer warp
 constexpr float NEG_BIAS = -1e9f;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr uint32_t TILE_BYTES = BK * HD * 2;  // one K or V tile: 8 KB
+
+struct FlashSmem {                 // 1024-byte aligned: the swizzle's period
+  __nv_bfloat16 q[BQ * HD];        // [row][d], 128-byte swizzled by the TMA
+  __nv_bfloat16 k[STAGES][BK * HD];
+  __nv_bfloat16 v[STAGES][BK * HD];
+  float bias[STAGES][BK];          // bias * log2 e of the slot's keys
+  int key0[STAGES];                // the slot's first key; -1: no tile follows
+  int unmasked[STAGES];            // every bias of the slot is 0
+  uint64_t full[STAGES], empty[STAGES], q_full;
+};
+constexpr size_t SMEM_BYTES = sizeof(FlashSmem) + 1024;  // room to align
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
-// D[16x8] += A[16x16] . B[16x8], bf16 inputs, f32 accumulators.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__global__ void __launch_bounds__(THREADS)
-flash_kernel(const __nv_bfloat16* __restrict__ q,
-             const __nv_bfloat16* __restrict__ k,
-             const __nv_bfloat16* __restrict__ v,
+__device__ __forceinline__ float ex2(float x) {  // 2^x, one MUFU instruction
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// ---- mbarriers and TMA -----------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// Returns once the phase of parity `parity` is complete (at once when the
+// barrier is already past it).
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// One [rows][64] tile of head h from row `row` of batch b into shared memory.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                         int h, int row, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(0),
+      "r"(h), "r"(row), "r"(b)
+      : "memory");
+}
+
+// ---- wgmma -----------------------------------------------------------------
+
+// Shared-memory matrix descriptor of a [rows][64] bf16 tile in the 128-byte
+// swizzle: 8-row groups 1,024 bytes apart (SBO); one swizzle atom wide, so the
+// leading offset is not used. The same descriptor serves a K-major operand
+// (Q, K: advance 32 bytes a 16-wide step along d) and an MN-major one (V with
+// the transpose flag: advance 16 rows = 2,048 bytes a step along the keys).
+__device__ __forceinline__ uint64_t tile_desc(const void* p) {
+  uint64_t d = (smem_u32(p) & 0x3ffffu) >> 4;
+  d |= uint64_t(1) << 16;
+  d |= uint64_t(1024 >> 4) << 32;
+  d |= uint64_t(1) << 62;  // SWIZZLE_128B
+  return d;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+// The accumulators of an asynchronous wgmma are written until wgmma_wait
+// returns: this pins every later use of them behind it.
+template <int N>
+__device__ __forceinline__ void pin(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// s[64 x 64] (+)= A[64 x 16] . B[64 x 16]^T, both from shared memory, K-major.
+__device__ __forceinline__ void wgmma_qk(float (&s)[32], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}"
+      : "+f"(s[0]), "+f"(s[1]), "+f"(s[2]), "+f"(s[3]),
+        "+f"(s[4]), "+f"(s[5]), "+f"(s[6]), "+f"(s[7]),
+        "+f"(s[8]), "+f"(s[9]), "+f"(s[10]), "+f"(s[11]),
+        "+f"(s[12]), "+f"(s[13]), "+f"(s[14]), "+f"(s[15]),
+        "+f"(s[16]), "+f"(s[17]), "+f"(s[18]), "+f"(s[19]),
+        "+f"(s[20]), "+f"(s[21]), "+f"(s[22]), "+f"(s[23]),
+        "+f"(s[24]), "+f"(s[25]), "+f"(s[26]), "+f"(s[27]),
+        "+f"(s[28]), "+f"(s[29]), "+f"(s[30]), "+f"(s[31])
+      : "l"(a), "l"(b), "r"(accumulate)
+      : "memory");
+}
+// o[64 x 64] += P[64 x 16] . V[16 x 64]: P from registers (the accumulator
+// layout of s is the A layout), V [key][d] from shared memory, MN-major.
+__device__ __forceinline__ void wgmma_pv(float (&o)[32], const uint32_t (&p)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}"
+      : "+f"(o[0]), "+f"(o[1]), "+f"(o[2]), "+f"(o[3]),
+        "+f"(o[4]), "+f"(o[5]), "+f"(o[6]), "+f"(o[7]),
+        "+f"(o[8]), "+f"(o[9]), "+f"(o[10]), "+f"(o[11]),
+        "+f"(o[12]), "+f"(o[13]), "+f"(o[14]), "+f"(o[15]),
+        "+f"(o[16]), "+f"(o[17]), "+f"(o[18]), "+f"(o[19]),
+        "+f"(o[20]), "+f"(o[21]), "+f"(o[22]), "+f"(o[23]),
+        "+f"(o[24]), "+f"(o[25]), "+f"(o[26]), "+f"(o[27]),
+        "+f"(o[28]), "+f"(o[29]), "+f"(o[30]), "+f"(o[31])
+      : "r"(p[0]), "r"(p[1]), "r"(p[2]), "r"(p[3]), "l"(b), "r"(1)
+      : "memory");
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+flash_kernel(const __grid_constant__ CUtensorMap q_map,
+             const __grid_constant__ CUtensorMap k_map,
+             const __grid_constant__ CUtensorMap v_map,
              const float* __restrict__ bias, __nv_bfloat16* __restrict__ out,
-             int S, int H, float scale) {
-  __shared__ __align__(16) __nv_bfloat16 Ks[BK][KP];   // [key][d]
-  __shared__ __align__(16) __nv_bfloat16 Vt[HD][VP];   // [d][key]
-  __shared__ float bs[BK];
+             int S, int H, float scale_log2) {
+  extern __shared__ uint8_t smem_raw[];
+  FlashSmem& sm = *reinterpret_cast<FlashSmem*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;  // mma fragment row group, column pair
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const long long row_stride = (long long)H * HD;  // elements between positions
-  const long long head0 = (long long)b * S * row_stride + (long long)h * HD;
-  const int q_row0 = blockIdx.x * BQ + warp * 16;
+  const int q_row0 = blockIdx.x * BQ;
 
-  // Q fragments (A operand) for rows g and g + 8 of the warp, all of D
-  uint32_t qa[4][4];
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int row = q_row0 + g + (r & 1) * 8;
-      const int d = kk * 16 + (r >> 1) * 8 + 2 * t;
-      qa[kk][r] = row < S ? *reinterpret_cast<const uint32_t*>(
-                                q + head0 + row * row_stride + d)
-                          : 0u;
+  if (tid == 0) {
+    for (int i = 0; i < STAGES; ++i) {
+      mbar_init(&sm.full[i], 1);               // the producer's one arrival
+      mbar_init(&sm.empty[i], CONSUMERS * 4);  // one a consumer warp
     }
+    mbar_init(&sm.q_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
 
-  float o[8][4];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
-  float m0 = -1e30f, m1 = -1e30f, l0 = 0.f, l1 = 0.f;  // rows g, g + 8
-
-  for (int key0 = 0; key0 < S; key0 += BK) {
-    __syncthreads();  // the previous tile's reads of Ks / Vt are done
-    bool live = false;
-    if (tid < BK) {
-      const int key = key0 + tid;
-      const float kb = key < S ? bias[(long long)b * S + key] : NEG_BIAS;
-      bs[tid] = kb;
-      live = kb > NEG_BIAS * 0.5f;
+  if (warp == CONSUMERS * 4) {
+    // ---- the producer warp ----
+    if (lane == 0) {
+      mbar_arrive_expect_tx(&sm.q_full, BQ * HD * 2);
+      tma_load(sm.q, &q_map, &sm.q_full, h, q_row0, b);
     }
-    // K: 8 lanes per key row, 16 bytes each, stored row-major
-    for (int i = tid; i < BK * (HD / 8); i += THREADS) {
-      const int key = i >> 3, c = (i & 7) * 8;
-      uint4 val = make_uint4(0, 0, 0, 0);
-      if (key0 + key < S)
-        val = *reinterpret_cast<const uint4*>(k + head0 + (key0 + key) * row_stride + c);
-      *reinterpret_cast<uint4*>(&Ks[key][c]) = val;
-    }
-    // V: consecutive lanes take consecutive keys, so the transposed 2-byte
-    // stores of a warp land in distinct banks
-    for (int i = tid; i < BK * (HD / 8); i += THREADS) {
-      const int key = i % BK, c = (i / BK) * 8;
-      uint4 val = make_uint4(0, 0, 0, 0);
-      if (key0 + key < S)
-        val = *reinterpret_cast<const uint4*>(v + head0 + (key0 + key) * row_stride + c);
-      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&val);
+    const float* brow = bias + (long long)b * S;
+    auto load_bias = [&](int key0, float (&x)[BK / 32]) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j) Vt[c + j][key] = e[j];
-    }
-    if (!__syncthreads_or(live)) continue;  // an all-padding key tile
-
-    // S = Q K^T: 8 column tiles of 8 keys
-    float s[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(&Ks[j * 8 + g][kk * 16 + 2 * t]);
-        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(&Ks[j * 8 + g][kk * 16 + 8 + 2 * t]);
-        mma_bf16(s[j], qa[kk], b0, b1);
+      for (int i = 0; i < BK / 32; ++i) {
+        const int key = key0 + lane + 32 * i;
+        x[i] = key < S ? brow[key] : NEG_BIAS;
       }
-    }
-    // s * scale + bias; the tile's row maxima
-    float mx0 = -1e30f, mx1 = -1e30f;  // every s is far above (>= ~-1e9)
+    };
+    float cur[BK / 32], nxt[BK / 32];
+    load_bias(0, cur);
+    int it = 0;  // live tiles so far
+    for (int key0 = 0; key0 < S; key0 += BK) {
+      if (key0 + BK < S) load_bias(key0 + BK, nxt);  // in flight during the wait below
+      bool live = false, zero = true;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float b_lo = bs[j * 8 + 2 * t], b_hi = bs[j * 8 + 2 * t + 1];
-      s[j][0] = __fadd_rn(__fmul_rn(s[j][0], scale), b_lo);
-      s[j][1] = __fadd_rn(__fmul_rn(s[j][1], scale), b_hi);
-      s[j][2] = __fadd_rn(__fmul_rn(s[j][2], scale), b_lo);
-      s[j][3] = __fadd_rn(__fmul_rn(s[j][3], scale), b_hi);
-      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
-    }
+      for (int i = 0; i < BK / 32; ++i) {
+        live |= cur[i] > NEG_BIAS * 0.5f;
+        zero &= cur[i] == 0.f;
+      }
+      zero = __all_sync(0xffffffffu, zero);
+      if (__any_sync(0xffffffffu, live)) {  // else: an all-padding key tile
+        const int st = it % STAGES;
+        mbar_wait(&sm.empty[st], ((it / STAGES) & 1) ^ 1);
 #pragma unroll
-    for (int off = 1; off <= 2; off <<= 1) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-    }
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float alpha0 = expf(m0 - mn0), alpha1 = expf(m1 - mn1);
-    float sum0 = 0.f, sum1 = 0.f;
+        for (int i = 0; i < BK / 32; ++i) sm.bias[st][lane + 32 * i] = cur[i] * LOG2E;
+        if (lane == 0) {
+          sm.key0[st] = key0;
+          sm.unmasked[st] = zero;
+        }
+        __syncwarp();
+        if (lane == 0) {
+          mbar_arrive_expect_tx(&sm.full[st], 2 * TILE_BYTES);
+          tma_load(sm.k[st], &k_map, &sm.full[st], h, key0, b);
+          tma_load(sm.v[st], &v_map, &sm.full[st], h, key0, b);
+        }
+        ++it;
+      }
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      s[j][0] = expf(s[j][0] - mn0);
-      s[j][1] = expf(s[j][1] - mn0);
-      s[j][2] = expf(s[j][2] - mn1);
-      s[j][3] = expf(s[j][3] - mn1);
-      sum0 += s[j][0] + s[j][1];
-      sum1 += s[j][2] + s[j][3];
+      for (int i = 0; i < BK / 32; ++i) cur[i] = nxt[i];
     }
+    const int st = it % STAGES;  // the end marker
+    mbar_wait(&sm.empty[st], ((it / STAGES) & 1) ^ 1);
+    if (lane == 0) {
+      sm.key0[st] = -1;
+      mbar_arrive(&sm.full[st]);
+    }
+    return;
+  }
+
+  // ---- a consumer warpgroup: 64 query rows ----
+  const int wg = warp >> 2;
+  const int g = lane >> 2, t = lane & 3;  // accumulator row group, column pair
+  const uint64_t q_desc = tile_desc(sm.q + wg * 64 * HD);
+
+  float o[32];
 #pragma unroll
-    for (int off = 1; off <= 2; off <<= 1) {
-      sum0 += __shfl_xor_sync(0xffffffffu, sum0, off);
-      sum1 += __shfl_xor_sync(0xffffffffu, sum1, off);
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  float m0 = -1e30f, m1 = -1e30f;  // rows g, g + 8 of this warp's 16
+  float l0 = 0.f, l1 = 0.f;        // this lane's share of the row sums
+
+  mbar_wait(&sm.q_full, 0);
+  for (int it = 0;; ++it) {
+    const int st = it % STAGES;
+    mbar_wait(&sm.full[st], (it / STAGES) & 1);
+    if (sm.key0[st] < 0) break;
+
+    // S = Q K^T
+    float s[BK / 2];
+    const uint64_t k_desc = tile_desc(sm.k[st]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) wgmma_qk(s, q_desc + 2 * kk, k_desc + 2 * kk, kk > 0);
+    wgmma_commit();
+    wgmma_wait();
+    pin(s);
+
+    // t = s * (scale * log2 e) + bias * log2 e, its row maxima m, and
+    // p = 2^(t - m): exactly 0 for a padding key. p is packed to bf16 as the A
+    // fragments of P V (the accumulators of key columns 16kk .. 16kk + 15).
+    float mx0 = -1e30f, mx1 = -1e30f;  // every t is far above (>= ~-1.5e9)
+    float alpha0, alpha1, sum0 = 0.f, sum1 = 0.f;
+    uint32_t p[BK / 16][4];
+    if (sm.unmasked[st]) {
+      // no bias in this tile: the maximum of t is the scaled maximum of s,
+      // and t - m is one fused multiply-add
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+        mx0 = fmaxf(mx0, fmaxf(s[4 * j + 0], s[4 * j + 1]));
+        mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+      }
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+      }
+      const float mn0 = fmaxf(m0, mx0 * scale_log2), mn1 = fmaxf(m1, mx1 * scale_log2);
+      alpha0 = ex2(m0 - mn0);
+      alpha1 = ex2(m1 - mn1);
+      m0 = mn0;
+      m1 = mn1;
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+        const float p0 = ex2(fmaf(s[4 * j + 0], scale_log2, -mn0));
+        const float p1 = ex2(fmaf(s[4 * j + 1], scale_log2, -mn0));
+        const float p2 = ex2(fmaf(s[4 * j + 2], scale_log2, -mn1));
+        const float p3 = ex2(fmaf(s[4 * j + 3], scale_log2, -mn1));
+        sum0 += p0 + p1;
+        sum1 += p2 + p3;
+        p[j >> 1][(j & 1) * 2 + 0] = pack_bf16(p0, p1);
+        p[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p2, p3);
+      }
+    } else {
+      const float* bs = sm.bias[st];
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+        const float2 bj = *reinterpret_cast<const float2*>(bs + j * 8 + 2 * t);
+        s[4 * j + 0] = fmaf(s[4 * j + 0], scale_log2, bj.x);
+        s[4 * j + 1] = fmaf(s[4 * j + 1], scale_log2, bj.y);
+        s[4 * j + 2] = fmaf(s[4 * j + 2], scale_log2, bj.x);
+        s[4 * j + 3] = fmaf(s[4 * j + 3], scale_log2, bj.y);
+        mx0 = fmaxf(mx0, fmaxf(s[4 * j + 0], s[4 * j + 1]));
+        mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+      }
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+      }
+      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+      alpha0 = ex2(m0 - mn0);
+      alpha1 = ex2(m1 - mn1);
+      m0 = mn0;
+      m1 = mn1;
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+        const float p0 = ex2(s[4 * j + 0] - mn0), p1 = ex2(s[4 * j + 1] - mn0);
+        const float p2 = ex2(s[4 * j + 2] - mn1), p3 = ex2(s[4 * j + 3] - mn1);
+        sum0 += p0 + p1;
+        sum1 += p2 + p3;
+        p[j >> 1][(j & 1) * 2 + 0] = pack_bf16(p0, p1);
+        p[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p2, p3);
+      }
     }
     l0 = l0 * alpha0 + sum0;
     l1 = l1 * alpha1 + sum1;
-    m0 = mn0;
-    m1 = mn1;
+    // the accumulator is rescaled only where a row's maximum moved
+    if (__any_sync(0xffffffffu, alpha0 != 1.f || alpha1 != 1.f)) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      o[j][0] *= alpha0;
-      o[j][1] *= alpha0;
-      o[j][2] *= alpha1;
-      o[j][3] *= alpha1;
-    }
-    // O += bf16(P) V: the S accumulators of key tiles 2kk, 2kk+1 are the A
-    // fragment of the kk-th 16-key step
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const uint32_t pa[4] = {
-          pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-          pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-          pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-          pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]),
-      };
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(&Vt[j * 8 + g][kk * 16 + 2 * t]);
-        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(&Vt[j * 8 + g][kk * 16 + 8 + 2 * t]);
-        mma_bf16(o[j], pa, b0, b1);
+      for (int j = 0; j < HD / 8; ++j) {
+        o[4 * j + 0] *= alpha0;
+        o[4 * j + 1] *= alpha0;
+        o[4 * j + 2] *= alpha1;
+        o[4 * j + 3] *= alpha1;
       }
     }
+
+    // O += bf16(P) V
+    const uint64_t v_desc = tile_desc(sm.v[st]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) wgmma_pv(o, p[kk], v_desc + kk * (16 * HD * 2 >> 4));
+    wgmma_commit();
+    wgmma_wait();
+    pin(o);
+
+    __syncwarp();  // every lane's reads of the slot are done
+    if (lane == 0) mbar_arrive(&sm.empty[st]);
   }
 
-  const float inv0 = l0 <= 0.f ? 1.f : l0, inv1 = l1 <= 0.f ? 1.f : l1;
-  const int r0 = q_row0 + g, r1 = r0 + 8;
+  // the row sums: the four lanes that share a row
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int d = j * 8 + 2 * t;
+  for (int off = 1; off <= 2; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  const float inv0 = l0 <= 0.f ? 1.f : l0, inv1 = l1 <= 0.f ? 1.f : l1;
+  const int r0 = q_row0 + wg * 64 + (warp & 3) * 16 + g, r1 = r0 + 8;
+  const long long row_stride = (long long)H * HD;
+  __nv_bfloat16* obase = out + (long long)b * S * row_stride + (long long)h * HD + 2 * t;
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j) {
     if (r0 < S)
-      *reinterpret_cast<uint32_t*>(out + head0 + r0 * row_stride + d) =
-          pack_bf16(__fdiv_rn(o[j][0], inv0), __fdiv_rn(o[j][1], inv0));
+      *reinterpret_cast<uint32_t*>(obase + r0 * row_stride + j * 8) =
+          pack_bf16(__fdiv_rn(o[4 * j + 0], inv0), __fdiv_rn(o[4 * j + 1], inv0));
     if (r1 < S)
-      *reinterpret_cast<uint32_t*>(out + head0 + r1 * row_stride + d) =
-          pack_bf16(__fdiv_rn(o[j][2], inv1), __fdiv_rn(o[j][3], inv1));
+      *reinterpret_cast<uint32_t*>(obase + r1 * row_stride + j * 8) =
+          pack_bf16(__fdiv_rn(o[4 * j + 2], inv1), __fdiv_rn(o[4 * j + 3], inv1));
   }
 }
 
@@ -326,11 +543,48 @@ flash_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+
+// cuTensorMapEncodeTiled is a driver function; the library links no driver
+// symbol, so its address comes from the runtime.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) !=
+            cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      p = nullptr;
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// A [B, S, H, 64] bf16 tensor as a 4-d map (d, head, position, batch) whose
+// box is one head's [rows][64] tile, 128-byte swizzled; rows past S read 0.
+bool head_tile_map(CUtensorMap* map, const void* base, int B, int S, int H, int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {HD, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {HD * 2, (cuuint64_t)H * HD * 2, (cuuint64_t)S * H * HD * 2};
+  const cuuint32_t box[4] = {HD, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 }  // namespace
 
-// q, k, v, out: [B, S, H, 64] contiguous, all bf16 (f32 == 0) or all f32
-// (f32 == 1); bias: [B, S] f32. Launches on `stream`; allocates nothing.
-// Returns 0 or the CUDA error code (cudaGetLastError after the launch).
+// q, k, v, out: [B, S, H, 64] contiguous and 16-byte aligned, all bf16
+// (f32 == 0) or all f32 (f32 == 1); bias: [B, S] f32. Launches on `stream`;
+// allocates nothing. Returns 0 or the CUDA error code (cudaGetLastError after
+// the launch; cudaErrorNotSupported when the driver gives no tensor map).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, const void* bias,
                                       void* out, int B, int S, int H, int D,
@@ -346,11 +600,23 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
         static_cast<const float*>(v), static_cast<const float*>(bias),
         static_cast<float*>(out), S, H, scale);
   } else {
+    CUtensorMap q_map, k_map, v_map;
+    if (!head_tile_map(&q_map, q, B, S, H, BQ) || !head_tile_map(&k_map, k, B, S, H, BK) ||
+        !head_tile_map(&v_map, v, B, S, H, BK))
+      return static_cast<int>(cudaErrorNotSupported);
+    static int allowed_on = -1;  // the device whose limit was raised: once, not a launch
+    int device = 0;
+    cudaError_t rc = cudaGetDevice(&device);
+    if (rc == cudaSuccess && device != allowed_on) {
+      rc = cudaFuncSetAttribute(flash_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)SMEM_BYTES);
+      if (rc == cudaSuccess) allowed_on = device;
+    }
+    if (rc != cudaSuccess) return static_cast<int>(rc);
     const dim3 grid((S + BQ - 1) / BQ, B * H);
-    flash_kernel<<<grid, THREADS, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(bias),
-        static_cast<__nv_bfloat16*>(out), S, H, scale);
+    flash_kernel<<<grid, THREADS, SMEM_BYTES, st>>>(
+        q_map, k_map, v_map, static_cast<const float*>(bias),
+        static_cast<__nv_bfloat16*>(out), S, H, scale * LOG2E);
   }
   return static_cast<int>(cudaGetLastError());
 }

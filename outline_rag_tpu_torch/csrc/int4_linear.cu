@@ -2,7 +2,7 @@
 // on the chip, for NVIDIA Hopper (built for sm_90a by
 // outline_rag_tpu_torch/ops/_build.py, bound with ctypes by
 // outline_rag_tpu_torch/ops/int4_linear.py). Three kernels over one storage
-// format:
+// format, and the row quantizer that feeds the first:
 //
 //   w4a8          replaces the Pallas TPU kernel
 //                 outline_rag_tpu/ops/int4_linear.py::_w4a8_kernel_v3
@@ -24,25 +24,45 @@
 // tricks for a vector unit without narrow shifts (the +8 bias folded into a
 // correction dot, the high nibble used as 16 * v) are not carried over.
 //
-// w4a8:   out[m, n] = sum_g s4[n, g] * float(sum_{k in g} xq[m, k] * v[n, k])
-//   for xq [M, K] int8 (the wrapper quantizes each row and multiplies the
-//   result by the row's scale). The integer sums are exact in int32 (at most
+// quant_rows: xq[m, k] = int8(clamp(rint(x[m, k] / xs[m]), -127, 127)) with
+//   xs[m] = max(max_k |x[m, k]| / 127, 1e-12), for x bf16 or f32: the per-row
+//   activation quantization of w4a8 (outline_rag_tpu/ops/int4_linear.py:190-193,
+//   the recipe of w8a8_matmul), in one launch. True divisions and round half
+//   to even, so codes and scale bits equal the plain version's. One block a
+//   row: a maximum by warp shuffles and one shared-memory step, then the row
+//   again (from L1) in 16-element pieces, 16-byte loads and stores. Bound:
+//   the launch; a decode step's rows are a few KB each.
+//
+// w4a8:   out[m, n] = xs[m] * sum_g s4[n, g] * float(sum_{k in g} xq[m, k] * v[n, k])
+//   for xq [M, K] int8 and xs [M] f32 from quant_rows, written as f32 or
+//   rounded once to bf16. The integer sums are exact in int32 (at most
 //   gsz * 127 * 8); the f32 sum over groups runs in ascending g, one thread
 //   an output, each product and each sum rounded on its own: two runs are
 //   bit-equal and a row's result depends on neither M nor its neighbours.
 //   Bound on the card: bytes. At decode M <= 32, so a weight byte is read once
 //   for 4 * M int8 operations, far below the card's ~590 int8 operations a
-//   byte; the packed N * K / 2 bytes at the memory rate are the floor.
-//   Design: a warp owns 8 output channels and walks the whole K alone (no
-//   split over K, no shared memory, no barrier). A thread loads 16 packed
-//   bytes at a time (two 16-byte loads a pair block, the next block's loads
-//   issued before this block's products), decodes them in registers, and
-//   feeds mma.sync.m16n8k32 (s8 x s8 -> s32) with them as the B operand; the
-//   A operand is 16-byte loads of xq through L1 (xq is M * K bytes, shared by
-//   every warp of the card). The contraction index inside one instruction is
-//   permuted (the same way for A and B: thread t's four registers hold 16
-//   consecutive elements), which an exact integer sum allows. 16 * MT rows a
-//   block, MT in {1, 2, 4} by M, blocks over N and row tiles only.
+//   byte; the packed N * K / 2 bytes at the memory rate are the floor, and a
+//   projection is 2.6-33 MB: a few microseconds, of which the launch, one
+//   round trip to device memory and the tail of the last wave are most. What
+//   the design does about it: every byte a block needs is requested at once
+//   and there are enough warps to cover the card.
+//   Design: a block of 8 warps owns 8 * CT output channels and 16 * MT rows
+//   (CT = 4, MT = 1 or 2 at decode) and splits K among its warps: in each
+//   slab of 8 pair blocks (2,048 elements) warp w takes pair block w, so at
+//   K = 2,048 every load of the block is in flight at once (a thread: 2 * CT
+//   16-byte loads of packed weights, 4 * MT of xq), and a warp reuses its xq
+//   fragments over its CT channel tiles (xq is re-read from L2 once a block,
+//   not once a warp). Nibbles are decoded in registers (decode4) into the B
+//   operand of mma.sync.m16n8k32 (s8 x s8 -> s32); the contraction index
+//   inside one instruction is permuted the same way for A and B (thread t's
+//   four registers hold 16 consecutive elements), which an exact integer sum
+//   allows. Each warp leaves the exact int32 sums of its two 128-element
+//   halves in shared memory; after one barrier one thread an output adds the
+//   slab's halves in ascending k into the group's integer sum and, where a
+//   group ends, into the f32 sum (__fmul_rn, __fadd_rn). Integer sums are
+//   exact, so which warp computed a half cannot change a bit. The epilogue
+//   multiplies by xs[m]. Two blocks an SM (launch bounds), so one block's
+//   products run under the other's loads; blocks over N and row tiles only.
 //
 // w4a16:  out[m, n] = sum_k x[m, k] * dt(float(v[n, k]) * s4[n, g(k)]), f32
 //   accumulation, for x in dt (bf16 or f32): the unbiased decode, the product
@@ -54,7 +74,8 @@
 //   TF32. Blocks over N and row tiles only; fixed order. Bound: the packed
 //   bytes, as above (bf16: 2 * M flops a weight element against ~295 a byte).
 //
-// stream_floor: the w4a8 kernel's blocks and 16-byte loads with the products
+// stream_floor: the w4a8 kernel's blocks (8 warps, 32 channels, a pair block a
+//   warp a slab, eight 16-byte loads a thread in flight) with the products
 //   taken out: every word of q4 is XOR-folded into one int32 a row (on a GPU
 //   a load that nothing uses is not issued), and value[n] = float(q4[n, 0]) *
 //   x[0, 0] is what the JAX tool's floor returns. Its time is the packed-byte
@@ -80,11 +101,78 @@ __device__ __forceinline__ uint4 ldg16(const void* p) {
 }
 
 // ---------------------------------------------------------------------------
+// row quantizer
+// ---------------------------------------------------------------------------
+
+constexpr int QR_THREADS = 256;
+
+__device__ __forceinline__ void load16(const float* p, float (&v)[16]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float4 f = __ldg(reinterpret_cast<const float4*>(p) + i);
+    v[4 * i] = f.x; v[4 * i + 1] = f.y; v[4 * i + 2] = f.z; v[4 * i + 3] = f.w;
+  }
+}
+
+__device__ __forceinline__ void load16(const __nv_bfloat16* p, float (&v)[16]) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const uint4 w = ldg16(reinterpret_cast<const uint4*>(p) + i);
+    const uint32_t u[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {  // a bf16 is the high half of its f32
+      v[8 * i + 2 * j] = __uint_as_float(u[j] << 16);
+      v[8 * i + 2 * j + 1] = __uint_as_float(u[j] & 0xffff0000u);
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(QR_THREADS)
+quant_rows_kernel(const T* __restrict__ x, int8_t* __restrict__ xq,
+                  float* __restrict__ xs, int K) {
+  __shared__ float red[QR_THREADS / 32];
+  const T* row = x + (long long)blockIdx.x * K;
+  float v[16];
+  float amax = 0.f;  // a maximum: its order does not matter
+  for (int e = threadIdx.x * 16; e < K; e += QR_THREADS * 16) {
+    load16(row + e, v);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) amax = fmaxf(amax, fabsf(v[i]));
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = amax;
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < QR_THREADS / 32; ++i) amax = fmaxf(amax, red[i]);
+  const float s = fmaxf(__fdiv_rn(amax, 127.f), 1e-12f);
+  if (threadIdx.x == 0) xs[blockIdx.x] = s;
+  int8_t* qrow = xq + (long long)blockIdx.x * K;
+  for (int e = threadIdx.x * 16; e < K; e += QR_THREADS * 16) {
+    load16(row + e, v);
+    uint32_t w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      w[i] = 0;
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        const float q = fminf(fmaxf(rintf(__fdiv_rn(v[4 * i + b], s)), -127.f), 127.f);
+        w[i] |= (static_cast<uint32_t>(static_cast<int>(q)) & 0xffu) << (8 * b);
+      }
+    }
+    *reinterpret_cast<uint4*>(qrow + e) = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // w4a8
 // ---------------------------------------------------------------------------
 
-constexpr int W8_WARPS = 2;  // warps a block, 8 output channels each
+constexpr int W8_WARPS = 8;  // warps a block: a slab of K is a pair block each
 constexpr int W8_THREADS = W8_WARPS * 32;
+constexpr int W8_HALVES = 2 * W8_WARPS;  // 128-element halves in a slab
 
 __device__ __forceinline__ void mma_s8(int (&c)[4], uint32_t a0, uint32_t a1,
                                        uint32_t a2, uint32_t a3, uint32_t b0,
@@ -96,93 +184,214 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], uint32_t a0, uint32_t a1,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
-template <int MT>
-__global__ void __launch_bounds__(W8_THREADS)
-w4a8_kernel(const int8_t* __restrict__ xq, const uint8_t* __restrict__ q4,
-            const float* __restrict__ s4, float* __restrict__ out, int M, int N,
-            int K, int gsz) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+// Shared memory of the w4a8 kernel. Each warp has a region of its own that
+// first holds the int8 rows of its pair block (staged by cp.async, rows XS
+// bytes apart so that a quarter warp's 16-byte reads are conflict-free) and
+// then, once the warp has read them into its products, the exact int32 sums
+// of its two halves, [half][row][channel], the row stride PS padded so that a
+// warp's 8-byte stores (rows g, channels 2t) and the fold's 4-byte loads
+// (consecutive channels) are conflict-free. Behind the regions: the group
+// scale of each of the slab's halves for each channel, and the row scales.
+constexpr int W8_XS = 256 + 64;  // staged row stride, bytes
+
+template <int MT, int CT>
+struct W8Layout {
+  static constexpr int ROWS = 16 * MT, CB = 8 * CT, PS = CB + 8;
+  static constexpr int SUMS = 2 * ROWS * PS * 4, STAGED = ROWS * W8_XS;
+  static constexpr int REGION = SUMS > STAGED ? SUMS : STAGED;  // bytes a warp
+  static constexpr int BYTES = W8_WARPS * REGION + (W8_HALVES * CB + ROWS) * 4;
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool live) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  const int bytes = live ? 16 : 0;  // 0: the 16 bytes are filled with zeros
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d), "l"(src), "r"(bytes)
+               : "memory");
+}
+
+template <int MT, int CT>
+__global__ void __launch_bounds__(W8_THREADS, 2)
+w4a8_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
+            const uint8_t* __restrict__ q4, const float* __restrict__ s4,
+            void* __restrict__ out, int out_bf16, int M, int N, int K, int gsz) {
+  using L = W8Layout<MT, CT>;
+  constexpr int ROWS = L::ROWS, CB = L::CB, PS = L::PS;
+  constexpr int FR = ROWS * CB / W8_THREADS;  // outputs a thread folds
+  constexpr int RSTEP = W8_THREADS / CB;      // rows between them
+  constexpr int SV = W8_HALVES * CB / W8_THREADS;  // group scales a thread fetches a slab
+  extern __shared__ __align__(16) uint8_t smem[];
+  float* gscale = reinterpret_cast<float*>(smem + W8_WARPS * L::REGION);  // [W8_HALVES][CB]
+  float* rscale = gscale + W8_HALVES * CB;                                // [ROWS]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int n0 = (blockIdx.x * W8_WARPS + warp) * 8;
-  if (n0 >= N) return;
-  const int m0 = blockIdx.y * (16 * MT);
+  const int n0 = blockIdx.x * CB, m0 = blockIdx.y * ROWS;
   const int KP = K >> 1, G = K / gsz, chunks = K >> 8;
-  // B operand: channel n0 + g, 16 packed bytes at 16 * t of each 64-byte span
-  const uint8_t* wrow = q4 + (long long)(n0 + g) * KP + 16 * t;
-  // the accumulator's columns are channels n0 + 2t and n0 + 2t + 1
-  const float* sc0 = s4 + (long long)(n0 + 2 * t) * G;
-  const float* sc1 = sc0 + G;
+  uint8_t* region = smem + warp * L::REGION;  // this warp's staged rows, then its sums
+  // B operand of channel tile ct: channel n0 + 8 ct + g, 16 packed bytes at
+  // 16 t of each 64-byte span
+  const uint8_t* wbase = q4 + (long long)(n0 + g) * KP + 16 * t;
+  // the fold: this thread's channel and first row
+  const int fc = tid % CB, fr = tid / CB;
+  // the slab's scales: consecutive threads take consecutive halves of a channel
+  const int sh = tid % W8_HALVES, sc0 = tid / W8_HALVES;
+  int gacc[FR];
+  float fsum[FR];
+#pragma unroll
+  for (int i = 0; i < FR; ++i) { gacc[i] = 0; fsum[i] = 0.f; }
+  const int group_halves = gsz >> 7;  // 128-element halves in a scale group
+  int in_group = 0;                   // halves of the open group folded so far
 
-  int acc[MT][4];
-  float sum[MT][4];
+  // Everything a slab needs from device memory is requested together: this
+  // warp's pair block of packed weights and the group scale of each half into
+  // registers, its 256 columns of every row of xq into its region.
+  uint4 w[CT][2];
+  float sv[SV];
+  auto load_weights = [&](int c0) {
+    const int c = c0 + warp;
+    if (c < chunks) {
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) { acc[mt][i] = 0; sum[mt][i] = 0.f; }
-
-  // a finished group's integer sums join the f32 sums, ascending g
-  auto flush = [&](int grp) {
-    const float s0 = sc0[grp], s1 = sc1[grp];
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-      sum[mt][0] = __fadd_rn(sum[mt][0], __fmul_rn(s0, __int2float_rn(acc[mt][0])));
-      sum[mt][1] = __fadd_rn(sum[mt][1], __fmul_rn(s1, __int2float_rn(acc[mt][1])));
-      sum[mt][2] = __fadd_rn(sum[mt][2], __fmul_rn(s0, __int2float_rn(acc[mt][2])));
-      sum[mt][3] = __fadd_rn(sum[mt][3], __fmul_rn(s1, __int2float_rn(acc[mt][3])));
-      acc[mt][0] = acc[mt][1] = acc[mt][2] = acc[mt][3] = 0;
-    }
-  };
-  // 128 elements from kbase on: the low or the high nibbles of one pair block
-  auto half = [&](const uint4& w0, const uint4& w1, int kbase, bool hi) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const uint4& w = i ? w1 : w0;
-      const uint32_t b0 = decode4(w.x, hi), b1 = decode4(w.y, hi);
-      const uint32_t b2 = decode4(w.z, hi), b3 = decode4(w.w, hi);
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        const int r0 = m0 + mt * 16 + g, r1 = r0 + 8;
-        const long long off = kbase + 64 * i + 16 * t;
-        uint4 x0 = make_uint4(0, 0, 0, 0), x1 = make_uint4(0, 0, 0, 0);
-        if (r0 < M) x0 = ldg16(xq + (long long)r0 * K + off);
-        if (r1 < M) x1 = ldg16(xq + (long long)r1 * K + off);
-        mma_s8(acc[mt], x0.x, x1.x, x0.y, x1.y, b0, b1);
-        mma_s8(acc[mt], x0.z, x1.z, x0.w, x1.w, b2, b3);
+      for (int ct = 0; ct < CT; ++ct) {
+        const uint8_t* p = wbase + (long long)ct * 8 * KP + 128 * c;
+        w[ct][0] = ldg16(p);
+        w[ct][1] = ldg16(p + 64);
       }
     }
+    const int grp = min((2 * c0 + sh) * 128 / gsz, G - 1);
+#pragma unroll
+    for (int i = 0; i < SV; ++i)
+      sv[i] = __ldg(s4 + (long long)(n0 + sc0 + i * (W8_THREADS / W8_HALVES)) * G + grp);
   };
-
-  uint4 w0 = ldg16(wrow), w1 = ldg16(wrow + 64);
-  for (int c = 0; c < chunks; ++c) {
-    const uint4 c0 = w0, c1 = w1;
-    if (c + 1 < chunks) {  // in flight during this block's products
-      w0 = ldg16(wrow + 128 * (c + 1));
-      w1 = ldg16(wrow + 128 * (c + 1) + 64);
+  auto stage_rows = [&](int c0) {
+    const int c = c0 + warp;
+    if (c < chunks) {
+#pragma unroll
+      for (int j = 0; j < ROWS / 2; ++j) {  // 16 pieces of 16 bytes a row
+        const int piece = lane + 32 * j, r = piece >> 4, col = (piece & 15) * 16;
+        const bool live = m0 + r < M;
+        cp_async16(region + r * W8_XS + col,
+                   xq + (long long)(live ? m0 + r : 0) * K + c * 256 + col, live);
+      }
     }
-    const int e = c << 8;
-    const int gl = e / gsz, gh = (e + 128) / gsz, gn = (e + 256) / gsz;
-    half(c0, c1, e, false);
-    if (gh != gl) flush(gl);
-    half(c0, c1, e + 128, true);
-    if (gn != gh) flush(gh);  // the last block ends the last group: gn == G
+    asm volatile("cp.async.commit_group;" ::: "memory");
+  };
+  load_weights(0);
+  stage_rows(0);
+  if (tid < ROWS) rscale[tid] = m0 + tid < M ? __ldg(xs + m0 + tid) : 0.f;
+
+  for (int c0 = 0; c0 < chunks; c0 += W8_WARPS) {
+    asm volatile("cp.async.wait_all;" ::: "memory");
+    __syncwarp();  // the warp's staged rows are all there
+    if (c0 + warp < chunks) {
+      int acc[2][MT][CT][4];  // [half]: the low, then the high nibbles
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int ct = 0; ct < CT; ++ct)
+            acc[half][mt][ct][0] = acc[half][mt][ct][1] = acc[half][mt][ct][2] =
+                acc[half][mt][ct][3] = 0;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {  // the two 64-byte spans of the half
+          const int col = 128 * half + 64 * i + 16 * t;
+          uint4 x0[MT], x1[MT];
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            const uint8_t* row = region + (mt * 16 + g) * W8_XS + col;
+            x0[mt] = *reinterpret_cast<const uint4*>(row);
+            x1[mt] = *reinterpret_cast<const uint4*>(row + 8 * W8_XS);
+          }
+#pragma unroll
+          for (int ct = 0; ct < CT; ++ct) {
+            const uint4& ww = w[ct][i];
+            const uint32_t b0 = decode4(ww.x, half), b1 = decode4(ww.y, half);
+            const uint32_t b2 = decode4(ww.z, half), b3 = decode4(ww.w, half);
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt) {
+              mma_s8(acc[half][mt][ct], x0[mt].x, x1[mt].x, x0[mt].y, x1[mt].y, b0, b1);
+              mma_s8(acc[half][mt][ct], x0[mt].z, x1[mt].z, x0[mt].w, x1[mt].w, b2, b3);
+            }
+          }
+        }
+      }
+      __syncwarp();  // every lane has read the staged rows: the sums take their place
+      int* part = reinterpret_cast<int*>(region);
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int ct = 0; ct < CT; ++ct) {
+            int* p = part + (half * ROWS + mt * 16 + g) * PS + ct * 8 + 2 * t;
+            const int(&a)[4] = acc[half][mt][ct];
+            *reinterpret_cast<int2*>(p) = make_int2(a[0], a[1]);
+            *reinterpret_cast<int2*>(p + 8 * PS) = make_int2(a[2], a[3]);
+          }
+    }
+#pragma unroll
+    for (int i = 0; i < SV; ++i) gscale[sh * CB + sc0 + i * (W8_THREADS / W8_HALVES)] = sv[i];
+    if (c0 + W8_WARPS < chunks) load_weights(c0 + W8_WARPS);  // in flight during the fold
+    __syncthreads();
+    // the slab's halves join the sums in ascending k: integers inside a
+    // group, and a finished group's sum joins the f32 sum, ascending g
+    const int hn = min(2 * chunks - 2 * c0, W8_HALVES);
+    auto fold = [&](int hh) {
+      const int* part = reinterpret_cast<const int*>(smem + (hh >> 1) * L::REGION) +
+                        (hh & 1) * ROWS * PS;
+#pragma unroll
+      for (int i = 0; i < FR; ++i) gacc[i] += part[(fr + RSTEP * i) * PS + fc];
+      if (++in_group == group_halves) {  // the group ends with this half
+        in_group = 0;
+        const float sc = gscale[hh * CB + fc];
+#pragma unroll
+        for (int i = 0; i < FR; ++i) {
+          fsum[i] = __fadd_rn(fsum[i], __fmul_rn(sc, __int2float_rn(gacc[i])));
+          gacc[i] = 0;
+        }
+      }
+    };
+    if (hn == W8_HALVES) {  // a whole slab: unrolled, its loads issued together
+#pragma unroll
+      for (int hh = 0; hh < W8_HALVES; ++hh) fold(hh);
+    } else {
+      for (int hh = 0; hh < hn; ++hh) fold(hh);
+    }
+    __syncthreads();  // before the next slab's rows and sums land
+    if (c0 + W8_WARPS < chunks) stage_rows(c0 + W8_WARPS);
   }
 
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-    const int r0 = m0 + mt * 16 + g, r1 = r0 + 8;
-    float* o = out + n0 + 2 * t;
-    if (r0 < M) *reinterpret_cast<float2*>(o + (long long)r0 * N) = make_float2(sum[mt][0], sum[mt][1]);
-    if (r1 < M) *reinterpret_cast<float2*>(o + (long long)r1 * N) = make_float2(sum[mt][2], sum[mt][3]);
+  for (int i = 0; i < FR; ++i) {
+    const int r = m0 + fr + RSTEP * i;
+    if (r >= M) continue;
+    const float val = __fmul_rn(fsum[i], rscale[fr + RSTEP * i]);  // the row's scale
+    const long long at = (long long)r * N + n0 + fc;
+    if (out_bf16)
+      static_cast<__nv_bfloat16*>(out)[at] = __float2bfloat16_rn(val);
+    else
+      static_cast<float*>(out)[at] = val;
   }
 }
 
-template <int MT>
-int launch_w4a8(const void* xq, const void* q4, const void* s4, void* out, int M,
-                int N, int K, int gsz, cudaStream_t s) {
-  const dim3 grid((N / 8 + W8_WARPS - 1) / W8_WARPS, (M + 16 * MT - 1) / (16 * MT));
-  w4a8_kernel<MT><<<grid, W8_THREADS, 0, s>>>(
-      static_cast<const int8_t*>(xq), static_cast<const uint8_t*>(q4),
-      static_cast<const float*>(s4), static_cast<float*>(out), M, N, K, gsz);
+template <int MT, int CT>
+int launch_w4a8(const void* xq, const void* xs, const void* q4, const void* s4, void* out,
+                int out_bf16, int M, int N, int K, int gsz, cudaStream_t s) {
+  constexpr int smem = W8Layout<MT, CT>::BYTES;
+  static int allowed_on = -1;  // the device whose limit was raised: once, not a launch
+  int device = 0;
+  cudaError_t rc = cudaGetDevice(&device);
+  if (rc == cudaSuccess && device != allowed_on) {
+    rc = cudaFuncSetAttribute(w4a8_kernel<MT, CT>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (rc == cudaSuccess) allowed_on = device;
+  }
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  const dim3 grid(N / (8 * CT), (M + 16 * MT - 1) / (16 * MT));
+  w4a8_kernel<MT, CT><<<grid, W8_THREADS, smem, s>>>(
+      static_cast<const int8_t*>(xq), static_cast<const float*>(xs),
+      static_cast<const uint8_t*>(q4), static_cast<const float*>(s4), out, out_bf16, M, N, K,
+      gsz);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -190,27 +399,52 @@ int launch_w4a8(const void* xq, const void* q4, const void* s4, void* out, int M
 // stream floor
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(W8_THREADS)
+constexpr int FLOOR_CT = 4;  // the w4a8 kernel's channel tiles a block at decode
+
+__global__ void __launch_bounds__(W8_THREADS, 2)
 stream_floor_kernel(const void* __restrict__ x, int x_f32,
                     const uint8_t* __restrict__ q4, float* __restrict__ value,
                     int* __restrict__ fold, int N, int KP) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  constexpr int CB = 8 * FLOOR_CT;
+  __shared__ uint32_t part[W8_WARPS][CB];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int n0 = (blockIdx.x * W8_WARPS + warp) * 8;
-  if (n0 >= N) return;
-  const uint8_t* wrow = q4 + (long long)(n0 + g) * KP + 16 * t;
-  uint32_t acc = 0;
-  for (int c = 0; c < KP / 128; ++c) {
-    const uint4 a = ldg16(wrow + 128 * c), b = ldg16(wrow + 128 * c + 64);
-    acc ^= a.x ^ a.y ^ a.z ^ a.w ^ b.x ^ b.y ^ b.z ^ b.w;
+  const int n0 = blockIdx.x * CB;
+  uint32_t acc[FLOOR_CT];
+#pragma unroll
+  for (int ct = 0; ct < FLOOR_CT; ++ct) acc[ct] = 0;
+  for (int c = warp; c < KP / 128; c += W8_WARPS) {
+    uint4 a[FLOOR_CT], b[FLOOR_CT];
+#pragma unroll
+    for (int ct = 0; ct < FLOOR_CT; ++ct) {  // the loads first, then the folds
+      const int n = n0 + 8 * ct + g;
+      a[ct] = b[ct] = make_uint4(0, 0, 0, 0);
+      if (n < N) {
+        const uint8_t* p = q4 + (long long)n * KP + 16 * t + 128 * c;
+        a[ct] = ldg16(p);
+        b[ct] = ldg16(p + 64);
+      }
+    }
+#pragma unroll
+    for (int ct = 0; ct < FLOOR_CT; ++ct)
+      acc[ct] ^= a[ct].x ^ a[ct].y ^ a[ct].z ^ a[ct].w ^ b[ct].x ^ b[ct].y ^ b[ct].z ^ b[ct].w;
   }
-  acc ^= __shfl_xor_sync(0xffffffffu, acc, 1);  // the row's four threads
-  acc ^= __shfl_xor_sync(0xffffffffu, acc, 2);
-  if (t == 0) {
-    fold[n0 + g] = static_cast<int>(acc);
+#pragma unroll
+  for (int ct = 0; ct < FLOOR_CT; ++ct) {
+    acc[ct] ^= __shfl_xor_sync(0xffffffffu, acc[ct], 1);  // the row's four threads
+    acc[ct] ^= __shfl_xor_sync(0xffffffffu, acc[ct], 2);
+    if (t == 0) part[warp][8 * ct + g] = acc[ct];
+  }
+  __syncthreads();
+  const int n = n0 + tid;
+  if (tid < CB && n < N) {
+    uint32_t r = 0;
+#pragma unroll
+    for (int wi = 0; wi < W8_WARPS; ++wi) r ^= part[wi][tid];
+    fold[n] = static_cast<int>(r);
     const float x00 = x_f32 ? static_cast<const float*>(x)[0]
                             : __bfloat162float(static_cast<const __nv_bfloat16*>(x)[0]);
-    value[n0 + g] = __fmul_rn(static_cast<float>(q4[(long long)(n0 + g) * KP]), x00);
+    value[n] = __fmul_rn(static_cast<float>(q4[(long long)n * KP]), x00);
   }
 }
 
@@ -430,18 +664,45 @@ bool int4_shape_ok(int M, int N, int K, int gsz) {
 
 }  // namespace
 
-// xq: [M, K] int8; q4: [N, K/2] uint8; s4: [N, K/gsz] f32; out: [M, N] f32,
-// all contiguous and 16-byte aligned. 1 <= M <= 256, K % 256 == 0,
+// x: [M, K] bf16 (x_f32 == 0) or f32 (x_f32 == 1); xq: [M, K] int8; xs: [M]
+// f32; all contiguous and 16-byte aligned, K % 16 == 0. Launches on
+// `stream`; allocates nothing. Returns 0 or the CUDA error code.
+extern "C" int int4_quant_rows_launch(const void* x, int x_f32, void* xq, void* xs,
+                                      int M, int K, void* stream) {
+  if (M <= 0 || K <= 0 || K % 16 || (x_f32 != 0 && x_f32 != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (x_f32)
+    quant_rows_kernel<float><<<M, QR_THREADS, 0, s>>>(
+        static_cast<const float*>(x), static_cast<int8_t*>(xq), static_cast<float*>(xs), K);
+  else
+    quant_rows_kernel<__nv_bfloat16><<<M, QR_THREADS, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(x), static_cast<int8_t*>(xq),
+        static_cast<float*>(xs), K);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// xq: [M, K] int8; xs: [M] f32 row scales; q4: [N, K/2] uint8; s4: [N, K/gsz]
+// f32; out: [M, N] f32 (out_bf16 == 0) or bf16 (out_bf16 == 1), all
+// contiguous and 16-byte aligned. 1 <= M <= 256, K % 256 == 0,
 // gsz % 128 == 0, N % 128 == 0. Launches on `stream`; allocates nothing.
 // Returns 0 or the CUDA error code.
-extern "C" int int4_w4a8_launch(const void* xq, const void* q4, const void* s4,
-                                void* out, int M, int N, int K, int gsz,
-                                void* stream) {
-  if (!int4_shape_ok(M, N, K, gsz)) return static_cast<int>(cudaErrorInvalidValue);
+extern "C" int int4_w4a8_launch(const void* xq, const void* xs, const void* q4,
+                                const void* s4, void* out, int out_bf16, int M, int N,
+                                int K, int gsz, void* stream) {
+  if (!int4_shape_ok(M, N, K, gsz) || (out_bf16 != 0 && out_bf16 != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (M <= 16) return launch_w4a8<1>(xq, q4, s4, out, M, N, K, gsz, s);
-  if (M <= 32) return launch_w4a8<2>(xq, q4, s4, out, M, N, K, gsz, s);
-  return launch_w4a8<4>(xq, q4, s4, out, M, N, K, gsz, s);
+  // 32 channels a block where that still gives every SM two blocks, else 16:
+  // a narrow projection is bound by one block's latency, not by the card
+  const bool wide = N / 32 >= 2 * 132;
+  if (M <= 16)
+    return wide ? launch_w4a8<1, 4>(xq, xs, q4, s4, out, out_bf16, M, N, K, gsz, s)
+                : launch_w4a8<1, 2>(xq, xs, q4, s4, out, out_bf16, M, N, K, gsz, s);
+  if (M <= 32)
+    return wide ? launch_w4a8<2, 4>(xq, xs, q4, s4, out, out_bf16, M, N, K, gsz, s)
+                : launch_w4a8<2, 2>(xq, xs, q4, s4, out, out_bf16, M, N, K, gsz, s);
+  return launch_w4a8<4, 2>(xq, xs, q4, s4, out, out_bf16, M, N, K, gsz, s);
 }
 
 // x: [M, K] bf16 (x_f32 == 0) or f32 (x_f32 == 1), which is also the type
@@ -472,7 +733,7 @@ extern "C" int int4_stream_floor_launch(const void* x, int x_f32, const void* q4
                                         void* stream) {
   if (N <= 0 || KP <= 0 || KP % 128 || N % 8 || (x_f32 != 0 && x_f32 != 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((N / 8 + W8_WARPS - 1) / W8_WARPS);
+  const dim3 grid((N + 8 * FLOOR_CT - 1) / (8 * FLOOR_CT));
   stream_floor_kernel<<<grid, W8_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       x, x_f32, static_cast<const uint8_t*>(q4), static_cast<float*>(value),
       static_cast<int*>(fold), N, KP);

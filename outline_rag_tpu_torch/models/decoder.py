@@ -44,10 +44,10 @@ from typing import Any
 import torch
 
 from outline_rag_tpu_torch.ops.int4_linear import (
+    _w4a8_matmul_as,
     int4_kernel_eligible,
     quantize_int4_weight,
     unpack_int4,
-    w4a8_matmul,
     w4a16_matmul,
 )
 from outline_rag_tpu_torch.ops.int8_linear import (
@@ -326,10 +326,9 @@ def _mm_int4(x: torch.Tensor, q4: torch.Tensor, s4: torch.Tensor, dt: torch.dtyp
     ):
         # the shape rule is no fallback: a launch that fails raises
         if _INT4_MODE == "w4a8":
-            out = w4a8_matmul(x2, q4, s4)
-        else:
-            out = w4a16_matmul(x2, q4, s4, dt)
-        return out.reshape(*lead, n).to(dt)
+            # two launches: the row quantizer, and the product writing dt
+            return _w4a8_matmul_as(x2, q4, s4, dt).reshape(*lead, n)
+        return w4a16_matmul(x2, q4, s4, dt).reshape(*lead, n).to(dt)
     if m <= 256:
         # operands rounded to the model dtype, products and sums in f32
         # (int4 codes are exact in either)

@@ -17,6 +17,7 @@ from outline_rag_tpu_torch.ops.int4_linear import (
     int4_stream_floor,
     int4_stream_floor_plain,
     quantize_int4_weight,
+    quantize_rows,
     unpack_int4,
     w4a8_matmul,
     w4a8_matmul_plain,
@@ -88,6 +89,7 @@ __all__ = [
     "topk_int8_plain",
     "topk_plain",
     "unpack_int4",
+    "quantize_rows",
     "w4a8_matmul",
     "w4a8_matmul_plain",
     "w4a16_matmul",

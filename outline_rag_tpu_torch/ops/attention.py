@@ -31,7 +31,8 @@ NEG_BIAS = -1e9  # the encoder's additive padding bias
 # logits (1 GiB at B = 1, H = 16, S = 8192).
 PLAIN_QUERY_ROWS = 2048
 
-# What csrc/flash_attention.cu takes: bf16 or f32, head dim 64, B * H <= 65535.
+# What csrc/flash_attention.cu takes: bf16 or f32, head dim 64, B * H <= 65535,
+# contiguous and 16-byte aligned (bf16 tiles are fetched through tensor maps).
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 KERNEL_HEAD_DIM = 64
 _KERNEL_MAX_BH = 65535
@@ -94,6 +95,8 @@ def _check_kernel_inputs(q, k, v, key_bias):
             )
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+        if t.data_ptr() % 16:  # the bf16 kernel's tensor maps, the f32 kernel's 16-byte loads
+            raise ValueError(f"{name} must be 16-byte aligned")
     if tuple(key_bias.shape) != (b, s) or key_bias.device != q.device:
         raise ValueError(f"key_bias: want {(b, s)} on {q.device}, got {tuple(key_bias.shape)}")
     if d != KERNEL_HEAD_DIM or b * h > _KERNEL_MAX_BH or s >= 1 << 31:

@@ -8,18 +8,20 @@ and unpacker that the JAX package keeps in ``models/decoder.py``):
                                  ``[N, K/2]`` uint8 with ``[N, G]`` f32
                                  group scales, byte for byte the JAX codes.
 - :func:`unpack_int4`          — the packed bytes back as ``[..., K]`` int8.
+- :func:`quantize_rows`        — per-row absmax int8 activations, one launch.
 - :func:`w4a8_matmul`          — per-row int8 activations x int4 weights:
-                                 exact int32 dots a scale group, f32 scales.
+                                 exact int32 dots a scale group, f32 scales:
+                                 two launches (quantize, product).
 - :func:`w4a16_matmul`         — exact activations x weights decoded to the
                                  working type, f32 accumulation.
 - :func:`int4_stream_floor`    — reads every packed byte once and does no
                                  arithmetic on it: what an int4 linear could
                                  reach on this card.
 
-On CUDA tensors the three launch the hand-written kernels of
+On CUDA tensors they launch the hand-written kernels of
 ``csrc/int4_linear.cu`` (or raise); on CPU tensors each runs its plain
-twin (``*_plain``), which is also what the card's checks hold the kernels
-to.
+twin (``*_plain``; ``_quantize_activations`` for the row quantizer), which
+is also what the card's checks hold the kernels to.
 
 The storage contract is the JAX package's. ``q4`` is *block-pair* packed:
 byte ``128c + j`` (``j`` in ``[0, 128)``) holds element ``256c + j`` in its
@@ -141,7 +143,8 @@ def _launcher(which: str):
         p, i32 = ctypes.c_void_p, ctypes.c_int
         fn = getattr(load_library(), f"int4_{which}_launch")
         fn.argtypes = {
-            "w4a8": [p, p, p, p, i32, i32, i32, i32, p],
+            "quant_rows": [p, i32, p, p, i32, i32, p],
+            "w4a8": [p, p, p, p, p, i32, i32, i32, i32, i32, p],
             "w4a16": [p, p, p, p, i32, i32, i32, i32, i32, p],
             "stream_floor": [p, i32, p, p, p, i32, i32, p],
         }[which]
@@ -160,12 +163,51 @@ def _stream(x: torch.Tensor) -> int:
 
 
 def _quantize_activations(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Per-row int8 activations: (``[M, K]`` int8, ``[M, 1]`` f32 scales),
-    the recipe of ``ops/int8_linear.py::w8a8_matmul`` (f32, absmax / 127,
-    floor 1e-12, round half to even, clip to +-127)."""
+    """Per-row int8 activations in plain PyTorch: (``[M, K]`` int8, ``[M, 1]``
+    f32 scales), the recipe of ``ops/int8_linear.py::w8a8_matmul`` (f32,
+    absmax / 127, floor 1e-12, round half to even, clip to +-127). Both
+    divisions are true divisions on every device: the divisor 127 is a tensor,
+    since a Python scalar becomes a product with ``f32(1 / 127)`` on the
+    card."""
     x32 = x.to(torch.float32)
-    xs = (x32.abs().amax(dim=1, keepdim=True) / 127.0).clamp_min(1e-12)
+    xs = (x32.abs().amax(dim=1, keepdim=True) / x32.new_full((), 127.0)).clamp_min(1e-12)
     return torch.round(x32 / xs).clamp(-127, 127).to(torch.int8), xs
+
+
+def quantize_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Each row of ``x`` (``[M, K]`` bf16 or f32) as int8 with its own scale:
+    (``[M, K]`` int8, ``[M, 1]`` f32), ``xs = max(absmax / 127, 1e-12)`` and
+    ``xq = clip(round_half_even(x / xs), -127, 127)``. On CUDA tensors this
+    is one launch of ``csrc/int4_linear.cu``'s row quantizer, byte-equal to
+    the plain version in codes and scale bits, counted in
+    ``quantize_rows.launches``; on CPU tensors it runs
+    :func:`_quantize_activations`."""
+    if x.dim() != 2 or x.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError("quantize_rows takes x [M, K] in bf16 or f32")
+    if x.device.type == "cpu":
+        return _quantize_activations(x)
+    if x.device.type != "cuda":
+        raise ValueError(f"quantize_rows runs on cpu or cuda tensors, not {x.device}")
+    m, k = x.shape
+    if m < 1 or k % 16 or not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError(
+            f"quantize_rows kernel needs M >= 1, K % 16 == 0 and a contiguous, 16-byte "
+            f"aligned x; got M={m}, K={k}"
+        )
+    xq = torch.empty((m, k), dtype=torch.int8, device=x.device)
+    xs = torch.empty((m, 1), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = _launcher("quant_rows")(
+            x.data_ptr(), int(x.dtype == torch.float32), xq.data_ptr(), xs.data_ptr(), m, k,
+            _stream(x),
+        )
+    if rc != 0:
+        raise RuntimeError(f"quantize_rows kernel launch failed with CUDA error {rc}")
+    quantize_rows.launches += 1
+    return xq, xs
+
+
+quantize_rows.launches = 0
 
 
 def _w4a8_groups_plain(xq: torch.Tensor, q4: torch.Tensor, s4: torch.Tensor) -> torch.Tensor:
@@ -199,32 +241,52 @@ def w4a8_matmul_plain(x: torch.Tensor, q4: torch.Tensor, s4: torch.Tensor) -> to
     return _w4a8_groups_plain(xq, q4, s4) * xs
 
 
-def w4a8_matmul(x: torch.Tensor, q4: torch.Tensor, s4: torch.Tensor) -> torch.Tensor:
-    """``quant8(x) @ dequant(q4, s4).T -> [M, N]`` f32.
+def _w4a8_matmul_as_plain(
+    x: torch.Tensor, q4: torch.Tensor, s4: torch.Tensor, dt: torch.dtype
+) -> torch.Tensor:
+    """:func:`_w4a8_matmul_as` in plain PyTorch: the f32 result rounded once
+    to ``dt``."""
+    return w4a8_matmul_plain(x, q4, s4).to(dt)
 
-    Each row of ``x`` is quantized to int8 on its own (in plain PyTorch,
-    outside the kernel, as the JAX package does it), the integer dots over
-    each scale group are exact, the group scales apply to the group sums in
-    f32 in ascending group order, and the row scale multiplies the result.
-    A row's result depends on that row alone: not on M, not on its
-    neighbours. On CUDA tensors this launches ``csrc/int4_linear.cu`` and
-    counts the launch in ``w4a8_matmul.launches``; on CPU tensors it runs
-    :func:`w4a8_matmul_plain`."""
+
+def _w4a8_matmul_as(
+    x: torch.Tensor, q4: torch.Tensor, s4: torch.Tensor, dt: torch.dtype
+) -> torch.Tensor:
+    """:func:`w4a8_matmul` with its result in ``dt``, as the decoder wants
+    it: for bf16 and f32 the kernel's epilogue writes ``dt`` itself (the f32
+    value rounded once: bit-equal to ``w4a8_matmul(...).to(dt)``), so a
+    projection is two launches, the row quantizer and the product."""
     m, k, n, gsz = _check(x, q4, s4, "w4a8_matmul")
     if x.device.type == "cpu":
-        return w4a8_matmul_plain(x, q4, s4)
+        return _w4a8_matmul_as_plain(x, q4, s4, dt)
     _check_cuda(x, q4, s4, "w4a8_matmul", m, k, n, gsz)
-    xq, xs = _quantize_activations(x)
-    xq = xq.contiguous()
-    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    xq, xs = quantize_rows(x.contiguous())
+    odt = dt if dt in (torch.bfloat16, torch.float32) else torch.float32
+    out = torch.empty((m, n), dtype=odt, device=x.device)
     with torch.cuda.device(x.device):
         rc = _launcher("w4a8")(
-            xq.data_ptr(), q4.data_ptr(), s4.data_ptr(), out.data_ptr(), m, n, k, gsz, _stream(x)
+            xq.data_ptr(), xs.data_ptr(), q4.data_ptr(), s4.data_ptr(), out.data_ptr(),
+            int(odt == torch.bfloat16), m, n, k, gsz, _stream(x),
         )
     if rc != 0:
         raise RuntimeError(f"w4a8_matmul kernel launch failed with CUDA error {rc}")
     w4a8_matmul.launches += 1
-    return out * xs
+    return out if odt == dt else out.to(dt)
+
+
+def w4a8_matmul(x: torch.Tensor, q4: torch.Tensor, s4: torch.Tensor) -> torch.Tensor:
+    """``quant8(x) @ dequant(q4, s4).T -> [M, N]`` f32.
+
+    Each row of ``x`` is quantized to int8 on its own (:func:`quantize_rows`),
+    the integer dots over each scale group are exact, the group scales apply
+    to the group sums in f32 in ascending group order, and the row scale
+    multiplies the result. A row's result depends on that row alone: not on
+    M, not on its neighbours. On CUDA tensors this is two launches of
+    ``csrc/int4_linear.cu`` (the row quantizer, then the product, whose
+    epilogue applies the row scale), counted in ``quantize_rows.launches``
+    and ``w4a8_matmul.launches``; on CPU tensors it runs
+    :func:`w4a8_matmul_plain`."""
+    return _w4a8_matmul_as(x, q4, s4, torch.float32)
 
 
 w4a8_matmul.launches = 0
@@ -323,8 +385,9 @@ def int4_stream_floor(
     x: torch.Tensor, q4: torch.Tensor, out: tuple[torch.Tensor, torch.Tensor] | None = None
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The int4 linear with its arithmetic taken out: every 16-byte word of
-    ``q4`` is loaded once, by the w4a8 kernel's own blocks and load shape,
-    and folded by XOR. Returns (``float(q4[:, 0]) * x[0, 0]`` as ``[N, 1]``
+    ``q4`` is loaded once, by the w4a8 kernel's own blocks and load shape
+    (8 warps over 32 channels, eight 16-byte loads a thread in flight), and
+    folded by XOR. Returns (``float(q4[:, 0]) * x[0, 0]`` as ``[N, 1]``
     f32, the value of the JAX tool's ``dma_floor``; the XOR of each row's
     little-endian 32-bit words, ``[N]`` int32, which proves that every byte
     was read). On a TPU the block pipeline moves a block whatever the body

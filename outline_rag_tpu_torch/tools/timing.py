@@ -1,5 +1,6 @@
 """Timing on the card for the port's measurement tools: CUDA events around
-a call, and the card's name and power limit to print beside every number."""
+a call or around a run of many launches, and the card's name and power limit
+to print beside every number."""
 
 from __future__ import annotations
 
@@ -7,6 +8,10 @@ import statistics
 import subprocess
 
 import torch
+
+# Bytes a ring of inputs must span so that each launch finds its input cold:
+# three times the card's 50 MB L2 cache.
+COLD_RING_BYTES = 150_000_000
 
 
 def cuda_ms(fn, runs: int = 10) -> float:
@@ -24,6 +29,52 @@ def cuda_ms(fn, runs: int = 10) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def cuda_ms_many(fn, launches: int = 100, runs: int = 5, graph: bool = True) -> dict:
+    """Milliseconds a call of ``fn`` on the device, for kernels of a few
+    microseconds, where two events around one launch read the host. After
+    three warm-up calls, ``runs`` timings of ``launches`` back-to-back calls
+    between two events, each divided by ``launches``; the median is
+    ``queued_ms``. Python enqueues a launch in some 5-20 us, so for a
+    shorter kernel the queue still drains and ``queued_ms`` is the host's
+    pace: with ``graph`` the same run of calls is also captured once into a
+    ``torch.cuda.CUDAGraph`` (``fn`` must neither synchronize nor read a
+    result on the host) and its replays are timed the same way, as
+    ``graph_ms``. ``device_ms`` is the smaller reading; their ratio says how
+    far the host held the queued run back. ``fn`` may walk a ring of inputs
+    (a new weight each call) to keep what it reads out of the L2 cache."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+
+    def run():
+        for _ in range(launches):
+            fn()
+
+    def timed(body) -> float:
+        body()  # the run itself warm: allocator, graph upload
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(runs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            body()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end) / launches)
+        return statistics.median(times)
+
+    out = {"launches": launches, "queued_ms": timed(run), "graph_ms": None}
+    if graph:
+        captured = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(captured):
+            run()
+        out["graph_ms"] = timed(captured.replay)
+        del captured
+    out["device_ms"] = min(t for t in (out["queued_ms"], out["graph_ms"]) if t is not None)
+    return out
 
 
 def card() -> str:
