@@ -170,9 +170,13 @@ quant_rows_kernel(const T* __restrict__ x, int8_t* __restrict__ xq,
 // w4a8
 // ---------------------------------------------------------------------------
 
-constexpr int W8_WARPS = 8;  // warps a block: a slab of K is a pair block each
+constexpr int W8_WARPS = 16;
 constexpr int W8_THREADS = W8_WARPS * 32;
-constexpr int W8_HALVES = 2 * W8_WARPS;  // 128-element halves in a slab
+constexpr int W8_CHUNKS = 8;               // pair blocks in a slab of K (2,048 elements)
+constexpr int W8_HALVES = 2 * W8_CHUNKS;   // 128-element halves in a slab
+constexpr int W8_CB = 32;                  // channels in an item
+constexpr int W8_WROW = 1024 + 64;         // staged bytes between two channels' rows
+constexpr int W8_ITEM = W8_CB * W8_WROW + W8_HALVES * W8_CB * 4;  // weights, group scales
 
 __device__ __forceinline__ void mma_s8(int (&c)[4], uint32_t a0, uint32_t a1,
                                        uint32_t a2, uint32_t a3, uint32_t b0,
@@ -184,168 +188,205 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], uint32_t a0, uint32_t a1,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
-// Shared memory of the w4a8 kernel. Each warp has a region of its own that
-// first holds the int8 rows of its pair block (staged by cp.async, rows XS
-// bytes apart so that a quarter warp's 16-byte reads are conflict-free) and
-// then, once the warp has read them into its products, the exact int32 sums
-// of its two halves, [half][row][channel], the row stride PS padded so that a
-// warp's 8-byte stores (rows g, channels 2t) and the fold's 4-byte loads
-// (consecutive channels) are conflict-free. Behind the regions: the group
-// scale of each of the slab's halves for each channel, and the row scales.
-constexpr int W8_XS = 256 + 64;  // staged row stride, bytes
-
-template <int MT, int CT>
-struct W8Layout {
-  static constexpr int ROWS = 16 * MT, CB = 8 * CT, PS = CB + 8;
-  static constexpr int SUMS = 2 * ROWS * PS * 4, STAGED = ROWS * W8_XS;
-  static constexpr int REGION = SUMS > STAGED ? SUMS : STAGED;  // bytes a warp
-  static constexpr int BYTES = W8_WARPS * REGION + (W8_HALVES * CB + ROWS) * 4;
-};
-
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool live) {
   const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
   const int bytes = live ? 16 : 0;  // 0: the 16 bytes are filled with zeros
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d), "l"(src), "r"(bytes)
                : "memory");
 }
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(d), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {  // until at most N groups are in flight
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
 
-template <int MT, int CT>
-__global__ void __launch_bounds__(W8_THREADS, 2)
+// Shared memory of the w4a8 kernel, for 16 * MT rows a block:
+//   rows   the block's rows of xq for one slab, [pair block][row][256 bytes],
+//          the 16-byte pieces of a row swapped in fours on odd rows so that a
+//          quarter warp's reads (rows g, g + 1; four pieces) are conflict-free;
+//   sums   the exact int32 sums of a slab's halves, [half][row][channel], the
+//          row stride padded so that a warp's 8-byte stores (rows g, channels
+//          2t) and the fold's 4-byte loads (consecutive channels) are too;
+//   ring   STAGES items: 32 channels' packed bytes of one slab (rows W8_WROW
+//          apart: conflict-free again) and the group scale of each half;
+//   and the rows' scales.
+template <int MT>
+struct W8Smem {
+  static constexpr int ROWS = 16 * MT, PS = W8_CB + 8;
+  static constexpr int STAGES = MT == 1 ? 4 : 2;  // what fits beside rows and sums
+  static constexpr int XQ = W8_CHUNKS * ROWS * 256;
+  static constexpr int SUMS = W8_HALVES * ROWS * PS * 4;
+  static constexpr int BYTES = XQ + SUMS + STAGES * W8_ITEM + ROWS * 4;
+};
+
+template <int MT>
+__global__ void __launch_bounds__(W8_THREADS, 1)
 w4a8_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
             const uint8_t* __restrict__ q4, const float* __restrict__ s4,
             void* __restrict__ out, int out_bf16, int M, int N, int K, int gsz) {
-  using L = W8Layout<MT, CT>;
-  constexpr int ROWS = L::ROWS, CB = L::CB, PS = L::PS;
-  constexpr int FR = ROWS * CB / W8_THREADS;  // outputs a thread folds
-  constexpr int RSTEP = W8_THREADS / CB;      // rows between them
-  constexpr int SV = W8_HALVES * CB / W8_THREADS;  // group scales a thread fetches a slab
+  using L = W8Smem<MT>;
+  constexpr int ROWS = L::ROWS, PS = L::PS, STAGES = L::STAGES;
   extern __shared__ __align__(16) uint8_t smem[];
-  float* gscale = reinterpret_cast<float*>(smem + W8_WARPS * L::REGION);  // [W8_HALVES][CB]
-  float* rscale = gscale + W8_HALVES * CB;                                // [ROWS]
+  uint8_t* rows = smem;
+  int* sums = reinterpret_cast<int*>(smem + L::XQ);
+  uint8_t* ring = smem + L::XQ + L::SUMS;
+  float* rscale = reinterpret_cast<float*>(ring + STAGES * W8_ITEM);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int n0 = blockIdx.x * CB, m0 = blockIdx.y * ROWS;
+  const int wc = warp & 7;   // this warp's pair block of the slab
+  const int wh = warp >> 3;  // and its two of the item's four channel tiles
+  const int m0 = blockIdx.y * ROWS;
   const int KP = K >> 1, G = K / gsz, chunks = K >> 8;
-  uint8_t* region = smem + warp * L::REGION;  // this warp's staged rows, then its sums
-  // B operand of channel tile ct: channel n0 + 8 ct + g, 16 packed bytes at
-  // 16 t of each 64-byte span
-  const uint8_t* wbase = q4 + (long long)(n0 + g) * KP + 16 * t;
-  // the fold: this thread's channel and first row
-  const int fc = tid % CB, fr = tid / CB;
-  // the slab's scales: consecutive threads take consecutive halves of a channel
-  const int sh = tid % W8_HALVES, sc0 = tid / W8_HALVES;
-  int gacc[FR];
-  float fsum[FR];
-#pragma unroll
-  for (int i = 0; i < FR; ++i) { gacc[i] = 0; fsum[i] = 0.f; }
-  const int group_halves = gsz >> 7;  // 128-element halves in a scale group
-  int in_group = 0;                   // halves of the open group folded so far
+  const int slabs = (chunks + W8_CHUNKS - 1) / W8_CHUNKS;
+  // items of this block: its channel tiles (every gridDim.x-th), a slab each
+  const int tiles = N / W8_CB;
+  const int n_items = (tiles - blockIdx.x + gridDim.x - 1) / gridDim.x * slabs;
 
-  // Everything a slab needs from device memory is requested together: this
-  // warp's pair block of packed weights and the group scale of each half into
-  // registers, its 256 columns of every row of xq into its region.
-  uint4 w[CT][2];
-  float sv[SV];
-  auto load_weights = [&](int c0) {
-    const int c = c0 + warp;
-    if (c < chunks) {
+  // The packed weights and group scales of item `it`, requested into its slot
+  // of the ring STAGES - 1 items before they are used: the stream from device
+  // memory never waits for the products.
+  auto request_item = [&](int it) {
+    if (it < n_items) {
+      const int n0 = (blockIdx.x + it / slabs * gridDim.x) * W8_CB, slab = it % slabs;
+      uint8_t* slot = ring + it % STAGES * W8_ITEM;
+      const int slab_bytes = min(chunks - slab * W8_CHUNKS, W8_CHUNKS) * 128;
 #pragma unroll
-      for (int ct = 0; ct < CT; ++ct) {
-        const uint8_t* p = wbase + (long long)ct * 8 * KP + 128 * c;
-        w[ct][0] = ldg16(p);
-        w[ct][1] = ldg16(p + 64);
+      for (int j = 0; j < W8_CB * 64 / W8_THREADS; ++j) {  // 64 pieces of 16 bytes a channel
+        const int piece = tid + W8_THREADS * j, ch = piece >> 6, col = (piece & 63) * 16;
+        if (col < slab_bytes)
+          cp_async16(slot + ch * W8_WROW + col,
+                     q4 + (long long)(n0 + ch) * KP + slab * (W8_CHUNKS * 128) + col, true);
       }
+      const int hh = tid & (W8_HALVES - 1), ch = tid >> 4;  // one scale a thread
+      const int grp = min((slab * W8_HALVES + hh) * 128 / gsz, G - 1);
+      cp_async4(slot + W8_CB * W8_WROW + (hh * W8_CB + ch) * 4,
+                s4 + (long long)(n0 + ch) * G + grp);
     }
-    const int grp = min((2 * c0 + sh) * 128 / gsz, G - 1);
-#pragma unroll
-    for (int i = 0; i < SV; ++i)
-      sv[i] = __ldg(s4 + (long long)(n0 + sc0 + i * (W8_THREADS / W8_HALVES)) * G + grp);
+    cp_async_commit();
   };
-  auto stage_rows = [&](int c0) {
-    const int c = c0 + warp;
-    if (c < chunks) {
+  // The block's rows of xq, the columns of one slab.
+  auto request_rows = [&](int slab) {
 #pragma unroll
-      for (int j = 0; j < ROWS / 2; ++j) {  // 16 pieces of 16 bytes a row
-        const int piece = lane + 32 * j, r = piece >> 4, col = (piece & 15) * 16;
-        const bool live = m0 + r < M;
-        cp_async16(region + r * W8_XS + col,
-                   xq + (long long)(live ? m0 + r : 0) * K + c * 256 + col, live);
-      }
+    for (int j = 0; j < W8_CHUNKS * ROWS * 16 / W8_THREADS; ++j) {
+      const int piece = tid + W8_THREADS * j;
+      const int p16 = piece & 15, r = (piece >> 4) % ROWS, c = piece / (16 * ROWS);
+      const bool live = m0 + r < M && slab * W8_CHUNKS + c < chunks;
+      const long long at = (long long)(m0 + r) * K + (slab * W8_CHUNKS + c) * 256 + p16 * 16;
+      cp_async16(rows + (c * ROWS + r) * 256 + ((p16 ^ ((r & 1) << 2)) << 4), xq + (live ? at : 0),
+                 live);
     }
-    asm volatile("cp.async.commit_group;" ::: "memory");
+    cp_async_commit();
   };
-  load_weights(0);
-  stage_rows(0);
+
   if (tid < ROWS) rscale[tid] = m0 + tid < M ? __ldg(xs + m0 + tid) : 0.f;
+  if (slabs == 1) request_rows(0);  // one slab: the rows stay for every item
+#pragma unroll
+  for (int it = 0; it < STAGES - 1; ++it) request_item(it);
 
-  for (int c0 = 0; c0 < chunks; c0 += W8_WARPS) {
-    asm volatile("cp.async.wait_all;" ::: "memory");
-    __syncwarp();  // the warp's staged rows are all there
-    if (c0 + warp < chunks) {
-      int acc[2][MT][CT][4];  // [half]: the low, then the high nibbles
+  // the fold: this thread's channel and first row, and its sums
+  const int fc = tid % W8_CB, fr = tid / W8_CB;
+  const int group_halves = gsz >> 7;  // 128-element halves in a scale group
+  int gacc[MT], in_group = 0;
+  float fsum[MT];
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-          for (int ct = 0; ct < CT; ++ct)
-            acc[half][mt][ct][0] = acc[half][mt][ct][1] = acc[half][mt][ct][2] =
-                acc[half][mt][ct][3] = 0;
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {  // the two 64-byte spans of the half
-          const int col = 128 * half + 64 * i + 16 * t;
-          uint4 x0[MT], x1[MT];
-#pragma unroll
-          for (int mt = 0; mt < MT; ++mt) {
-            const uint8_t* row = region + (mt * 16 + g) * W8_XS + col;
-            x0[mt] = *reinterpret_cast<const uint4*>(row);
-            x1[mt] = *reinterpret_cast<const uint4*>(row + 8 * W8_XS);
-          }
-#pragma unroll
-          for (int ct = 0; ct < CT; ++ct) {
-            const uint4& ww = w[ct][i];
-            const uint32_t b0 = decode4(ww.x, half), b1 = decode4(ww.y, half);
-            const uint32_t b2 = decode4(ww.z, half), b3 = decode4(ww.w, half);
-#pragma unroll
-            for (int mt = 0; mt < MT; ++mt) {
-              mma_s8(acc[half][mt][ct], x0[mt].x, x1[mt].x, x0[mt].y, x1[mt].y, b0, b1);
-              mma_s8(acc[half][mt][ct], x0[mt].z, x1[mt].z, x0[mt].w, x1[mt].w, b2, b3);
-            }
-          }
-        }
-      }
-      __syncwarp();  // every lane has read the staged rows: the sums take their place
-      int* part = reinterpret_cast<int*>(region);
+  for (int i = 0; i < MT; ++i) { gacc[i] = 0; fsum[i] = 0.f; }
+
+  for (int it = 0; it < n_items; ++it) {
+    const int n0 = (blockIdx.x + it / slabs * gridDim.x) * W8_CB, slab = it % slabs;
+    const uint8_t* slot = ring + it % STAGES * W8_ITEM;
+    cp_async_wait<STAGES - 2>();  // this thread's pieces of item `it` are there
+    __syncthreads();              // everyone's; and the item before is folded
+    if (slabs > 1) request_rows(slab);
+    request_item(it + STAGES - 1);  // into the slot of the item before
+    if (slabs > 1) {
+      cp_async_wait<1>();  // the rows; the item just requested may be in flight
+      __syncthreads();
+    }
+
+    if (slab * W8_CHUNKS + wc < chunks) {
+      const uint8_t* wsm = slot + (wh * 16 + g) * W8_WROW + 128 * wc + 16 * t;
+      const uint8_t* xsm = rows + wc * ROWS * 256;
+      int acc[2][MT][2][4];  // [half][row tile][channel tile]
 #pragma unroll
       for (int half = 0; half < 2; ++half)
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-          for (int ct = 0; ct < CT; ++ct) {
-            int* p = part + (half * ROWS + mt * 16 + g) * PS + ct * 8 + 2 * t;
-            const int(&a)[4] = acc[half][mt][ct];
+          for (int c2 = 0; c2 < 2; ++c2)
+            acc[half][mt][c2][0] = acc[half][mt][c2][1] = acc[half][mt][c2][2] =
+                acc[half][mt][c2][3] = 0;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {  // the two 64-byte spans of the pair block
+        uint4 ww[2];
+#pragma unroll
+        for (int c2 = 0; c2 < 2; ++c2)
+          ww[c2] = *reinterpret_cast<const uint4*>(wsm + c2 * 8 * W8_WROW + 64 * i);
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {  // the low, then the high nibbles
+          uint4 x0[MT], x1[MT];
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            const int r = mt * 16 + g, p16 = 8 * half + 4 * i + t;
+            const uint8_t* px = xsm + r * 256 + ((p16 ^ ((r & 1) << 2)) << 4);
+            x0[mt] = *reinterpret_cast<const uint4*>(px);
+            x1[mt] = *reinterpret_cast<const uint4*>(px + 8 * 256);
+          }
+          uint32_t b[2][4];
+#pragma unroll
+          for (int c2 = 0; c2 < 2; ++c2) {
+            b[c2][0] = decode4(ww[c2].x, half);
+            b[c2][1] = decode4(ww[c2].y, half);
+            b[c2][2] = decode4(ww[c2].z, half);
+            b[c2][3] = decode4(ww[c2].w, half);
+          }
+          // consecutive instructions go to different accumulators
+#pragma unroll
+          for (int c2 = 0; c2 < 2; ++c2)
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt)
+              mma_s8(acc[half][mt][c2], x0[mt].x, x1[mt].x, x0[mt].y, x1[mt].y, b[c2][0],
+                     b[c2][1]);
+#pragma unroll
+          for (int c2 = 0; c2 < 2; ++c2)
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt)
+              mma_s8(acc[half][mt][c2], x0[mt].z, x1[mt].z, x0[mt].w, x1[mt].w, b[c2][2],
+                     b[c2][3]);
+        }
+      }
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int c2 = 0; c2 < 2; ++c2) {
+            int* p = sums + ((2 * wc + half) * ROWS + mt * 16 + g) * PS + (2 * wh + c2) * 8 + 2 * t;
+            const int(&a)[4] = acc[half][mt][c2];
             *reinterpret_cast<int2*>(p) = make_int2(a[0], a[1]);
             *reinterpret_cast<int2*>(p + 8 * PS) = make_int2(a[2], a[3]);
           }
     }
-#pragma unroll
-    for (int i = 0; i < SV; ++i) gscale[sh * CB + sc0 + i * (W8_THREADS / W8_HALVES)] = sv[i];
-    if (c0 + W8_WARPS < chunks) load_weights(c0 + W8_WARPS);  // in flight during the fold
     __syncthreads();
+
     // the slab's halves join the sums in ascending k: integers inside a
     // group, and a finished group's sum joins the f32 sum, ascending g
-    const int hn = min(2 * chunks - 2 * c0, W8_HALVES);
+    const float* gscale = reinterpret_cast<const float*>(slot + W8_CB * W8_WROW);
+    const int hn = min(2 * (chunks - slab * W8_CHUNKS), W8_HALVES);
     auto fold = [&](int hh) {
-      const int* part = reinterpret_cast<const int*>(smem + (hh >> 1) * L::REGION) +
-                        (hh & 1) * ROWS * PS;
 #pragma unroll
-      for (int i = 0; i < FR; ++i) gacc[i] += part[(fr + RSTEP * i) * PS + fc];
+      for (int i = 0; i < MT; ++i) gacc[i] += sums[(hh * ROWS + fr + 16 * i) * PS + fc];
       if (++in_group == group_halves) {  // the group ends with this half
         in_group = 0;
-        const float sc = gscale[hh * CB + fc];
+        const float sc = gscale[hh * W8_CB + fc];
 #pragma unroll
-        for (int i = 0; i < FR; ++i) {
+        for (int i = 0; i < MT; ++i) {
           fsum[i] = __fadd_rn(fsum[i], __fmul_rn(sc, __int2float_rn(gacc[i])));
           gacc[i] = 0;
         }
@@ -357,38 +398,53 @@ w4a8_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
     } else {
       for (int hh = 0; hh < hn; ++hh) fold(hh);
     }
-    __syncthreads();  // before the next slab's rows and sums land
-    if (c0 + W8_WARPS < chunks) stage_rows(c0 + W8_WARPS);
-  }
 
+    if (slab == slabs - 1) {  // the channel tile is complete: the row scale, out[m, n]
 #pragma unroll
-  for (int i = 0; i < FR; ++i) {
-    const int r = m0 + fr + RSTEP * i;
-    if (r >= M) continue;
-    const float val = __fmul_rn(fsum[i], rscale[fr + RSTEP * i]);  // the row's scale
-    const long long at = (long long)r * N + n0 + fc;
-    if (out_bf16)
-      static_cast<__nv_bfloat16*>(out)[at] = __float2bfloat16_rn(val);
-    else
-      static_cast<float*>(out)[at] = val;
+      for (int i = 0; i < MT; ++i) {
+        const int r = fr + 16 * i;
+        if (m0 + r < M) {
+          const float val = __fmul_rn(fsum[i], rscale[r]);
+          const long long at = (long long)(m0 + r) * N + n0 + fc;
+          if (out_bf16)
+            static_cast<__nv_bfloat16*>(out)[at] = __float2bfloat16_rn(val);
+          else
+            static_cast<float*>(out)[at] = val;
+        }
+        gacc[i] = 0;
+        fsum[i] = 0.f;
+      }
+      in_group = 0;
+    }
   }
+  cp_async_wait<0>();
 }
 
-template <int MT, int CT>
+// The SMs of the current device: a block a SM walks the channel tiles.
+int sm_count() {
+  static int count[64] = {};
+  int device = 0;
+  if (cudaGetDevice(&device) != cudaSuccess || device < 0 || device >= 64) return 1;
+  if (count[device] == 0 &&
+      cudaDeviceGetAttribute(&count[device], cudaDevAttrMultiProcessorCount, device) != cudaSuccess)
+    count[device] = 1;
+  return count[device];
+}
+
+template <int MT>
 int launch_w4a8(const void* xq, const void* xs, const void* q4, const void* s4, void* out,
                 int out_bf16, int M, int N, int K, int gsz, cudaStream_t s) {
-  constexpr int smem = W8Layout<MT, CT>::BYTES;
+  constexpr int smem = W8Smem<MT>::BYTES;
   static int allowed_on = -1;  // the device whose limit was raised: once, not a launch
   int device = 0;
   cudaError_t rc = cudaGetDevice(&device);
   if (rc == cudaSuccess && device != allowed_on) {
-    rc = cudaFuncSetAttribute(w4a8_kernel<MT, CT>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    rc = cudaFuncSetAttribute(w4a8_kernel<MT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (rc == cudaSuccess) allowed_on = device;
   }
   if (rc != cudaSuccess) return static_cast<int>(rc);
-  const dim3 grid(N / (8 * CT), (M + 16 * MT - 1) / (16 * MT));
-  w4a8_kernel<MT, CT><<<grid, W8_THREADS, smem, s>>>(
+  const dim3 grid(min(N / W8_CB, sm_count()), (M + 16 * MT - 1) / (16 * MT));
+  w4a8_kernel<MT><<<grid, W8_THREADS, smem, s>>>(
       static_cast<const int8_t*>(xq), static_cast<const float*>(xs),
       static_cast<const uint8_t*>(q4), static_cast<const float*>(s4), out, out_bf16, M, N, K,
       gsz);
@@ -399,53 +455,79 @@ int launch_w4a8(const void* xq, const void* xs, const void* q4, const void* s4, 
 // stream floor
 // ---------------------------------------------------------------------------
 
-constexpr int FLOOR_CT = 4;  // the w4a8 kernel's channel tiles a block at decode
+constexpr int FLOOR_STAGES = 4;
+constexpr int FLOOR_SMEM = FLOOR_STAGES * W8_CB * W8_WROW + W8_CHUNKS * W8_CB * 4;
 
-__global__ void __launch_bounds__(W8_THREADS, 2)
+__global__ void __launch_bounds__(W8_THREADS, 1)
 stream_floor_kernel(const void* __restrict__ x, int x_f32,
                     const uint8_t* __restrict__ q4, float* __restrict__ value,
                     int* __restrict__ fold, int N, int KP) {
-  constexpr int CB = 8 * FLOOR_CT;
-  __shared__ uint32_t part[W8_WARPS][CB];
+  extern __shared__ __align__(16) uint8_t smem[];
+  uint8_t* ring = smem;  // FLOOR_STAGES items of packed bytes, as in the w4a8 kernel
+  uint32_t* part = reinterpret_cast<uint32_t*>(smem + FLOOR_STAGES * W8_CB * W8_WROW);  // [8][32]
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int n0 = blockIdx.x * CB;
-  uint32_t acc[FLOOR_CT];
+  const int g = lane >> 2, t = lane & 3, wc = warp & 7, wh = warp >> 3;
+  const int chunks = KP / 128, slabs = (chunks + W8_CHUNKS - 1) / W8_CHUNKS;
+  const int tiles = (N + W8_CB - 1) / W8_CB;
+  const int n_items = (tiles - blockIdx.x + gridDim.x - 1) / gridDim.x * slabs;
+  auto request_item = [&](int it) {
+    if (it < n_items) {
+      const int n0 = (blockIdx.x + it / slabs * gridDim.x) * W8_CB, slab = it % slabs;
+      uint8_t* slot = ring + it % FLOOR_STAGES * (W8_CB * W8_WROW);
+      const int slab_bytes = min(chunks - slab * W8_CHUNKS, W8_CHUNKS) * 128;
 #pragma unroll
-  for (int ct = 0; ct < FLOOR_CT; ++ct) acc[ct] = 0;
-  for (int c = warp; c < KP / 128; c += W8_WARPS) {
-    uint4 a[FLOOR_CT], b[FLOOR_CT];
-#pragma unroll
-    for (int ct = 0; ct < FLOOR_CT; ++ct) {  // the loads first, then the folds
-      const int n = n0 + 8 * ct + g;
-      a[ct] = b[ct] = make_uint4(0, 0, 0, 0);
-      if (n < N) {
-        const uint8_t* p = q4 + (long long)n * KP + 16 * t + 128 * c;
-        a[ct] = ldg16(p);
-        b[ct] = ldg16(p + 64);
+      for (int j = 0; j < W8_CB * 64 / W8_THREADS; ++j) {
+        const int piece = tid + W8_THREADS * j, ch = piece >> 6, col = (piece & 63) * 16;
+        const bool live = n0 + ch < N;
+        if (col < slab_bytes)
+          cp_async16(slot + ch * W8_WROW + col,
+                     q4 + (live ? (long long)(n0 + ch) * KP + slab * (W8_CHUNKS * 128) + col : 0),
+                     live);
       }
     }
+    cp_async_commit();
+  };
 #pragma unroll
-    for (int ct = 0; ct < FLOOR_CT; ++ct)
-      acc[ct] ^= a[ct].x ^ a[ct].y ^ a[ct].z ^ a[ct].w ^ b[ct].x ^ b[ct].y ^ b[ct].z ^ b[ct].w;
-  }
+  for (int it = 0; it < FLOOR_STAGES - 1; ++it) request_item(it);
+  uint32_t acc[2] = {0, 0};  // this warp's pair blocks of its two channel tiles, row g
+  for (int it = 0; it < n_items; ++it) {
+    const int n0 = (blockIdx.x + it / slabs * gridDim.x) * W8_CB, slab = it % slabs;
+    const uint8_t* slot = ring + it % FLOOR_STAGES * (W8_CB * W8_WROW);
+    cp_async_wait<FLOOR_STAGES - 2>();
+    __syncthreads();
+    request_item(it + FLOOR_STAGES - 1);
+    if (slab * W8_CHUNKS + wc < chunks) {
+      const uint8_t* wsm = slot + (wh * 16 + g) * W8_WROW + 128 * wc + 16 * t;
 #pragma unroll
-  for (int ct = 0; ct < FLOOR_CT; ++ct) {
-    acc[ct] ^= __shfl_xor_sync(0xffffffffu, acc[ct], 1);  // the row's four threads
-    acc[ct] ^= __shfl_xor_sync(0xffffffffu, acc[ct], 2);
-    if (t == 0) part[warp][8 * ct + g] = acc[ct];
-  }
-  __syncthreads();
-  const int n = n0 + tid;
-  if (tid < CB && n < N) {
-    uint32_t r = 0;
+      for (int c2 = 0; c2 < 2; ++c2)
 #pragma unroll
-    for (int wi = 0; wi < W8_WARPS; ++wi) r ^= part[wi][tid];
-    fold[n] = static_cast<int>(r);
-    const float x00 = x_f32 ? static_cast<const float*>(x)[0]
-                            : __bfloat162float(static_cast<const __nv_bfloat16*>(x)[0]);
-    value[n] = __fmul_rn(static_cast<float>(q4[(long long)n * KP]), x00);
+        for (int i = 0; i < 2; ++i) {
+          const uint4 w = *reinterpret_cast<const uint4*>(wsm + c2 * 8 * W8_WROW + 64 * i);
+          acc[c2] ^= w.x ^ w.y ^ w.z ^ w.w;
+        }
+    }
+    if (slab == slabs - 1) {  // the tile's rows are complete
+#pragma unroll
+      for (int c2 = 0; c2 < 2; ++c2) {
+        acc[c2] ^= __shfl_xor_sync(0xffffffffu, acc[c2], 1);  // the row's four threads
+        acc[c2] ^= __shfl_xor_sync(0xffffffffu, acc[c2], 2);
+        if (t == 0) part[wc * W8_CB + (2 * wh + c2) * 8 + g] = acc[c2];
+        acc[c2] = 0;
+      }
+      __syncthreads();
+      const int n = n0 + tid;
+      if (tid < W8_CB && n < N) {
+        uint32_t r = 0;
+#pragma unroll
+        for (int i = 0; i < W8_CHUNKS; ++i) r ^= part[i * W8_CB + tid];
+        fold[n] = static_cast<int>(r);
+        const float x00 = x_f32 ? static_cast<const float*>(x)[0]
+                                : __bfloat162float(static_cast<const __nv_bfloat16*>(x)[0]);
+        value[n] = __fmul_rn(static_cast<float>(q4[(long long)n * KP]), x00);
+      }
+    }
   }
+  cp_async_wait<0>();
 }
 
 // ---------------------------------------------------------------------------
@@ -693,16 +775,9 @@ extern "C" int int4_w4a8_launch(const void* xq, const void* xs, const void* q4,
   if (!int4_shape_ok(M, N, K, gsz) || (out_bf16 != 0 && out_bf16 != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // 32 channels a block where that still gives every SM two blocks, else 16:
-  // a narrow projection is bound by one block's latency, not by the card
-  const bool wide = N / 32 >= 2 * 132;
-  if (M <= 16)
-    return wide ? launch_w4a8<1, 4>(xq, xs, q4, s4, out, out_bf16, M, N, K, gsz, s)
-                : launch_w4a8<1, 2>(xq, xs, q4, s4, out, out_bf16, M, N, K, gsz, s);
-  if (M <= 32)
-    return wide ? launch_w4a8<2, 4>(xq, xs, q4, s4, out, out_bf16, M, N, K, gsz, s)
-                : launch_w4a8<2, 2>(xq, xs, q4, s4, out, out_bf16, M, N, K, gsz, s);
-  return launch_w4a8<4, 2>(xq, xs, q4, s4, out, out_bf16, M, N, K, gsz, s);
+  // 16 or 32 rows a block; more rows are more blocks over the same channels
+  if (M <= 16) return launch_w4a8<1>(xq, xs, q4, s4, out, out_bf16, M, N, K, gsz, s);
+  return launch_w4a8<2>(xq, xs, q4, s4, out, out_bf16, M, N, K, gsz, s);
 }
 
 // x: [M, K] bf16 (x_f32 == 0) or f32 (x_f32 == 1), which is also the type
@@ -733,8 +808,17 @@ extern "C" int int4_stream_floor_launch(const void* x, int x_f32, const void* q4
                                         void* stream) {
   if (N <= 0 || KP <= 0 || KP % 128 || N % 8 || (x_f32 != 0 && x_f32 != 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((N + 8 * FLOOR_CT - 1) / (8 * FLOOR_CT));
-  stream_floor_kernel<<<grid, W8_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  static int allowed_on = -1;  // the device whose limit was raised: once, not a launch
+  int device = 0;
+  cudaError_t rc = cudaGetDevice(&device);
+  if (rc == cudaSuccess && device != allowed_on) {
+    rc = cudaFuncSetAttribute(stream_floor_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              FLOOR_SMEM);
+    if (rc == cudaSuccess) allowed_on = device;
+  }
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  const dim3 grid(min((N + W8_CB - 1) / W8_CB, sm_count()));
+  stream_floor_kernel<<<grid, W8_THREADS, FLOOR_SMEM, static_cast<cudaStream_t>(stream)>>>(
       x, x_f32, static_cast<const uint8_t*>(q4), static_cast<float*>(value),
       static_cast<int*>(fold), N, KP);
   return static_cast<int>(cudaGetLastError());
