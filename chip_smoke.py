@@ -50,8 +50,12 @@ printing one JSON line; any failure raises and the exit code is non-zero:
            (P is rounded against a running max over key tiles in the
            kernel, the row max in the twin) and the error's norm within
            1e-2 of the output's; a dropped key tile or a missing rescale
-           fails both. Median of 5 timings of both at each S, B = 1. The
-           f32 instantiation at S = 2048, B = 1 within 1e-5.
+           fails both. Also S = 2048 + 37 (no multiple of a tile), a bias
+           that is no prefix (live keys 0-999 and 3,000-3,499 of 4,096) and a
+           B = 3 batch with a row of no live key; two runs of every case are
+           bit-equal. Median of 5 timings of both at each S, B = 1, beside
+           one ``scaled_dot_product_attention`` call. The f32 instantiation at
+           S = 2048, B = 1 within 1e-5.
 7. long    whole-document ingest and f32x2 serving at bge-m3 width. The
            seeded encoder embeds one 8,192-token document with the kernel
            and with the twin for attention (pooled-vector cosine >= 0.999:
@@ -129,7 +133,8 @@ printing one JSON line; any failure raises and the exit code is non-zero:
            ``int4_weights`` (``int4_weights=True``, ``DECODER_INT4_MODE=w4a8``,
            32 slots so that a decode step has 32 rows and takes the kernel
            under the JAX package's rule, 32 chats of the same mix, 64 new
-           tokens: ``w4a8_matmul`` launches 4 x 22 + 1 times a decode forward
+           tokens: ``w4a8_matmul`` and ``quantize_rows`` each launch
+           4 x 22 + 1 times a decode forward (a projection is two launches)
            and never in a prefill chunk; the logits of one 32-row step with
            the int4 kernels equal to the same step with their twins bit for
            bit, and with every twin within 5e-2 of the logits' norm: both
@@ -145,16 +150,26 @@ printing one JSON line; any failure raises and the exit code is non-zero:
            than at 8, and one ``force_accept=True`` chunk as the all-accepted
            ceiling) and ``spec_int4`` (the same with int4 weights: the 8 x 4
            window rows take the w4a8 kernel).
-12. kernel_int4  ``w4a8_matmul`` and ``w4a16_matmul`` (bf16 and f32) against
+12. kernel_int4  ``quantize_rows`` (the row quantizer of w4a8) against its
+           twin, codes and scale bits byte-equal, for bf16 and f32 rows at
+           every M and K below, with a row of zeros, a row whose maximum is
+           negative and values at exact .5 ties. ``w4a8_matmul`` and
+           ``w4a16_matmul`` (bf16 and f32) against
            their twins at TinyLlama's five (K, N), at (4096, 22016) and
            (11008, 4096), groups of 128, and at (2048, 2560) with groups of
-           256 and 512; M in {1, 8, 32, 64, 256}: within 1e-5 of the output's
-           scale + 1e-5 relative (exact integer group sums, or the same
-           decoded weights; f32 sums in another order), two runs bit-equal, a
+           256 and 512; M in {1, 8, 32, 64, 256}: w4a8 bit-equal (exact
+           integer group sums, one f32 order), also through its bf16 epilogue;
+           w4a16 within 1e-5 of the output's scale + 1e-5 relative (the same
+           decoded weights; f32 sums in another order); two runs bit-equal, a
            row at M = 1 bit-equal to the same row inside M = 32. Times at
-           M = 32, with ``F.linear`` on a weight dequantized to bf16
-           beforehand (four times the bytes) as the library yardstick and the
-           grouped product of ``_mm_int4`` at M = 32, 64 and 128 beside them.
+           M = 32, each read twice: ``ms``, one launch through the wrapper
+           between two events (the host's time to launch a kernel this
+           short), and ``device_ms``, events around 100 back-to-back launches
+           or a CUDA-graph replay of them, each launch on the next of a ring
+           of weights that spans three times the L2 cache; ``F.linear`` on a
+           weight dequantized to bf16 beforehand (four times the bytes) as
+           the library yardstick, read the same two ways, and the grouped
+           product of ``_mm_int4`` at M = 32, 64 and 128 beside them.
 13. kernel_int4_floor  ``int4_stream_floor`` against its twin (exact), then
            the package's ``tools/bench_int4_kernel.py`` at those shapes:
            floor / w4a16 / w4a8 / int8 side by side at M = 32.
@@ -228,6 +243,28 @@ def cuda_ms(torch, fn, runs: int = 10) -> float:
     from outline_rag_tpu_torch.tools.timing import cuda_ms as timed
 
     return timed(fn, runs)
+
+
+def cuda_ms_many(torch, fn, launches: int = 100, runs: int = 5) -> dict:
+    """Milliseconds a call on the device for kernels of a few microseconds,
+    where one launch between two events reads the host: events around
+    ``launches`` back-to-back calls (``queued_ms``) and around a CUDA-graph
+    replay of the same run (``graph_ms``), median of ``runs``;
+    ``device_ms`` is the smaller (the package's timer, shared with its
+    tools)."""
+    from outline_rag_tpu_torch.tools.timing import cuda_ms_many as timed
+
+    return timed(fn, launches, runs)
+
+
+def both_ms(torch, fn, many=None, runs: int = 10) -> dict:
+    """``ms``: one launch through the wrapper between two events, what an
+    eager caller pays; ``device_ms`` and its two readings: many launches
+    (``many``, by default ``fn`` itself; a caller passes one that walks a
+    ring of cold operands)."""
+    readings = cuda_ms_many(torch, many or fn)
+    return {"ms": cuda_ms(torch, fn, runs), "device_ms": readings["device_ms"],
+            "queued_ms": readings["queued_ms"], "graph_ms": readings["graph_ms"]}
 
 
 def kernel_phase(torch, dev, seed: int) -> dict:
@@ -610,20 +647,28 @@ def flash_phase(torch, dev, seed: int) -> dict:
     dtypes = {"bf16": torch.bfloat16, "f32": torch.float32}
 
     def case(b, s, lengths, dtype):
+        """A row's live keys: the first n for an int, else a list of (from, to)
+        spans (a bias that is no prefix mask)."""
         q, k, v = (torch.randn((b, s, FLASH_HEADS, 64), generator=g, device=dev)
                    .to(dtypes[dtype]) for _ in range(3))
-        bias = torch.zeros((b, s), device=dev)
-        for i, n in enumerate(lengths):
-            bias[i, n:] = NEG_BIAS
+        bias = torch.full((b, s), NEG_BIAS, device=dev)
+        for i, live in enumerate(lengths):
+            for lo, hi in ([(0, live)] if isinstance(live, int) else live):
+                bias[i, lo:hi] = 0.0
         return q, k, v, bias
 
     cases = [(1, s, [s], "bf16") for s in (2048, 4096, 8192)]
-    cases += [(2, 4096, [3000, 0], "bf16"), (1, 2048, [2048], "f32")]
+    cases += [(2, 4096, [3000, 0], "bf16"), (1, 2048, [2048], "f32"),
+              (1, 2048 + 37, [2048 + 37], "bf16"),  # S no multiple of a tile
+              (1, 4096, [[(0, 1000), (3000, 3500)]], "bf16"),  # all-padding tiles in between
+              (3, 2048, [2048, 0, [(5, 700)]], "bf16")]
     max_err, times = 0.0, {}
     for b, s, lengths, dtype in cases:
         args = case(b, s, lengths, dtype)
         out = flash_attention(*args)
         torch.cuda.synchronize()
+        require(bool(torch.equal(out, flash_attention(*args))),
+                f"flash: two runs are bit-equal at B={b} S={s} {dtype}")
         plain = flash_attention_plain(*args)
         atol, ulps, rel_rms = FLASH_BOUNDS[dtype]
         row = {"dtype": dtype, "B": b, "S": s, "H": FLASH_HEADS, "lengths": lengths,
@@ -635,7 +680,7 @@ def flash_phase(torch, dev, seed: int) -> dict:
         for i, n in enumerate(lengths):
             if n == 0:
                 require(bool((out[i] == 0).all()), "a row with no live key is exactly zero")
-        if b == 1:
+        if b == 1 and lengths == [s]:
             row["ms"] = cuda_ms(torch, lambda: flash_attention(*args), runs=5)
             row["plain_ms"] = cuda_ms(torch, lambda: flash_attention_plain(*args), runs=5)
             row["kernel_tflops"] = 4 * s * s * 64 * FLASH_HEADS / row["ms"] / 1e9
@@ -647,7 +692,8 @@ def flash_phase(torch, dev, seed: int) -> dict:
                 row["library_ms"] = cuda_ms(
                     torch, lambda: torch.nn.functional.scaled_dot_product_attention(
                         qh, kh, vh, attn_mask=mask), runs=5)
-                times[s] = row
+                if s in (2048, 4096, 8192):
+                    times[s] = row
         emit("flash", **row)
         del args, out, plain
     top = 8192  # q, k, v read and the output written once; 4*S*S*D*H flops
@@ -904,8 +950,9 @@ def kernel_paged_phase(torch, dev, seed: int) -> dict:
         args = paged_case(torch, dev, g, DEC_SLOTS, 1, kv, lens - 1)
         args[3][:] = (torch.randperm(KV_PAGES - 1, generator=g, device=dev)[: DEC_SLOTS * MAXP]
                       + 1).reshape(DEC_SLOTS, MAXP)  # every row active
+        # the pool is 268 MB and a step's live slots some 65 MB: past the L2 cache as it is
         row = {"pool": kv, "B": DEC_SLOTS, "T": 1, "mean_len": float(lens.float().mean()),
-               "ms": cuda_ms(torch, lambda: paged_attention(*args)),
+               **both_ms(torch, lambda: paged_attention(*args)),
                "plain_ms": cuda_ms(torch, lambda: paged_attention_plain(*args)),
                **paged_bound(DEC_SLOTS, 1, kv, args[4])}
         pre = paged_case(torch, dev, g, 1, 256, kv, [512])
@@ -962,7 +1009,7 @@ def kernel_kv_write_phase(torch, dev, seed: int) -> dict:
                 args = (*pools, table, pos, *new, *scales)
                 elem = 1 if kv == "int8" else 2
                 moved = 2 * 2 * b * t * DEC_KV_HEADS * (DEC_HD * elem + (4 if scales else 0))
-                row.update(ms=cuda_ms(torch, lambda: paged_kv_write(*args)),
+                row.update(**both_ms(torch, lambda: paged_kv_write(*args)),
                            plain_ms=cuda_ms(torch, lambda: paged_kv_write_plain(*args)),
                            **bound(moved + b * (MAXP + 1) * 4, 0, "bf16"))
                 out[kv] = row
@@ -978,6 +1025,7 @@ def kernel_int8_linear_phase(torch, dev, seed: int) -> dict:
         quantize_linear_weight,
     )
     from outline_rag_tpu_torch.testing import flash_errors
+    from outline_rag_tpu_torch.tools.timing import cold_ring
 
     g = torch.Generator(device=dev).manual_seed(seed + 8)
     shapes = [(64, 2048, 2560), (64, 2048, 11264), (64, 5632, 2048), (64, 2048, 32000),
@@ -994,19 +1042,26 @@ def kernel_int8_linear_phase(torch, dev, seed: int) -> dict:
         errs = flash_errors(got, plain, 1e-5 * float(plain.abs().max()), 1.0)
         max_err = max(max_err, errs["max_abs_err"])
         w_deq = (q.to(torch.bfloat16) * s.to(torch.bfloat16)[:, None])  # the yardstick's weight
+        # device_ms: many launches over a ring of weights, each found cold as in a decode step
+        ring, lib_ring = cold_ring(q, s), cold_ring(w_deq)
+        library = both_ms(torch, lambda: torch.nn.functional.linear(x, w_deq),
+                          lambda: torch.nn.functional.linear(x, next(lib_ring)[0]))
         row = {"M": m, "K": k, "N": n, **errs,
-               "ms": cuda_ms(torch, lambda: int8_linear(x, q, s)),
+               **both_ms(torch, lambda: int8_linear(x, q, s),
+                         lambda: int8_linear(x, *next(ring))),
                "plain_ms": cuda_ms(torch, lambda: int8_linear_plain(x, q, s)),
-               "library_ms": cuda_ms(torch, lambda: torch.nn.functional.linear(x, w_deq)),
+               "library_ms": library["ms"], "library_device_ms": library["device_ms"],
                **bound(n * k + n * 4 + m * k * 2 + m * n * 2, 2 * m * n * k, "bf16")}
+        del ring, lib_ring
         row["weight_gb_per_s"] = n * k / row["ms"] / 1e6
         require(errs["worst_vs_bound"] <= 1.0,
                 f"int8_linear within 1e-5 of the output's scale + 1 bf16 ulp of the twin: {row}")
         emit("kernel_int8_linear", **row)
         out[(m, n)] = row
     return {"max_abs_err": max_err, **out[(64, 11264)], "by_shape": {
-        f"{m}x{k}x{n}": (out[(m, n)]["ms"], out[(m, n)]["plain_ms"], out[(m, n)]["library_ms"],
-                         out[(m, n)]["bound_ms"]) for m, k, n in shapes}}
+        f"{m}x{k}x{n}": {key: out[(m, n)][key] for key in (
+            "ms", "device_ms", "plain_ms", "library_ms", "library_device_ms", "bound_ms")}
+        for m, k, n in shapes}}
 
 
 INT4_SHAPES = [  # (K, N, group size): TinyLlama's projections, two 7B ones, wider groups
@@ -1018,12 +1073,53 @@ INT4_MS, INT4_TIMED_M = (1, 8, 32, 64, 256), 32
 INT4_TOL = 1e-5  # of the output's scale, plus as much relative
 
 
+def quantizer_rows(torch, dev, g, m: int, k: int, dtype):
+    """Seeded rows for the row quantizer with the cases that break a careless
+    one: row 0 all zero (the scale's floor), row 1 with a negative maximum,
+    row 2 with a maximum of exactly 127 (scale 1) and values at exact .5
+    ties, which must round to even."""
+    x = torch.randn((m, k), generator=g, device=dev) * 3
+    x[0] = 0
+    if m > 2:
+        x[1] = -x[1].abs()
+        x[1, 7] = -9.5
+        ties = torch.tensor([127.0, 2.5, 3.5, -2.5, -0.5, 0.5, 1.5, -126.5], device=dev)
+        x[2] = x[2].clamp(-100, 100)
+        x[2, :8] = ties
+    return x.to(dtype)
+
+
 def kernel_int4_phase(torch, dev, seed: int) -> dict:
     import outline_rag_tpu_torch.models.decoder as decoder
     import outline_rag_tpu_torch.ops.int4_linear as int4
     from outline_rag_tpu_torch.testing import scaled_errors
+    from outline_rag_tpu_torch.tools.timing import cold_ring
 
     g = torch.Generator(device=dev).manual_seed(seed + 12)
+    # the row quantizer against its twin: codes and scale bits, byte for byte
+    quant_cases = 0
+    for k in sorted({k for k, _, _ in INT4_SHAPES}):
+        for dtype in (torch.bfloat16, torch.float32):
+            for m in INT4_MS:
+                x = quantizer_rows(torch, dev, g, m, k, dtype)
+                xq, xs = int4.quantize_rows(x)
+                torch.cuda.synchronize()
+                want_q, want_s = int4._quantize_activations(x)
+                require(bool(torch.equal(xq, want_q)
+                             and torch.equal(xs.view(torch.int32), want_s.view(torch.int32))),
+                        f"quantize_rows is byte-equal to its twin at M={m} K={k} {dtype}: "
+                        f"{int((xq != want_q).sum())} codes differ")
+                floor = torch.tensor(1e-12, dtype=torch.float32, device=dev)
+                require(bool(xs[0, 0] == floor) and not bool(xq[0].any()),
+                        "a row of zeros has the scale's floor and codes 0")
+                if m > 2:
+                    require(float(xs[2, 0]) == 1.0
+                            and xq[2, :8].tolist() == [127, 2, 4, -2, 0, 0, 2, -126],
+                            f"exact .5 ties round to even: {xq[2, :8].tolist()}")
+                    require(int(xq[1].min()) == -127 and int(xq[1].max()) <= 0,
+                            "a row with a negative maximum reaches -127")
+                quant_cases += 1
+    emit("kernel_int4", quantize_rows_cases=quant_cases, byte_equal=True)
     kernels = {
         "w4a8": (lambda x, q4, s4: int4.w4a8_matmul(x.to(torch.bfloat16), q4, s4),
                  lambda x, q4, s4: int4.w4a8_matmul_plain(x.to(torch.bfloat16), q4, s4)),
@@ -1053,6 +1149,14 @@ def kernel_int4_phase(torch, dev, seed: int) -> dict:
                         f"M={m} {row}: {errs}")
                 require(bool(torch.equal(got, kernel(x[:m], q4, s4))),
                         f"{name}: two runs are bit-equal at M={m} {row}")
+                if name == "w4a8":
+                    require(errs["max_abs_err"] == 0.0,
+                            f"w4a8 is bit-equal to its twin at M={m} {row}: {errs}")
+                    xb = x[:m].to(torch.bfloat16)
+                    require(bool(torch.equal(int4._w4a8_matmul_as(xb, q4, s4, torch.bfloat16),
+                                             got.to(torch.bfloat16))),
+                            f"w4a8: the bf16 epilogue equals the f32 result rounded once at "
+                            f"M={m} {row}")
                 at_32 = got if m == 32 else at_32
             for r in (0, 31):
                 require(bool(torch.equal(kernel(x[r : r + 1], q4, s4)[0], at_32[r])),
@@ -1062,24 +1166,45 @@ def kernel_int4_phase(torch, dev, seed: int) -> dict:
         # twins, the library yardstick and the grouped product beside them
         xb = x[:INT4_TIMED_M].to(torch.bfloat16)
         m = INT4_TIMED_M
-        xq, _ = int4._quantize_activations(xb)
+        xq, xs = (t.contiguous() for t in int4._quantize_activations(xb))
         raw = torch.empty((m, n), dtype=torch.float32, device=dev)
         launch = int4._launcher("w4a8")
-        stream = torch.cuda.current_stream(dev).cuda_stream
+
+        def kernel_only(wq, ws):  # rows quantized beforehand (no count: not the wrapper)
+            launch(xq.data_ptr(), xs.data_ptr(), wq.data_ptr(), ws.data_ptr(), raw.data_ptr(), 0,
+                   m, n, k, gsz, torch.cuda.current_stream(dev).cuda_stream)
+
+        # ms: one launch through the wrapper between two events, what the decoder
+        # pays today; device_ms: many launches over a ring of weights, each found
+        # cold as in a decode step (the ring spans three times the L2 cache)
+        ring, lib_ring = cold_ring(q4, s4), cold_ring(w_deq)
+        as_decoder = both_ms(torch, lambda: int4._w4a8_matmul_as(xb, q4, s4, torch.bfloat16),
+                             lambda: int4._w4a8_matmul_as(xb, *next(ring), torch.bfloat16))
+        alone = both_ms(torch, lambda: kernel_only(q4, s4), lambda: kernel_only(*next(ring)))
+        quantizer = both_ms(torch, lambda: int4.quantize_rows(xb))
+        a16 = both_ms(torch, lambda: int4.w4a16_matmul(xb, q4, s4),
+                      lambda: int4.w4a16_matmul(xb, *next(ring)))
+        library = both_ms(torch, lambda: torch.nn.functional.linear(xb, w_deq),
+                          lambda: torch.nn.functional.linear(xb, next(lib_ring)[0]))
+        del ring, lib_ring
         row.update(
-            w4a8_ms=cuda_ms(torch, lambda: int4.w4a8_matmul(xb, q4, s4)),
-            # the kernel alone, its rows quantized beforehand (no count: not the wrapper)
-            w4a8_kernel_only_ms=cuda_ms(torch, lambda: launch(
-                xq.data_ptr(), q4.data_ptr(), s4.data_ptr(), raw.data_ptr(), m, n, k, gsz, stream)),
+            # quantize + product, two launches, bf16 out: a projection of the decoder
+            w4a8_ms=as_decoder["ms"], w4a8_device_ms=as_decoder["device_ms"],
+            w4a8_queued_ms=as_decoder["queued_ms"],
+            w4a8_f32_ms=cuda_ms(torch, lambda: int4.w4a8_matmul(xb, q4, s4)),
+            w4a8_kernel_only_ms=alone["ms"], w4a8_kernel_only_device_ms=alone["device_ms"],
+            quantize_rows_ms=quantizer["ms"], quantize_rows_device_ms=quantizer["device_ms"],
+            quantize_rows_plain_ms=cuda_ms(torch, lambda: int4._quantize_activations(xb)),
             w4a8_plain_ms=cuda_ms(torch, lambda: int4.w4a8_matmul_plain(xb, q4, s4)),
-            w4a16_ms=cuda_ms(torch, lambda: int4.w4a16_matmul(xb, q4, s4)),
+            w4a16_ms=a16["ms"], w4a16_device_ms=a16["device_ms"],
             w4a16_plain_ms=cuda_ms(torch, lambda: int4.w4a16_matmul_plain(xb, q4, s4)),
-            library_ms=cuda_ms(torch, lambda: torch.nn.functional.linear(xb, w_deq)),
+            library_ms=library["ms"], library_device_ms=library["device_ms"],
         )
         moved = n * k // 2 + s4.numel() * 4 + m * k * 2 + m * n * 4
         row["w4a8_bound"] = bound(moved, 2 * m * n * k, "int8")
         row["w4a16_bound"] = bound(moved, 2 * m * n * k, "bf16")
-        row["w4a8_weight_gb_per_s"] = n * k / 2 / row["w4a8_kernel_only_ms"] / 1e6
+        row["quantize_rows_bound"] = bound(m * k * 2 + m * k + m * 4, 4 * m * k, "f32")
+        row["w4a8_weight_gb_per_s"] = n * k / 2 / row["w4a8_kernel_only_device_ms"] / 1e6
         mode = decoder._INT4_MODE
         decoder._INT4_MODE = "xla"  # the grouped product at every M
         try:
@@ -1099,7 +1224,8 @@ def kernel_int4_phase(torch, dev, seed: int) -> dict:
     top = out[(2048, 11264, 128)]  # the gate/up projection, as for int8_linear
     return {"max_abs_err": max_err, "top": top, "by_shape": {
         f"{k}x{n}g{gsz}": {key: r[key] for key in (
-            "w4a8_ms", "w4a8_kernel_only_ms", "w4a16_ms", "library_ms", "grouped_ms_m32")}
+            "w4a8_ms", "w4a8_device_ms", "w4a8_kernel_only_device_ms", "quantize_rows_device_ms",
+            "w4a16_ms", "w4a16_device_ms", "library_ms", "library_device_ms", "grouped_ms_m32")}
         for (k, n, gsz), r in out.items()}}
 
 
@@ -1126,13 +1252,14 @@ def kernel_int4_floor_phase(torch, dev, seed: int) -> dict:
         row = bench_shape(f"{k}x{n}", k, n, INT4_TIMED_M, dev)
         row.update(floor_plain_ms=plain_ms[(k, n)],
                    **bound(n * k // 2 + 2 + n * 8, 0, "int8"))  # q4, x[0, 0]; value and fold out
-        row["floor_share_of_memory_rate"] = row["bound_ms"] / row["floor_ms"]
+        row["floor_share_of_memory_rate"] = row["bound_ms"] / row["floor_device_ms"]
         emit("kernel_int4_floor", **row)
         out[(k, n)] = row
     launches = int4.int4_stream_floor.launches
     require(launches > 0, "the int4 tool launched the int4_stream_floor kernel")
     return {"launches": launches, **out[(2048, 11264)], "by_shape": {
-        f"{k}x{n}": (r["floor_ms"], r["w4a16_ms"], r["w4a8_ms"], r["int8_ms"])
+        f"{k}x{n}": {v: (r[f"{v}_ms"], r[f"{v}_device_ms"]) for v in
+                     ("floor", "w4a16", "w4a8", "int8")}
         for (k, n), r in out.items()}}
 
 
@@ -1245,7 +1372,8 @@ def int4_logits_check(torch, dev, decoder, params, cfg, seed: int) -> dict:
             for name, fn in kept.items():
                 setattr(decoder, name, fn)
 
-    int4_twins = {"w4a8_matmul": int4.w4a8_matmul_plain, "w4a16_matmul": int4.w4a16_matmul_plain}
+    int4_twins = {"_w4a8_matmul_as": int4._w4a8_matmul_as_plain,
+                  "w4a16_matmul": int4.w4a16_matmul_plain}
     got = run({})
     want = run(int4_twins)
     every = run({**int4_twins, "paged_attention": paged_attention_plain,
@@ -1346,7 +1474,7 @@ def decoder_phase(torch, dev, seed: int) -> dict:
 
     import outline_rag_tpu_torch.models.decoder as decoder
     import outline_rag_tpu_torch.serve.decode_batcher as batcher_module
-    from outline_rag_tpu_torch.ops.int4_linear import w4a8_matmul, w4a16_matmul
+    from outline_rag_tpu_torch.ops.int4_linear import quantize_rows, w4a8_matmul, w4a16_matmul
     from outline_rag_tpu_torch.ops.int8_linear import int8_linear
     from outline_rag_tpu_torch.ops.paged_attention import paged_attention, paged_kv_write
     from outline_rag_tpu_torch.serve import DONE, LocalChatProvider
@@ -1461,13 +1589,14 @@ def decoder_phase(torch, dev, seed: int) -> dict:
         patch_forward(counted_forward)
         forwards.clear()
         paged_attention.launches = paged_kv_write.launches = int8_linear.launches = 0
-        w4a8_matmul.launches = w4a16_matmul.launches = 0
+        w4a8_matmul.launches = w4a16_matmul.launches = quantize_rows.launches = 0
         tok.lengths.clear()
         try:
             answers, wall_s = stream_burst(provider, chats)
             generated = sum(tok.lengths.values())
             launches = (paged_attention.launches, paged_kv_write.launches, int8_linear.launches,
                         w4a8_matmul.launches, w4a16_matmul.launches)
+            quantizer_launches = quantize_rows.launches
             by_rows = dict(forwards)
             n_forwards = sum(by_rows.values())
             decode_forwards = by_rows.get(rows_fed, 0)
@@ -1539,6 +1668,10 @@ def decoder_phase(torch, dev, seed: int) -> dict:
         require(launches[3:] == want and (decode_forwards > 0 or not (int4 or spec_k)),
                 f"{name}: the int4 kernels ran {per_forward} times in each of {decode_forwards} "
                 f"decode forwards and in no prefill chunk: {launches[3:]}, forwards {by_rows}")
+        # a w4a8 projection is two launches: the row quantizer and the product
+        require(quantizer_launches == launches[3],
+                f"{name}: the row quantizer ran once a w4a8 product: {quantizer_launches} "
+                f"and {launches[3]}")
         if spec_k:
             require(set(by_rows) <= {rows_fed, 256} and decode_forwards > 0,
                     f"{name}: every decode forward was a verify window of T = {1 + spec_k}: "
@@ -1575,6 +1708,7 @@ def decoder_phase(torch, dev, seed: int) -> dict:
                "forwards": n_forwards, "paged_attention_launches": launches[0],
                "paged_kv_write_launches": launches[1], "int8_linear_launches": launches[2],
                "w4a8_launches": launches[3], "w4a16_launches": launches[4],
+               "quantize_rows_launches": quantizer_launches,
                "decode_forwards": decode_forwards, "forwards_by_rows_fed": by_rows,
                "spec_tokens_per_step": end.get("spec_tokens_per_step"),
                "greedy_texts_equal_to_plain_share": same_as_plain,
@@ -1657,10 +1791,13 @@ def main() -> int:
     # ms / plain_ms / bound_ms: topk_* at B = 32, K = 64 (topk_float in the
     # f32x2 mode the path runs; every mode under "modes"); flash_attention at
     # S = 8192; paged_attention and paged_kv_write at B = 64, T = 1 on a bf16
-    # pool; int8_linear at the gate/up projection, M = 64; w4a8_matmul,
-    # w4a16_matmul (bf16) and int4_stream_floor at the gate/up projection,
-    # M = 32 (launches: the int4_weights and int4_kernel bursts, and the int4
-    # tool's run); topk_floor in its f32x2 nomerge variant at B = 32
+    # pool; int8_linear at the gate/up projection, M = 64; w4a8_matmul (the
+    # row quantizer and the product, as the decoder runs a projection),
+    # quantize_rows, w4a16_matmul (bf16) and int4_stream_floor at the gate/up
+    # projection, M = 32 (launches: the int4_weights and int4_kernel bursts,
+    # and the int4 tool's run). device_ms / library_device_ms, for the kernels
+    # of under 0.3 ms: many launches over a ring of cold weights, where ms is
+    # one launch through the wrapper; topk_floor in its f32x2 nomerge variant at B = 32
     # (launches: the scan tool's runs over the three modes). library_ms: one
     # PyTorch call computing the same function, where there is one (no single
     # call scans with a penalty and selects, walks a page table, or scatters
@@ -1697,8 +1834,9 @@ def main() -> int:
         "max_abs_err": max(p["max_abs_err"] for p in paged.values()),
         "ms": paged["bf16"]["ms"], "plain_ms": paged["bf16"]["plain_ms"],
         "bound_ms": paged["bf16"]["bound_ms"], "bound_by": paged["bf16"]["bound_by"],
-        "library_ms": None, "int8_pool": {k: paged["int8"][k] for k in
-                                          ("ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None, "device_ms": paged["bf16"]["device_ms"], "library_device_ms": None,
+        "int8_pool": {k: paged["int8"][k] for k in
+                      ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by")},
         "prefill_256_ms": paged["bf16"]["prefill_256_ms"],
     }, {
         "name": "paged_kv_write", "route": "cuda",
@@ -1708,7 +1846,8 @@ def main() -> int:
         "max_abs_err": max(w["max_abs_err"] for w in kv_write.values()),
         "ms": kv_write["bf16"]["ms"], "plain_ms": kv_write["bf16"]["plain_ms"],
         "bound_ms": kv_write["bf16"]["bound_ms"], "bound_by": kv_write["bf16"]["bound_by"],
-        "library_ms": None,
+        "library_ms": None, "device_ms": kv_write["bf16"]["device_ms"],
+        "library_device_ms": None,
     }, {
         "name": "int8_linear", "route": "cuda",
         "source": "outline_rag_tpu_torch/csrc/int8_linear.cu",
@@ -1717,7 +1856,8 @@ def main() -> int:
         "max_abs_err": linear["max_abs_err"],
         "ms": linear["ms"], "plain_ms": linear["plain_ms"],
         "bound_ms": linear["bound_ms"], "bound_by": linear["bound_by"],
-        "library_ms": linear["library_ms"], "by_shape": linear["by_shape"],
+        "library_ms": linear["library_ms"], "device_ms": linear["device_ms"],
+        "library_device_ms": linear["library_device_ms"], "by_shape": linear["by_shape"],
     }, {
         "name": "w4a8_matmul", "route": "cuda",
         "source": "outline_rag_tpu_torch/csrc/int4_linear.cu",
@@ -1726,8 +1866,20 @@ def main() -> int:
         "max_abs_err": int4["max_abs_err"]["w4a8"],
         "ms": int4["top"]["w4a8_ms"], "plain_ms": int4["top"]["w4a8_plain_ms"],
         **int4["top"]["w4a8_bound"], "library_ms": int4["top"]["library_ms"],
-        "kernel_only_ms": int4["top"]["w4a8_kernel_only_ms"], "by_shape": int4["by_shape"],
+        "device_ms": int4["top"]["w4a8_device_ms"],
+        "library_device_ms": int4["top"]["library_device_ms"],
+        "kernel_only_ms": int4["top"]["w4a8_kernel_only_ms"],
+        "kernel_only_device_ms": int4["top"]["w4a8_kernel_only_device_ms"],
+        "by_shape": int4["by_shape"],
         "launches_with_speculation": chat["spec_int4"]["w4a8_launches"],
+    }, {
+        "name": "quantize_rows", "route": "cuda",
+        "source": "outline_rag_tpu_torch/csrc/int4_linear.cu",
+        "replaces": "outline_rag_tpu/ops/int4_linear.py:190",
+        "launches": chat["int4_weights"]["quantize_rows_launches"], "max_abs_err": 0.0,
+        "ms": int4["top"]["quantize_rows_ms"], "plain_ms": int4["top"]["quantize_rows_plain_ms"],
+        **int4["top"]["quantize_rows_bound"], "library_ms": None,
+        "device_ms": int4["top"]["quantize_rows_device_ms"], "library_device_ms": None,
     }, {
         "name": "w4a16_matmul", "route": "cuda",
         "source": "outline_rag_tpu_torch/csrc/int4_linear.cu",
@@ -1736,6 +1888,8 @@ def main() -> int:
         "max_abs_err": max(int4["max_abs_err"]["w4a16_bf16"], int4["max_abs_err"]["w4a16_f32"]),
         "ms": int4["top"]["w4a16_ms"], "plain_ms": int4["top"]["w4a16_plain_ms"],
         **int4["top"]["w4a16_bound"], "library_ms": int4["top"]["library_ms"],
+        "device_ms": int4["top"]["w4a16_device_ms"],
+        "library_device_ms": int4["top"]["library_device_ms"],
     }, {
         "name": "int4_stream_floor", "route": "cuda",
         "source": "outline_rag_tpu_torch/csrc/int4_linear.cu",
@@ -1743,7 +1897,8 @@ def main() -> int:
         "launches": int4_floor["launches"], "max_abs_err": 0.0,
         "ms": int4_floor["floor_ms"], "plain_ms": int4_floor["floor_plain_ms"],
         "bound_ms": int4_floor["bound_ms"], "bound_by": int4_floor["bound_by"],
-        "library_ms": None, "by_shape": int4_floor["by_shape"],
+        "library_ms": None, "device_ms": int4_floor["floor_device_ms"],
+        "library_device_ms": None, "by_shape": int4_floor["by_shape"],
     }, {
         "name": "topk_floor", "route": "cuda",
         "source": "outline_rag_tpu_torch/csrc/topk_floor.cu",

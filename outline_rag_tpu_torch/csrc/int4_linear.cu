@@ -42,27 +42,31 @@
 //   Bound on the card: bytes. At decode M <= 32, so a weight byte is read once
 //   for 4 * M int8 operations, far below the card's ~590 int8 operations a
 //   byte; the packed N * K / 2 bytes at the memory rate are the floor, and a
-//   projection is 2.6-33 MB: a few microseconds, of which the launch, one
-//   round trip to device memory and the tail of the last wave are most. What
-//   the design does about it: every byte a block needs is requested at once
-//   and there are enough warps to cover the card.
-//   Design: a block of 8 warps owns 8 * CT output channels and 16 * MT rows
-//   (CT = 4, MT = 1 or 2 at decode) and splits K among its warps: in each
-//   slab of 8 pair blocks (2,048 elements) warp w takes pair block w, so at
-//   K = 2,048 every load of the block is in flight at once (a thread: 2 * CT
-//   16-byte loads of packed weights, 4 * MT of xq), and a warp reuses its xq
-//   fragments over its CT channel tiles (xq is re-read from L2 once a block,
-//   not once a warp). Nibbles are decoded in registers (decode4) into the B
-//   operand of mma.sync.m16n8k32 (s8 x s8 -> s32); the contraction index
-//   inside one instruction is permuted the same way for A and B (thread t's
-//   four registers hold 16 consecutive elements), which an exact integer sum
+//   projection is 2.6-33 MB: a few microseconds, of which the launch and one
+//   round trip to device memory are a large part. A grid of short blocks runs
+//   in waves that each first load and then compute, and the memory idles in
+//   between; so the blocks stay and the loads run ahead of the products.
+//   Design: one block an SM (16 warps) walks its share of the items: an item
+//   is 32 output channels over one slab of K (8 pair blocks, 2,048 elements),
+//   every gridDim.x-th channel tile, a slab after the other. An item's 32 KB of
+//   packed weights and its group scales are requested by cp.async into a ring
+//   in shared memory one item (M <= 16: three items) before they are used, so
+//   the stream from device memory does not stop for the products; the block's
+//   rows of xq are staged once (K <= 2,048; else a slab an item) and reused by
+//   every item, so xq is read from L2 once a block, not once a warp. Within an
+//   item warp w takes pair block w % 8 and two of the four channel tiles:
+//   nibbles are decoded in registers (decode4) into the B operand of
+//   mma.sync.m16n8k32 (s8 x s8 -> s32); the contraction index inside one
+//   instruction is permuted the same way for A and B (thread t's four
+//   registers hold 16 consecutive elements), which an exact integer sum
 //   allows. Each warp leaves the exact int32 sums of its two 128-element
 //   halves in shared memory; after one barrier one thread an output adds the
 //   slab's halves in ascending k into the group's integer sum and, where a
 //   group ends, into the f32 sum (__fmul_rn, __fadd_rn). Integer sums are
 //   exact, so which warp computed a half cannot change a bit. The epilogue
-//   multiplies by xs[m]. Two blocks an SM (launch bounds), so one block's
-//   products run under the other's loads; blocks over N and row tiles only.
+//   multiplies by xs[m]. What holds it at about twice its stream floor: the
+//   int8 mma.sync instruction itself (the products of an item take longer than
+//   its bytes take to arrive), and two barriers an item.
 //
 // w4a16:  out[m, n] = sum_k x[m, k] * dt(float(v[n, k]) * s4[n, g(k)]), f32
 //   accumulation, for x in dt (bf16 or f32): the unbiased decode, the product
@@ -74,9 +78,10 @@
 //   TF32. Blocks over N and row tiles only; fixed order. Bound: the packed
 //   bytes, as above (bf16: 2 * M flops a weight element against ~295 a byte).
 //
-// stream_floor: the w4a8 kernel's blocks (8 warps, 32 channels, a pair block a
-//   warp a slab, eight 16-byte loads a thread in flight) with the products
-//   taken out: every word of q4 is XOR-folded into one int32 a row (on a GPU
+// stream_floor: the w4a8 kernel's blocks and loads (one block an SM walking
+//   items of 32 channels x 2,048 elements through a cp.async ring, here four
+//   deep since nothing else needs the shared memory) with the products taken
+//   out: every word of q4 is XOR-folded into one int32 a row (on a GPU
 //   a load that nothing uses is not issued), and value[n] = float(q4[n, 0]) *
 //   x[0, 0] is what the JAX tool's floor returns. Its time is the packed-byte
 //   stream as the card delivers it to this load shape.

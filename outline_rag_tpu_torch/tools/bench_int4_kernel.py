@@ -10,14 +10,19 @@ Run it on a machine with one CUDA card and ``nvcc``. Variants a shape:
           the packed-byte stream as the card delivers it (its outputs are
           allocated once, so a timing pays for the launch alone)
   w4a16 — ``w4a16_matmul``, bf16 activations, weights decoded on the chip
-  w4a8  — ``w4a8_matmul``: int8 activations, int8 tensor-core dots (the
-          wrapper's activation quantization included, as the decoder pays it)
+  w4a8  — ``w4a8_matmul``: int8 activations, int8 tensor-core dots (two
+          launches: the row quantizer and the product, as the decoder pays it)
   int8  — ``w8a8_matmul`` on the same ``[K, N]``, at twice the weight bytes
 
 Shapes: the decode matmuls of the 7B / 13B rungs the JAX tool times, and
-TinyLlama-1.1B's four projections. Each time is the median of 10 CUDA-event
-timings (``BENCH_RUNS``) at ``BENCH_M`` rows (default 32). One JSON line a
-shape, with the card's name and power limit.
+TinyLlama-1.1B's four projections. Two times a variant at ``BENCH_M`` rows
+(default 32): ``{variant}_ms``, the median of 10 CUDA-event timings
+(``BENCH_RUNS``) of one call, which for a kernel of a few microseconds is the
+host's time to launch it; and ``{variant}_device_ms``, events around 100
+back-to-back calls or a CUDA-graph replay of them (the smaller), each call on
+the next of a ring of weights that spans three times the L2 cache, so that
+every call streams its weights from device memory as a decode step does. One
+JSON line a shape, with the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -36,7 +41,7 @@ from outline_rag_tpu_torch.ops.int4_linear import (
     w4a16_matmul,
 )
 from outline_rag_tpu_torch.ops.int8_linear import quantize_linear_weight, w8a8_matmul
-from outline_rag_tpu_torch.tools.timing import card, cuda_ms
+from outline_rag_tpu_torch.tools.timing import card, cold_ring, cuda_ms, cuda_ms_many
 
 SHAPES = {  # name -> (K, N)
     "7b_wqkv": (4096, 6144),
@@ -55,8 +60,9 @@ VARIANTS = ("floor", "w4a16", "w4a8", "int8")
 
 def bench_shape(name: str, k: int, n: int, m: int, dev, runs: int = 10, group_size: int = 128) -> dict:
     """Times of the four variants at ``[m, k] x [k, n]`` with seeded weights
-    (the seed follows the shape's name): ``{variant}_ms`` and the weight
-    bytes a second each variant streams, in GB/s."""
+    (the seed follows the shape's name): ``{variant}_ms`` (one call),
+    ``{variant}_device_ms`` (many calls over a ring of cold weights) and the
+    weight bytes a second each variant streams by the latter, in GB/s."""
     g = torch.Generator(device=dev).manual_seed(zlib.crc32(name.encode()) % 2**31)
     w = torch.randn((k, n), generator=g, device=dev) * 0.02
     q4, s4 = quantize_int4_weight(w, group_size)
@@ -64,18 +70,23 @@ def bench_shape(name: str, k: int, n: int, m: int, dev, runs: int = 10, group_si
     del w
     x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
     floor_out = int4_stream_floor(x, q4)
-    calls = {
-        "floor": lambda: int4_stream_floor(x, q4, floor_out),
-        "w4a16": lambda: w4a16_matmul(x, q4, s4),
-        "w4a8": lambda: w4a8_matmul(x, q4, s4),
-        "int8": lambda: w8a8_matmul(x, q8, s8),
+    calls = {  # variant -> (its call on given weights, the weights)
+        "floor": (lambda q, s: int4_stream_floor(x, q, floor_out), (q4, s4)),
+        "w4a16": (lambda q, s: w4a16_matmul(x, q, s), (q4, s4)),
+        "w4a8": (lambda q, s: w4a8_matmul(x, q, s), (q4, s4)),
+        "int8": (lambda q, s: w8a8_matmul(x, q, s), (q8, s8)),
     }
     row = {"shape": name, "K": k, "N": n, "M": m, "group_size": group_size}
     packed = n * k / 2
     for variant in VARIANTS:
-        ms = cuda_ms(calls[variant], runs)
-        row[f"{variant}_ms"] = ms
-        row[f"{variant}_weight_gb_per_s"] = (2 if variant == "int8" else 1) * packed / ms / 1e6
+        call, weights = calls[variant]
+        ring = cold_ring(*weights)
+        row[f"{variant}_ms"] = cuda_ms(lambda: call(*weights), runs)
+        many = cuda_ms_many(lambda: call(*next(ring)))
+        row[f"{variant}_device_ms"] = many["device_ms"]
+        row[f"{variant}_weight_gb_per_s"] = (
+            (2 if variant == "int8" else 1) * packed / many["device_ms"] / 1e6)
+        del ring
     return row
 
 

@@ -1,15 +1,18 @@
-"""How strong are the checks that hold the decoder's kernels to their twins?
+"""How strong are the checks that hold the kernels to their twins?
 
-    python -m outline_rag_tpu_torch.tools.kernel_mutants
+    python -m outline_rag_tpu_torch.tools.kernel_mutants [kernel ...]
 
-Run it on a machine with one CUDA card and ``nvcc``. It copies
-``csrc/paged_attention.cu``, ``csrc/int8_linear.cu`` and
-``csrc/int4_linear.cu`` into a temporary directory, applies one fault at a
-time to the copy (a skipped key tile, a missing rescale, a horizon off by
-one, a dropped scale, swapped nibbles, a missing sign extension, ...), builds each
-mutant into a library of its own, runs it through the package's wrapper at
-the decoder's shapes, and prints whether the comparison ``chip_smoke.py``
-and the card tests use would have passed it. The sources in the package are
+Run it on a machine with one CUDA card and ``nvcc`` (all kernels, or those
+named among ``paged_attention``, ``int8_linear``, ``int4``,
+``flash_attention``). It copies
+``csrc/flash_attention.cu``, ``csrc/paged_attention.cu``,
+``csrc/int8_linear.cu`` and ``csrc/int4_linear.cu`` into a temporary
+directory, applies one fault at a time to the copy (a skipped key tile, a
+missing rescale, an unswizzled tile, a horizon off by one, a dropped scale,
+swapped nibbles, a missing sign extension, a group combined out of order,
+...), builds each mutant into a library of its own, runs it through the
+package's wrapper at the model's shapes, and prints whether the comparison
+``chip_smoke.py`` and the card tests use would have passed it. The sources in the package are
 never changed. The unmutated copy must pass and every structural mutant must
 fail; a mutant that only moves a rounding (``p_not_rounded``) is below what
 a tolerance for bf16 rounding can see, and is listed to say so. The
@@ -26,6 +29,7 @@ from pathlib import Path
 
 import torch
 
+import outline_rag_tpu_torch.ops.attention as attention_module
 import outline_rag_tpu_torch.ops.int4_linear as int4_linear_module
 import outline_rag_tpu_torch.ops.int8_linear as int8_linear_module
 import outline_rag_tpu_torch.ops.paged_attention as paged_module
@@ -34,6 +38,22 @@ from outline_rag_tpu_torch.testing import flash_errors, paged_attention_case, sc
 
 # (atol, bf16 ulps, error norm / output norm), as chip_smoke.py holds them
 PAGED_BOUNDS = {"bf16": (2e-3, 2.0, 1e-2), "int8": (1e-4, 1.0, 1e-3)}
+
+FLASH_BOUNDS = (2e-3, 2.0, 1e-2)  # bf16, as chip_smoke.py holds it
+
+FLASH_MUTANTS = {
+    "as_is": ("", ""),
+    "skip_tile": ("if (__any_sync(0xffffffffu, live)) {",
+                  "if (__any_sync(0xffffffffu, live) && key0 != 2 * BK) {"),
+    "no_acc_rescale": ("if (__any_sync(0xffffffffu, alpha0 != 1.f || alpha1 != 1.f)) {",
+                       "if (alpha0 < 0.f) {"),
+    "no_l_rescale": ("    l0 = l0 * alpha0 + sum0;\n    l1 = l1 * alpha1 + sum1;",
+                     "    l0 = l0 + sum0;\n    l1 = l1 + sum1;"),
+    "unswizzled_tile": ("CU_TENSOR_MAP_SWIZZLE_128B,", "CU_TENSOR_MAP_SWIZZLE_NONE,"),
+    "v_step_not_advanced": ("wgmma_pv(o, p[kk], v_desc + kk * (16 * HD * 2 >> 4));",
+                            "wgmma_pv(o, p[kk], v_desc);"),
+    "padding_not_masked": ("x[i] = key < S ? brow[key] : NEG_BIAS;", "x[i] = 0.f;"),
+}
 
 PAGED_MUTANTS = {
     "as_is": ("", ""),
@@ -57,21 +77,44 @@ LINEAR_MUTANTS = {
     "drop_last_k_tile": ("for (int k0 = 0; k0 < K; k0 += BK) {",
                          "for (int k0 = 0; k0 < K - BK; k0 += BK) {"),
 }
-# int4: one fault may need an edit in each kernel: [(old, new, occurrences)]
+# int4: a fault is one edit a kernel it applies to: {label prefix: (old, new,
+# occurrences)}. w4a8 is held to bit-equality (exact integer group sums, one
+# f32 order), w4a16 to 1e-5 of the output's scale plus 1e-5 relative.
 _K_LOOP = "for (int k0 = 0; k0 < K; k0 += BK) {"
+_DECODE_BOTH = ("w4a8", "w4a16")
 INT4_MUTANTS = {
-    "as_is": [],
-    "nibbles_swapped": [("(hi ? w >> 4 : w) & 0x0f0f0f0fu", "(hi ? w : w >> 4) & 0x0f0f0f0fu", 1)],
-    "hi_not_sign_extended": [("hi ? nib ^ 0x08080808u : nib;", "hi ? nib + 0x08080808u : nib;", 1)],
-    "lo_not_debiased": [("hi ? nib ^ 0x08080808u : nib;",
-                         "hi ? nib ^ 0x08080808u : nib + 0x08080808u;", 1)],
-    "scale_from_next_group": [
-        ("const float s0 = sc0[grp], s1 = sc1[grp];",
-         "const float s0 = sc0[grp ^ 1], s1 = sc1[grp ^ 1];", 1),
-        ("out.s = srow[k0 / gsz];", "out.s = srow[(k0 / gsz) ^ 1];", 1)],
-    "dropped_k_chunk": [
-        ("for (int c = 0; c < chunks; ++c) {", "for (int c = 0; c < chunks - 1; ++c) {", 1),
-        (_K_LOOP, _K_LOOP.replace("k0 < K;", "k0 < K - BK;"), 2)],
+    "as_is": {},
+    "nibbles_swapped": {_DECODE_BOTH: (
+        "(hi ? w >> 4 : w) & 0x0f0f0f0fu", "(hi ? w : w >> 4) & 0x0f0f0f0fu", 1)},
+    "hi_not_sign_extended": {_DECODE_BOTH: (
+        "hi ? nib ^ 0x08080808u : nib;", "hi ? nib + 0x08080808u : nib;", 1)},
+    "lo_not_debiased": {_DECODE_BOTH: (
+        "hi ? nib ^ 0x08080808u : nib;", "hi ? nib ^ 0x08080808u : nib + 0x08080808u;", 1)},
+    "scale_from_next_group": {
+        ("w4a8",): ("const int grp = min((slab * W8_HALVES + hh) * 128 / gsz, G - 1);",
+                    "const int grp = min(((slab * W8_HALVES + hh) * 128 / gsz) ^ 1, G - 1);", 1),
+        ("w4a16",): ("out.s = srow[k0 / gsz];", "out.s = srow[(k0 / gsz) ^ 1];", 1)},
+    "dropped_k_chunk": {
+        ("w4a8",): ("    if (slab * W8_CHUNKS + wc < chunks) {\n"
+                    "      const uint8_t* wsm = slot + (wh * 16 + g) * W8_WROW + 128 * wc + 16 * t;\n"
+                    "      const uint8_t* xsm",
+                    "    if (slab * W8_CHUNKS + wc < chunks && wc != 1) {\n"
+                    "      const uint8_t* wsm = slot + (wh * 16 + g) * W8_WROW + 128 * wc + 16 * t;\n"
+                    "      const uint8_t* xsm", 1),
+        ("w4a16",): (_K_LOOP, _K_LOOP.replace("k0 < K;", "k0 < K - BK;"), 2)},
+    "group_out_of_order": {
+        ("w4a8",): ("for (int hh = 0; hh < W8_HALVES; ++hh) fold(hh);",
+                    "for (int hh = W8_HALVES - 1; hh >= 0; --hh) fold(hh);", 1),
+        ("w4a8", "partial slab"): ("for (int hh = 0; hh < hn; ++hh) fold(hh);",
+                                   "for (int hh = hn - 1; hh >= 0; --hh) fold(hh);", 1)},
+    "row_scale_of_wrong_row": {("w4a8",): (
+        "const float val = __fmul_rn(fsum[i], rscale[r]);",
+        "const float val = __fmul_rn(fsum[i], rscale[r ^ 1]);", 1)},
+    "quantizer_rounds_half_up": {("w4a8",): (
+        "rintf(__fdiv_rn(v[4 * i + b], s))", "floorf(__fdiv_rn(v[4 * i + b], s) + 0.5f)", 1)},
+    "quantizer_multiplies_by_reciprocal": {("w4a8",): (
+        "const float s = fmaxf(__fdiv_rn(amax, 127.f), 1e-12f);",
+        "const float s = fmaxf(__fmul_rn(amax, 1.f / 127.f), 1e-12f);", 1)},
 }
 
 
@@ -98,20 +141,30 @@ def build_mutant(tmp: Path, source: Path, name: str, old, new: str = "", symbol:
 
 
 def int4_mutants(tmp: Path, dev, g) -> int:
-    """Every int4 mutant through ``w4a8_matmul`` and ``w4a16_matmul`` (bf16
-    and f32) at M = 32, at a TinyLlama projection with groups of 128 and at a
-    small shape with groups of 256 (the neighbouring group's scale is another
-    one there); the bound is chip_smoke.py's: 1e-5 of the output's scale plus
-    1e-5 relative. Returns the number of unexpected verdicts."""
+    """Every int4 mutant through ``w4a8_matmul`` (which runs the row quantizer
+    too) and ``w4a16_matmul`` (bf16 and f32) at M = 32, at a TinyLlama
+    projection with groups of 128 and at a small shape with groups of 256 (the
+    neighbouring group's scale is another one there); the bounds are
+    chip_smoke.py's: w4a8 bit-equal to its twin, w4a16 within 1e-5 of the
+    output's scale plus 1e-5 relative. A mutant is run through the kernels its
+    fault is in. The two quantizer mutants differ from the twin only on a row
+    that holds an exact .5 tie, or whose maximum over 127 is not the product
+    with f32(1/127): the activations carry such rows. Returns the number of
+    unexpected verdicts."""
     m = int4_linear_module
     cases = []
     for k, n, gsz in ((2048, 2560, 128), (512, 384, 256)):
         q4, s4 = m.quantize_int4_weight(torch.randn((k, n), generator=g, device=dev) * 0.02, gsz)
         x = torch.randn((32, k), generator=g, device=dev)
+        x[2] = x[2].clamp(-100, 100)
+        x[2, :8] = torch.tensor([127.0, 2.5, 3.5, -2.5, -0.5, 0.5, 1.5, -126.5], device=dev)
         cases.append((k, n, gsz, x, q4, s4))
-    real = {which: m._launcher(which) for which in ("w4a8", "w4a16")}
+    names = ("quant_rows", "w4a8", "w4a16")
+    real = {which: m._launcher(which) for which in names}
     unexpected = 0
-    for name, edits in INT4_MUTANTS.items():
+    for name, faults in INT4_MUTANTS.items():
+        edits = list(faults.values())
+        affected = {label for labels in faults for label in labels}
         lib = build_mutant(tmp, _build.CSRC_DIR / "int4_linear.cu", name, edits)
         for which, fn in real.items():
             mutant = getattr(lib, f"int4_{which}_launch")
@@ -123,76 +176,137 @@ def int4_mutants(tmp: Path, dev, g) -> int:
                 runs[label] = (m.w4a16_matmul(x.to(dt), q4, s4), m.w4a16_matmul_plain(x.to(dt), q4, s4))
             torch.cuda.synchronize()
             for label, (out, plain) in runs.items():
+                if faults and label.split("_")[0] not in affected:
+                    continue  # the fault is in another kernel
+                if name == "group_out_of_order" and k // gsz <= 2:
+                    continue  # two groups add to the same sum in either order
                 e = scaled_errors(out, plain)
-                ok = e["worst_vs_bound"] <= 1.0
+                ok = bool(torch.equal(out, plain)) if label == "w4a8" else e["worst_vs_bound"] <= 1.0
                 # a neighbouring group's scale is the same fault at every gsz;
                 # all mutants must fail at every shape
                 unexpected += ok != (name == "as_is")
-                print(f"int4 {label:10s} {name:21s} K={k:4d} N={n:4d} gsz={gsz:3d} passes={ok} "
+                print(f"int4 {label:10s} {name:34s} K={k:4d} N={n:4d} gsz={gsz:3d} passes={ok} "
                       f"worst_vs_bound={e['worst_vs_bound']:.3g}", flush=True)
     m._launch_fns.update(real)
     return unexpected
 
 
-def main() -> int:
+def flash_mutants(tmp: Path, dev, g) -> int:
+    """Every flash mutant through ``flash_attention`` in bf16 at H = 16: S =
+    2,048 unmasked, and a B = 2 batch at S = 4,096 with a 3,000-token row and
+    a row of no live key, under chip_smoke.py's bounds (each element within
+    2e-3 + 2 bf16 ulps of the twin's, error norm within 1e-2 of the
+    output's). Returns the number of unexpected verdicts."""
+    m = attention_module
+    cases = []
+    for b, s, lengths in ((1, 2048, [2048]), (2, 4096, [3000, 0])):
+        q, k, v = (torch.randn((b, s, 16, 64), generator=g, device=dev).to(torch.bfloat16)
+                   for _ in range(3))
+        bias = torch.full((b, s), m.NEG_BIAS, device=dev)
+        for i, n in enumerate(lengths):
+            bias[i, :n] = 0.0
+        cases.append((q, k, v, bias))
+    plains = [m.flash_attention_plain(*args) for args in cases]
+    real = m._launcher()
+    atol, ulps, rms = FLASH_BOUNDS
+    unexpected = 0
+    for name, (old, new) in FLASH_MUTANTS.items():
+        fn = build_mutant(tmp, _build.CSRC_DIR / "flash_attention.cu", name, old, new,
+                          "flash_attention_launch")
+        fn.argtypes, fn.restype = real.argtypes, real.restype
+        m._launch_fn = fn
+        for args, plain in zip(cases, plains):
+            out = m.flash_attention(*args)
+            torch.cuda.synchronize()
+            e = flash_errors(out, plain, atol, ulps)
+            ok = e["worst_vs_bound"] <= 1.0 and e["rel_rms_err"] <= rms
+            if name == "padding_not_masked" and bool((args[3] == 0).all()):
+                continue  # no padding in this case
+            unexpected += ok != (name == "as_is")
+            print(f"flash_attention {name:19s} B={args[0].shape[0]} S={args[0].shape[1]:4d} "
+                  f"passes={ok} worst_vs_bound={e['worst_vs_bound']:.3g} "
+                  f"rel_rms_err={e['rel_rms_err']:.3g}", flush=True)
+    m._launch_fn = real
+    return unexpected
+
+
+def paged_mutants(tmp: Path, dev, g) -> int:
+    """Every paged-attention mutant on a bf16 and an int8 pool at the
+    decoder's shapes (B = 64 decode, a 256-token prefill chunk)."""
+    cases = {kv: [paged_attention_case(dev, g, 64, 1, kv),
+                  paged_attention_case(dev, g, 1, 256, kv, pos=[512])]
+             for kv in PAGED_BOUNDS}
+    plains = {kv: [paged_module.paged_attention_plain(*a) for a in cases[kv]] for kv in cases}
+    paged_module._launcher("attention")  # bind the real library first, then swap one entry
+    real = paged_module._launch_fns["attention"]
+    unexpected = 0
+    for name, (old, new) in PAGED_MUTANTS.items():
+        fn = build_mutant(tmp, _build.CSRC_DIR / "paged_attention.cu", name, old, new,
+                          "paged_attention_launch")
+        fn.argtypes, fn.restype = real.argtypes, real.restype
+        paged_module._launch_fns["attention"] = fn
+        for kv, (atol, ulps, rms) in PAGED_BOUNDS.items():
+            if name in ("no_k_scale", "no_v_scale") and kv != "int8":
+                continue  # the fault is in code a bf16 pool never runs
+            for args, plain in zip(cases[kv], plains[kv]):
+                out = paged_module.paged_attention(*args)
+                torch.cuda.synchronize()
+                e = flash_errors(out, plain, atol, ulps)
+                ok = e["worst_vs_bound"] <= 1.0 and e["rel_rms_err"] <= rms
+                unexpected += ok != (name in ("as_is", "p_not_rounded"))
+                print(f"paged_attention {name:19s} {kv:4s} B={args[0].shape[0]:2d} "
+                      f"T={args[0].shape[1]:3d} passes={ok} "
+                      f"worst_vs_bound={e['worst_vs_bound']:.3g} "
+                      f"rel_rms_err={e['rel_rms_err']:.3g}", flush=True)
+    paged_module._launch_fns["attention"] = real
+    return unexpected
+
+
+def linear_mutants(tmp: Path, dev, g) -> int:
+    """Every w8a16 linear mutant at the fused q/k/v projection, M = 64."""
+    x = torch.randn((64, 2048), generator=g, device=dev).to(torch.bfloat16)
+    q, s = int8_linear_module.quantize_linear_weight(
+        torch.randn((2048, 2560), generator=g, device=dev) * 0.02)
+    plain = int8_linear_module.int8_linear_plain(x, q, s)
+    real = int8_linear_module._launcher()
+    unexpected = 0
+    for name, (old, new) in LINEAR_MUTANTS.items():
+        fn = build_mutant(tmp, _build.CSRC_DIR / "int8_linear.cu", name, old, new,
+                          "int8_linear_launch")
+        fn.argtypes, fn.restype = real.argtypes, real.restype
+        int8_linear_module._launch_fn = fn
+        out = int8_linear_module.int8_linear(x, q, s)
+        torch.cuda.synchronize()
+        e = flash_errors(out, plain, 1e-5 * float(plain.abs().max()), 1.0)
+        ok = e["worst_vs_bound"] <= 1.0
+        unexpected += ok != (name == "as_is")
+        print(f"int8_linear     {name:19s} passes={ok} "
+              f"worst_vs_bound={e['worst_vs_bound']:.3g} rel_rms_err={e['rel_rms_err']:.3g}",
+              flush=True)
+    int8_linear_module._launch_fn = real
+    return unexpected
+
+
+KERNELS = {"paged_attention": paged_mutants, "int8_linear": linear_mutants,
+           "int4": int4_mutants, "flash_attention": flash_mutants}
+
+
+def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("kernel_mutants: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    chosen = argv or list(KERNELS)
+    if set(chosen) - set(KERNELS):
+        print(f"kernel_mutants: choose among {', '.join(KERNELS)}", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", torch.cuda.current_device())
     g = torch.Generator(device=dev).manual_seed(1)
-    unexpected = 0
     with tempfile.TemporaryDirectory() as tmp_name:
-        tmp = Path(tmp_name)
-        cases = {kv: [paged_attention_case(dev, g, 64, 1, kv),
-                      paged_attention_case(dev, g, 1, 256, kv, pos=[512])]
-                 for kv in PAGED_BOUNDS}
-        plains = {kv: [paged_module.paged_attention_plain(*a) for a in cases[kv]] for kv in cases}
-        paged_module._launcher("attention")  # bind the real library first, then swap one entry
-        real = paged_module._launch_fns["attention"]
-        for name, (old, new) in PAGED_MUTANTS.items():
-            fn = build_mutant(tmp, _build.CSRC_DIR / "paged_attention.cu", name, old, new,
-                              "paged_attention_launch")
-            fn.argtypes, fn.restype = real.argtypes, real.restype
-            paged_module._launch_fns["attention"] = fn
-            for kv, (atol, ulps, rms) in PAGED_BOUNDS.items():
-                if name in ("no_k_scale", "no_v_scale") and kv != "int8":
-                    continue  # the fault is in code a bf16 pool never runs
-                for args, plain in zip(cases[kv], plains[kv]):
-                    out = paged_module.paged_attention(*args)
-                    torch.cuda.synchronize()
-                    e = flash_errors(out, plain, atol, ulps)
-                    ok = e["worst_vs_bound"] <= 1.0 and e["rel_rms_err"] <= rms
-                    unexpected += ok != (name in ("as_is", "p_not_rounded"))
-                    print(f"paged_attention {name:19s} {kv:4s} B={args[0].shape[0]:2d} "
-                          f"T={args[0].shape[1]:3d} passes={ok} "
-                          f"worst_vs_bound={e['worst_vs_bound']:.3g} "
-                          f"rel_rms_err={e['rel_rms_err']:.3g}", flush=True)
-        paged_module._launch_fns["attention"] = real
-
-        x = torch.randn((64, 2048), generator=g, device=dev).to(torch.bfloat16)
-        q, s = int8_linear_module.quantize_linear_weight(
-            torch.randn((2048, 2560), generator=g, device=dev) * 0.02)
-        plain = int8_linear_module.int8_linear_plain(x, q, s)
-        real = int8_linear_module._launcher()
-        for name, (old, new) in LINEAR_MUTANTS.items():
-            fn = build_mutant(tmp, _build.CSRC_DIR / "int8_linear.cu", name, old, new,
-                              "int8_linear_launch")
-            fn.argtypes, fn.restype = real.argtypes, real.restype
-            int8_linear_module._launch_fn = fn
-            out = int8_linear_module.int8_linear(x, q, s)
-            torch.cuda.synchronize()
-            e = flash_errors(out, plain, 1e-5 * float(plain.abs().max()), 1.0)
-            ok = e["worst_vs_bound"] <= 1.0
-            unexpected += ok != (name == "as_is")
-            print(f"int8_linear     {name:19s} passes={ok} "
-                  f"worst_vs_bound={e['worst_vs_bound']:.3g} rel_rms_err={e['rel_rms_err']:.3g}",
-                  flush=True)
-        int8_linear_module._launch_fn = real
-        unexpected += int4_mutants(tmp, dev, g)
+        unexpected = sum(KERNELS[kernel](Path(tmp_name), dev, g) for kernel in chosen)
     print(f"unexpected verdicts: {unexpected}")
     return 1 if unexpected else 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -4,6 +4,7 @@ to print beside every number."""
 
 from __future__ import annotations
 
+import itertools
 import statistics
 import subprocess
 
@@ -75,6 +76,17 @@ def cuda_ms_many(fn, launches: int = 100, runs: int = 5, graph: bool = True) -> 
         del captured
     out["device_ms"] = min(t for t in (out["queued_ms"], out["graph_ms"]) if t is not None)
     return out
+
+
+def cold_ring(*tensors, least: int = 4, most: int = 64):
+    """An endless cycle over copies of ``tensors`` (one tuple a step): at
+    least ``least``, and as many as span ``COLD_RING_BYTES`` (at most
+    ``most``), so that a run of launches that takes the next tuple each time
+    finds its operand in device memory and not in the L2 cache, as a decode
+    step finds its weights."""
+    size = sum(t.numel() * t.element_size() for t in tensors)
+    copies = min(most, max(least, -(-COLD_RING_BYTES // max(size, 1))))
+    return itertools.cycle([tuple(t.clone() for t in tensors) for _ in range(copies)])
 
 
 def card() -> str:

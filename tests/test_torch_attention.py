@@ -109,6 +109,37 @@ def test_flash_attention_on_cpu_runs_the_plain_twin():
         flash_attention(q.to("meta"), k.to("meta"), v.to("meta"), bias.to("meta"))
 
 
+@pytest.mark.parametrize("what", ["head_dim", "dtype", "mixed_dtype", "strided", "misaligned",
+                                  "bias_shape", "too_many_heads"])
+def test_kernel_input_checks_refuse_what_the_kernel_cannot_take(what):
+    """The checks the wrapper makes before a launch are plain Python over
+    shapes, types and addresses: they run here on CPU tensors."""
+    from outline_rag_tpu_torch.ops import attention as attn
+
+    b, s, h, d = 2, 16, 4, 64
+    q, k, v = (torch.zeros((b, s, h, d), dtype=torch.bfloat16) for _ in range(3))
+    bias = torch.zeros((b, s))
+    attn._check_kernel_inputs(q, k, v, bias)  # as the kernel wants them
+    if what == "head_dim":
+        q, k, v = (t[..., :32].contiguous() for t in (q, k, v))
+    elif what == "dtype":
+        q, k, v = (t.to(torch.float16) for t in (q, k, v))
+    elif what == "mixed_dtype":
+        k = k.float()
+    elif what == "strided":
+        v = torch.zeros((b, h, s, d), dtype=torch.bfloat16).transpose(1, 2)
+    elif what == "misaligned":
+        flat = torch.zeros(b * s * h * d + 1, dtype=torch.bfloat16)
+        k = flat[1:].reshape(b, s, h, d)  # contiguous, two bytes off a 16-byte boundary
+    elif what == "bias_shape":
+        bias = torch.zeros((b, s + 1))
+    elif what == "too_many_heads":
+        q, k, v = (torch.zeros((1, 1, 65536, d), dtype=torch.bfloat16) for _ in range(3))
+        bias = torch.zeros((1, 1))
+    with pytest.raises(ValueError):
+        attn._check_kernel_inputs(q, k, v, bias)
+
+
 def test_use_flash_rule():
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
     auto = EncoderConfig.bge_m3()

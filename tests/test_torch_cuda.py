@@ -44,7 +44,8 @@ def test_kernel_library_builds(cuda):
     lib = _build.load_library()
     for name in ("topk_int8_launch", "topk_float_launch", "flash_attention_launch",
                  "paged_attention_launch", "paged_kv_write_launch", "int8_linear_launch",
-                 "int4_w4a8_launch", "int4_w4a16_launch", "int4_stream_floor_launch",
+                 "int4_quant_rows_launch", "int4_w4a8_launch", "int4_w4a16_launch",
+                 "int4_stream_floor_launch",
                  "topk_floor_launch"):
         assert getattr(lib, name) is not None
 
@@ -169,33 +170,42 @@ def test_topk_float_kernel_refuses_bad_shapes(cuda):
 
 
 def _attention_case(dev, b, s, h, lengths, seed, dtype=torch.bfloat16):
+    """A row's live keys: the first n for an int, else a list of (from, to)
+    spans (a bias that is no prefix mask)."""
     g = torch.Generator(device=dev).manual_seed(seed)
     q, k, v = (torch.randn((b, s, h, 64), generator=g, device=dev).to(dtype) for _ in range(3))
-    bias = torch.zeros((b, s), device=dev)
-    for i, n in enumerate(lengths):
-        bias[i, n:] = NEG_BIAS
+    bias = torch.full((b, s), NEG_BIAS, device=dev)
+    for i, live in enumerate(lengths):
+        for lo, hi in ([(0, live)] if isinstance(live, int) else live):
+            bias[i, lo:hi] = 0.0
     return q, k, v, bias
 
 
 # bf16: each element within 2e-3 + 2 bf16 ulps of the twin and the error's
 # norm within 1e-2 of the output's (P is rounded against a running max over
-# 64-key tiles in the kernel, the row max in the twin; a dropped key tile
-# or a missing rescale breaks both). f32: 1e-5, the sums' order only.
+# 64-key tiles in the kernel, the row max in the twin; a dropped key tile,
+# a missing rescale or an unswizzled tile breaks both:
+# ``tools/kernel_mutants.py``). f32: 1e-5, the sums' order only.
 FLASH_BOUNDS = {torch.bfloat16: (2e-3, 2.0, 1e-2), torch.float32: (1e-5, 0.0, 1e-5)}
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize(
     "b,s,h,lengths",
-    [(1, 64, 1, [64]), (2, 200, 3, [200, 131]), (3, 1000, 2, [1000, 77, 0]), (1, 2048, 16, [1500])],
+    [(1, 64, 1, [64]), (2, 200, 3, [200, 131]), (3, 1000, 2, [1000, 77, 0]), (1, 2048, 16, [1500]),
+     (1, 256 + 37, 2, [256 + 37]),  # S no multiple of the query or the key tile
+     (1, 1024, 2, [[(0, 100), (700, 800)]]),  # no prefix mask: all-padding tiles in between
+     (3, 600, 2, [600, 0, [(5, 70)]])],
 )
 def test_flash_kernel_matches_plain(cuda, dtype, b, s, h, lengths):
-    """Within ``FLASH_BOUNDS``; a row with no live key is exactly zero."""
+    """Within ``FLASH_BOUNDS``; a row with no live key is exactly zero; two
+    runs are bit-equal."""
     args = _attention_case(cuda, b, s, h, lengths, seed=s + b, dtype=dtype)
     before = flash_attention.launches
     out = flash_attention(*args)
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 1
+    assert torch.equal(out, flash_attention(*args))
     assert out.dtype == dtype and out.shape == args[0].shape
     atol, ulps, rel_rms = FLASH_BOUNDS[dtype]
     err = flash_errors(out, flash_attention_plain(*args), atol, ulps)
@@ -216,6 +226,9 @@ def test_flash_kernel_refuses_bad_shapes(cuda):
                         v[..., :32].contiguous(), bias)  # D != 64
     with pytest.raises(ValueError):
         flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), bias)
+    off = torch.zeros(k.numel() + 1, dtype=k.dtype, device=cuda)[1:].reshape(k.shape)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention(q, off, v, bias)  # contiguous, two bytes off a 16-byte boundary
 
 
 # ----------------------------------------------------------------------
@@ -443,22 +456,59 @@ def _int4_case(dev, k, n, gsz, m, seed=0):
     return int4, torch.randn((m, k), generator=g, device=dev), q4, s4
 
 
+def _quantizer_rows(dev, m, k, dtype, seed=0):
+    """Rows with a row of zeros, a row whose maximum is negative, and a row
+    with a maximum of exactly 127 (scale 1) and values at exact .5 ties."""
+    g = torch.Generator(device=dev).manual_seed(seed + m + k)
+    x = torch.randn((m, k), generator=g, device=dev) * 3
+    x[0] = 0
+    if m > 2:
+        x[1] = -x[1].abs()
+        x[2] = x[2].clamp(-100, 100)
+        x[2, :8] = torch.tensor([127.0, 2.5, 3.5, -2.5, -0.5, 0.5, 1.5, -126.5], device=dev)
+    return x.to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m", [1, 8, 32, 64, 256])
+@pytest.mark.parametrize("k", [256, 2048, 5632, 11008])
+def test_row_quantizer_kernel_is_byte_equal_to_its_twin(cuda, k, m, dtype):
+    """Codes and the bits of the scales: true divisions, round half to even."""
+    import outline_rag_tpu_torch.ops.int4_linear as int4
+
+    x = _quantizer_rows(cuda, m, k, dtype)
+    before = int4.quantize_rows.launches
+    xq, xs = int4.quantize_rows(x)
+    torch.cuda.synchronize()
+    assert int4.quantize_rows.launches == before + 1
+    want_q, want_s = int4._quantize_activations(x)
+    assert xq.dtype == torch.int8 and tuple(xs.shape) == (m, 1)
+    assert torch.equal(xq, want_q), int((xq != want_q).sum())
+    assert torch.equal(xs.view(torch.int32), want_s.view(torch.int32))
+    assert float(xs[0, 0]) == float(torch.tensor(1e-12, dtype=torch.float32)) and not xq[0].any()
+    if m > 2:
+        assert xq[2, :8].tolist() == [127, 2, 4, -2, 0, 0, 2, -126]
+    with pytest.raises(ValueError, match="K % 16"):
+        int4.quantize_rows(x[:, :24].contiguous())
+
+
 @pytest.mark.parametrize("m", [1, 8, 32, 64, 256])
 @pytest.mark.parametrize("k,n,gsz", INT4_SHAPES)
 def test_w4a8_kernel_matches_plain(cuda, k, n, gsz, m):
-    """Exact integer group sums, the f32 sum over groups in one order: 1e-5
-    of the output's scale + 1e-5 relative (bit-equal is the expectation)."""
-    from outline_rag_tpu_torch.testing import scaled_errors
-
+    """Exact integer group sums, the f32 sum over groups in one order:
+    bit-equal to the twin, also through the bf16 epilogue; two launches (the
+    row quantizer and the product); two runs bit-equal."""
     int4, x, q4, s4 = _int4_case(cuda, k, n, gsz, m)
-    before = int4.w4a8_matmul.launches
-    got = int4.w4a8_matmul(x.to(torch.bfloat16), q4, s4)
+    xb = x.to(torch.bfloat16)
+    before = int4.w4a8_matmul.launches, int4.quantize_rows.launches
+    got = int4.w4a8_matmul(xb, q4, s4)
     torch.cuda.synchronize()
-    assert int4.w4a8_matmul.launches == before + 1
+    assert (int4.w4a8_matmul.launches, int4.quantize_rows.launches) == (before[0] + 1, before[1] + 1)
     assert got.dtype == torch.float32 and tuple(got.shape) == (m, n)
-    e = scaled_errors(got, int4.w4a8_matmul_plain(x.to(torch.bfloat16), q4, s4))
-    assert e["worst_vs_bound"] <= 1.0, e
-    assert torch.equal(got, int4.w4a8_matmul(x.to(torch.bfloat16), q4, s4))
+    assert torch.equal(got, int4.w4a8_matmul_plain(xb, q4, s4))
+    assert torch.equal(got, int4.w4a8_matmul(xb, q4, s4))
+    as_bf16 = int4._w4a8_matmul_as(xb, q4, s4, torch.bfloat16)
+    assert as_bf16.dtype == torch.bfloat16 and torch.equal(as_bf16, got.to(torch.bfloat16))
 
 
 @pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
@@ -512,7 +562,7 @@ def test_mm_int4_dispatch_on_the_card(cuda, monkeypatch, mode):
     int4, x, q4, s4 = _int4_case(cuda, 512, 256, 128, 64)
     _, x2, q2, s2 = _int4_case(cuda, 384, 128, 128, 8)
     counts = lambda: (int4.w4a8_matmul.launches, int4.w4a16_matmul.launches)  # noqa: E731
-    c0 = counts()
+    c0, quantized = counts(), int4.quantize_rows.launches
     small = dec._mm(x[:32].to(torch.bfloat16), {"q4": q4, "s4": s4}, torch.bfloat16)
     c1 = counts()
     dec._mm(x.to(torch.bfloat16), {"q4": q4, "s4": s4}, torch.bfloat16)  # M = 64
@@ -520,6 +570,8 @@ def test_mm_int4_dispatch_on_the_card(cuda, monkeypatch, mode):
     assert counts() == c1
     want = {"w4a8": (1, 0), "kernel": (0, 1), "xla": (0, 0)}[mode]
     assert (c1[0] - c0[0], c1[1] - c0[1]) == want and small.dtype == torch.bfloat16
+    # a w4a8 projection is two launches: the row quantizer and the product
+    assert int4.quantize_rows.launches - quantized == want[0]
     ref = int4.w4a16_matmul_plain(x[:32].to(torch.bfloat16), q4, s4)
     assert float((small.float() - ref).abs().max()) <= 0.03 * float(ref.abs().max())
 
@@ -583,14 +635,14 @@ def test_int4_decoder_forward_kernels_against_twins(cuda, monkeypatch):
         with torch.inference_mode():
             return dec.decoder_forward(params, toks, cache, pos, cfg)[0]
 
-    for mode, name, twin, tol in (("w4a8", "w4a8_matmul", int4.w4a8_matmul_plain, 0.0),
-                                  ("kernel", "w4a16_matmul", int4.w4a16_matmul_plain, 1e-2)):
+    for mode, name, counter, twin, tol in (
+            ("w4a8", "_w4a8_matmul_as", int4.w4a8_matmul, int4._w4a8_matmul_as_plain, 0.0),
+            ("kernel", "w4a16_matmul", int4.w4a16_matmul, int4.w4a16_matmul_plain, 1e-2)):
         with monkeypatch.context() as mp:
             mp.setattr(dec, "_INT4_MODE", mode)
-            kernel = getattr(int4, name)
-            before = kernel.launches
+            before = counter.launches
             got = run()
-            assert kernel.launches == before + 4 * cfg.layers + 1
+            assert counter.launches == before + 4 * cfg.layers + 1
             mp.setattr(dec, name, twin)
             want = run()
         assert float((got - want).abs().max()) <= tol * max(1.0, float(want.abs().max()))

@@ -4,7 +4,8 @@ runs its plain twin: the same numpy weights and activations go through the
 JAX package (its Pallas kernels in interpret mode, its quantizer under
 ``jit``) and through the port.
 
-Tolerances: the quantizer's codes and scales are byte-equal. The products
+Tolerances: the quantizer's codes and scales are byte-equal, and so are the
+row quantizer's (the int8 activations of w4a8) against the JAX recipe. The products
 differ from JAX's only in the order of f32 sums: ``1e-5`` of the output's
 scale absolute plus ``1e-5`` relative, the bound of
 ``tests/test_int4_linear.py``. At bf16 the JAX v2 kernel rounds another
@@ -119,6 +120,81 @@ def test_w4a8_twin_matches_jax_kernel(m, k, n, gsz):
     assert got.dtype == torch.float32 and tuple(got.shape) == (m, n)
     close(got.numpy(), want)
     assert torch.equal(tint4.w4a8_matmul(*args), got)  # a CPU tensor takes the twin
+
+
+def quantizer_rows(m, k, seed, dtype):
+    """Rows with the cases that break a careless quantizer: a row of zeros, a
+    row whose maximum is negative, and a row with a maximum of exactly 127
+    (scale 1) holding values at exact .5 ties."""
+    x = acts(m, k, seed) * 3
+    x[0] = 0
+    if m > 2:
+        x[1] = -np.abs(x[1])
+        x[2] = np.clip(x[2], -100, 100)
+        x[2, :8] = [127.0, 2.5, 3.5, -2.5, -0.5, 0.5, 1.5, -126.5]
+    t = torch.from_numpy(x).to(dtype)
+    return t, jnp.asarray(t.float().numpy()).astype(jnp.bfloat16 if dtype == torch.bfloat16
+                                                     else jnp.float32)
+
+
+def jax_row_quantizer(x):
+    """The recipe of ``outline_rag_tpu/ops/int4_linear.py`` lines 190-193, op
+    for op (that function runs it eagerly before its kernel)."""
+    x32 = x.astype(jnp.float32)
+    amax = jnp.max(jnp.abs(x32), axis=1, keepdims=True)
+    sx = jnp.maximum(amax / 127.0, 1e-12)
+    xq = jnp.clip(jnp.round(x32 / sx), -127, 127).astype(jnp.int8)
+    return np.asarray(xq), np.asarray(sx)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,k", [(1, 512), (8, 2048), (32, 2048), (5, 5632), (3, 11008)])
+def test_row_quantizer_twin_is_byte_equal_to_the_jax_recipe(m, k, dtype):
+    xt, xj = quantizer_rows(m, k, 50 + m, dtype)
+    want_q, want_s = jax_row_quantizer(xj)
+    xq, xs = tint4._quantize_activations(xt)
+    assert xq.dtype == torch.int8 and xs.dtype == torch.float32 and tuple(xs.shape) == (m, 1)
+    np.testing.assert_array_equal(xq.numpy(), want_q)
+    np.testing.assert_array_equal(xs.numpy().view(np.int32), want_s.view(np.int32))  # the bits
+    assert float(xs[0, 0]) == np.float32(1e-12) and not xq[0].any()  # the scale's floor
+    if m > 2:
+        assert xq[2, :8].tolist() == [127, 2, 4, -2, 0, 0, 2, -126]  # ties go to even
+        assert int(xq[1].min()) == -127 and int(xq[1].max()) <= 0
+    got_q, got_s = tint4.quantize_rows(xt)  # a CPU tensor takes the twin
+    assert torch.equal(got_q, xq) and torch.equal(got_s, xs)
+    assert tint4.quantize_rows.launches == 0
+
+
+def test_quantize_rows_validates_its_input():
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        tint4.quantize_rows(torch.zeros((2, 64), dtype=torch.float16))
+    with pytest.raises(ValueError, match=r"\[M, K\]"):
+        tint4.quantize_rows(torch.zeros((2, 3, 64)))
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32, torch.float16])
+@pytest.mark.parametrize("m,k,n,gsz", SHAPES[:4])
+def test_w4a8_result_in_the_working_type_is_the_f32_result_rounded_once(m, k, n, gsz, dt):
+    """What the decoder calls: the product's epilogue writes the model's type."""
+    q4, s4 = (torch.from_numpy(a) for a in jax_quant(weight(k, n, 22), gsz))
+    x = torch.from_numpy(acts(m, k, 23)).to(torch.bfloat16)
+    got = tint4._w4a8_matmul_as(x, q4, s4, dt)
+    assert got.dtype == dt
+    assert torch.equal(got, tint4.w4a8_matmul(x, q4, s4).to(dt))
+    assert torch.equal(got, tint4._w4a8_matmul_as_plain(x, q4, s4, dt))
+
+
+def test_cold_ring_spans_the_cache_with_distinct_copies():
+    from outline_rag_tpu_torch.tools import timing
+
+    a, b = torch.arange(12, dtype=torch.uint8).reshape(3, 4), torch.ones(3)
+    ring = timing.cold_ring(a, b, most=7)
+    steps = [next(ring) for _ in range(8)]
+    assert len({t[0].data_ptr() for t in steps}) == 7  # capped: 150 MB of 24-byte pairs
+    assert steps[7][0].data_ptr() == steps[0][0].data_ptr()  # and it cycles
+    assert all(torch.equal(t[0], a) and torch.equal(t[1], b) for t in steps)
+    big = torch.zeros(timing.COLD_RING_BYTES // 3, dtype=torch.uint8)
+    assert len({next(r)[0].data_ptr() for r in [timing.cold_ring(big)] for _ in range(9)}) == 4
 
 
 def test_w4a8_rows_do_not_depend_on_their_neighbours():
@@ -338,9 +414,11 @@ def test_int4_ops_are_exported_without_shadowing_the_module():
     import outline_rag_tpu_torch.ops.int4_linear as module
 
     assert inspect.ismodule(module)
-    for name in ("w4a8_matmul", "w4a8_matmul_plain", "w4a16_matmul", "w4a16_matmul_plain",
+    for name in ("quantize_rows", "w4a8_matmul", "w4a8_matmul_plain", "w4a16_matmul",
+                 "w4a16_matmul_plain",
                  "int4_stream_floor", "int4_stream_floor_plain", "quantize_int4_weight",
                  "unpack_int4", "int4_kernel_eligible", "topk_floor", "topk_floor_plain"):
         assert callable(getattr(ops, name)) and name in ops.__all__
-    for fn in (ops.w4a8_matmul, ops.w4a16_matmul, ops.int4_stream_floor, ops.topk_floor):
+    for fn in (ops.quantize_rows, ops.w4a8_matmul, ops.w4a16_matmul, ops.int4_stream_floor,
+               ops.topk_floor):
         assert fn.launches == 0  # no kernel is launched off the card
