@@ -149,8 +149,8 @@ def int4_mutants(tmp: Path, dev, g) -> int:
     output's scale plus 1e-5 relative. A mutant is run through the kernels its
     fault is in. The two quantizer mutants differ from the twin only on a row
     that holds an exact .5 tie, or whose maximum over 127 is not the product
-    with f32(1/127): the activations carry such rows. Returns the number of
-    unexpected verdicts."""
+    with f32(1/127): rows 2 and 3 of the activations are such rows. Returns
+    the number of unexpected verdicts."""
     m = int4_linear_module
     cases = []
     for k, n, gsz in ((2048, 2560, 128), (512, 384, 256)):
@@ -158,6 +158,8 @@ def int4_mutants(tmp: Path, dev, g) -> int:
         x = torch.randn((32, k), generator=g, device=dev)
         x[2] = x[2].clamp(-100, 100)
         x[2, :8] = torch.tensor([127.0, 2.5, 3.5, -2.5, -0.5, 0.5, 1.5, -126.5], device=dev)
+        x[3] = x[3].clamp(-3, 3)
+        x[3, 0] = 3.25  # f32(3.25 / 127) is not f32(3.25 * f32(1 / 127))
         cases.append((k, n, gsz, x, q4, s4))
     names = ("quant_rows", "w4a8", "w4a16")
     real = {which: m._launcher(which) for which in names}
