@@ -1081,26 +1081,10 @@ INT4_MS, INT4_TIMED_M = (1, 8, 32, 64, 256), 32
 INT4_TOL = 1e-5  # of the output's scale, plus as much relative
 
 
-def quantizer_rows(torch, dev, g, m: int, k: int, dtype):
-    """Seeded rows for the row quantizer with the cases that break a careless
-    one: row 0 all zero (the scale's floor), row 1 with a negative maximum,
-    row 2 with a maximum of exactly 127 (scale 1) and values at exact .5
-    ties, which must round to even."""
-    x = torch.randn((m, k), generator=g, device=dev) * 3
-    x[0] = 0
-    if m > 2:
-        x[1] = -x[1].abs()
-        x[1, 7] = -9.5
-        ties = torch.tensor([127.0, 2.5, 3.5, -2.5, -0.5, 0.5, 1.5, -126.5], device=dev)
-        x[2] = x[2].clamp(-100, 100)
-        x[2, :8] = ties
-    return x.to(dtype)
-
-
 def kernel_int4_phase(torch, dev, seed: int) -> dict:
     import outline_rag_tpu_torch.models.decoder as decoder
     import outline_rag_tpu_torch.ops.int4_linear as int4
-    from outline_rag_tpu_torch.testing import scaled_errors
+    from outline_rag_tpu_torch.testing import QUANTIZER_TIE_CODES, quantizer_rows, scaled_errors
     from outline_rag_tpu_torch.tools.timing import cold_ring
 
     g = torch.Generator(device=dev).manual_seed(seed + 12)
@@ -1109,7 +1093,7 @@ def kernel_int4_phase(torch, dev, seed: int) -> dict:
     for k in sorted({k for k, _, _ in INT4_SHAPES}):
         for dtype in (torch.bfloat16, torch.float32):
             for m in INT4_MS:
-                x = quantizer_rows(torch, dev, g, m, k, dtype)
+                x = quantizer_rows(dev, g, m, k, dtype)
                 xq, xs = int4.quantize_rows(x)
                 torch.cuda.synchronize()
                 want_q, want_s = int4._quantize_activations(x)
@@ -1120,9 +1104,8 @@ def kernel_int4_phase(torch, dev, seed: int) -> dict:
                 floor = torch.tensor(1e-12, dtype=torch.float32, device=dev)
                 require(bool(xs[0, 0] == floor) and not bool(xq[0].any()),
                         "a row of zeros has the scale's floor and codes 0")
-                if m > 2:
-                    require(float(xs[2, 0]) == 1.0
-                            and xq[2, :8].tolist() == [127, 2, 4, -2, 0, 0, 2, -126],
+                if m > 3:
+                    require(float(xs[2, 0]) == 1.0 and xq[2, :8].tolist() == QUANTIZER_TIE_CODES,
                             f"exact .5 ties round to even: {xq[2, :8].tolist()}")
                     require(int(xq[1].min()) == -127 and int(xq[1].max()) <= 0,
                             "a row with a negative maximum reaches -127")
@@ -1199,7 +1182,6 @@ def kernel_int4_phase(torch, dev, seed: int) -> dict:
             # quantize + product, two launches, bf16 out: a projection of the decoder
             w4a8_ms=as_decoder["ms"], w4a8_device_ms=as_decoder["device_ms"],
             w4a8_queued_ms=as_decoder["queued_ms"],
-            w4a8_f32_ms=cuda_ms(torch, lambda: int4.w4a8_matmul(xb, q4, s4)),
             w4a8_kernel_only_ms=alone["ms"], w4a8_kernel_only_device_ms=alone["device_ms"],
             quantize_rows_ms=quantizer["ms"], quantize_rows_device_ms=quantizer["device_ms"],
             quantize_rows_plain_ms=cuda_ms(torch, lambda: int4._quantize_activations(xb)),

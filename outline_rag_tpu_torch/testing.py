@@ -72,6 +72,28 @@ def scaled_errors(out: torch.Tensor, plain: torch.Tensor, tol: float = 1e-5) -> 
     return {"max_abs_err": float(diff.max()), "worst_vs_bound": float((diff / bound).max())}
 
 
+def quantizer_rows(dev, g: torch.Generator, m: int, k: int, dtype) -> torch.Tensor:
+    """Seeded ``[m, k]`` rows for the row quantizer with the cases that break
+    a careless one: row 0 all zero (the scale's floor), row 1 with a negative
+    maximum, row 2 with a maximum of exactly 127 (scale 1) and values at
+    exact .5 ties (``QUANTIZER_TIES`` must become ``QUANTIZER_TIE_CODES``:
+    ties go to even), row 3 with a maximum of 3.25, where
+    ``f32(3.25 / 127)`` is not ``f32(3.25 * f32(1 / 127))``."""
+    x = torch.randn((m, k), generator=g, device=dev) * 3
+    x[0] = 0
+    if m > 3:
+        x[1] = -x[1].abs()
+        x[2] = x[2].clamp(-100, 100)
+        x[2, :8] = torch.tensor(QUANTIZER_TIES, device=dev)
+        x[3] = x[3].clamp(-3, 3)
+        x[3, 0] = 3.25
+    return x.to(dtype)
+
+
+QUANTIZER_TIES = [127.0, 2.5, 3.5, -2.5, -0.5, 0.5, 1.5, -126.5]
+QUANTIZER_TIE_CODES = [127, 2, 4, -2, 0, 0, 2, -126]
+
+
 class ByteTokenizer:
     """A reversible tokenizer over UTF-8 bytes for driving the chat decoder
     where no tokenizer files exist: id ``b + 3`` for byte ``b``, ids 0-2

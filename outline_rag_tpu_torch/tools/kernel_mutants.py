@@ -34,7 +34,12 @@ import outline_rag_tpu_torch.ops.int4_linear as int4_linear_module
 import outline_rag_tpu_torch.ops.int8_linear as int8_linear_module
 import outline_rag_tpu_torch.ops.paged_attention as paged_module
 from outline_rag_tpu_torch.ops import _build
-from outline_rag_tpu_torch.testing import flash_errors, paged_attention_case, scaled_errors
+from outline_rag_tpu_torch.testing import (
+    flash_errors,
+    paged_attention_case,
+    quantizer_rows,
+    scaled_errors,
+)
 
 # (atol, bf16 ulps, error norm / output norm), as chip_smoke.py holds them
 PAGED_BOUNDS = {"bf16": (2e-3, 2.0, 1e-2), "int8": (1e-4, 1.0, 1e-3)}
@@ -155,12 +160,7 @@ def int4_mutants(tmp: Path, dev, g) -> int:
     cases = []
     for k, n, gsz in ((2048, 2560, 128), (512, 384, 256)):
         q4, s4 = m.quantize_int4_weight(torch.randn((k, n), generator=g, device=dev) * 0.02, gsz)
-        x = torch.randn((32, k), generator=g, device=dev)
-        x[2] = x[2].clamp(-100, 100)
-        x[2, :8] = torch.tensor([127.0, 2.5, 3.5, -2.5, -0.5, 0.5, 1.5, -126.5], device=dev)
-        x[3] = x[3].clamp(-3, 3)
-        x[3, 0] = 3.25  # f32(3.25 / 127) is not f32(3.25 * f32(1 / 127))
-        cases.append((k, n, gsz, x, q4, s4))
+        cases.append((k, n, gsz, quantizer_rows(dev, g, 32, k, torch.float32), q4, s4))
     names = ("quant_rows", "w4a8", "w4a16")
     real = {which: m._launcher(which) for which in names}
     unexpected = 0

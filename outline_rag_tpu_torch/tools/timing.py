@@ -11,8 +11,9 @@ import subprocess
 import torch
 
 # Bytes a ring of inputs must span so that each launch finds its input cold:
-# three times the card's 50 MB L2 cache.
+# three times the card's 50 MB L2 cache; and the fewest and the most copies.
 COLD_RING_BYTES = 150_000_000
+COLD_RING_COPIES = (4, 64)
 
 
 def cuda_ms(fn, runs: int = 10) -> float:
@@ -32,14 +33,14 @@ def cuda_ms(fn, runs: int = 10) -> float:
     return statistics.median(times)
 
 
-def cuda_ms_many(fn, launches: int = 100, runs: int = 5, graph: bool = True) -> dict:
+def cuda_ms_many(fn, launches: int = 100, runs: int = 5) -> dict:
     """Milliseconds a call of ``fn`` on the device, for kernels of a few
     microseconds, where two events around one launch read the host. After
     three warm-up calls, ``runs`` timings of ``launches`` back-to-back calls
     between two events, each divided by ``launches``; the median is
     ``queued_ms``. Python enqueues a launch in some 5-20 us, so for a
     shorter kernel the queue still drains and ``queued_ms`` is the host's
-    pace: with ``graph`` the same run of calls is also captured once into a
+    pace: so the same run of calls is also captured once into a
     ``torch.cuda.CUDAGraph`` (``fn`` must neither synchronize nor read a
     result on the host) and its replays are timed the same way, as
     ``graph_ms``. ``device_ms`` is the smaller reading; their ratio says how
@@ -67,24 +68,23 @@ def cuda_ms_many(fn, launches: int = 100, runs: int = 5, graph: bool = True) -> 
             times.append(start.elapsed_time(end) / launches)
         return statistics.median(times)
 
-    out = {"launches": launches, "queued_ms": timed(run), "graph_ms": None}
-    if graph:
-        captured = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(captured):
-            run()
-        out["graph_ms"] = timed(captured.replay)
-        del captured
-    out["device_ms"] = min(t for t in (out["queued_ms"], out["graph_ms"]) if t is not None)
-    return out
+    queued_ms = timed(run)
+    captured = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(captured):
+        run()
+    graph_ms = timed(captured.replay)
+    return {"launches": launches, "queued_ms": queued_ms, "graph_ms": graph_ms,
+            "device_ms": min(queued_ms, graph_ms)}
 
 
-def cold_ring(*tensors, least: int = 4, most: int = 64):
-    """An endless cycle over copies of ``tensors`` (one tuple a step): at
-    least ``least``, and as many as span ``COLD_RING_BYTES`` (at most
-    ``most``), so that a run of launches that takes the next tuple each time
-    finds its operand in device memory and not in the L2 cache, as a decode
-    step finds its weights."""
+def cold_ring(*tensors):
+    """An endless cycle over copies of ``tensors`` (one tuple a step): as
+    many as span ``COLD_RING_BYTES``, within ``COLD_RING_COPIES``, so that a
+    run of launches that takes the next tuple each time finds its operand in
+    device memory and not in the L2 cache, as a decode step finds its
+    weights."""
     size = sum(t.numel() * t.element_size() for t in tensors)
+    least, most = COLD_RING_COPIES
     copies = min(most, max(least, -(-COLD_RING_BYTES // max(size, 1))))
     return itertools.cycle([tuple(t.clone() for t in tensors) for _ in range(copies)])
 

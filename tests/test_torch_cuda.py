@@ -456,27 +456,15 @@ def _int4_case(dev, k, n, gsz, m, seed=0):
     return int4, torch.randn((m, k), generator=g, device=dev), q4, s4
 
 
-def _quantizer_rows(dev, m, k, dtype, seed=0):
-    """Rows with a row of zeros, a row whose maximum is negative, and a row
-    with a maximum of exactly 127 (scale 1) and values at exact .5 ties."""
-    g = torch.Generator(device=dev).manual_seed(seed + m + k)
-    x = torch.randn((m, k), generator=g, device=dev) * 3
-    x[0] = 0
-    if m > 2:
-        x[1] = -x[1].abs()
-        x[2] = x[2].clamp(-100, 100)
-        x[2, :8] = torch.tensor([127.0, 2.5, 3.5, -2.5, -0.5, 0.5, 1.5, -126.5], device=dev)
-    return x.to(dtype)
-
-
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("m", [1, 8, 32, 64, 256])
 @pytest.mark.parametrize("k", [256, 2048, 5632, 11008])
 def test_row_quantizer_kernel_is_byte_equal_to_its_twin(cuda, k, m, dtype):
     """Codes and the bits of the scales: true divisions, round half to even."""
     import outline_rag_tpu_torch.ops.int4_linear as int4
+    from outline_rag_tpu_torch.testing import QUANTIZER_TIE_CODES, quantizer_rows
 
-    x = _quantizer_rows(cuda, m, k, dtype)
+    x = quantizer_rows(cuda, torch.Generator(device=cuda).manual_seed(m + k), m, k, dtype)
     before = int4.quantize_rows.launches
     xq, xs = int4.quantize_rows(x)
     torch.cuda.synchronize()
@@ -486,8 +474,9 @@ def test_row_quantizer_kernel_is_byte_equal_to_its_twin(cuda, k, m, dtype):
     assert torch.equal(xq, want_q), int((xq != want_q).sum())
     assert torch.equal(xs.view(torch.int32), want_s.view(torch.int32))
     assert float(xs[0, 0]) == float(torch.tensor(1e-12, dtype=torch.float32)) and not xq[0].any()
-    if m > 2:
-        assert xq[2, :8].tolist() == [127, 2, 4, -2, 0, 0, 2, -126]
+    if m > 3:
+        assert xq[2, :8].tolist() == QUANTIZER_TIE_CODES
+        assert float(xs[3, 0]) == float(torch.tensor(3.25) / torch.tensor(127.0))  # a division
     with pytest.raises(ValueError, match="K % 16"):
         int4.quantize_rows(x[:, :24].contiguous())
 

@@ -188,10 +188,10 @@ def test_cold_ring_spans_the_cache_with_distinct_copies():
     from outline_rag_tpu_torch.tools import timing
 
     a, b = torch.arange(12, dtype=torch.uint8).reshape(3, 4), torch.ones(3)
-    ring = timing.cold_ring(a, b, most=7)
-    steps = [next(ring) for _ in range(8)]
-    assert len({t[0].data_ptr() for t in steps}) == 7  # capped: 150 MB of 24-byte pairs
-    assert steps[7][0].data_ptr() == steps[0][0].data_ptr()  # and it cycles
+    ring = timing.cold_ring(a, b)
+    steps = [next(ring) for _ in range(65)]
+    assert len({t[0].data_ptr() for t in steps}) == 64  # capped: 150 MB of 24-byte pairs
+    assert steps[64][0].data_ptr() == steps[0][0].data_ptr()  # and it cycles
     assert all(torch.equal(t[0], a) and torch.equal(t[1], b) for t in steps)
     big = torch.zeros(timing.COLD_RING_BYTES // 3, dtype=torch.uint8)
     assert len({next(r)[0].data_ptr() for r in [timing.cold_ring(big)] for _ in range(9)}) == 4
