@@ -1089,7 +1089,7 @@ def kernel_int4_phase(torch, dev, seed: int) -> dict:
 
     g = torch.Generator(device=dev).manual_seed(seed + 12)
     # the row quantizer against its twin: codes and scale bits, byte for byte
-    quant_cases = 0
+    quant_cases, quant_err, quant_scale_bits = 0, 0, 0
     for k in sorted({k for k, _, _ in INT4_SHAPES}):
         for dtype in (torch.bfloat16, torch.float32):
             for m in INT4_MS:
@@ -1097,6 +1097,8 @@ def kernel_int4_phase(torch, dev, seed: int) -> dict:
                 xq, xs = int4.quantize_rows(x)
                 torch.cuda.synchronize()
                 want_q, want_s = int4._quantize_activations(x)
+                quant_err = max(quant_err, int((xq.int() - want_q.int()).abs().max()))
+                quant_scale_bits += int((xs.view(torch.int32) != want_s.view(torch.int32)).sum())
                 require(bool(torch.equal(xq, want_q)
                              and torch.equal(xs.view(torch.int32), want_s.view(torch.int32))),
                         f"quantize_rows is byte-equal to its twin at M={m} K={k} {dtype}: "
@@ -1110,7 +1112,8 @@ def kernel_int4_phase(torch, dev, seed: int) -> dict:
                     require(int(xq[1].min()) == -127 and int(xq[1].max()) <= 0,
                             "a row with a negative maximum reaches -127")
                 quant_cases += 1
-    emit("kernel_int4", quantize_rows_cases=quant_cases, byte_equal=True)
+    emit("kernel_int4", quantize_rows_cases=quant_cases, max_abs_code_err=quant_err,
+         scales_with_other_bits=quant_scale_bits)
     kernels = {
         "w4a8": (lambda x, q4, s4: int4.w4a8_matmul(x.to(torch.bfloat16), q4, s4),
                  lambda x, q4, s4: int4.w4a8_matmul_plain(x.to(torch.bfloat16), q4, s4)),
@@ -1190,9 +1193,10 @@ def kernel_int4_phase(torch, dev, seed: int) -> dict:
             w4a16_plain_ms=cuda_ms(torch, lambda: int4.w4a16_matmul_plain(xb, q4, s4)),
             library_ms=library["ms"], library_device_ms=library["device_ms"],
         )
-        moved = n * k // 2 + s4.numel() * 4 + m * k * 2 + m * n * 4
-        row["w4a8_bound"] = bound(moved, 2 * m * n * k, "int8")
-        row["w4a16_bound"] = bound(moved, 2 * m * n * k, "bf16")
+        read = n * k // 2 + s4.numel() * 4 + m * k * 2  # q4, s4 and the bf16 rows
+        # the calls timed above: w4a8 writes bf16 (the decoder's epilogue), w4a16 f32
+        row["w4a8_bound"] = bound(read + m * n * 2, 2 * m * n * k, "int8")
+        row["w4a16_bound"] = bound(read + m * n * 4, 2 * m * n * k, "bf16")
         row["quantize_rows_bound"] = bound(m * k * 2 + m * k + m * 4, 4 * m * k, "f32")
         row["w4a8_weight_gb_per_s"] = n * k / 2 / row["w4a8_kernel_only_device_ms"] / 1e6
         mode = decoder._INT4_MODE
@@ -1212,7 +1216,9 @@ def kernel_int4_phase(torch, dev, seed: int) -> dict:
         del q4, s4, w_deq, x
         torch.cuda.empty_cache()
     top = out[(2048, 11264, 128)]  # the gate/up projection, as for int8_linear
-    return {"max_abs_err": max_err, "top": top, "by_shape": {
+    max_err["quantize_rows"] = float(quant_err)
+    return {"max_abs_err": max_err, "quantize_rows_scales_with_other_bits": quant_scale_bits,
+            "top": top, "by_shape": {
         f"{k}x{n}g{gsz}": {key: r[key] for key in (
             "w4a8_ms", "w4a8_device_ms", "w4a8_kernel_only_device_ms", "quantize_rows_device_ms",
             "w4a16_ms", "w4a16_device_ms", "library_ms", "library_device_ms", "grouped_ms_m32")}
@@ -1225,13 +1231,15 @@ def kernel_int4_floor_phase(torch, dev, seed: int) -> dict:
 
     g = torch.Generator(device=dev).manual_seed(seed + 13)
     shapes = [(k, n) for k, n, gsz in INT4_SHAPES if gsz == 128]
-    plain_ms = {}
+    plain_ms, value_err, folds_differ = {}, 0.0, 0
     for k, n in shapes:
         q4 = torch.randint(0, 256, (n, k // 2), generator=g, device=dev, dtype=torch.uint8)
         x = torch.randn((INT4_TIMED_M, k), generator=g, device=dev).to(torch.bfloat16)
         value, fold = int4.int4_stream_floor(x, q4)
         torch.cuda.synchronize()
         want_value, want_fold = int4.int4_stream_floor_plain(x, q4)
+        value_err = max(value_err, float((value - want_value).abs().max()))
+        folds_differ += int((fold != want_fold).sum())
         require(bool(torch.equal(value, want_value) and torch.equal(fold, want_fold)),
                 f"int4_stream_floor equals its twin exactly at K={k} N={n}")
         plain_ms[(k, n)] = cuda_ms(torch, lambda: int4.int4_stream_floor_plain(x, q4), runs=5)
@@ -1247,7 +1255,8 @@ def kernel_int4_floor_phase(torch, dev, seed: int) -> dict:
         out[(k, n)] = row
     launches = int4.int4_stream_floor.launches
     require(launches > 0, "the int4 tool launched the int4_stream_floor kernel")
-    return {"launches": launches, **out[(2048, 11264)], "by_shape": {
+    return {"launches": launches, "max_abs_err": value_err, "folds_that_differ": folds_differ,
+            **out[(2048, 11264)], "by_shape": {
         f"{k}x{n}": {v: (r[f"{v}_ms"], r[f"{v}_device_ms"]) for v in
                      ("floor", "w4a16", "w4a8", "int8")}
         for (k, n), r in out.items()}}
@@ -1867,7 +1876,9 @@ def main() -> int:
         "name": "quantize_rows", "route": "cuda",
         "source": "outline_rag_tpu_torch/csrc/int4_linear.cu",
         "replaces": "outline_rag_tpu/ops/int4_linear.py:190",
-        "launches": chat["int4_weights"]["quantize_rows_launches"], "max_abs_err": 0.0,
+        "launches": chat["int4_weights"]["quantize_rows_launches"],
+        "max_abs_err": int4["max_abs_err"]["quantize_rows"],  # the largest code difference
+        "scales_with_other_bits": int4["quantize_rows_scales_with_other_bits"],
         "ms": int4["top"]["quantize_rows_ms"], "plain_ms": int4["top"]["quantize_rows_plain_ms"],
         **int4["top"]["quantize_rows_bound"], "library_ms": None,
         "device_ms": int4["top"]["quantize_rows_device_ms"], "library_device_ms": None,
@@ -1885,7 +1896,8 @@ def main() -> int:
         "name": "int4_stream_floor", "route": "cuda",
         "source": "outline_rag_tpu_torch/csrc/int4_linear.cu",
         "replaces": "tools/bench_int4_kernel.py:85",
-        "launches": int4_floor["launches"], "max_abs_err": 0.0,
+        "launches": int4_floor["launches"], "max_abs_err": int4_floor["max_abs_err"],
+        "folds_that_differ": int4_floor["folds_that_differ"],
         "ms": int4_floor["floor_ms"], "plain_ms": int4_floor["floor_plain_ms"],
         "bound_ms": int4_floor["bound_ms"], "bound_by": int4_floor["bound_by"],
         "library_ms": None, "device_ms": int4_floor["floor_device_ms"],

@@ -252,26 +252,27 @@ def _w4a8_matmul_as_plain(
 def _w4a8_matmul_as(
     x: torch.Tensor, q4: torch.Tensor, s4: torch.Tensor, dt: torch.dtype
 ) -> torch.Tensor:
-    """:func:`w4a8_matmul` with its result in ``dt``, as the decoder wants
-    it: for bf16 and f32 the kernel's epilogue writes ``dt`` itself (the f32
+    """:func:`w4a8_matmul` with its result in ``dt`` (bf16 or f32), as the
+    decoder wants it: the kernel's epilogue writes ``dt`` itself (the f32
     value rounded once: bit-equal to ``w4a8_matmul(...).to(dt)``), so a
     projection is two launches, the row quantizer and the product."""
     m, k, n, gsz = _check(x, q4, s4, "w4a8_matmul")
+    if dt not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"w4a8_matmul writes bf16 or f32, not {dt}")
     if x.device.type == "cpu":
         return _w4a8_matmul_as_plain(x, q4, s4, dt)
     _check_cuda(x, q4, s4, "w4a8_matmul", m, k, n, gsz)
     xq, xs = quantize_rows(x.contiguous())
-    odt = dt if dt in (torch.bfloat16, torch.float32) else torch.float32
-    out = torch.empty((m, n), dtype=odt, device=x.device)
+    out = torch.empty((m, n), dtype=dt, device=x.device)
     with torch.cuda.device(x.device):
         rc = _launcher("w4a8")(
             xq.data_ptr(), xs.data_ptr(), q4.data_ptr(), s4.data_ptr(), out.data_ptr(),
-            int(odt == torch.bfloat16), m, n, k, gsz, _stream(x),
+            int(dt == torch.bfloat16), m, n, k, gsz, _stream(x),
         )
     if rc != 0:
         raise RuntimeError(f"w4a8_matmul kernel launch failed with CUDA error {rc}")
     w4a8_matmul.launches += 1
-    return out if odt == dt else out.to(dt)
+    return out
 
 
 def w4a8_matmul(x: torch.Tensor, q4: torch.Tensor, s4: torch.Tensor) -> torch.Tensor:

@@ -498,6 +498,10 @@ def test_w4a8_kernel_matches_plain(cuda, k, n, gsz, m):
     assert torch.equal(got, int4.w4a8_matmul(xb, q4, s4))
     as_bf16 = int4._w4a8_matmul_as(xb, q4, s4, torch.bfloat16)
     assert as_bf16.dtype == torch.bfloat16 and torch.equal(as_bf16, got.to(torch.bfloat16))
+    launched = int4.w4a8_matmul.launches, int4.quantize_rows.launches
+    with pytest.raises(ValueError, match="writes bf16 or f32"):  # no third output path
+        int4._w4a8_matmul_as(xb, q4, s4, torch.float16)
+    assert (int4.w4a8_matmul.launches, int4.quantize_rows.launches) == launched
 
 
 @pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])

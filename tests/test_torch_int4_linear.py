@@ -137,21 +137,35 @@ def quantizer_rows(m, k, seed, dtype):
                                                      else jnp.float32)
 
 
-def jax_row_quantizer(x):
-    """The recipe of ``outline_rag_tpu/ops/int4_linear.py`` lines 190-193, op
-    for op (that function runs it eagerly before its kernel)."""
-    x32 = x.astype(jnp.float32)
-    amax = jnp.max(jnp.abs(x32), axis=1, keepdims=True)
-    sx = jnp.maximum(amax / 127.0, 1e-12)
-    xq = jnp.clip(jnp.round(x32 / sx), -127, 127).astype(jnp.int8)
-    return np.asarray(xq), np.asarray(sx)
+def package_row_quantizer(monkeypatch, x):
+    """The int8 rows and row scales that the JAX package's own ``w4a8_matmul``
+    hands to its kernel: the function runs with ``pl.pallas_call`` replaced by
+    a stand-in that keeps its first operand (``xq``, padded to 32 rows) and
+    returns ones, so that the result ``out[:m] * sx[:m]`` is ``sx`` to the
+    bit. No line of the recipe is copied here."""
+    m, k = x.shape
+    seen = {}
+
+    def pallas_call(kernel, *, out_shape, **kwargs):
+        def run(xq, xs2, q4, s4):
+            seen["xq"] = np.asarray(xq)
+            return jnp.ones(out_shape.shape, out_shape.dtype)
+
+        return run
+
+    monkeypatch.setattr(jint4.pl, "pallas_call", pallas_call)
+    out = jint4.w4a8_matmul(x, jnp.zeros((128, k // 2), jnp.uint8),
+                            jnp.ones((128, k // 128), jnp.float32))
+    monkeypatch.undo()
+    assert seen["xq"].dtype == np.int8 and not seen["xq"][m:].any()  # the padding rows
+    return seen["xq"][:m], np.asarray(out)[:, :1]
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("m,k", [(1, 512), (8, 2048), (32, 2048), (5, 5632), (3, 11008)])
-def test_row_quantizer_twin_is_byte_equal_to_the_jax_recipe(m, k, dtype):
+def test_row_quantizer_twin_is_byte_equal_to_the_jax_recipe(m, k, dtype, monkeypatch):
     xt, xj = quantizer_rows(m, k, 50 + m, dtype)
-    want_q, want_s = jax_row_quantizer(xj)
+    want_q, want_s = package_row_quantizer(monkeypatch, xj)
     xq, xs = tint4._quantize_activations(xt)
     assert xq.dtype == torch.int8 and xs.dtype == torch.float32 and tuple(xs.shape) == (m, 1)
     np.testing.assert_array_equal(xq.numpy(), want_q)
@@ -165,6 +179,57 @@ def test_row_quantizer_twin_is_byte_equal_to_the_jax_recipe(m, k, dtype):
     assert tint4.quantize_rows.launches == 0
 
 
+def selecting_weight(k, n=128):
+    """int4 weights whose column ``j`` holds code 7 at ``k = j`` and zeros
+    elsewhere, every group scale 1: ``w4a8_matmul`` then returns ``7 * xq[m, j]
+    * xs[m]``, one rounding, so one flipped activation code or scale bit shows
+    in the result."""
+    w = np.zeros((k, n), np.float32)
+    w[np.arange(n), np.arange(n)] = 7.0
+    q4, s4 = jax_quant(w, 128)
+    return q4, np.ones_like(s4)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,k", [(4, 512), (32, 2048), (5, 5632)])
+def test_w4a8_through_the_jax_kernel_sees_every_activation_code_and_scale_bit(m, k, dtype):
+    """The package's own function, its Pallas kernel in interpret mode, on
+    rows with ties, a zero row and a negative maximum: with weights that pick
+    single activations the two results are equal to the bit, and a quantizer
+    that rounded half up or multiplied by a reciprocal would not be."""
+    xt, xj = quantizer_rows(m, k, 60 + m, dtype)
+    q4, s4 = selecting_weight(k)
+    want = np.asarray(jint4.w4a8_matmul(xj, jnp.asarray(q4), jnp.asarray(s4), interpret=True))
+    got = tint4.w4a8_matmul(xt, torch.from_numpy(q4), torch.from_numpy(s4))
+    np.testing.assert_array_equal(got.numpy().view(np.int32), want.view(np.int32))
+    xq, xs = tint4._quantize_activations(xt)
+    np.testing.assert_array_equal(got.numpy(), (7.0 * xq[:, :128].float() * xs).numpy())
+    assert got[2, :8].tolist() == [7.0 * c for c in (127, 2, 4, -2, 0, 0, 2, -126)]
+
+
+@pytest.mark.parametrize("fault", ["half_up", "reciprocal_scale"])
+def test_the_selecting_weights_expose_a_careless_row_quantizer(fault, monkeypatch):
+    """The check above can fail: with a twin that rounds ties upward, or one
+    that takes the scale as a product with 1/127, the port's result leaves
+    the package's."""
+    xt, xj = quantizer_rows(256, 2048, 92, torch.float32)  # 1 scale in 22 differs
+    q4, s4 = selecting_weight(2048)
+    want = np.asarray(jint4.w4a8_matmul(xj, jnp.asarray(q4), jnp.asarray(s4), interpret=True))
+
+    def careless(x):
+        x32 = x.to(torch.float32)
+        amax = x32.abs().amax(dim=1, keepdim=True)
+        if fault == "half_up":
+            xs = (amax / x32.new_full((), 127.0)).clamp_min(1e-12)
+            return torch.floor(x32 / xs + 0.5).clamp(-127, 127).to(torch.int8), xs
+        xs = (amax * x32.new_full((), 1 / 127.0)).clamp_min(1e-12)
+        return torch.round(x32 / xs).clamp(-127, 127).to(torch.int8), xs
+
+    monkeypatch.setattr(tint4, "_quantize_activations", careless)
+    got = tint4.w4a8_matmul(xt, torch.from_numpy(q4), torch.from_numpy(s4))
+    assert not np.array_equal(got.numpy().view(np.int32), want.view(np.int32))
+
+
 def test_quantize_rows_validates_its_input():
     with pytest.raises(ValueError, match="bf16 or f32"):
         tint4.quantize_rows(torch.zeros((2, 64), dtype=torch.float16))
@@ -172,8 +237,8 @@ def test_quantize_rows_validates_its_input():
         tint4.quantize_rows(torch.zeros((2, 3, 64)))
 
 
-@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32, torch.float16])
-@pytest.mark.parametrize("m,k,n,gsz", SHAPES[:4])
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,k,n,gsz", SHAPES)
 def test_w4a8_result_in_the_working_type_is_the_f32_result_rounded_once(m, k, n, gsz, dt):
     """What the decoder calls: the product's epilogue writes the model's type."""
     q4, s4 = (torch.from_numpy(a) for a in jax_quant(weight(k, n, 22), gsz))
@@ -182,6 +247,14 @@ def test_w4a8_result_in_the_working_type_is_the_f32_result_rounded_once(m, k, n,
     assert got.dtype == dt
     assert torch.equal(got, tint4.w4a8_matmul(x, q4, s4).to(dt))
     assert torch.equal(got, tint4._w4a8_matmul_as_plain(x, q4, s4, dt))
+
+
+def test_w4a8_writes_only_the_types_its_epilogue_has():
+    q4, s4 = (torch.from_numpy(a) for a in jax_quant(weight(512, 256, 22), 128))
+    x = torch.zeros((2, 512), dtype=torch.bfloat16)
+    for dt in (torch.float16, torch.float64, torch.int8):
+        with pytest.raises(ValueError, match="writes bf16 or f32"):
+            tint4._w4a8_matmul_as(x, q4, s4, dt)
 
 
 def test_cold_ring_spans_the_cache_with_distinct_copies():
@@ -195,6 +268,24 @@ def test_cold_ring_spans_the_cache_with_distinct_copies():
     assert all(torch.equal(t[0], a) and torch.equal(t[1], b) for t in steps)
     big = torch.zeros(timing.COLD_RING_BYTES // 3, dtype=torch.uint8)
     assert len({next(r)[0].data_ptr() for r in [timing.cold_ring(big)] for _ in range(9)}) == 4
+
+
+def test_decoder_control_reads_a_decoder_phase_and_refuses_without_a_card(capsys):
+    from outline_rag_tpu_torch.tools import decoder_control
+
+    lines = ["built in 12 s", '{"phase": "env", "torch": "x"}', "[1, 2]",
+             '{"phase": "decoder", "config": "int4_weights", "tokens_per_s": 200.5, '
+             '"decode_step_ms": 21.0, "ttft_p50_ms": 5000.0, "wall_s": 9.0, "chats": 32}',
+             '{"phase": "decode_profile", "config": "int4_weights", "decode_step_ms": 18.0, '
+             '"device_ms_per_step": 6.5, "launches_per_step": 1273.0, "slots": 32}',
+             '{"phase": "spec_ceiling", "config": "spec", "decode_step_ms": 23.0}']
+    assert decoder_control.summarize(lines) == {"int4_weights": {
+        "burst_tokens_per_s": 200.5, "burst_decode_step_ms": 21.0, "burst_ttft_p50_ms": 5000.0,
+        "burst_wall_s": 9.0, "profile_decode_step_ms": 18.0, "profile_device_ms_per_step": 6.5,
+        "profile_launches_per_step": 1273.0}}
+    assert "import jax" not in decoder_control._RUN and "decoder_phase" in decoder_control._RUN
+    assert decoder_control.main(["."]) == 2  # no card here: nothing runs, nothing is printed
+    assert capsys.readouterr().out == ""
 
 
 def test_w4a8_rows_do_not_depend_on_their_neighbours():
