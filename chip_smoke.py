@@ -141,6 +141,7 @@ printing one JSON line; any failure raises and the exit code is non-zero:
            sides quantize the activations alike, and a flipped int8 rounding
            carries the paged kernel's bf16 noise); ``int4_kernel`` (the first 8
            of those chats in mode ``kernel``: ``w4a16_matmul`` counted alike,
+           one launch a projection, its epilogue writing bf16,
            its logits within 3e-2 of its twin's like the other bf16 kernels');
            ``spec`` (bf16 weights, ``spec_k=3``, 8 slots, 8 chats, 64 new
            tokens: ``paged_attention`` and ``paged_kv_write`` run on windows of
@@ -160,9 +161,11 @@ printing one JSON line; any failure raises and the exit code is non-zero:
            256 and 512; M in {1, 8, 32, 64, 256}: w4a8 bit-equal (exact
            integer group sums, one f32 order), also through its bf16 epilogue;
            w4a16 within 1e-5 of the output's scale + 1e-5 relative (the same
-           decoded weights; f32 sums in another order); two runs bit-equal, a
+           decoded weights; f32 sums in another order), its bf16 epilogue
+           the f32 result rounded once; two runs bit-equal, a
            row at M = 1 bit-equal to the same row inside M = 32. Times at
-           M = 32, each read twice: ``ms``, one launch through the wrapper
+           M = 32 through the calls the decoder makes (bf16 out), each read
+           twice: ``ms``, one launch through the wrapper
            between two events (the host's time to launch a kernel this
            short), and ``device_ms``, events around 100 back-to-back launches
            or a CUDA-graph replay of them, each launch on the next of a ring
@@ -1151,6 +1154,12 @@ def kernel_int4_phase(torch, dev, seed: int) -> dict:
                                              got.to(torch.bfloat16))),
                             f"w4a8: the bf16 epilogue equals the f32 result rounded once at "
                             f"M={m} {row}")
+                if name == "w4a16_bf16":
+                    xb = x[:m].to(torch.bfloat16)
+                    require(bool(torch.equal(int4._w4a16_matmul_as(xb, q4, s4, torch.bfloat16),
+                                             got.to(torch.bfloat16))),
+                            f"w4a16: the bf16 epilogue equals the f32 result rounded once at "
+                            f"M={m} {row}")
                 at_32 = got if m == 32 else at_32
             for r in (0, 31):
                 require(bool(torch.equal(kernel(x[r : r + 1], q4, s4)[0], at_32[r])),
@@ -1176,8 +1185,8 @@ def kernel_int4_phase(torch, dev, seed: int) -> dict:
                              lambda: int4._w4a8_matmul_as(xb, *next(ring), torch.bfloat16))
         alone = both_ms(torch, lambda: kernel_only(q4, s4), lambda: kernel_only(*next(ring)))
         quantizer = both_ms(torch, lambda: int4.quantize_rows(xb))
-        a16 = both_ms(torch, lambda: int4.w4a16_matmul(xb, q4, s4),
-                      lambda: int4.w4a16_matmul(xb, *next(ring)))
+        a16 = both_ms(torch, lambda: int4._w4a16_matmul_as(xb, q4, s4, torch.bfloat16),
+                      lambda: int4._w4a16_matmul_as(xb, *next(ring), torch.bfloat16))
         library = both_ms(torch, lambda: torch.nn.functional.linear(xb, w_deq),
                           lambda: torch.nn.functional.linear(xb, next(lib_ring)[0]))
         del ring, lib_ring
@@ -1190,13 +1199,14 @@ def kernel_int4_phase(torch, dev, seed: int) -> dict:
             quantize_rows_plain_ms=cuda_ms(torch, lambda: int4._quantize_activations(xb)),
             w4a8_plain_ms=cuda_ms(torch, lambda: int4.w4a8_matmul_plain(xb, q4, s4)),
             w4a16_ms=a16["ms"], w4a16_device_ms=a16["device_ms"],
-            w4a16_plain_ms=cuda_ms(torch, lambda: int4.w4a16_matmul_plain(xb, q4, s4)),
+            w4a16_plain_ms=cuda_ms(
+                torch, lambda: int4._w4a16_matmul_as_plain(xb, q4, s4, torch.bfloat16)),
             library_ms=library["ms"], library_device_ms=library["device_ms"],
         )
         read = n * k // 2 + s4.numel() * 4 + m * k * 2  # q4, s4 and the bf16 rows
-        # the calls timed above: w4a8 writes bf16 (the decoder's epilogue), w4a16 f32
+        # the calls timed above write bf16, the decoder's epilogue
         row["w4a8_bound"] = bound(read + m * n * 2, 2 * m * n * k, "int8")
-        row["w4a16_bound"] = bound(read + m * n * 4, 2 * m * n * k, "bf16")
+        row["w4a16_bound"] = bound(read + m * n * 2, 2 * m * n * k, "bf16")
         row["quantize_rows_bound"] = bound(m * k * 2 + m * k + m * 4, 4 * m * k, "f32")
         row["w4a8_weight_gb_per_s"] = n * k / 2 / row["w4a8_kernel_only_device_ms"] / 1e6
         mode = decoder._INT4_MODE
@@ -1372,7 +1382,7 @@ def int4_logits_check(torch, dev, decoder, params, cfg, seed: int) -> dict:
                 setattr(decoder, name, fn)
 
     int4_twins = {"_w4a8_matmul_as": int4._w4a8_matmul_as_plain,
-                  "w4a16_matmul": int4.w4a16_matmul_plain}
+                  "_w4a16_matmul_as": int4._w4a16_matmul_as_plain}
     got = run({})
     want = run(int4_twins)
     every = run({**int4_twins, "paged_attention": paged_attention_plain,

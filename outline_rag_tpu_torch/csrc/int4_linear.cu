@@ -71,12 +71,31 @@
 // w4a16:  out[m, n] = sum_k x[m, k] * dt(float(v[n, k]) * s4[n, g(k)]), f32
 //   accumulation, for x in dt (bf16 or f32): the unbiased decode, the product
 //   v * s formed in f32 (__fmul_rn, so that it cannot be fused into the sum)
-//   and rounded once to dt. bf16: the shape of int8_linear.cu, a 64-element K
-//   tile of 32 channels decoded into shared memory as bf16, mma.sync.m16n8k16
-//   with f32 accumulation, 64 rows a block. f32: the same tiles as floats and
-//   a 4 x 4 register tile of fused multiply-adds in ascending k: true f32, no
-//   TF32. Blocks over N and row tiles only; fixed order. Bound: the packed
-//   bytes, as above (bf16: 2 * M flops a weight element against ~295 a byte).
+//   and rounded once to dt. Bound: the packed bytes, as above (bf16: 2 * M
+//   flops a weight element against ~295 a byte).
+//   bf16: w4a8's blocks, items and ring (request_weights), written as f32 or
+//   rounded once to bf16 by its epilogue, so that the decoder's projection is
+//   one launch. Within an item warp w takes a 64-byte span of pair block w / 2
+//   (64 low and 64 high elements) for all the item's channels and rows:
+//   nibbles are decoded in registers (decode_bf16x4) straight into the B
+//   operand of mma.sync.m16n8k16 (bf16 -> f32), and the A operand, the
+//   block's rows of x for the warp's 128 elements (64 registers at 32 rows),
+//   stays in registers for every item of a slab, so x is read from L2 once a
+//   block and a slab. Each warp leaves its f32 sums in shared memory; after
+//   one barrier one thread an output adds the 16 warps' sums in a fixed
+//   order. The split of K (slabs, pair blocks, spans, k-steps) and the order
+//   of every sum depend on K alone, so two runs are bit-equal and a row's
+//   result depends on neither M nor its neighbours. What holds it: no one
+//   part (tools/ablate_w4a16.py times copies with one taken out): an item's
+//   chain of wait, barrier, decode (a byte permute, a subtraction, a product
+//   and half a conversion a weight, 4,096 weights a warp), mma, barrier and
+//   fold takes longer than its bytes take to arrive, and every block reads
+//   all of x from L2 (32 rows x K x 2 bytes: more than its weights at
+//   K = 2,048). Items are 16 channels where N / 32 tiles would leave SMs idle
+//   (N <= 4,096 on 132 SMs).
+//   f32 (no served configuration runs it): a 64-element K tile of 32
+//   channels decoded into shared memory, 64 rows a block, a 4 x 4 register
+//   tile of fused multiply-adds in ascending k: true f32, no TF32.
 //
 // stream_floor: the w4a8 kernel's blocks and loads (one block an SM walking
 //   items of 32 channels x 2,048 elements through a cp.async ring, here four
@@ -211,6 +230,44 @@ __device__ __forceinline__ void cp_async_wait() {  // until at most N groups are
   asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 
+// One item of the w4a8 and w4a16 kernels requested into its ring slot: the
+// packed bytes of channels [n0, n0 + CB) over one slab of K (a channel's row
+// W8_WROW bytes after the one before; a partial last slab only its pair
+// blocks), then the group scale of each of the slab's 128-element halves,
+// [half][channel]. One cp.async group is committed by the caller.
+template <int CB>
+__device__ __forceinline__ void request_weights(uint8_t* slot, const uint8_t* __restrict__ q4,
+                                                const float* __restrict__ s4, int n0, int slab,
+                                                int chunks, int G, int gsz, int tid) {
+  const int KP = chunks * 128;
+  const int slab_bytes = min(chunks - slab * W8_CHUNKS, W8_CHUNKS) * 128;
+#pragma unroll
+  for (int j = 0; j < CB * 64 / W8_THREADS; ++j) {  // 64 pieces of 16 bytes a channel
+    const int piece = tid + W8_THREADS * j, ch = piece >> 6, col = (piece & 63) * 16;
+    if (col < slab_bytes)
+      cp_async16(slot + ch * W8_WROW + col,
+                 q4 + (long long)(n0 + ch) * KP + slab * (W8_CHUNKS * 128) + col, true);
+  }
+  if (tid < W8_HALVES * CB) {  // one scale a thread
+    const int hh = tid & (W8_HALVES - 1), ch = tid >> 4;
+    const int grp = min((slab * W8_HALVES + hh) * 128 / gsz, G - 1);
+    cp_async4(slot + CB * W8_WROW + (hh * CB + ch) * 4, s4 + (long long)(n0 + ch) * G + grp);
+  }
+}
+
+// Raises a kernel's limit of dynamic shared memory on the current device:
+// once a device, not at every launch.
+template <typename Kernel>
+int allow_smem(Kernel* kernel, int bytes, int& allowed_on) {
+  int device = 0;
+  cudaError_t rc = cudaGetDevice(&device);
+  if (rc == cudaSuccess && device != allowed_on) {
+    rc = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (rc == cudaSuccess) allowed_on = device;
+  }
+  return static_cast<int>(rc);
+}
+
 // Shared memory of the w4a8 kernel, for 16 * MT rows a block:
 //   rows   the block's rows of xq for one slab, [pair block][row][256 bytes],
 //          the 16-byte pieces of a row swapped in fours on odd rows so that a
@@ -248,7 +305,7 @@ w4a8_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
   const int wc = warp & 7;   // this warp's pair block of the slab
   const int wh = warp >> 3;  // and its two of the item's four channel tiles
   const int m0 = blockIdx.y * ROWS;
-  const int KP = K >> 1, G = K / gsz, chunks = K >> 8;
+  const int G = K / gsz, chunks = K >> 8;
   const int slabs = (chunks + W8_CHUNKS - 1) / W8_CHUNKS;
   // items of this block: its channel tiles (every gridDim.x-th), a slab each
   const int tiles = N / W8_CB;
@@ -258,22 +315,10 @@ w4a8_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
   // of the ring STAGES - 1 items before they are used: the stream from device
   // memory never waits for the products.
   auto request_item = [&](int it) {
-    if (it < n_items) {
-      const int n0 = (blockIdx.x + it / slabs * gridDim.x) * W8_CB, slab = it % slabs;
-      uint8_t* slot = ring + it % STAGES * W8_ITEM;
-      const int slab_bytes = min(chunks - slab * W8_CHUNKS, W8_CHUNKS) * 128;
-#pragma unroll
-      for (int j = 0; j < W8_CB * 64 / W8_THREADS; ++j) {  // 64 pieces of 16 bytes a channel
-        const int piece = tid + W8_THREADS * j, ch = piece >> 6, col = (piece & 63) * 16;
-        if (col < slab_bytes)
-          cp_async16(slot + ch * W8_WROW + col,
-                     q4 + (long long)(n0 + ch) * KP + slab * (W8_CHUNKS * 128) + col, true);
-      }
-      const int hh = tid & (W8_HALVES - 1), ch = tid >> 4;  // one scale a thread
-      const int grp = min((slab * W8_HALVES + hh) * 128 / gsz, G - 1);
-      cp_async4(slot + W8_CB * W8_WROW + (hh * W8_CB + ch) * 4,
-                s4 + (long long)(n0 + ch) * G + grp);
-    }
+    if (it < n_items)
+      request_weights<W8_CB>(ring + it % STAGES * W8_ITEM, q4, s4,
+                             (blockIdx.x + it / slabs * gridDim.x) * W8_CB, it % slabs, chunks, G,
+                             gsz, tid);
     cp_async_commit();
   };
   // The block's rows of xq, the columns of one slab.
@@ -440,14 +485,8 @@ template <int MT>
 int launch_w4a8(const void* xq, const void* xs, const void* q4, const void* s4, void* out,
                 int out_bf16, int M, int N, int K, int gsz, cudaStream_t s) {
   constexpr int smem = W8Smem<MT>::BYTES;
-  static int allowed_on = -1;  // the device whose limit was raised: once, not a launch
-  int device = 0;
-  cudaError_t rc = cudaGetDevice(&device);
-  if (rc == cudaSuccess && device != allowed_on) {
-    rc = cudaFuncSetAttribute(w4a8_kernel<MT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (rc == cudaSuccess) allowed_on = device;
-  }
-  if (rc != cudaSuccess) return static_cast<int>(rc);
+  static int allowed_on = -1;
+  if (const int rc = allow_smem(w4a8_kernel<MT>, smem, allowed_on)) return rc;
   const dim3 grid(min(N / W8_CB, sm_count()), (M + 16 * MT - 1) / (16 * MT));
   w4a8_kernel<MT><<<grid, W8_THREADS, smem, s>>>(
       static_cast<const int8_t*>(xq), static_cast<const float*>(xs),
@@ -536,14 +575,232 @@ stream_floor_kernel(const void* __restrict__ x, int x_f32,
 }
 
 // ---------------------------------------------------------------------------
-// w4a16
+// w4a16, bf16
+// ---------------------------------------------------------------------------
+
+constexpr int A16_STAGES = 4;  // ring slots: three items in flight while one is used
+
+// Shared memory of the bf16 w4a16 kernel for 16 * MT rows and items of CB
+// channels: the f32 partial sums of the slab's 16 warps, [warp][row][channel]
+// (row stride padded: a warp's 8-byte stores, rows g and channels 2t, are
+// conflict-free), and the ring: A16_STAGES items in w4a8's layout.
+template <int MT, int CB>
+struct A16Smem {
+  static constexpr int ROWS = 16 * MT, PS = CB + 8;
+  static constexpr int SLOT = CB * W8_WROW + W8_HALVES * CB * 4;
+  static constexpr int SUMS = W8_WARPS * ROWS * PS * 4;
+  static constexpr int BYTES = SUMS + A16_STAGES * SLOT;
+  static_assert(BYTES <= 232448, "a block's shared memory on Hopper");
+};
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// bf16(float(v) * s) for the four low (hi == 0) or high nibbles of a packed
+// word, as two bf16x2 words: elements 0, 1 and 2, 3. The biased nibble u = v
+// + 8 is put under the exponent of 2^23 (one byte permute), so that
+// subtracting 2^23 + 8 gives float(v) exactly; the product with the scale
+// is rounded on its own, then to bf16.
+__device__ __forceinline__ void decode_bf16x4(uint32_t w, int hi, float s, uint32_t& b0,
+                                              uint32_t& b1) {
+  const uint32_t u = hi ? ((w >> 4) & 0x0f0f0f0fu) ^ 0x08080808u : w & 0x0f0f0f0fu;
+  float f[4];
+#pragma unroll
+  for (int b = 0; b < 4; ++b)
+    f[b] = __fmul_rn(__fsub_rn(__uint_as_float(__byte_perm(u, 0x4b000000u, 0x7440 + b)),
+                               8388616.f),
+                     s);
+  b0 = pack_bf16(f[0], f[1]);
+  b1 = pack_bf16(f[2], f[3]);
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Warp w of an item takes pair block w / 2 of the slab and, of its 128
+// packed bytes, the 64-byte span w % 2: thread t the 16 bytes 16t of the
+// span, which are 16 low and 16 high elements; for CB / 8 channel tiles and
+// every row. The contraction index inside an instruction is permuted alike
+// for A and B (k-step s of the low or high elements takes the thread's
+// elements 4s .. 4s + 3 where the instruction numbers them 2t, 2t + 1, 2t + 8,
+// 2t + 9), so that its weights are one 16-byte load from the ring and its
+// activations 16-byte loads of x. A warp's sum over its 128 elements is one
+// mma chain in a fixed order; the fold adds the 16 warps' sums in ascending
+// warp order: a function of K alone, never of M, the grid or the row.
+template <int MT, int CB>
+__global__ void __launch_bounds__(W8_THREADS, 1)
+w4a16_bf16_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ q4,
+                  const float* __restrict__ s4, void* __restrict__ out, int out_bf16, int M,
+                  int N, int K, int gsz) {
+  using L = A16Smem<MT, CB>;
+  constexpr int ROWS = L::ROWS, PS = L::PS, STAGES = A16_STAGES;
+  constexpr int FR = W8_THREADS / CB;                               // fold: rows apart
+  constexpr int FOLDS = (ROWS * CB + W8_THREADS - 1) / W8_THREADS;  // outputs a thread
+  extern __shared__ __align__(16) uint8_t smem[];
+  float* sums = reinterpret_cast<float*>(smem);
+  uint8_t* ring = smem + L::SUMS;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wc = warp >> 1;  // this warp's pair block of the slab
+  const int ws = warp & 1;   // and its 64-byte span of the pair block
+  const int m0 = blockIdx.y * ROWS;
+  const int G = K / gsz, chunks = K >> 8;
+  const int slabs = (chunks + W8_CHUNKS - 1) / W8_CHUNKS;
+  // items of this block: its channel tiles (every gridDim.x-th), a slab each
+  const int n_items = (N / CB - blockIdx.x + gridDim.x - 1) / gridDim.x * slabs;
+
+  auto request_item = [&](int it) {
+    if (it < n_items)
+      request_weights<CB>(ring + it % STAGES * L::SLOT, q4, s4,
+                          (blockIdx.x + it / slabs * gridDim.x) * CB, it % slabs, chunks, G, gsz,
+                          tid);
+    cp_async_commit();
+  };
+  // This thread's activations for one slab, kept in registers across the
+  // items of that slab: [row tile][row g, g + 8][low, high elements][the
+  // 8 words of its 16 elements]; zero past M.
+  uint32_t xa[MT][2][2][8];
+  auto load_x = [&](int slab) {
+    const bool live_c = slab * W8_CHUNKS + wc < chunks;
+    const int col = slab * (W8_CHUNKS * 256) + 256 * wc + 64 * ws + 16 * t;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int r2 = 0; r2 < 2; ++r2) {
+        const int r = m0 + mt * 16 + 8 * r2 + g;
+        const bool live = live_c && r < M;
+#pragma unroll
+        for (int nib = 0; nib < 2; ++nib)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const uint4 v = live ? ldg16(x + (long long)r * K + col + 128 * nib + 8 * h)
+                                 : make_uint4(0, 0, 0, 0);
+            xa[mt][r2][nib][4 * h] = v.x;
+            xa[mt][r2][nib][4 * h + 1] = v.y;
+            xa[mt][r2][nib][4 * h + 2] = v.z;
+            xa[mt][r2][nib][4 * h + 3] = v.w;
+          }
+      }
+  };
+
+#pragma unroll
+  for (int it = 0; it < STAGES - 1; ++it) request_item(it);
+  load_x(0);
+
+  const int fc = tid % CB, fr = tid / CB;  // the fold: this thread's channel and first row
+  float fsum[FOLDS];
+#pragma unroll
+  for (int i = 0; i < FOLDS; ++i) fsum[i] = 0.f;
+
+  for (int it = 0; it < n_items; ++it) {
+    const int n0 = (blockIdx.x + it / slabs * gridDim.x) * CB, slab = it % slabs;
+    const uint8_t* slot = ring + it % STAGES * L::SLOT;
+    const int cs = min(chunks - slab * W8_CHUNKS, W8_CHUNKS);  // pair blocks in this slab
+    cp_async_wait<STAGES - 2>();  // this thread's pieces of item `it` are there
+    __syncthreads();              // everyone's; and the item before is folded
+    request_item(it + STAGES - 1);  // into the slot of the item before
+
+    if (wc < cs) {
+      const float* gscale = reinterpret_cast<const float*>(slot + CB * W8_WROW);
+#pragma unroll
+      for (int nt = 0; nt < CB / 8; ++nt) {
+        const int ch = nt * 8 + g;
+        const uint4 w4 = *reinterpret_cast<const uint4*>(slot + ch * W8_WROW + 128 * wc +
+                                                         64 * ws + 16 * t);
+        const uint32_t ww[4] = {w4.x, w4.y, w4.z, w4.w};
+        const float sc[2] = {gscale[2 * wc * CB + ch], gscale[(2 * wc + 1) * CB + ch]};
+        float acc[MT][4];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) acc[mt][0] = acc[mt][1] = acc[mt][2] = acc[mt][3] = 0.f;
+#pragma unroll
+        for (int nib = 0; nib < 2; ++nib)
+#pragma unroll
+          for (int s = 0; s < 4; ++s) {
+            uint32_t b0, b1;
+            decode_bf16x4(ww[s], nib, sc[nib], b0, b1);
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt) {
+              const uint32_t a[4] = {xa[mt][0][nib][2 * s], xa[mt][1][nib][2 * s],
+                                     xa[mt][0][nib][2 * s + 1], xa[mt][1][nib][2 * s + 1]};
+              mma_bf16(acc[mt], a, b0, b1);
+            }
+          }
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          float* p = sums + (warp * ROWS + mt * 16 + g) * PS + nt * 8 + 2 * t;
+          *reinterpret_cast<float2*>(p) = make_float2(acc[mt][0], acc[mt][1]);
+          *reinterpret_cast<float2*>(p + 8 * PS) = make_float2(acc[mt][2], acc[mt][3]);
+        }
+      }
+    }
+    // the next slab's activations, in flight during the fold and the wait
+    if (slabs > 1 && it + 1 < n_items) load_x((it + 1) % slabs);
+    __syncthreads();
+
+    // the warps' sums join each output's sum in ascending warp order
+    const int parts = 2 * cs;
+#pragma unroll
+    for (int i = 0; i < FOLDS; ++i) {
+      const int r = fr + FR * i;
+      if (r < ROWS) {
+        const float* p = sums + r * PS + fc;
+        if (parts == 2 * W8_CHUNKS) {  // a whole slab: unrolled, its loads issued together
+#pragma unroll
+          for (int w = 0; w < 2 * W8_CHUNKS; ++w) fsum[i] = __fadd_rn(fsum[i], p[w * ROWS * PS]);
+        } else {
+          for (int w = 0; w < parts; ++w) fsum[i] = __fadd_rn(fsum[i], p[w * ROWS * PS]);
+        }
+      }
+    }
+
+    if (slab == slabs - 1) {  // the channel tile is complete: out[m, n]
+#pragma unroll
+      for (int i = 0; i < FOLDS; ++i) {
+        const int r = fr + FR * i;
+        if (r < ROWS && m0 + r < M) {
+          const long long at = (long long)(m0 + r) * N + n0 + fc;
+          if (out_bf16)
+            static_cast<__nv_bfloat16*>(out)[at] = __float2bfloat16_rn(fsum[i]);
+          else
+            static_cast<float*>(out)[at] = fsum[i];
+        }
+        fsum[i] = 0.f;
+      }
+    }
+  }
+  cp_async_wait<0>();
+}
+
+template <int MT, int CB>
+int launch_w4a16(const void* x, const void* q4, const void* s4, void* out, int out_bf16, int M,
+                 int N, int K, int gsz, cudaStream_t s) {
+  constexpr int smem = A16Smem<MT, CB>::BYTES;
+  static int allowed_on = -1;
+  if (const int rc = allow_smem(w4a16_bf16_kernel<MT, CB>, smem, allowed_on)) return rc;
+  const dim3 grid(min(N / CB, sm_count()), (M + 16 * MT - 1) / (16 * MT));
+  w4a16_bf16_kernel<MT, CB><<<grid, W8_THREADS, smem, s>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(q4),
+      static_cast<const float*>(s4), out, out_bf16, M, N, K, gsz);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// w4a16, f32
 // ---------------------------------------------------------------------------
 
 constexpr int BM = 64;         // rows of x per block
 constexpr int BN = 32;         // output channels per block
 constexpr int BK = 64;         // contraction tile: half of a 128-element half
 constexpr int A16_THREADS = 128;
-constexpr int SP = BK + 8;     // shared row stride, bf16: conflict-free reads
 constexpr int FP = BK + 4;     // shared row stride, f32
 
 // The 16 weights of this thread for the tile at k0: channel row `wrow`
@@ -574,93 +831,6 @@ __device__ __forceinline__ void dequant16(const WeightWord& ww, float (&v)[16]) 
 #pragma unroll
     for (int b = 0; b < 4; ++b)
       v[4 * j + b] = __fmul_rn(static_cast<float>(static_cast<int8_t>(d >> (8 * b))), ww.s);
-  }
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__global__ void __launch_bounds__(A16_THREADS)
-w4a16_bf16_kernel(const __nv_bfloat16* __restrict__ x,
-                  const uint8_t* __restrict__ q4, const float* __restrict__ s4,
-                  float* __restrict__ out, int M, int N, int K, int gsz) {
-  __shared__ __align__(16) __nv_bfloat16 Xs[BM][SP];
-  __shared__ __align__(16) __nv_bfloat16 Ws[BN][SP];
-  constexpr int XV = BM * BK / 8 / A16_THREADS;  // 16-byte x loads per thread: 4
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
-  const int wn = tid >> 2, wc = (tid & 3) * 16;  // this thread's channel and columns
-  const uint8_t* wrow = q4 + (long long)(n0 + wn) * (K >> 1);
-  const float* srow = s4 + (long long)(n0 + wn) * (K / gsz);
-
-  uint4 xr[XV];
-  WeightWord wr;
-  auto load_tile = [&](int k0) {
-#pragma unroll
-    for (int i = 0; i < XV; ++i) {
-      const int v = tid + i * A16_THREADS, r = v >> 3, c = (v & 7) * 8;
-      xr[i] = make_uint4(0, 0, 0, 0);
-      if (m0 + r < M) xr[i] = ldg16(x + (long long)(m0 + r) * K + k0 + c);
-    }
-    wr = load_weights(wrow, srow, k0, wc, gsz);
-  };
-  auto store_tile = [&]() {
-#pragma unroll
-    for (int i = 0; i < XV; ++i) {
-      const int v = tid + i * A16_THREADS, r = v >> 3, c = (v & 7) * 8;
-      *reinterpret_cast<uint4*>(&Xs[r][c]) = xr[i];
-    }
-    float wf[16];
-    dequant16(wr, wf);
-    __align__(16) __nv_bfloat16 w16[16];
-#pragma unroll
-    for (int i = 0; i < 16; ++i) w16[i] = __float2bfloat16_rn(wf[i]);
-    *reinterpret_cast<uint4*>(&Ws[wn][wc]) = *reinterpret_cast<const uint4*>(&w16[0]);
-    *reinterpret_cast<uint4*>(&Ws[wn][wc + 8]) = *reinterpret_cast<const uint4*>(&w16[8]);
-  };
-
-  float acc[BN / 8][4];
-#pragma unroll
-  for (int j = 0; j < BN / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-
-  load_tile(0);
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    __syncthreads();  // the previous tile's reads of Xs / Ws are done
-    store_tile();
-    __syncthreads();
-    if (k0 + BK < K) load_tile(k0 + BK);  // in flight during the products
-    const int r = warp * 16 + g;
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint32_t a[4] = {
-          *reinterpret_cast<const uint32_t*>(&Xs[r][kk * 16 + 2 * t]),
-          *reinterpret_cast<const uint32_t*>(&Xs[r + 8][kk * 16 + 2 * t]),
-          *reinterpret_cast<const uint32_t*>(&Xs[r][kk * 16 + 8 + 2 * t]),
-          *reinterpret_cast<const uint32_t*>(&Xs[r + 8][kk * 16 + 8 + 2 * t]),
-      };
-#pragma unroll
-      for (int j = 0; j < BN / 8; ++j) {
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(&Ws[j * 8 + g][kk * 16 + 2 * t]);
-        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(&Ws[j * 8 + g][kk * 16 + 8 + 2 * t]);
-        mma_bf16(acc[j], a, b0, b1);
-      }
-    }
-  }
-
-  const int r0 = m0 + warp * 16 + g, r1 = r0 + 8;
-#pragma unroll
-  for (int j = 0; j < BN / 8; ++j) {
-    float* o = out + n0 + j * 8 + 2 * t;
-    if (r0 < M) *reinterpret_cast<float2*>(o + (long long)r0 * N) = make_float2(acc[j][0], acc[j][1]);
-    if (r1 < M) *reinterpret_cast<float2*>(o + (long long)r1 * N) = make_float2(acc[j][2], acc[j][3]);
   }
 }
 
@@ -786,23 +956,32 @@ extern "C" int int4_w4a8_launch(const void* xq, const void* xs, const void* q4,
 }
 
 // x: [M, K] bf16 (x_f32 == 0) or f32 (x_f32 == 1), which is also the type
-// the weights are decoded to; the other operands and the limits as above.
-extern "C" int int4_w4a16_launch(const void* x, const void* q4, const void* s4,
-                                 void* out, int M, int N, int K, int gsz,
-                                 int x_f32, void* stream) {
-  if (!int4_shape_ok(M, N, K, gsz) || (x_f32 != 0 && x_f32 != 1))
+// the weights are decoded to; out: [M, N] f32 (out_bf16 == 0) or, for bf16
+// x, bf16 (out_bf16 == 1); the other operands and the limits as above.
+extern "C" int int4_w4a16_launch(const void* x, const void* q4, const void* s4, void* out,
+                                 int out_bf16, int M, int N, int K, int gsz, int x_f32,
+                                 void* stream) {
+  if (!int4_shape_ok(M, N, K, gsz) || (x_f32 != 0 && x_f32 != 1) ||
+      (out_bf16 != 0 && out_bf16 != 1) || (x_f32 && out_bf16))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(N / BN, (M + BM - 1) / BM);
-  if (x_f32)
+  if (x_f32) {
+    const dim3 grid(N / BN, (M + BM - 1) / BM);
     w4a16_f32_kernel<<<grid, A16_THREADS, 0, s>>>(
         static_cast<const float*>(x), static_cast<const uint8_t*>(q4),
         static_cast<const float*>(s4), static_cast<float*>(out), M, N, K, gsz);
-  else
-    w4a16_bf16_kernel<<<grid, A16_THREADS, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(q4),
-        static_cast<const float*>(s4), static_cast<float*>(out), M, N, K, gsz);
-  return static_cast<int>(cudaGetLastError());
+    return static_cast<int>(cudaGetLastError());
+  }
+  // 16 or 32 rows a block, more rows more blocks over the same channels; items
+  // of 16 channels where those of 32 would leave SMs without one. Neither
+  // choice moves a bit: a k-step of an output is the same instruction in
+  // every tile, and the fold's order depends on K alone.
+  const bool narrow = N / 32 < sm_count();
+  if (M <= 16)
+    return narrow ? launch_w4a16<1, 16>(x, q4, s4, out, out_bf16, M, N, K, gsz, s)
+                  : launch_w4a16<1, 32>(x, q4, s4, out, out_bf16, M, N, K, gsz, s);
+  return narrow ? launch_w4a16<2, 16>(x, q4, s4, out, out_bf16, M, N, K, gsz, s)
+                : launch_w4a16<2, 32>(x, q4, s4, out, out_bf16, M, N, K, gsz, s);
 }
 
 // x: the activations, bf16 (x_f32 == 0) or f32 (x_f32 == 1), of which only
@@ -813,15 +992,8 @@ extern "C" int int4_stream_floor_launch(const void* x, int x_f32, const void* q4
                                         void* stream) {
   if (N <= 0 || KP <= 0 || KP % 128 || N % 8 || (x_f32 != 0 && x_f32 != 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  static int allowed_on = -1;  // the device whose limit was raised: once, not a launch
-  int device = 0;
-  cudaError_t rc = cudaGetDevice(&device);
-  if (rc == cudaSuccess && device != allowed_on) {
-    rc = cudaFuncSetAttribute(stream_floor_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              FLOOR_SMEM);
-    if (rc == cudaSuccess) allowed_on = device;
-  }
-  if (rc != cudaSuccess) return static_cast<int>(rc);
+  static int allowed_on = -1;
+  if (const int rc = allow_smem(stream_floor_kernel, FLOOR_SMEM, allowed_on)) return rc;
   const dim3 grid(min((N + W8_CB - 1) / W8_CB, sm_count()));
   stream_floor_kernel<<<grid, W8_THREADS, FLOOR_SMEM, static_cast<cudaStream_t>(stream)>>>(
       x, x_f32, static_cast<const uint8_t*>(q4), static_cast<float*>(value),

@@ -45,10 +45,10 @@ import torch
 
 from outline_rag_tpu_torch.ops.int4_linear import (
     _w4a8_matmul_as,
+    _w4a16_matmul_as,
     int4_kernel_eligible,
     quantize_int4_weight,
     unpack_int4,
-    w4a16_matmul,
 )
 from outline_rag_tpu_torch.ops.int8_linear import (
     int8_linear,
@@ -290,8 +290,9 @@ _INT8_MODE = os.environ.get("DECODER_INT8_MODE", "w8a8")
 # int4 matmul strategy at decode-size M, read once the same way:
 #   "w4a8"   — per-row int8 activations, exact integer dots a scale group
 #              (ops/int4_linear.py::w4a8_matmul). The default.
-#   "kernel" — exact activations against weights decoded tile by tile on the
-#              chip (ops/int4_linear.py::w4a16_matmul).
+#   "kernel" — exact activations against weights decoded in registers on
+#              the chip (ops/int4_linear.py::w4a16_matmul, one launch writing
+#              the model's type).
 #   "xla"    — never a kernel: the grouped product below for every small M
 #              (the JAX package's name for its plain path, kept).
 _INT4_MODE = os.environ.get("DECODER_INT4_MODE", "w4a8")
@@ -328,7 +329,8 @@ def _mm_int4(x: torch.Tensor, q4: torch.Tensor, s4: torch.Tensor, dt: torch.dtyp
         if _INT4_MODE == "w4a8":
             # two launches: the row quantizer, and the product writing dt
             return _w4a8_matmul_as(x2, q4, s4, dt).reshape(*lead, n)
-        return w4a16_matmul(x2, q4, s4, dt).reshape(*lead, n).to(dt)
+        # one launch, its epilogue writing dt
+        return _w4a16_matmul_as(x2, q4, s4, dt).reshape(*lead, n)
     if m <= 256:
         # operands rounded to the model dtype, products and sums in f32
         # (int4 codes are exact in either)

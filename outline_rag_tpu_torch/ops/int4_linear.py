@@ -13,7 +13,9 @@ and unpacker that the JAX package keeps in ``models/decoder.py``):
                                  exact int32 dots a scale group, f32 scales:
                                  two launches (quantize, product).
 - :func:`w4a16_matmul`         — exact activations x weights decoded to the
-                                 working type, f32 accumulation.
+                                 working type, f32 accumulation, one launch
+                                 (``_w4a16_matmul_as``: the result in the
+                                 working type, as the decoder wants it).
 - :func:`int4_stream_floor`    — reads every packed byte once and does no
                                  arithmetic on it: what an int4 linear could
                                  reach on this card.
@@ -145,7 +147,7 @@ def _launcher(which: str):
         fn.argtypes = {
             "quant_rows": [p, i32, p, p, i32, i32, p],
             "w4a8": [p, p, p, p, p, i32, i32, i32, i32, i32, p],
-            "w4a16": [p, p, p, p, i32, i32, i32, i32, i32, p],
+            "w4a16": [p, p, p, p, i32, i32, i32, i32, i32, i32, p],
             "stream_floor": [p, i32, p, p, p, i32, i32, p],
         }[which]
         fn.restype = ctypes.c_int
@@ -319,6 +321,52 @@ def w4a16_matmul_plain(
     return x.to(dt).to(torch.float32) @ _dequant(q4, s4, dt).to(torch.float32).T
 
 
+def _w4a16(x, q4, s4, dt: torch.dtype | None, out_dt: torch.dtype) -> torch.Tensor:
+    """The weight decoded to ``dt`` (by default the type of ``x``), the f32
+    sum written as ``out_dt``: f32, or ``dt`` itself."""
+    m, k, n, gsz = _check(x, q4, s4, "w4a16_matmul")
+    dt = x.dtype if dt is None else dt
+    if dt not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"w4a16_matmul decodes to bf16 or f32, not {dt}")
+    if x.device.type == "cpu":
+        return w4a16_matmul_plain(x, q4, s4, dt).to(out_dt)
+    _check_cuda(x, q4, s4, "w4a16_matmul", m, k, n, gsz)
+    xd = x.to(dt).contiguous()
+    if xd.data_ptr() % 16:
+        raise ValueError("w4a16_matmul: x must be 16-byte aligned")
+    out = torch.empty((m, n), dtype=out_dt, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = _launcher("w4a16")(
+            xd.data_ptr(), q4.data_ptr(), s4.data_ptr(), out.data_ptr(),
+            int(out_dt == torch.bfloat16), m, n, k, gsz, int(dt == torch.float32), _stream(x),
+        )
+    if rc != 0:
+        raise RuntimeError(f"w4a16_matmul kernel launch failed with CUDA error {rc}")
+    w4a16_matmul.launches += 1
+    return out
+
+
+def _w4a16_matmul_as_plain(
+    x: torch.Tensor, q4: torch.Tensor, s4: torch.Tensor, dt: torch.dtype
+) -> torch.Tensor:
+    """:func:`_w4a16_matmul_as` in plain PyTorch: the f32 result rounded
+    once to ``dt``."""
+    return w4a16_matmul_plain(x, q4, s4, dt).to(dt)
+
+
+def _w4a16_matmul_as(
+    x: torch.Tensor, q4: torch.Tensor, s4: torch.Tensor, dt: torch.dtype
+) -> torch.Tensor:
+    """:func:`w4a16_matmul` with the weight decoded to ``dt`` (bf16 or f32)
+    and its result in ``dt``, as the decoder wants it: the kernel's epilogue
+    writes ``dt`` itself (the f32 value rounded once: bit-equal to
+    ``w4a16_matmul(x, q4, s4, dt).to(dt)``), so a projection is one launch.
+    Raises for any other type, before a launch."""
+    if dt not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"w4a16_matmul writes bf16 or f32, not {dt}")
+    return _w4a16(x, q4, s4, dt, dt)
+
+
 def w4a16_matmul(
     x: torch.Tensor,
     q4: torch.Tensor,
@@ -342,24 +390,7 @@ def w4a16_matmul(
     :func:`w4a16_matmul_plain`."""
     if variant not in _VARIANTS:
         raise ValueError(f"variant must be one of 'auto', 'v1', 'v2'; got {variant!r}")
-    m, k, n, gsz = _check(x, q4, s4, "w4a16_matmul")
-    dt = x.dtype if dt is None else dt
-    if dt not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"w4a16_matmul decodes to bf16 or f32, not {dt}")
-    if x.device.type == "cpu":
-        return w4a16_matmul_plain(x, q4, s4, dt)
-    _check_cuda(x, q4, s4, "w4a16_matmul", m, k, n, gsz)
-    xd = x.to(dt).contiguous()
-    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        rc = _launcher("w4a16")(
-            xd.data_ptr(), q4.data_ptr(), s4.data_ptr(), out.data_ptr(), m, n, k, gsz,
-            int(dt == torch.float32), _stream(x),
-        )
-    if rc != 0:
-        raise RuntimeError(f"w4a16_matmul kernel launch failed with CUDA error {rc}")
-    w4a16_matmul.launches += 1
-    return out
+    return _w4a16(x, q4, s4, dt, torch.float32)
 
 
 w4a16_matmul.launches = 0

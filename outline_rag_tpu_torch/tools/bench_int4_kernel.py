@@ -9,7 +9,8 @@ Run it on a machine with one CUDA card and ``nvcc``. Variants a shape:
   floor — ``int4_stream_floor``: every packed byte read once, no products:
           the packed-byte stream as the card delivers it (its outputs are
           allocated once, so a timing pays for the launch alone)
-  w4a16 — ``w4a16_matmul``, bf16 activations, weights decoded on the chip
+  w4a16 — ``_w4a16_matmul_as``: bf16 activations, weights decoded on the
+          chip, one launch writing bf16 (the decoder's call)
   w4a8  — ``w4a8_matmul``: int8 activations, int8 tensor-core dots (two
           launches: the row quantizer and the product, as the decoder pays it)
   int8  — ``w8a8_matmul`` on the same ``[K, N]``, at twice the weight bytes
@@ -35,10 +36,10 @@ import zlib
 import torch
 
 from outline_rag_tpu_torch.ops.int4_linear import (
+    _w4a16_matmul_as,
     int4_stream_floor,
     quantize_int4_weight,
     w4a8_matmul,
-    w4a16_matmul,
 )
 from outline_rag_tpu_torch.ops.int8_linear import quantize_linear_weight, w8a8_matmul
 from outline_rag_tpu_torch.tools.timing import card, cold_ring, cuda_ms, cuda_ms_many
@@ -72,7 +73,7 @@ def bench_shape(name: str, k: int, n: int, m: int, dev, runs: int = 10, group_si
     floor_out = int4_stream_floor(x, q4)
     calls = {  # variant -> (its call on given weights, the weights)
         "floor": (lambda q, s: int4_stream_floor(x, q, floor_out), (q4, s4)),
-        "w4a16": (lambda q, s: w4a16_matmul(x, q, s), (q4, s4)),
+        "w4a16": (lambda q, s: _w4a16_matmul_as(x, q, s, torch.bfloat16), (q4, s4)),
         "w4a8": (lambda q, s: w4a8_matmul(x, q, s), (q4, s4)),
         "int8": (lambda q, s: w8a8_matmul(x, q, s), (q8, s8)),
     }

@@ -82,23 +82,37 @@ LINEAR_MUTANTS = {
     "drop_last_k_tile": ("for (int k0 = 0; k0 < K; k0 += BK) {",
                          "for (int k0 = 0; k0 < K - BK; k0 += BK) {"),
 }
-# int4: a fault is one edit a kernel it applies to: {label prefix: (old, new,
-# occurrences)}. w4a8 is held to bit-equality (exact integer group sums, one
-# f32 order), w4a16 to 1e-5 of the output's scale plus 1e-5 relative.
+# int4: a fault is one edit or more, each keyed by the runs it reaches:
+# {label: {runs: (old, new, occurrences)}}, a run being one of "w4a8",
+# "w4a16_bf16", "w4a16_f32" (the f32 instantiation has its own decoder and
+# loop; the bf16 one shares w4a8's loader). w4a8 is held to bit-equality
+# (exact integer group sums, one f32 order), w4a16 to 1e-5 of the output's
+# scale plus 1e-5 relative.
 _K_LOOP = "for (int k0 = 0; k0 < K; k0 += BK) {"
-_DECODE_BOTH = ("w4a8", "w4a16")
+_BF16_HI = "const uint32_t u = hi ? ((w >> 4) & 0x0f0f0f0fu) ^ 0x08080808u : w & 0x0f0f0f0fu;"
+_DECODE4 = ("w4a8", "w4a16_f32")
 INT4_MUTANTS = {
     "as_is": {},
-    "nibbles_swapped": {_DECODE_BOTH: (
-        "(hi ? w >> 4 : w) & 0x0f0f0f0fu", "(hi ? w : w >> 4) & 0x0f0f0f0fu", 1)},
-    "hi_not_sign_extended": {_DECODE_BOTH: (
-        "hi ? nib ^ 0x08080808u : nib;", "hi ? nib + 0x08080808u : nib;", 1)},
-    "lo_not_debiased": {_DECODE_BOTH: (
-        "hi ? nib ^ 0x08080808u : nib;", "hi ? nib ^ 0x08080808u : nib + 0x08080808u;", 1)},
+    "nibbles_swapped": {
+        _DECODE4: ("(hi ? w >> 4 : w) & 0x0f0f0f0fu", "(hi ? w : w >> 4) & 0x0f0f0f0fu", 1),
+        ("w4a16_bf16",): (_BF16_HI, _BF16_HI.replace("(w >> 4) & 0x0f0f0f0fu) ^", "w & 0x0f0f0f0fu) ^")
+                          .replace(": w & 0x0f0f0f0fu;", ": (w >> 4) & 0x0f0f0f0fu;"), 1)},
+    "hi_not_sign_extended": {
+        _DECODE4: ("hi ? nib ^ 0x08080808u : nib;", "hi ? nib + 0x08080808u : nib;", 1),
+        ("w4a16_bf16",): (_BF16_HI, _BF16_HI.replace(") ^ 0x08080808u", ") + 0x08080808u"), 1)},
+    "lo_not_debiased": {
+        _DECODE4: ("hi ? nib ^ 0x08080808u : nib;",
+                   "hi ? nib ^ 0x08080808u : nib + 0x08080808u;", 1),
+        ("w4a16_bf16",): (_BF16_HI, _BF16_HI.replace(": w & 0x0f0f0f0fu;",
+                                                     ": (w & 0x0f0f0f0fu) + 0x08080808u;"), 1)},
     "scale_from_next_group": {
-        ("w4a8",): ("const int grp = min((slab * W8_HALVES + hh) * 128 / gsz, G - 1);",
-                    "const int grp = min(((slab * W8_HALVES + hh) * 128 / gsz) ^ 1, G - 1);", 1),
-        ("w4a16",): ("out.s = srow[k0 / gsz];", "out.s = srow[(k0 / gsz) ^ 1];", 1)},
+        ("w4a8", "w4a16_bf16"): (
+            "const int grp = min((slab * W8_HALVES + hh) * 128 / gsz, G - 1);",
+            "const int grp = min(((slab * W8_HALVES + hh) * 128 / gsz) ^ 1, G - 1);", 1),
+        ("w4a16_f32",): ("out.s = srow[k0 / gsz];", "out.s = srow[(k0 / gsz) ^ 1];", 1)},
+    "scale_of_neighbour_channel": {("w4a16_bf16",): (
+        "gscale[2 * wc * CB + ch], gscale[(2 * wc + 1) * CB + ch]",
+        "gscale[2 * wc * CB + (ch ^ 1)], gscale[(2 * wc + 1) * CB + (ch ^ 1)]", 1)},
     "dropped_k_chunk": {
         ("w4a8",): ("    if (slab * W8_CHUNKS + wc < chunks) {\n"
                     "      const uint8_t* wsm = slot + (wh * 16 + g) * W8_WROW + 128 * wc + 16 * t;\n"
@@ -106,7 +120,11 @@ INT4_MUTANTS = {
                     "    if (slab * W8_CHUNKS + wc < chunks && wc != 1) {\n"
                     "      const uint8_t* wsm = slot + (wh * 16 + g) * W8_WROW + 128 * wc + 16 * t;\n"
                     "      const uint8_t* xsm", 1),
-        ("w4a16",): (_K_LOOP, _K_LOOP.replace("k0 < K;", "k0 < K - BK;"), 2)},
+        ("w4a16_bf16",): ("    if (wc < cs) {", "    if (wc < cs && wc != 1) {", 1),
+        ("w4a16_f32",): (_K_LOOP, _K_LOOP.replace("k0 < K;", "k0 < K - BK;"), 1)},
+    # the last slab's sums when it is partial (K % 2,048 != 0): never folded
+    "partial_slab_dropped": {("w4a16_bf16",): (
+        "for (int w = 0; w < parts; ++w) fsum[i]", "for (int w = 0; w < 0; ++w) fsum[i]", 1)},
     "group_out_of_order": {
         ("w4a8",): ("for (int hh = 0; hh < W8_HALVES; ++hh) fold(hh);",
                     "for (int hh = W8_HALVES - 1; hh >= 0; --hh) fold(hh);", 1),
@@ -147,9 +165,10 @@ def build_mutant(tmp: Path, source: Path, name: str, old, new: str = "", symbol:
 
 def int4_mutants(tmp: Path, dev, g) -> int:
     """Every int4 mutant through ``w4a8_matmul`` (which runs the row quantizer
-    too) and ``w4a16_matmul`` (bf16 and f32) at M = 32, at a TinyLlama
-    projection with groups of 128 and at a small shape with groups of 256 (the
-    neighbouring group's scale is another one there); the bounds are
+    too) and ``w4a16_matmul`` (bf16 and f32) at M = 32, at two TinyLlama
+    projections with groups of 128 (the down projection's K = 5,632 ends in a
+    partial slab) and at a small shape with groups of 256 (the neighbouring
+    group's scale is another one there); the bounds are
     chip_smoke.py's: w4a8 bit-equal to its twin, w4a16 within 1e-5 of the
     output's scale plus 1e-5 relative. A mutant is run through the kernels its
     fault is in. The two quantizer mutants differ from the twin only on a row
@@ -158,7 +177,7 @@ def int4_mutants(tmp: Path, dev, g) -> int:
     the number of unexpected verdicts."""
     m = int4_linear_module
     cases = []
-    for k, n, gsz in ((2048, 2560, 128), (512, 384, 256)):
+    for k, n, gsz in ((2048, 2560, 128), (512, 384, 256), (5632, 2048, 128)):
         q4, s4 = m.quantize_int4_weight(torch.randn((k, n), generator=g, device=dev) * 0.02, gsz)
         cases.append((k, n, gsz, quantizer_rows(dev, g, 32, k, torch.float32), q4, s4))
     names = ("quant_rows", "w4a8", "w4a16")
@@ -178,10 +197,12 @@ def int4_mutants(tmp: Path, dev, g) -> int:
                 runs[label] = (m.w4a16_matmul(x.to(dt), q4, s4), m.w4a16_matmul_plain(x.to(dt), q4, s4))
             torch.cuda.synchronize()
             for label, (out, plain) in runs.items():
-                if faults and label.split("_")[0] not in affected:
+                if faults and label not in affected:
                     continue  # the fault is in another kernel
                 if name == "group_out_of_order" and k // gsz <= 2:
                     continue  # two groups add to the same sum in either order
+                if name == "partial_slab_dropped" and k % 2048 == 0:
+                    continue  # no partial slab at this K
                 e = scaled_errors(out, plain)
                 ok = bool(torch.equal(out, plain)) if label == "w4a8" else e["worst_vs_bound"] <= 1.0
                 # a neighbouring group's scale is the same fault at every gsz;

@@ -445,7 +445,7 @@ def test_batcher_on_the_card_warm_equals_cold_and_reclaims_pages(cuda):
 # ----------------------------------------------------------------------
 
 INT4_SHAPES = [(2048, 2560, 128), (5632, 2048, 128), (2048, 32000, 128), (512, 384, 256),
-               (2048, 512, 512), (768, 256, 384)]
+               (2048, 512, 512), (768, 256, 384), (11008, 4096, 128)]
 
 
 def _int4_case(dev, k, n, gsz, m, seed=0):
@@ -510,15 +510,22 @@ def test_w4a8_kernel_matches_plain(cuda, k, n, gsz, m):
 def test_w4a16_kernel_matches_plain(cuda, k, n, gsz, m, dt):
     """The same decoded weights, f32 sums in another order (tensor cores in
     bf16, a thread's FMA chain in f32): 1e-5 of the output's scale + 1e-5
-    relative, also at bf16 (the output is f32)."""
+    relative, also at bf16 (the output is f32); a partial last slab of K
+    (5,632, 11,008) too. The epilogue in the working type is the f32 result
+    rounded once, one launch; two runs bit-equal."""
     from outline_rag_tpu_torch.testing import scaled_errors
 
     int4, x, q4, s4 = _int4_case(cuda, k, n, gsz, m)
+    before = int4.w4a16_matmul.launches
     got = int4.w4a16_matmul(x.to(dt), q4, s4, variant="v2")
     torch.cuda.synchronize()
+    assert int4.w4a16_matmul.launches == before + 1
     e = scaled_errors(got, int4.w4a16_matmul_plain(x.to(dt), q4, s4))
     assert got.dtype == torch.float32 and e["worst_vs_bound"] <= 1.0, e
     assert torch.equal(got, int4.w4a16_matmul(x.to(dt), q4, s4))
+    as_dt = int4._w4a16_matmul_as(x.to(dt), q4, s4, dt)
+    assert int4.w4a16_matmul.launches == before + 3
+    assert as_dt.dtype == dt and torch.equal(as_dt, got.to(dt))
 
 
 def test_int4_rows_do_not_depend_on_m(cuda):
@@ -630,7 +637,8 @@ def test_int4_decoder_forward_kernels_against_twins(cuda, monkeypatch):
 
     for mode, name, counter, twin, tol in (
             ("w4a8", "_w4a8_matmul_as", int4.w4a8_matmul, int4._w4a8_matmul_as_plain, 0.0),
-            ("kernel", "w4a16_matmul", int4.w4a16_matmul, int4.w4a16_matmul_plain, 1e-2)):
+            ("kernel", "_w4a16_matmul_as", int4.w4a16_matmul, int4._w4a16_matmul_as_plain,
+             1e-2)):
         with monkeypatch.context() as mp:
             mp.setattr(dec, "_INT4_MODE", mode)
             before = counter.launches

@@ -257,6 +257,29 @@ def test_w4a8_writes_only_the_types_its_epilogue_has():
             tint4._w4a8_matmul_as(x, q4, s4, dt)
 
 
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,k,n,gsz", SHAPES)
+def test_w4a16_result_in_the_working_type_is_the_f32_result_rounded_once(m, k, n, gsz, dt):
+    """What the decoder calls: the weight decoded to the model's type, and
+    the product's epilogue writing that type."""
+    q4, s4 = (torch.from_numpy(a) for a in jax_quant(weight(k, n, 24), gsz))
+    x = torch.from_numpy(acts(m, k, 25)).to(dt)
+    got = tint4._w4a16_matmul_as(x, q4, s4, dt)
+    assert got.dtype == dt and tuple(got.shape) == (m, n)
+    assert torch.equal(got, tint4.w4a16_matmul(x, q4, s4, dt).to(dt))
+    assert torch.equal(got, tint4._w4a16_matmul_as_plain(x, q4, s4, dt))
+
+
+def test_w4a16_writes_only_the_types_its_epilogue_has():
+    q4, s4 = (torch.from_numpy(a) for a in jax_quant(weight(512, 256, 22), 128))
+    x = torch.zeros((2, 512), dtype=torch.bfloat16)
+    before = tint4.w4a16_matmul.launches
+    for dt in (torch.float16, torch.float64, torch.int8):
+        with pytest.raises(ValueError, match="writes bf16 or f32"):
+            tint4._w4a16_matmul_as(x, q4, s4, dt)
+    assert tint4.w4a16_matmul.launches == before
+
+
 def test_cold_ring_spans_the_cache_with_distinct_copies():
     from outline_rag_tpu_torch.tools import timing
 
@@ -513,3 +536,26 @@ def test_int4_ops_are_exported_without_shadowing_the_module():
     for fn in (ops.quantize_rows, ops.w4a8_matmul, ops.w4a16_matmul, ops.int4_stream_floor,
                ops.topk_floor):
         assert fn.launches == 0  # no kernel is launched off the card
+
+
+def _int4_source_edits():
+    from outline_rag_tpu_torch.tools import ablate_w4a16, kernel_mutants
+
+    for name, faults in kernel_mutants.INT4_MUTANTS.items():
+        for runs, edit in faults.items():
+            yield pytest.param(edit, id=f"mutant-{name}-{'-'.join(runs)}".replace(" ", "_"))
+    for name, edits in ablate_w4a16.VARIANTS.items():
+        for i, edit in enumerate(edits):
+            yield pytest.param(edit, id=f"ablation-{name}-{i}")
+
+
+@pytest.mark.parametrize("edit", list(_int4_source_edits()))
+def test_every_int4_mutant_and_ablation_edit_applies_to_the_source(edit):
+    """The card tools edit a copy of ``csrc/int4_linear.cu`` and refuse an
+    edit whose text occurs another number of times: each one still finds
+    its line, and changes it."""
+    from outline_rag_tpu_torch.ops import _build
+
+    old, new, occurrences = edit
+    assert old != new
+    assert (_build.CSRC_DIR / "int4_linear.cu").read_text().count(old) == occurrences
