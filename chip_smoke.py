@@ -98,11 +98,16 @@ printing one JSON line; any failure raises and the exit code is non-zero:
            tail passes the row's capacity (it must land in page 0).
 10. kernel_int8_linear  ``int8_linear`` against ``int8_linear_plain`` at the
            decoder's projections, (M, K, N) = (64, 2048, 2560),
-           (64, 2048, 11264), (64, 5632, 2048), (64, 2048, 32000), at M = 8, and at the
-           M = 256 of a prefill chunk on all four widths: bf16 outputs within 1e-5 of the output's scale + 1 bf16 ulp (exact
-           products in both, f32 sums in another order). Times, the weight
-           bytes a second, and one ``F.linear`` on a weight dequantized
-           beforehand (it reads twice the bytes) as the library yardstick.
+           (64, 2048, 2048), (64, 2048, 11264), (64, 5632, 2048),
+           (64, 2048, 32000), at M = 8, and at the M = 256 of a prefill chunk
+           on all five widths: bf16 outputs within 1e-5 of the output's scale
+           + 1 bf16 ulp (exact products in both, f32 sums in another order);
+           at M = 256 the first 8 rows alone are bit-equal to the same rows of
+           the whole. Times, the weight bytes a second, and one ``F.linear``
+           on a weight dequantized beforehand (it reads twice the bytes) as
+           the library yardstick; both summed over a decode step's 89
+           projections (22 each of q/k/v, o, gate/up and down, and the
+           ``lm_head``) at M = 64 and over a prefill chunk's at M = 256.
 11. decoder  the local chat decoder at TinyLlama-1.1B width (22 layers, 32
            heads, 4 KV heads, vocab 32,000; seeded random bf16 weights)
            served by ``LocalChatProvider(batch_slots=64, kv_pages=1025,
@@ -1039,10 +1044,11 @@ def kernel_int8_linear_phase(torch, dev, seed: int) -> dict:
     from outline_rag_tpu_torch.tools.timing import cold_ring
 
     g = torch.Generator(device=dev).manual_seed(seed + 8)
-    shapes = [(64, 2048, 2560), (64, 2048, 11264), (64, 5632, 2048), (64, 2048, 32000),
-              (8, 2048, 2560), (8, 2048, 32000),
-              # a 256-token prefill chunk at one row: M = 256 on all four widths
-              (256, 2048, 2560), (256, 2048, 11264), (256, 5632, 2048), (256, 2048, 32000)]
+    shapes = [(64, 2048, 2560), (64, 2048, 2048), (64, 2048, 11264), (64, 5632, 2048),
+              (64, 2048, 32000), (8, 2048, 2560), (8, 2048, 32000),
+              # a 256-token prefill chunk at one row: M = 256 on all five widths
+              (256, 2048, 2560), (256, 2048, 2048), (256, 2048, 11264), (256, 5632, 2048),
+              (256, 2048, 32000)]
     out, max_err = {}, 0.0
     for m, k, n in shapes:
         x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
@@ -1067,10 +1073,24 @@ def kernel_int8_linear_phase(torch, dev, seed: int) -> dict:
         row["weight_gb_per_s"] = n * k / row["ms"] / 1e6
         require(errs["worst_vs_bound"] <= 1.0,
                 f"int8_linear within 1e-5 of the output's scale + 1 bf16 ulp of the twin: {row}")
+        if m == 256:
+            require(bool(torch.equal(int8_linear(x[:8], q, s), got[:8])),
+                    f"int8_linear: 8 rows alone are bit-equal to the same rows at M = 256: {row}")
         emit("kernel_int8_linear", **row)
-        out[(m, n)] = row
-    return {"max_abs_err": max_err, **out[(64, 11264)], "by_shape": {
-        f"{m}x{k}x{n}": {key: out[(m, n)][key] for key in (
+        out[(m, k, n)] = row
+
+    def step(m: int, key: str) -> float:
+        """A forward's 89 projections: 22 layers of q/k/v, o, gate/up and
+        down, and the lm_head."""
+        layer = ((2048, 2560), (2048, 2048), (2048, 11264), (5632, 2048))
+        return 22 * sum(out[(m, k, n)][key] for k, n in layer) + out[(m, 2048, 32000)][key]
+
+    steps = {f"{name}_m{m}": step(m, key) for m in (64, 256)
+             for name, key in (("step_device_ms", "device_ms"),
+                               ("step_library_device_ms", "library_device_ms"))}
+    emit("kernel_int8_linear", **steps)
+    return {"max_abs_err": max_err, **out[(64, 2048, 11264)], **steps, "by_shape": {
+        f"{m}x{k}x{n}": {key: out[(m, k, n)][key] for key in (
             "ms", "device_ms", "plain_ms", "library_ms", "library_device_ms", "bound_ms")}
         for m, k, n in shapes}}
 
@@ -1515,14 +1535,20 @@ def decoder_phase(torch, dev, seed: int) -> dict:
     vocab = [f"w{i}" for i in rng.permutation(20_000)[:5000]]
     system = " ".join(rng.choice(vocab, 200))[:504]  # "system: " + 504 bytes = 4 full pages
 
-    # forwards by rows fed (B * T): the batcher's name serves prefill chunks
-    # and plain steps, the decoder module's the speculative verify windows
+    # forwards by rows fed (B * T), and the int8 kernel's launches inside
+    # them: the batcher's name serves prefill chunks and plain steps, the
+    # decoder module's the speculative verify windows
     forwards: dict[int, int] = {}
+    int8_by_rows: dict[int, int] = {}
     real_forward = batcher_module.decoder_forward
 
     def counted_forward(p, tokens, *args, **kwargs):
-        forwards[tokens.numel()] = forwards.get(tokens.numel(), 0) + 1
-        return real_forward(p, tokens, *args, **kwargs)
+        rows, before = tokens.numel(), int8_linear.launches
+        forwards[rows] = forwards.get(rows, 0) + 1
+        try:
+            return real_forward(p, tokens, *args, **kwargs)
+        finally:
+            int8_by_rows[rows] = int8_by_rows.get(rows, 0) + int8_linear.launches - before
 
     def patch_forward(fn):
         batcher_module.decoder_forward = decoder.decoder_forward = fn
@@ -1597,6 +1623,7 @@ def decoder_phase(torch, dev, seed: int) -> dict:
         torch.cuda.reset_peak_memory_stats(dev)
         patch_forward(counted_forward)
         forwards.clear()
+        int8_by_rows.clear()
         paged_attention.launches = paged_kv_write.launches = int8_linear.launches = 0
         w4a8_matmul.launches = w4a16_matmul.launches = quantize_rows.launches = 0
         tok.lengths.clear()
@@ -1606,7 +1633,7 @@ def decoder_phase(torch, dev, seed: int) -> dict:
             launches = (paged_attention.launches, paged_kv_write.launches, int8_linear.launches,
                         w4a8_matmul.launches, w4a16_matmul.launches)
             quantizer_launches = quantize_rows.launches
-            by_rows = dict(forwards)
+            by_rows, int8_launches_by_rows = dict(forwards), dict(int8_by_rows)
             n_forwards = sum(by_rows.values())
             decode_forwards = by_rows.get(rows_fed, 0)
             stats = provider.stats()
@@ -1668,8 +1695,10 @@ def decoder_phase(torch, dev, seed: int) -> dict:
                 f"{name}: paged_attention and paged_kv_write ran {cfg.layers} times in each of "
                 f"{n_forwards} forwards: {launches}")
         per_forward = 4 * cfg.layers + 1
-        require(launches[2] == (per_forward * n_forwards if "int8_weights" in kw else 0),
-                f"{name}: int8_linear ran {per_forward} times a forward: {launches[2]}")
+        require(launches[2] == (per_forward * n_forwards if "int8_weights" in kw else 0)
+                and sum(int8_launches_by_rows.values()) == launches[2],
+                f"{name}: int8_linear ran {per_forward} times a forward, each launch inside "
+                f"one: {launches[2]}, {int8_launches_by_rows}")
         # int4: the kernel in every projection of every decode forward (32 rows
         # fed), never in a prefill chunk (256 rows: the grouped product)
         want_int4 = per_forward * decode_forwards if int4 else 0
@@ -1716,6 +1745,9 @@ def decoder_phase(torch, dev, seed: int) -> dict:
                "timed_burst_wall_s": timed_wall_s,
                "forwards": n_forwards, "paged_attention_launches": launches[0],
                "paged_kv_write_launches": launches[1], "int8_linear_launches": launches[2],
+               # the int8 kernel's launches counted inside the decode forwards
+               # (64 rows fed); the rest were inside prefill chunks
+               "int8_linear_decode_launches": int8_launches_by_rows.get(rows_fed, 0),
                "w4a8_launches": launches[3], "w4a16_launches": launches[4],
                "quantize_rows_launches": quantizer_launches,
                "decode_forwards": decode_forwards, "forwards_by_rows_fed": by_rows,
@@ -1868,6 +1900,8 @@ def main() -> int:
         "bound_ms": linear["bound_ms"], "bound_by": linear["bound_by"],
         "library_ms": linear["library_ms"], "device_ms": linear["device_ms"],
         "library_device_ms": linear["library_device_ms"], "by_shape": linear["by_shape"],
+        **{key: linear[key] for key in linear if key.startswith("step_")},
+        "decode_launches": chat["int8_weights"]["int8_linear_decode_launches"],
     }, {
         "name": "w4a8_matmul", "route": "cuda",
         "source": "outline_rag_tpu_torch/csrc/int4_linear.cu",

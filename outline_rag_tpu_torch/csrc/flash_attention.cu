@@ -63,10 +63,7 @@
 //
 // The f32 instantiation (one query row a thread, f32 FMAs) is further down.
 
-#include <cuda.h>  // CUtensorMap and its enums; no driver symbol is linked
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper_tma.cuh"
 
 namespace {
 
@@ -91,91 +88,13 @@ struct FlashSmem {                 // 1024-byte aligned: the swizzle's period
 };
 constexpr size_t SMEM_BYTES = sizeof(FlashSmem) + 1024;  // room to align
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 __device__ __forceinline__ float ex2(float x) {  // 2^x, one MUFU instruction
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
 }
 
-// ---- mbarriers and TMA -----------------------------------------------------
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-// Returns once the phase of parity `parity` is complete (at once when the
-// barrier is already past it).
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-// One [rows][64] tile of head h from row `row` of batch b into shared memory.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                         int h, int row, int b) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5, %6}], [%2];"
-      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(0),
-      "r"(h), "r"(row), "r"(b)
-      : "memory");
-}
-
 // ---- wgmma -----------------------------------------------------------------
-
-// Shared-memory matrix descriptor of a [rows][64] bf16 tile in the 128-byte
-// swizzle: 8-row groups 1,024 bytes apart (SBO); one swizzle atom wide, so the
-// leading offset is not used. The same descriptor serves a K-major operand
-// (Q, K: advance 32 bytes a 16-wide step along d) and an MN-major one (V with
-// the transpose flag: advance 16 rows = 2,048 bytes a step along the keys).
-__device__ __forceinline__ uint64_t tile_desc(const void* p) {
-  uint64_t d = (smem_u32(p) & 0x3ffffu) >> 4;
-  d |= uint64_t(1) << 16;
-  d |= uint64_t(1024 >> 4) << 32;
-  d |= uint64_t(1) << 62;  // SWIZZLE_128B
-  return d;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-// The accumulators of an asynchronous wgmma are written until wgmma_wait
-// returns: this pins every later use of them behind it.
-template <int N>
-__device__ __forceinline__ void pin(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
 
 // s[64 x 64] (+)= A[64 x 16] . B[64 x 16]^T, both from shared memory, K-major.
 __device__ __forceinline__ void wgmma_qk(float (&s)[32], uint64_t a, uint64_t b, int accumulate) {
@@ -322,7 +241,7 @@ flash_kernel(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk) wgmma_qk(s, q_desc + 2 * kk, k_desc + 2 * kk, kk > 0);
     wgmma_commit();
-    wgmma_wait();
+    wgmma_wait<0>();
     pin(s);
 
     // t = s * (scale * log2 e) + bias * log2 e, its row maxima m, and
@@ -411,7 +330,7 @@ flash_kernel(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) wgmma_pv(o, p[kk], v_desc + kk * (16 * HD * 2 >> 4));
     wgmma_commit();
-    wgmma_wait();
+    wgmma_wait<0>();
     pin(o);
 
     __syncwarp();  // every lane's reads of the slot are done
@@ -541,27 +460,6 @@ flash_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
           make_float4(__fdiv_rn(o[d], inv), __fdiv_rn(o[d + 1], inv),
                       __fdiv_rn(o[d + 2], inv), __fdiv_rn(o[d + 3], inv));
   }
-}
-
-
-// cuTensorMapEncodeTiled is a driver function; the library links no driver
-// symbol, so its address comes from the runtime.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) !=
-            cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      p = nullptr;
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
 }
 
 // A [B, S, H, 64] bf16 tensor as a 4-d map (d, head, position, batch) whose

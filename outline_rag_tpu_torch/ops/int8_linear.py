@@ -127,7 +127,11 @@ def int8_linear(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor) -> to
         raise ValueError(f"int8_linear kernel requires K % 16 == 0, got K={k}")
     if not (w_q.is_contiguous() and w_scale.is_contiguous()):
         raise ValueError("int8_linear: w_q and w_scale must be contiguous")
+    if w_q.data_ptr() % 16:
+        raise ValueError("int8_linear: w_q must be 16-byte aligned (the kernel reads it by TMA)")
     xb = x.to(torch.bfloat16).contiguous()
+    if xb.data_ptr() % 16:
+        xb = xb.clone()
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     launch = _launcher()
     with torch.cuda.device(x.device):

@@ -5,7 +5,7 @@ taken out, timed beside the kernel as it is.
 
 Run it on a machine with one CUDA card and ``nvcc``. Each variant is one
 edit of a copy of ``csrc/int4_linear.cu`` in a temporary directory, built
-into a library of its own (``kernel_mutants.build_mutant``; the sources in
+into a library of its own (``kernel_mutants.ablate``; the sources in
 the package are never changed), and timed through the decoder's call,
 ``_w4a16_matmul_as(x, q4, s4, bf16)``, as ``device_ms``: 100 launches or
 their CUDA-graph replay over a ring of weights that spans three times the L2
@@ -29,18 +29,15 @@ limit.
 
 from __future__ import annotations
 
-import json
 import sys
-import tempfile
-from pathlib import Path
 
 import torch
 
 import outline_rag_tpu_torch.ops.int4_linear as int4
 from outline_rag_tpu_torch.ops import _build
 from outline_rag_tpu_torch.testing import scaled_errors
-from outline_rag_tpu_torch.tools.kernel_mutants import build_mutant
-from outline_rag_tpu_torch.tools.timing import card, cold_ring, cuda_ms_many
+from outline_rag_tpu_torch.tools.kernel_mutants import ablate
+from outline_rag_tpu_torch.tools.timing import card, cold_ring
 
 _MMA = '''  asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
@@ -82,32 +79,26 @@ def main() -> int:
     dev = torch.device("cuda", torch.cuda.current_device())
     print(card(), flush=True)
     g = torch.Generator(device=dev).manual_seed(5)
-    cases = []
+    runs = []
     for k, n in SHAPES:
         q4, s4 = int4.quantize_int4_weight(torch.randn((k, n), generator=g, device=dev) * 0.02, 128)
         x = torch.randn((32, k), generator=g, device=dev).to(torch.bfloat16)
-        cases.append((k, n, x, q4, s4, cold_ring(q4, s4)))
+        ring = cold_ring(q4, s4)
+        for m in (32, 16):
+            runs.append((
+                f"{k}x{n}_m{m}",
+                lambda xm=x[:m], ring=ring: int4._w4a16_matmul_as(xm, *next(ring), torch.bfloat16),
+                lambda xm=x[:m], q4=q4, s4=s4: scaled_errors(
+                    int4.w4a16_matmul(xm, q4, s4),
+                    int4.w4a16_matmul_plain(xm, q4, s4))["worst_vs_bound"] <= 1.0))
     real = int4._launcher("w4a16")
-    try:
-        with tempfile.TemporaryDirectory() as tmp:
-            for name, edits in VARIANTS.items():
-                lib = build_mutant(Path(tmp), _build.CSRC_DIR / "int4_linear.cu", name, edits)
-                fn = lib.int4_w4a16_launch
-                fn.argtypes, fn.restype = real.argtypes, real.restype
-                int4._launch_fns["w4a16"] = fn
-                row = {"variant": name}
-                for k, n, x, q4, s4, ring in cases:
-                    for m in (32, 16):
-                        xm = x[:m]
-                        if name in HELD_TO_THE_TWIN:
-                            e = scaled_errors(int4.w4a16_matmul(xm, q4, s4),
-                                              int4.w4a16_matmul_plain(xm, q4, s4))
-                            row[f"ok_{n}_{m}"] = e["worst_vs_bound"] <= 1.0
-                        row[f"{k}x{n}_m{m}"] = cuda_ms_many(
-                            lambda: int4._w4a16_matmul_as(xm, *next(ring), torch.bfloat16))["device_ms"]
-                print(json.dumps(row), flush=True)
-    finally:
-        int4._launch_fns["w4a16"] = real
+
+    def install(lib):
+        fn = real if lib is None else lib.int4_w4a16_launch
+        fn.argtypes, fn.restype = real.argtypes, real.restype
+        int4._launch_fns["w4a16"] = fn
+
+    ablate(_build.CSRC_DIR / "int4_linear.cu", VARIANTS, install, runs, HELD_TO_THE_TWIN)
     return 0
 
 

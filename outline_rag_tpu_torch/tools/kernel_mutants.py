@@ -22,6 +22,7 @@ speculative decoding path has no kernel of its own and so no mutant.
 from __future__ import annotations
 
 import ctypes
+import json
 import subprocess
 import sys
 import tempfile
@@ -40,6 +41,7 @@ from outline_rag_tpu_torch.testing import (
     quantizer_rows,
     scaled_errors,
 )
+from outline_rag_tpu_torch.tools.timing import cuda_ms_many
 
 # (atol, bf16 ulps, error norm / output norm), as chip_smoke.py holds them
 PAGED_BOUNDS = {"bf16": (2e-3, 2.0, 1e-2), "int8": (1e-4, 1.0, 1e-3)}
@@ -77,11 +79,28 @@ PAGED_MUTANTS = {
 }
 LINEAR_MUTANTS = {
     "as_is": ("", ""),
-    "f32_scale": ("w_live ? __bfloat162float(__float2bfloat16_rn(s[n0 + wn])) : 0.f;",
-                  "w_live ? s[n0 + wn] : 0.f;"),
-    "drop_last_k_tile": ("for (int k0 = 0; k0 < K; k0 += BK) {",
-                         "for (int k0 = 0; k0 < K - BK; k0 += BK) {"),
+    "f32_scale": ("sc[r] = n < N ? __bfloat162float(__float2bfloat16_rn(s[n])) : 0.f;",
+                  "sc[r] = n < N ? s[n] : 0.f;"),
+    "drop_last_k_tile": ("const int steps = min(KC, K - (c0 + p) * KC) / 16;",
+                         "const int steps = c0 + p + 1 == chunks ? 0 "
+                         ": min(KC, K - (c0 + p) * KC) / 16;"),
+    "scale_of_neighbour_channel": ("const int n = n0 + wg * CH + row + 8 * r;",
+                                   "const int n = (n0 + wg * CH + row + 8 * r) ^ 1;"),
+    "row_tile_at_wrong_offset": ("tile_desc(xtile + rt * (ROWS * KC * 2)) + 2 * s",
+                                 "tile_desc(xtile + rt * (ROWS * KC * 2) + 8 * 128) + 2 * s"),
+    "last_split_not_folded": ("for (int p = 1; p < live_splits; ++p) {",
+                              "for (int p = 1; p < live_splits - 1; ++p) {"),
+    "k_step_not_advanced": ("tile_desc(xtile + rt * (ROWS * KC * 2)) + 2 * s",
+                            "tile_desc(xtile + rt * (ROWS * KC * 2))"),
+    "weights_unswizzled": ("const int sw = (ch >> 1) & 3;", "const int sw = 0;"),
+    "pair_of_the_other_thread": ("0x7440u + 2 * (t & 1)", "0x7440u + 2 * ((t & 1) ^ 1)"),
 }
+# (M, K, N, output type) of the w8a16 mutants: the q/k/v projection at a decode
+# step of 64 and 8 rows, gate/up (two warpgroups a block), the down projection
+# at a prefill chunk of 256 rows, and a K that ends in a partial chunk with an
+# N that ends in a partial channel tile
+LINEAR_CASES = [(64, 2048, 2560, "bf16"), (8, 2048, 2560, "f32"), (64, 2048, 11264, "bf16"),
+                (256, 5632, 2048, "bf16"), (24, 2064, 40, "f32")]
 # int4: a fault is one edit or more, each keyed by the runs it reaches:
 # {label: {runs: (old, new, occurrences)}}, a run being one of "w4a8",
 # "w4a16_bf16", "w4a16_f32" (the f32 instantiation has its own decoder and
@@ -155,12 +174,36 @@ def build_mutant(tmp: Path, source: Path, name: str, old, new: str = "", symbol:
     cu, so = tmp / f"{source.stem}_{name}.cu", tmp / f"{source.stem}_{name}.so"
     cu.write_text(text)
     cmd = [_build._nvcc(), *_build.ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
-           "-shared", "-o", str(so), str(cu)]
+           "-I", str(_build.CSRC_DIR), "-shared", "-o", str(so), str(cu)]
     run = subprocess.run(cmd, capture_output=True, text=True)
     if run.returncode != 0:
         raise RuntimeError(f"{name}: nvcc failed\n{run.stderr}")
     lib = ctypes.CDLL(str(so))
     return getattr(lib, symbol) if symbol else lib
+
+
+def ablate(source: Path, variants: dict, install, runs, held_to_the_twin) -> None:
+    """Time copies of ``source``, each with one variant's edits
+    (``{variant: [(old, new, occurrences)]}``), through the package's
+    wrapper; prints one JSON line a variant. ``install(lib)`` binds a
+    variant's library in the wrapper, and ``install(None)`` the package's own
+    again. ``runs`` holds ``(label, call, check)``: ``call()`` launches the
+    wrapper once and is timed as ``device_ms`` (``tools/timing.py``), and
+    ``check()`` says whether its result is within the twin's bound; only the
+    variants in ``held_to_the_twin`` are checked, since one without a part of
+    its work computes a wrong result and is read for its time alone."""
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            for name, edits in variants.items():
+                install(build_mutant(Path(tmp), source, name, edits))
+                row = {"variant": name}
+                for label, call, check in runs:
+                    if name in held_to_the_twin:
+                        row[f"ok_{label}"] = check()
+                    row[label] = cuda_ms_many(call)["device_ms"]
+                print(json.dumps(row), flush=True)
+    finally:
+        install(None)
 
 
 def int4_mutants(tmp: Path, dev, g) -> int:
@@ -286,27 +329,36 @@ def paged_mutants(tmp: Path, dev, g) -> int:
 
 
 def linear_mutants(tmp: Path, dev, g) -> int:
-    """Every w8a16 linear mutant at the fused q/k/v projection, M = 64."""
-    x = torch.randn((64, 2048), generator=g, device=dev).to(torch.bfloat16)
-    q, s = int8_linear_module.quantize_linear_weight(
-        torch.randn((2048, 2560), generator=g, device=dev) * 0.02)
-    plain = int8_linear_module.int8_linear_plain(x, q, s)
-    real = int8_linear_module._launcher()
+    """Every w8a16 linear mutant at each of ``LINEAR_CASES``, under the bound
+    of ``chip_smoke.py`` and the card tests: 1e-5 of the output's scale, plus
+    one ulp for a bf16 output. Every mutant but ``as_is`` must fail in every
+    case."""
+    m = int8_linear_module
+    cases = []
+    for rows, k, n, out in LINEAR_CASES:
+        x = torch.randn((rows, k), generator=g, device=dev).to(
+            torch.bfloat16 if out == "bf16" else torch.float32)
+        q, s = m.quantize_linear_weight(torch.randn((k, n), generator=g, device=dev) * 0.02)
+        cases.append((x, q, s, m.int8_linear_plain(x, q, s)))
+    real = m._launcher()
     unexpected = 0
     for name, (old, new) in LINEAR_MUTANTS.items():
         fn = build_mutant(tmp, _build.CSRC_DIR / "int8_linear.cu", name, old, new,
                           "int8_linear_launch")
         fn.argtypes, fn.restype = real.argtypes, real.restype
-        int8_linear_module._launch_fn = fn
-        out = int8_linear_module.int8_linear(x, q, s)
-        torch.cuda.synchronize()
-        e = flash_errors(out, plain, 1e-5 * float(plain.abs().max()), 1.0)
-        ok = e["worst_vs_bound"] <= 1.0
-        unexpected += ok != (name == "as_is")
-        print(f"int8_linear     {name:19s} passes={ok} "
-              f"worst_vs_bound={e['worst_vs_bound']:.3g} rel_rms_err={e['rel_rms_err']:.3g}",
-              flush=True)
-    int8_linear_module._launch_fn = real
+        m._launch_fn = fn
+        for x, q, s, plain in cases:
+            out = m.int8_linear(x, q, s)
+            torch.cuda.synchronize()
+            ulps = 1.0 if x.dtype == torch.bfloat16 else 0.0
+            e = flash_errors(out, plain, 1e-5 * float(plain.abs().max()), ulps)
+            ok = e["worst_vs_bound"] <= 1.0
+            unexpected += ok != (name == "as_is")
+            print(f"int8_linear     {name:26s} M={x.shape[0]:3d} K={x.shape[1]:4d} "
+                  f"N={q.shape[0]:5d} {str(x.dtype)[6:]:8s} passes={ok} "
+                  f"worst_vs_bound={e['worst_vs_bound']:.3g} rel_rms_err={e['rel_rms_err']:.3g}",
+                  flush=True)
+    m._launch_fn = real
     return unexpected
 
 

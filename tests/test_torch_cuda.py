@@ -320,7 +320,7 @@ def test_paged_kv_write_kernel_matches_plain(cuda, kv, b, t, start):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("m,k,n", [(8, 2048, 2560), (64, 2048, 11264), (64, 5632, 2048),
-                                   (256, 2048, 32000), (24, 2064, 40)])
+                                   (256, 2048, 32000), (24, 2064, 40), (64, 2048, 2048)])
 def test_int8_linear_kernel_matches_plain(cuda, m, k, n, dtype):
     """Products are exact in f32 in both; the sums run in another order:
     f32 outputs within 1e-5 of the output's scale, bf16 within one ulp."""
@@ -339,6 +339,28 @@ def test_int8_linear_kernel_matches_plain(cuda, m, k, n, dtype):
     assert errs["worst_vs_bound"] <= 1.0, errs
     with pytest.raises(ValueError, match="K % 16"):
         int8_linear(x[:, :24].contiguous(), q[:, :24].contiguous(), s)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("k,n", [(2048, 2560), (5632, 2048), (2064, 40)])
+def test_int8_linear_rows_do_not_depend_on_m(cuda, k, n, dtype):
+    """Rows at M = 8 are bit-equal to the same rows inside M = 64 and M =
+    256 (other row tiles, other block shapes), and two runs are bit-equal:
+    what chunked prefill and warm == cold rest on."""
+    from outline_rag_tpu_torch.ops.int8_linear import int8_linear, quantize_linear_weight
+
+    g = torch.Generator(device=cuda).manual_seed(k + n)
+    x = torch.randn((256, k), generator=g, device=cuda).to(dtype)
+    q, s = quantize_linear_weight(torch.randn((k, n), generator=g, device=cuda) * 0.02)
+    whole = int8_linear(x, q, s)
+    assert torch.equal(int8_linear(x, q, s), whole)
+    at_64 = int8_linear(x[:64], q, s)
+    assert torch.equal(at_64, whole[:64])
+    for row in (0, 40, 200):
+        at_8 = int8_linear(x[row : row + 8], q, s)
+        assert torch.equal(at_8, whole[row : row + 8])
+        if row < 64:
+            assert torch.equal(at_8, at_64[row : row + 8])
 
 
 @pytest.mark.parametrize("k,n,what", [(64, 44, "N % 8"), (72, 48, "K % 16")])

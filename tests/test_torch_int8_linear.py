@@ -109,3 +109,86 @@ def test_int8_linear_checks_dtypes_and_shapes():
         int8_linear(x, q.float(), s)
     with pytest.raises(ValueError, match="bf16 or f32 activations"):
         int8_linear(x.half(), q, s)
+
+
+def _int8_source_edits():
+    from outline_rag_tpu_torch.tools import ablate_int8_linear, kernel_mutants
+
+    for name, (old, new) in kernel_mutants.LINEAR_MUTANTS.items():
+        if old:
+            yield pytest.param((old, new, 1), id=f"mutant-{name}")
+    for name, edits in ablate_int8_linear.VARIANTS.items():
+        for i, edit in enumerate(edits):
+            yield pytest.param(edit, id=f"ablation-{name}-{i}")
+
+
+@pytest.mark.parametrize("edit", list(_int8_source_edits()))
+def test_every_int8_mutant_and_ablation_edit_applies_to_the_source(edit):
+    """The card tools edit a copy of ``csrc/int8_linear.cu`` and refuse an
+    edit whose text occurs another number of times: each one still finds
+    its line, and changes it."""
+    from outline_rag_tpu_torch.ops import _build
+
+    old, new, occurrences = edit
+    assert old != new
+    assert (_build.CSRC_DIR / "int8_linear.cu").read_text().count(old) == occurrences
+
+
+def test_a_mutant_finds_the_shared_headers(tmp_path, monkeypatch):
+    """A mutant is a copy built outside ``csrc/``: its ``#include`` of a
+    shared header resolves through the include path, and every header the
+    kernels include is there."""
+    import re
+    import subprocess
+
+    from outline_rag_tpu_torch.ops import _build
+    from outline_rag_tpu_torch.tools import kernel_mutants
+
+    for cu in _build.CSRC_DIR.glob("*.cu"):
+        for header in re.findall(r'#include "([^"]+)"', cu.read_text()):
+            assert (_build.CSRC_DIR / header).exists(), (cu.name, header)
+    commands = []
+    monkeypatch.setattr(_build, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(kernel_mutants.subprocess, "run", lambda cmd, **kw: (
+        commands.append(cmd), subprocess.CompletedProcess(cmd, 1, "", "stop"))[1])
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        kernel_mutants.build_mutant(tmp_path, _build.CSRC_DIR / "int8_linear.cu", "as_is", "")
+    (cmd,) = commands
+    assert cmd[cmd.index("-I") + 1] == str(_build.CSRC_DIR)
+    assert (tmp_path / "int8_linear_as_is.cu").read_text() == (
+        _build.CSRC_DIR / "int8_linear.cu").read_text()
+
+
+def test_ablate_times_every_variant_and_checks_only_the_held_ones(tmp_path, monkeypatch, capsys):
+    """The ablation driver builds each variant with its own edits, binds it,
+    times every run, holds only the named variants to the twin, prints one
+    JSON line a variant, and binds the package's library again at the end,
+    also when a build fails."""
+    import json
+
+    from outline_rag_tpu_torch.tools import kernel_mutants
+
+    built, bound, calls = [], [], []
+    monkeypatch.setattr(kernel_mutants, "build_mutant",
+                        lambda tmp, source, name, edits: built.append((name, edits)) or name)
+    monkeypatch.setattr(kernel_mutants, "cuda_ms_many",
+                        lambda fn: (fn(), {"device_ms": 0.5})[1])
+    runs = [("a", lambda: calls.append("a"), lambda: True),
+            ("b", lambda: calls.append("b"), lambda: False)]
+    variants = {"base": [], "cut": [("x", "y", 1)]}
+    kernel_mutants.ablate(tmp_path / "k.cu", variants, bound.append, runs, ("base",))
+    rows = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
+    assert built == list(variants.items())
+    assert bound == ["base", "cut", None]
+    assert calls == ["a", "b"] * 2
+    assert rows == [{"variant": "base", "ok_a": True, "a": 0.5, "ok_b": False, "b": 0.5},
+                    {"variant": "cut", "a": 0.5, "b": 0.5}]
+
+    def fails(tmp, source, name, edits):
+        raise RuntimeError(f"{name}: nvcc failed")
+
+    bound.clear()
+    monkeypatch.setattr(kernel_mutants, "build_mutant", fails)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        kernel_mutants.ablate(tmp_path / "k.cu", variants, bound.append, runs, ("base",))
+    assert bound == [None]
