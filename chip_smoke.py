@@ -90,8 +90,12 @@ printing one JSON line; any failure raises and the exit code is non-zero:
            norm within 1e-2 of the output's (the kernel rounds p against a
            running max over key tiles, the twin against the row max). int8
            pool (f32 products): 1e-4 + 1 bf16 ulp of the bf16 output, error
-           norm within 1e-3. Two runs on the same inputs are bit-equal.
-           Median of 10 timings of both at B = 64, T = 1.
+           norm within 1e-3. Two runs on the same inputs are bit-equal, and
+           positions at the kernel's 256-slot split boundaries (255, 256,
+           257, 511, 512, 2,047) are bit-equal inside a 64-token chunk, alone
+           and beside other rows. Timed (``ms``, ``device_ms``, bound) at
+           the three shapes the decoder launches: B = 64, T = 1 (the twin
+           too); B = 8, T = 4 (a speculative window); B = 1, T = 256 from 512.
 9. kernel_kv_write  ``paged_kv_write`` against ``paged_kv_write_plain``:
            every page but the scratch page 0 byte-equal, bf16 and int8, T = 1
            at B = 64, T = 256 at B = 1 straddling pages, and a chunk whose
@@ -936,7 +940,11 @@ def paged_bound(b, t, kv, pos) -> dict:
 
 def kernel_paged_phase(torch, dev, seed: int) -> dict:
     from outline_rag_tpu_torch.ops.paged_attention import paged_attention, paged_attention_plain
-    from outline_rag_tpu_torch.testing import flash_errors
+    from outline_rag_tpu_torch.testing import (
+        SPLIT_BOUNDARY_POSITIONS,
+        flash_errors,
+        split_boundary_mismatches,
+    )
 
     g = torch.Generator(device=dev).manual_seed(seed + 6)
     out = {}
@@ -961,21 +969,35 @@ def kernel_paged_phase(torch, dev, seed: int) -> dict:
             require(row["bit_equal_rerun"], f"two runs on the same inputs are bit-equal: {row}")
             require(bool(torch.isfinite(got.float()).all()), "inactive rows give finite numbers")
             emit("kernel_paged", **row)
-        # timed at B = 64, T = 1, row lengths around 1,024
+        mismatches = split_boundary_mismatches(paged_attention, dev, g, kv)
+        emit("kernel_paged", pool=kv, split_boundary_positions=list(SPLIT_BOUNDARY_POSITIONS),
+             split_boundary_mismatches=mismatches)
+        require(not mismatches, f"split-boundary positions are bit-equal across T and batch: "
+                                f"{mismatches}")
+        # timed at the shapes the main path launches: a decode step of B = 64
+        # rows of lengths 1-2,047, a speculative window (B = 8, T = 4) and a
+        # prefill chunk (B = 1, T = 256 from 512)
         lens = torch.randint(1, MAXP * PAGE, (DEC_SLOTS,), generator=g, device=dev)
         args = paged_case(torch, dev, g, DEC_SLOTS, 1, kv, lens - 1)
-        args[3][:] = (torch.randperm(KV_PAGES - 1, generator=g, device=dev)[: DEC_SLOTS * MAXP]
-                      + 1).reshape(DEC_SLOTS, MAXP)  # every row active
+        spec = paged_case(torch, dev, g, 8, 4, kv)
+        pre = paged_case(torch, dev, g, 1, 256, kv, [512])
+        for a in (args, spec):  # every row active
+            rows = a[3].shape[0]
+            a[3][:] = (torch.randperm(KV_PAGES - 1, generator=g, device=dev)[: rows * MAXP]
+                       + 1).reshape(rows, MAXP)
         # the pool is 268 MB and a step's live slots some 65 MB: past the L2 cache as it is
         row = {"pool": kv, "B": DEC_SLOTS, "T": 1, "mean_len": float(lens.float().mean()),
                **both_ms(torch, lambda: paged_attention(*args)),
                "plain_ms": cuda_ms(torch, lambda: paged_attention_plain(*args)),
                **paged_bound(DEC_SLOTS, 1, kv, args[4])}
-        pre = paged_case(torch, dev, g, 1, 256, kv, [512])
-        row["prefill_256_ms"] = cuda_ms(torch, lambda: paged_attention(*pre))
+        for label, (b, t, a) in (("spec_window", (8, 4, spec)), ("prefill_256", (1, 256, pre))):
+            timed = both_ms(torch, lambda: paged_attention(*a))
+            bnd = paged_bound(b, t, kv, a[4])
+            row.update({f"{label}_ms": timed["ms"], f"{label}_device_ms": timed["device_ms"],
+                        f"{label}_bound_ms": bnd["bound_ms"], f"{label}_bound_by": bnd["bound_by"]})
         emit("kernel_paged", **row)
         out[kv] = {"max_abs_err": max_err, **row}
-        del args, pre
+        del args, spec, pre
         torch.cuda.empty_cache()
     return out
 
@@ -1879,7 +1901,9 @@ def main() -> int:
         "library_ms": None, "device_ms": paged["bf16"]["device_ms"], "library_device_ms": None,
         "int8_pool": {k: paged["int8"][k] for k in
                       ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by")},
-        "prefill_256_ms": paged["bf16"]["prefill_256_ms"],
+        **{f"{label}_{key}": paged["bf16"][f"{label}_{key}"]
+           for label in ("spec_window", "prefill_256")
+           for key in ("ms", "device_ms", "bound_ms", "bound_by")},
     }, {
         "name": "paged_kv_write", "route": "cuda",
         "source": "outline_rag_tpu_torch/csrc/paged_kv_write.cu",

@@ -1,7 +1,9 @@
-// hopper_tma.cuh — the Hopper plumbing shared by the TMA-fed wgmma kernels
-// (flash_attention.cu, int8_linear.cu): mbarriers, TMA tile copies, the
-// 128-byte-swizzled shared-memory descriptor, the wgmma group fences, and
-// the host's tensor-map encoder.
+// hopper_tma.cuh — the Hopper plumbing the kernels share: mbarriers, TMA tile
+// copies, the 128-byte-swizzled shared-memory descriptor and the wgmma group
+// fences (flash_attention.cu, int8_linear.cu), the cluster barrier and
+// distributed shared-memory loads (int8_linear.cu, paged_attention.cu), the
+// cp.async copies (int4_linear.cu, paged_attention.cu), and the host's
+// tensor-map encoder.
 
 #pragma once
 
@@ -70,6 +72,47 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint
       ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(0),
       "r"(h), "r"(row), "r"(b)
       : "memory");
+}
+
+// ---- the cluster -----------------------------------------------------------
+
+// Every thread of the cluster: what each wrote to shared memory before is
+// seen by all after.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+// Four floats at the shared-memory address `local` of the block of rank `rank`.
+__device__ __forceinline__ float4 ld_cluster(uint32_t local, int rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(remote) : "r"(local), "r"(rank));
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(remote)
+               : "memory");
+  return v;
+}
+
+// ---- cp.async --------------------------------------------------------------
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool live) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  const int bytes = live ? 16 : 0;  // 0: the 16 bytes are filled with zeros
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d), "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(d), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {  // until at most N groups are in flight
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 
 // ---- wgmma -----------------------------------------------------------------

@@ -105,9 +105,7 @@
 //   x[0, 0] is what the JAX tool's floor returns. Its time is the packed-byte
 //   stream as the card delivers it to this load shape.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper_tma.cuh"
 
 namespace {
 
@@ -210,24 +208,6 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], uint32_t a0, uint32_t a1,
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool live) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  const int bytes = live ? 16 : 0;  // 0: the 16 bytes are filled with zeros
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d), "l"(src), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(d), "l"(src) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {  // until at most N groups are in flight
-  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 
 // One item of the w4a8 and w4a16 kernels requested into its ring slot: the
@@ -592,11 +572,6 @@ struct A16Smem {
   static constexpr int BYTES = SUMS + A16_STAGES * SLOT;
   static_assert(BYTES <= 232448, "a block's shared memory on Hopper");
 };
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
 
 // bf16(float(v) * s) for the four low (hi == 0) or high nibbles of a packed
 // word, as two bf16x2 words: elements 0, 1 and 2, 3. The biased nibble u = v

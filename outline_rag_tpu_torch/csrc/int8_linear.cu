@@ -110,27 +110,6 @@ __device__ __forceinline__ uint32_t decode2(uint32_t w, uint32_t sel0, uint32_t 
   return pack_bf16(__fmul_rn(f0, sc), __fmul_rn(f1, sc));
 }
 
-// ---- the cluster -----------------------------------------------------------
-
-// Every thread of the cluster: what each wrote to shared memory before is
-// seen by all after.
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile(
-      "barrier.cluster.arrive.release.aligned;\n"
-      "barrier.cluster.wait.acquire.aligned;" ::: "memory");
-}
-// Four floats at the shared-memory address `local` of the block of rank `rank`.
-__device__ __forceinline__ float4 ld_cluster(uint32_t local, int rank) {
-  uint32_t remote;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(remote) : "r"(local), "r"(rank));
-  float4 v;
-  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];"
-               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
-               : "r"(remote)
-               : "memory");
-  return v;
-}
-
 // ---- wgmma -----------------------------------------------------------------
 
 // d[64 channels x 64 rows] += W[64 x 16] . X[64 x 16]^T: W from registers

@@ -15,47 +15,62 @@
 // row's live pages (slot j lives in page table[b, j / page]):
 //
 //     s_j   = f32(q . k_j) * (1/sqrt(Dh))   [* k_scale_j for an int8 pool]
-//     s_j   = -1e9 unless j <= pos[b] + t
+//     over the keys j <= pos[b] + t (a key past it adds p_j = 0):
 //     m_new = max(m, max_j s_j), alpha = exp(m - m_new), p_j = exp(s_j - m_new)
 //     l     = l * alpha + sum_j p_j                       (f32 p)
 //     acc   = acc * alpha + sum_j P_j * v_j               (f32 accumulate)
 //             P_j = bf16(p_j) for a bf16 pool, p_j for an f32 pool,
 //             p_j * v_scale_j (f32) for an int8 pool
-//     out   = acc / l                                     (l <= 0 -> 1)
 //
-// with m starting at -1e30, key tile by key tile. Live slots are
-// min(pos[b] + T, MAXP * page); pages past them are neither read nor
-// computed, and a block stops at its own rows' causal horizon (the slots it
-// skips would add exactly 0). A row whose table is all 0 reads the scratch
-// page 0 and yields finite garbage.
+// with m starting at -1e30, key tile by key tile within a split, and the
+// splits' states folded into out = acc / l (l <= 0 -> 1) as below. Live
+// slots are min(pos[b] + T, MAXP * page); pages past them are neither read
+// nor computed, and a block stops at its own rows' causal horizon (the slots
+// it skips would add exactly 0). A row whose table is all 0 reads the
+// scratch page 0 and yields finite garbage.
 //
 // What bounds it on the card: bytes. Decode reads each live K and V byte
 // once (2 * 22.5 KB a token a layer at TinyLlama width in bf16) for
 // 4 * G * Dh flops a slot a KV head, far below the FMA rate; so the products
 // are plain f32 FMAs on values widened from their storage type, which also
-// makes one code path serve every pool type, and the design's care goes
-// into 16-byte coalesced loads of whole key rows.
+// makes one code path serve every pool type. What the design must avoid is
+// one block walking a whole row: that is bound by one block's latency.
 //
-// Design: one block of 128 threads per (batch row, KV head, tile of R of the
-// G * T query rows, ordered t-major so a tile's rows share a horizon). The
-// block walks the row's pages in tiles of 32 keys staged in shared memory as
-// f32. Scores: lane = key, each warp owns R / 4 rows, one sequential FMA
-// chain over d per (row, key). Softmax statistics stay in that warp's
-// registers (two shuffle reductions per row). P goes through shared memory
-// to the P.V threads, which each own a few output dims of one row in
-// registers and sum over keys in order. Every sum has a fixed order, so the
-// result depends on neither block scheduling nor R, T or the batch a row
-// shares: no atomics, no split over pages.
+// Design: a row's slots are cut at fixed boundaries of SPLIT = 256 slots.
+// One block of 128 threads computes, for a tile of R of the G * T query rows
+// (ordered t-major, so a tile's rows share a horizon), one partial softmax
+// state (m, l, acc) a row over its splits; CLUSTER = 8 blocks, one cluster,
+// share a (batch row, KV head, row tile): block c takes splits c, c + 8, ...
+// in order (up to 2,048 slots that is one split a block). A block walks a
+// split in tiles of 32 keys staged in shared memory as f32. Scores: lane =
+// key, each warp owns R / 4 rows, one sequential FMA chain over d per (row,
+// key). Softmax statistics stay in that warp's registers (two shuffle
+// reductions per row); a key a row may not see adds p = 0 and leaves the max
+// alone, so a split that lies past a row's horizon leaves its partial exactly
+// (-1e30, 0, 0). P goes through shared memory to the P.V threads, which each
+// own a few output dims of one row in registers and sum over keys in order.
+// The partials stay in each block's shared memory; after one cluster barrier
+// every block folds R / 8 of the rows, reading the others' partials through
+// distributed shared memory in split order:
+//
+//     M = max_s m_s,  l = sum_s l_s * exp(m_s - M),
+//     acc = sum_s acc_s * exp(m_s - M),  out = acc / l
+//
+// An empty partial adds exactly 0. Split bounds, tile bounds and every order
+// of summation are functions of the slot alone, so a position's output does
+// not depend on T, R, the batch or the page-table width: no atomics, and the
+// fold runs in the same launch.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper_tma.cuh"
 
 namespace {
 
 constexpr int THREADS = 128;
-constexpr int TK = 32;  // keys per tile: one per lane
+constexpr int TK = 32;        // keys per tile: one per lane
+constexpr int SPLIT = 256;    // slots a split; a split starts at a multiple of it
+constexpr int CLUSTER = 8;    // blocks of a cluster, along the split axis
 constexpr float MASKED = -1e9f;
+constexpr float EMPTY = -1e30f;  // m of a row that has seen no key
 
 enum Kind { KIND_BF16 = 0, KIND_F32 = 1, KIND_INT8 = 2 };
 
@@ -86,7 +101,7 @@ __device__ __forceinline__ int widen16(const void* base, long long e, int kind,
 }
 
 template <int DH, int R>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(THREADS)
 paged_kernel(const void* __restrict__ q, const void* __restrict__ pool_k,
              const void* __restrict__ pool_v, const int* __restrict__ table,
              const int* __restrict__ pos, const float* __restrict__ k_scale,
@@ -97,17 +112,22 @@ paged_kernel(const void* __restrict__ q, const void* __restrict__ pool_k,
   constexpr int TPR = THREADS / R;    // threads per row in the P.V phase
   constexpr int DPT = DH / TPR;       // output dims per thread
   constexpr int KS = DH + 1;          // Ks row stride: lane = key reads
+  static_assert(R % CLUSTER == 0, "each block of a cluster folds R / 8 rows");
+  static_assert(R * DH + 4 * R <= TK * (KS + DH), "the partials fit where the tiles were");
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;                   // [R][DH]
   float* Ks = Qs + R * DH;            // [TK][KS]
   float* Vs = Ks + TK * KS;           // [TK][DH]; TK * KS is a multiple of 4 floats
   float* Ps = Vs + TK * DH;           // [R][TK]
-  float* Al = Ps + R * TK;            // [R] alpha, then l at the end
+  float* Al = Ps + R * TK;            // [R] alpha
   float* Sc = Al + R;                 // [2][TK] k and v scales
+  float* part_acc = Ks;               // after the walk: [R][DH] acc
+  float* part_ml = Ks + R * DH;       // and [R][4]: m, l
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rank = blockIdx.x % CLUSTER;  // the cluster's blocks are consecutive in x
   const int b = blockIdx.z, n = blockIdx.y, G = H / KvH;
-  const int rows = G * T, row0 = blockIdx.x * R;
+  const int rows = G * T, row0 = (blockIdx.x / CLUSTER) * R;
   const int p0 = pos[b];
 
   // the tile's query rows, widened to f32 (rows past the end are zeros)
@@ -131,7 +151,7 @@ paged_kernel(const void* __restrict__ q, const void* __restrict__ pool_k,
   int horizon[RPW];  // last visible slot of the row
 #pragma unroll
   for (int i = 0; i < RPW; ++i) {
-    m[i] = -1e30f;
+    m[i] = EMPTY;
     l[i] = 0.f;
     const int row = row0 + warp + 4 * i;
     horizon[i] = p0 + (row < rows ? row / G : 0);
@@ -146,22 +166,24 @@ paged_kernel(const void* __restrict__ q, const void* __restrict__ pool_k,
   const long long cap = (long long)maxp * page;
   const long long want = (long long)p0 + last_row / G + 1;  // slots in reach
   const int n_slots = static_cast<int>(want < cap ? want : cap);
+  const int n_splits = (n_slots + SPLIT - 1) / SPLIT;
   const int kvec = kv_kind == KIND_BF16 ? 8 : (kv_kind == KIND_F32 ? 4 : 16);
+  const int* row_table = table + (long long)b * maxp;
 
-  for (int pi = 0; pi * page < n_slots; ++pi) {
-    const int pg = table[(long long)b * maxp + pi];
-    const long long page_base = ((long long)pg * KvH + n) * page;  // slot index
-    const int in_page = min(page, n_slots - pi * page);
-    for (int k0 = 0; k0 < in_page; k0 += TK) {
-      const int cnt = min(TK, in_page - k0);
+  for (int sp = rank; sp < n_splits; sp += CLUSTER) {
+    const int s_end = min((sp + 1) * SPLIT, n_slots);
+    for (int k0 = sp * SPLIT; k0 < s_end; k0 += TK) {
+      const int cnt = min(TK, s_end - k0);
       __syncthreads();  // the previous tile's reads of Ks / Vs / Ps are done
       for (int i = tid; i < TK * (DH / kvec); i += THREADS) {
         const int j = i / (DH / kvec), d = (i % (DH / kvec)) * kvec;
         float kt[16], vt[16];
         if (j < cnt) {
-          const long long e = (page_base + k0 + j) * DH + d;
-          widen16(pool_k, e, kv_kind, kt);
-          widen16(pool_v, e, kv_kind, vt);
+          const int slot = k0 + j;
+          const long long at =
+              ((long long)row_table[slot / page] * KvH + n) * page + slot % page;
+          widen16(pool_k, at * DH + d, kv_kind, kt);
+          widen16(pool_v, at * DH + d, kv_kind, vt);
         } else {
           for (int x = 0; x < kvec; ++x) kt[x] = vt[x] = 0.f;
         }
@@ -171,9 +193,11 @@ paged_kernel(const void* __restrict__ q, const void* __restrict__ pool_k,
         }
       }
       if (kv_kind == KIND_INT8 && tid < 2 * TK) {
-        const int j = tid % TK;
+        const int j = tid % TK, slot = k0 + j;
         const float* src = tid < TK ? k_scale : v_scale;
-        Sc[tid] = j < cnt ? src[page_base + k0 + j] : 0.f;
+        Sc[tid] = j < cnt ? src[((long long)row_table[slot / page] * KvH + n) * page +
+                                slot % page]
+                          : 0.f;
       }
       __syncthreads();
 
@@ -189,19 +213,20 @@ paged_kernel(const void* __restrict__ q, const void* __restrict__ pool_k,
         for (int i = 0; i < RPW; ++i)
           s[i] = fmaf(Qs[(warp + 4 * i) * DH + d], kv, s[i]);
       }
-      const int slot = pi * page + k0 + lane;
+      const int slot = k0 + lane;
 #pragma unroll
       for (int i = 0; i < RPW; ++i) {
         float v = __fmul_rn(s[i], scale);
         if (kv_kind == KIND_INT8) v = __fmul_rn(v, Sc[lane]);
-        if (lane >= cnt || slot > horizon[i]) v = MASKED;
-        float mx = v;
+        const bool live = lane < cnt && slot <= horizon[i];
+        if (!live) v = MASKED;
+        float mx = live ? v : EMPTY;  // a key the row may not see leaves the max alone
 #pragma unroll
         for (int off = 16; off >= 1; off >>= 1)
           mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
         const float m_new = fmaxf(m[i], mx);
         const float alpha = expf(m[i] - m_new);
-        const float p = expf(v - m_new);
+        const float p = live ? expf(v - m_new) : 0.f;
         float sum = p;
 #pragma unroll
         for (int off = 16; off >= 1; off >>= 1)
@@ -236,37 +261,64 @@ paged_kernel(const void* __restrict__ q, const void* __restrict__ pool_k,
     }
   }
 
+  // this block's partials, where the tiles were
   __syncthreads();
+#pragma unroll
+  for (int i = 0; i < DPT / 4; ++i)
+    *reinterpret_cast<float4*>(part_acc + pr * DH + pc + TPR * 4 * i) =
+        make_float4(acc[4 * i], acc[4 * i + 1], acc[4 * i + 2], acc[4 * i + 3]);
   if (lane == 0) {
 #pragma unroll
-    for (int i = 0; i < RPW; ++i) Al[warp + 4 * i] = l[i];
+    for (int i = 0; i < RPW; ++i)
+      *reinterpret_cast<float4*>(part_ml + (warp + 4 * i) * 4) = make_float4(m[i], l[i], 0.f, 0.f);
   }
-  __syncthreads();
-  const int row = row0 + pr;
-  if (row < rows) {
-    const float denom = Al[pr] <= 0.f ? 1.f : Al[pr];
-    const int t = row / G, g = row % G;
-    const long long e0 = (((long long)b * T + t) * H + n * G + g) * DH;
+  cluster_sync();
+
+  // the fold: this block takes rows rank, rank + 8, ... of the tile and adds
+  // the partials of the live splits' blocks in split order
+  const int live_blocks = min(n_splits, CLUSTER);
+  for (int i = tid; i < (R / CLUSTER) * (DH / 4); i += THREADS) {
+    const int r = rank + CLUSTER * (i / (DH / 4)), d = 4 * (i % (DH / 4));
+    const int row = row0 + r;
+    if (row >= rows) continue;
+    float ms[CLUSTER], ls[CLUSTER];
+    float M = EMPTY;
 #pragma unroll
-    for (int i = 0; i < DPT / 4; ++i) {
-      const int d = pc + TPR * 4 * i;
-      const float o0 = __fdiv_rn(acc[4 * i + 0], denom);
-      const float o1 = __fdiv_rn(acc[4 * i + 1], denom);
-      const float o2 = __fdiv_rn(acc[4 * i + 2], denom);
-      const float o3 = __fdiv_rn(acc[4 * i + 3], denom);
-      if (q_kind == KIND_BF16) {
-        __nv_bfloat162 lo = __floats2bfloat162_rn(o0, o1);
-        __nv_bfloat162 hi = __floats2bfloat162_rn(o2, o3);
-        uint2 pk;
-        pk.x = *reinterpret_cast<uint32_t*>(&lo);
-        pk.y = *reinterpret_cast<uint32_t*>(&hi);
-        *reinterpret_cast<uint2*>(static_cast<__nv_bfloat16*>(out) + e0 + d) = pk;
-      } else {
-        *reinterpret_cast<float4*>(static_cast<float*>(out) + e0 + d) =
-            make_float4(o0, o1, o2, o3);
+    for (int c = 0; c < CLUSTER; ++c) {
+      if (c < live_blocks) {
+        const float4 st = ld_cluster(smem_u32(part_ml + r * 4), c);
+        ms[c] = st.x;
+        ls[c] = st.y;
+        M = fmaxf(M, st.x);
       }
     }
+    float sum = 0.f;
+    float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int c = 0; c < CLUSTER; ++c) {
+      if (c < live_blocks) {
+        const float w = expf(ms[c] - M);
+        const float4 a = ld_cluster(smem_u32(part_acc + r * DH + d), c);
+        sum = __fadd_rn(sum, __fmul_rn(ls[c], w));
+        o.x = __fadd_rn(o.x, __fmul_rn(a.x, w));
+        o.y = __fadd_rn(o.y, __fmul_rn(a.y, w));
+        o.z = __fadd_rn(o.z, __fmul_rn(a.z, w));
+        o.w = __fadd_rn(o.w, __fmul_rn(a.w, w));
+      }
+    }
+    const float denom = sum <= 0.f ? 1.f : sum;
+    const float o0 = __fdiv_rn(o.x, denom), o1 = __fdiv_rn(o.y, denom);
+    const float o2 = __fdiv_rn(o.z, denom), o3 = __fdiv_rn(o.w, denom);
+    const int t = row / G, g = row % G;
+    const long long e = (((long long)b * T + t) * H + n * G + g) * DH + d;
+    if (q_kind == KIND_BF16) {
+      *reinterpret_cast<uint2*>(static_cast<__nv_bfloat16*>(out) + e) =
+          make_uint2(pack_bf16(o0, o1), pack_bf16(o2, o3));
+    } else {
+      *reinterpret_cast<float4*>(static_cast<float*>(out) + e) = make_float4(o0, o1, o2, o3);
+    }
   }
+  cluster_sync();  // no block leaves while another reads its partials
 }
 
 template <int DH, int R>
@@ -284,7 +336,7 @@ int launch(const void* q, const void* pool_k, const void* pool_v,
       static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int rows = (H / KvH) * T;
-  const dim3 grid((rows + R - 1) / R, KvH, B);
+  const dim3 grid((rows + R - 1) / R * CLUSTER, KvH, B);
   paged_kernel<DH, R><<<grid, THREADS, bytes, st>>>(
       q, pool_k, pool_v, table, pos, k_scale, v_scale, out, T, H, KvH, page,
       maxp, q_kind, kv_kind, scale);

@@ -39,6 +39,11 @@ MASKED = -1e9  # logit of a slot a query may not see
 
 _KINDS = {torch.bfloat16: 0, torch.float32: 1, torch.int8: 2}
 KERNEL_HEAD_DIMS = (64, 128)
+# The kernel cuts a row's slots at multiples of SPLIT and folds the splits'
+# softmax states in a cluster of SPLIT_CLUSTER blocks (``SPLIT`` and
+# ``CLUSTER`` in ``csrc/paged_attention.cu``; a CPU test holds the two equal).
+SPLIT = 256
+SPLIT_CLUSTER = 8
 
 
 def paged_attention_plain(
@@ -57,9 +62,9 @@ def paged_attention_plain(
     ``pos + t``, the unnormalised ``p`` cast to the pool's dtype before
     ``p.v`` while the row sum adds the f32 ``p`` (int8 pool: ``p`` times the
     v-scales, f32 products), one division at the end (a sum <= 0 divides by
-    1). The max is the whole row's (the kernel keeps a running max over key
-    tiles), so the two differ by a few ulps of ``p``'s dtype. Callers keep
-    TF32 off."""
+    1). The max is the whole row's (the kernel keeps a running max over the
+    key tiles of each ``SPLIT``-slot split and folds the splits), so the two
+    differ by a few ulps of ``p``'s dtype. Callers keep TF32 off."""
     b, t, h, dh = q.shape
     _, kvh, page, _ = pool_k.shape
     maxp = table.shape[1]

@@ -141,3 +141,53 @@ def paged_attention_case(
     if inactive_every:
         table[1::inactive_every] = 0
     return (q, *pools, table, pos, *scales)
+
+
+# positions on either side of the paged kernel's 256-slot split boundaries,
+# and the last slot of TinyLlama's 2,048-slot capacity
+SPLIT_BOUNDARY_POSITIONS = (255, 256, 257, 511, 512, 2047)
+
+
+def split_boundary_mismatches(fn, dev, g: torch.Generator, kv: str,
+                              positions=SPLIT_BOUNDARY_POSITIONS) -> list[str]:
+    """``fn`` (``paged_attention``) computes each of ``positions`` three
+    ways on one seeded pool: row 0 of a B = 4, T = 64 chunk, alone (B = 1,
+    T = 1), and beside three rows at other positions (B = 4, T = 1).
+    Returns ``"<position> <way>"`` for each way whose output is not
+    bit-equal to the chunk's: warm == cold prefix-cache admission rests on
+    there being none."""
+    q, pk, pv, table, pos, *scales = paged_attention_case(dev, g, 4, 64, kv)
+    bad = []
+    for p in positions:
+        t0 = max(17 + p % 32, p - 1984)  # inside the chunk, whose end stays within 2,048
+        start = pos.clone()
+        start[0] = p - t0
+        chunk = fn(q, pk, pv, table, start, *scales)[0, t0]
+        q1 = q[:, t0 : t0 + 1].contiguous()
+        alone = fn(q1[:1].contiguous(), pk, pv, table[:1].contiguous(), start[:1] + t0, *scales)
+        beside = fn(q1, pk, pv, table, start + t0, *scales)
+        for way, got in (("alone", alone[0, 0]), ("beside other rows", beside[0, 0])):
+            if not torch.equal(got, chunk):
+                bad.append(f"{p} {way}")
+    return bad
+
+
+def paged_order_case(dev, kv: str):
+    """A row of 768 slots (three splits) whose fold is exact only in split
+    order: q = 0, so every visible key has p = 1, and v is 2^30 in each
+    element of split 0, -2^30 in split 1 and 1 in split 2 (int8 pool: codes
+    64, -64, 1 with v-scales 2^24, 2^24, 1). In order the f32 sums are
+    exact, 2^38 - 2^38 + 256, and every output element is bf16(256 / 768);
+    folded in another order the 256 is lost against 2^38. Returns the
+    arguments of ``paged_attention`` and that value."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    args = list(paged_attention_case(dev, g, 1, 1, kv, pos=[767]))
+    args[0].zero_()
+    for i, value in enumerate((2.0**30, -(2.0**30), 1.0)):
+        for page in args[3][0, 2 * i : 2 * i + 2].tolist():
+            if kv == "int8":
+                args[2][page] = (64, -64, 1)[i]
+                args[6][page] = 2.0**24 if i < 2 else 1.0
+            else:
+                args[2][page] = value
+    return tuple(args), float(torch.tensor(256.0 / 768.0).to(torch.bfloat16))

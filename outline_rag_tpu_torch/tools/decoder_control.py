@@ -1,6 +1,6 @@
 """The decoder phase of ``chip_smoke.py`` alone, for one checkout or several.
 
-    python -m outline_rag_tpu_torch.tools.decoder_control [--logs LOGS] [DIR ...]
+    python -m outline_rag_tpu_torch.tools.decoder_control [--logs LOGS] [--paged] [DIR ...]
 
 Host-bound decode times move by 2x between machines and runs, so the decoder
 numbers of two trees can be compared only when both run on one machine, one
@@ -17,7 +17,12 @@ One JSON line a run is printed: the checkout, the card's name and power
 limit, and for every configuration the burst's tokens a second, its timed
 decode step and the ``decode_profile`` step, device time and launches. With
 ``--logs`` the whole output of run ``i`` goes to
-``LOGS/decoder_control_<i>.log``.
+``LOGS/decoder_control_<i>.log``. With ``--paged`` each run times that
+checkout's ``paged_attention`` instead, on seeded inputs that are the same
+in every checkout: ``device_ms`` (``tools/timing.py::cuda_ms_many``) and
+``chip_smoke.paged_bound`` at the three shapes the decoder launches (B = 64,
+T = 1 at row lengths 1-2,047; B = 8, T = 4; B = 1, T = 256 from 512), on a
+bf16 and an int8 pool.
 Run it on a machine with one CUDA card and ``nvcc``.
 """
 
@@ -50,6 +55,30 @@ _build.build_library()
 chip_smoke.decoder_phase(torch, dev, 0)
 """
 
+# the paged kernel alone, at the decoder's shapes, on inputs every checkout
+# draws alike (``testing.paged_attention_case`` predates this tool)
+_PAGED = """
+import json, os, sys
+sys.path.insert(0, os.getcwd())
+import torch
+import chip_smoke
+from outline_rag_tpu_torch.ops.paged_attention import paged_attention
+from outline_rag_tpu_torch.testing import paged_attention_case
+from outline_rag_tpu_torch.tools.timing import cuda_ms_many
+dev = torch.device("cuda", torch.cuda.current_device())
+g = torch.Generator(device=dev).manual_seed(7)
+out = {}
+for kv in ("bf16", "int8"):
+    lens = torch.randint(1, 2048, (64,), generator=g, device=dev)
+    shapes = {"b64_t1": (64, 1, paged_attention_case(dev, g, 64, 1, kv, pos=lens - 1)),
+              "b8_t4": (8, 4, paged_attention_case(dev, g, 8, 4, kv)),
+              "b1_t256_512": (1, 256, paged_attention_case(dev, g, 1, 256, kv, pos=[512]))}
+    for name, (b, t, a) in shapes.items():
+        out[kv + "_" + name] = {"device_ms": cuda_ms_many(lambda: paged_attention(*a))["device_ms"],
+                                **chip_smoke.paged_bound(b, t, kv, a[4])}
+print(json.dumps({"config": "paged_attention", "phase": "paged", **out}))
+"""
+
 BURST_KEYS = ("tokens_per_s", "decode_step_ms", "ttft_p50_ms", "wall_s")
 PROFILE_KEYS = ("decode_step_ms", "device_ms_per_step", "launches_per_step")
 
@@ -65,6 +94,9 @@ def summarize(lines: list[str]) -> dict:
             continue
         if not isinstance(row, dict) or "config" not in row:
             continue
+        if row.get("phase") == "paged":
+            out["paged_attention"] = {k: v for k, v in row.items() if k not in ("config", "phase")}
+            continue
         keys = {"decoder": BURST_KEYS, "decode_profile": PROFILE_KEYS}.get(row.get("phase"))
         if keys:
             prefix = "burst_" if row["phase"] == "decoder" else "profile_"
@@ -73,15 +105,15 @@ def summarize(lines: list[str]) -> dict:
     return out
 
 
-def run_checkout(directory: Path, log: Path | None) -> dict:
+def run_checkout(directory: Path, log: Path | None, code: str = _RUN) -> dict:
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     t0 = time.perf_counter()
-    done = subprocess.run([sys.executable, "-c", _RUN], cwd=directory, env=env,
+    done = subprocess.run([sys.executable, "-c", code], cwd=directory, env=env,
                           capture_output=True, text=True, check=False)
     if log is not None:
         log.write_text(done.stdout + "\n--- stderr ---\n" + done.stderr)
     if done.returncode != 0:
-        raise RuntimeError(f"the decoder phase of {directory} failed:\n" + done.stderr[-2000:])
+        raise RuntimeError(f"the run in {directory} failed:\n" + done.stderr[-2000:])
     return {"checkout": str(directory), "seconds": time.perf_counter() - t0,
             "configs": summarize(done.stdout.splitlines())}
 
@@ -89,6 +121,8 @@ def run_checkout(directory: Path, log: Path | None) -> dict:
 def main(argv: list[str]) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--logs", type=Path, default=None)
+    parser.add_argument("--paged", action="store_true",
+                        help="time each checkout's paged_attention instead of its decoder phase")
     parser.add_argument("checkouts", nargs="*", type=Path, default=[Path(".")])
     args = parser.parse_args(argv)
     import torch
@@ -101,8 +135,8 @@ def main(argv: list[str]) -> int:
     smi = card()
     for i, directory in enumerate(args.checkouts):
         log = None if args.logs is None else args.logs / f"decoder_control_{i}.log"
-        print(json.dumps({"run": i, **run_checkout(directory.resolve(), log), "card": smi}),
-              flush=True)
+        run = run_checkout(directory.resolve(), log, _PAGED if args.paged else _RUN)
+        print(json.dumps({"run": i, **run, "card": smi}), flush=True)
     return 0
 
 

@@ -38,6 +38,7 @@ from outline_rag_tpu_torch.ops import _build
 from outline_rag_tpu_torch.testing import (
     flash_errors,
     paged_attention_case,
+    paged_order_case,
     quantizer_rows,
     scaled_errors,
 )
@@ -62,21 +63,36 @@ FLASH_MUTANTS = {
     "padding_not_masked": ("x[i] = key < S ? brow[key] : NEG_BIAS;", "x[i] = 0.f;"),
 }
 
+_FOLD_LOOP = ("    for (int c = 0; c < CLUSTER; ++c) {\n      if (c < live_blocks) {\n"
+              "        const float w")
 PAGED_MUTANTS = {
     "as_is": ("", ""),
-    "skip_tile": ("    for (int k0 = 0; k0 < in_page; k0 += TK) {",
-                  "    for (int k0 = 0; k0 < in_page; k0 += TK) {\n"
-                  "      if (pi == 1 && k0 == 32) continue;"),
+    "skip_tile": ("    for (int k0 = sp * SPLIT; k0 < s_end; k0 += TK) {",
+                  "    for (int k0 = sp * SPLIT; k0 < s_end; k0 += TK) {\n"
+                  "      if (k0 == SPLIT + TK) continue;"),
     "no_acc_rescale": ("for (int i = 0; i < DPT; ++i) acc[i] *= alpha;",
                        "for (int i = 0; i < DPT; ++i) acc[i] *= 1.f;"),
     "no_l_rescale": ("l[i] = __fadd_rn(__fmul_rn(l[i], alpha), sum);",
                      "l[i] = __fadd_rn(l[i], sum);"),
-    "horizon_off_by_one": ("slot > horizon[i]) v = MASKED;", "slot >= horizon[i]) v = MASKED;"),
+    "horizon_off_by_one": ("const bool live = lane < cnt && slot <= horizon[i];",
+                           "const bool live = lane < cnt && slot < horizon[i];"),
     "no_k_scale": ("if (kv_kind == KIND_INT8) v = __fmul_rn(v, Sc[lane]);", ""),
     "no_v_scale": ("if (kv_kind == KIND_INT8) pw = __fmul_rn(p, Sc[TK + lane]);", ""),
     "p_not_rounded": (
         "if (kv_kind == KIND_BF16) pw = __bfloat162float(__float2bfloat16_rn(p));", ""),
+    "last_split_not_folded": ("const int live_blocks = min(n_splits, CLUSTER);",
+                              "const int live_blocks = max(min(n_splits, CLUSTER) - 1, 1);"),
+    "splits_folded_out_of_order": (
+        _FOLD_LOOP, _FOLD_LOOP.replace("int c = 0; c < CLUSTER; ++c", "int c = CLUSTER - 1; c >= 0; --c")),
+    # a key the row may not see counted as exp(MASKED - m): 0 once the row has
+    # a real max, +inf in a tile that opens a split past the row's horizon
+    "empty_split_counts": ("const float p = live ? expf(v - m_new) : 0.f;",
+                           "const float p = expf(v - m_new);"),
+    "split_boundary_off_by_one": ("const int s_end = min((sp + 1) * SPLIT, n_slots);",
+                                  "const int s_end = min((sp + 1) * SPLIT - 1, n_slots);"),
 }
+# mutants that only move a rounding: below what a bound for bf16 rounding sees
+PAGED_ROUNDING_ONLY = ("p_not_rounded",)
 LINEAR_MUTANTS = {
     "as_is": ("", ""),
     "f32_scale": ("sc[r] = n < N ? __bfloat162float(__float2bfloat16_rn(s[n])) : 0.f;",
@@ -298,11 +314,19 @@ def flash_mutants(tmp: Path, dev, g) -> int:
 
 def paged_mutants(tmp: Path, dev, g) -> int:
     """Every paged-attention mutant on a bf16 and an int8 pool at the
-    decoder's shapes (B = 64 decode, a 256-token prefill chunk)."""
+    decoder's shapes (B = 64 decode, a 256-token prefill chunk from 512),
+    a speculative window (B = 8, T = 4) and a prefill chunk from 254 whose
+    query tiles straddle a split boundary (rows whose horizon lies before a
+    split their tile walks), each under chip_smoke.py's bound; and the
+    fold-order row of ``paged_order_case``, which must be exact."""
+    window = [253, 254, 255, 509, 510, 511, 1021, 2044]
     cases = {kv: [paged_attention_case(dev, g, 64, 1, kv),
-                  paged_attention_case(dev, g, 1, 256, kv, pos=[512])]
+                  paged_attention_case(dev, g, 1, 256, kv, pos=[512]),
+                  paged_attention_case(dev, g, 8, 4, kv, pos=window),
+                  paged_attention_case(dev, g, 1, 256, kv, pos=[254])]
              for kv in PAGED_BOUNDS}
     plains = {kv: [paged_module.paged_attention_plain(*a) for a in cases[kv]] for kv in cases}
+    orders = {kv: paged_order_case(dev, kv) for kv in PAGED_BOUNDS}
     paged_module._launcher("attention")  # bind the real library first, then swap one entry
     real = paged_module._launch_fns["attention"]
     unexpected = 0
@@ -314,16 +338,28 @@ def paged_mutants(tmp: Path, dev, g) -> int:
         for kv, (atol, ulps, rms) in PAGED_BOUNDS.items():
             if name in ("no_k_scale", "no_v_scale") and kv != "int8":
                 continue  # the fault is in code a bf16 pool never runs
+            verdicts = []
             for args, plain in zip(cases[kv], plains[kv]):
                 out = paged_module.paged_attention(*args)
                 torch.cuda.synchronize()
                 e = flash_errors(out, plain, atol, ulps)
                 ok = e["worst_vs_bound"] <= 1.0 and e["rel_rms_err"] <= rms
-                unexpected += ok != (name in ("as_is", "p_not_rounded"))
-                print(f"paged_attention {name:19s} {kv:4s} B={args[0].shape[0]:2d} "
-                      f"T={args[0].shape[1]:3d} passes={ok} "
+                verdicts.append(ok)
+                print(f"paged_attention {name:26s} {kv:4s} B={args[0].shape[0]:2d} "
+                      f"T={args[0].shape[1]:3d} pos0={int(args[4][0]):4d} passes={ok} "
                       f"worst_vs_bound={e['worst_vs_bound']:.3g} "
                       f"rel_rms_err={e['rel_rms_err']:.3g}", flush=True)
+            args, want = orders[kv]
+            out = paged_module.paged_attention(*args)
+            torch.cuda.synchronize()
+            ok = bool((out.float() == want).all())
+            verdicts.append(ok)
+            print(f"paged_attention {name:26s} {kv:4s} fold order exact={ok} "
+                  f"got={float(out.float().flatten()[0])!r} want={want!r}", flush=True)
+            # a mutant fails if any case catches it; as_is must pass every case
+            caught = not all(verdicts)
+            expect_caught = name not in ("as_is", *PAGED_ROUNDING_ONLY)
+            unexpected += caught != expect_caught
     paged_module._launch_fns["attention"] = real
     return unexpected
 

@@ -22,6 +22,8 @@ from outline_rag_tpu_torch.ops.topk import (
 from outline_rag_tpu_torch.testing import (
     flash_errors,
     paged_attention_case,
+    paged_order_case,
+    split_boundary_mismatches,
     tie_aware_mismatches,
 )
 
@@ -250,6 +252,13 @@ def _paged_case(dev, b, t, kv, seed, h=32, kvh=4, dh=64):
     return tuple(args), paged_attention, paged_attention_plain
 
 
+# (atol, bf16 ulps, error norm / output norm) of the paged kernel against its
+# twin: bf16 the flash bound's form (the kernel rounds p against a running max
+# over key tiles, the twin against the row max); int8 pool f32 products, 1e-4
+# plus one bf16 ulp of the bf16 output; f32 1e-5
+PAGED_BOUNDS = {"bf16": (2e-3, 2.0, 1e-2), "int8": (1e-4, 1.0, 1e-3), "f32": (1e-5, 0.0, 1e-5)}
+
+
 @pytest.mark.parametrize("kv", ["bf16", "int8", "f32"])
 @pytest.mark.parametrize("b,t,dh", [(1, 1, 64), (8, 1, 64), (5, 3, 64), (1, 256, 64), (3, 40, 128)])
 def test_paged_attention_kernel_matches_plain(cuda, kv, b, t, dh):
@@ -263,8 +272,7 @@ def test_paged_attention_kernel_matches_plain(cuda, kv, b, t, dh):
     torch.cuda.synchronize()
     assert kernel.launches == before + 1
     assert torch.equal(out, kernel(*args))  # no dependence on block order
-    atol, ulps, rms = {"bf16": (2e-3, 2.0, 1e-2), "int8": (1e-4, 1.0, 1e-3),
-                       "f32": (1e-5, 0.0, 1e-5)}[kv]
+    atol, ulps, rms = PAGED_BOUNDS[kv]
     errs = flash_errors(out, plain(*args), atol, ulps)
     assert errs["worst_vs_bound"] <= 1.0 and errs["rel_rms_err"] <= rms, errs
     assert bool(torch.isfinite(out.float()).all())
@@ -283,6 +291,67 @@ def test_paged_attention_row_is_independent_of_batch_and_chunk(cuda):
         one = paged_attention(q[r : r + 1, t : t + 1].contiguous(), pk, pv,
                               table[r : r + 1].contiguous(), pos[r : r + 1] + t)
         assert torch.equal(one[0, 0], full[r, t])
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8", "f32"])
+def test_paged_attention_split_boundaries_are_bit_equal_across_t_and_batch(cuda, kv):
+    """Positions on either side of the 256-slot split boundaries (and the
+    last slot of the capacity) give the same bits inside a 64-token chunk,
+    alone and beside other rows."""
+    from outline_rag_tpu_torch.ops.paged_attention import paged_attention
+
+    g = torch.Generator(device=cuda).manual_seed(11)
+    fn = paged_attention
+    if kv == "f32":
+        def fn(q, pk, pv, *rest):
+            return paged_attention(q.float(), pk.float(), pv.float(), *rest)
+    assert split_boundary_mismatches(fn, cuda, g, "int8" if kv == "int8" else "bf16") == []
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8", "f32"])
+@pytest.mark.parametrize("start", [200, 1900, 254, 1790])
+def test_paged_attention_chunk_across_a_split_boundary(cuda, kv, start):
+    """A 256-token prefill chunk that crosses a split boundary (from 200 and
+    1,790) or the capacity (from 1,900); from 254 and 1,790 a tile of four
+    positions straddles a boundary, so some of its rows' horizons lie before
+    a split the tile walks."""
+    args, kernel, plain = _paged_case(cuda, 1, 256, kv, seed=start)
+    args = (*args[:4], torch.tensor([start], device=cuda, dtype=torch.int32), *args[5:])
+    out = kernel(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(out, kernel(*args))
+    atol, ulps, rms = PAGED_BOUNDS[kv]
+    errs = flash_errors(out, plain(*args), atol, ulps)
+    assert errs["worst_vs_bound"] <= 1.0 and errs["rel_rms_err"] <= rms, errs
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8", "f32"])
+def test_paged_attention_every_live_split_count(cuda, kv):
+    """Rows of every live-split count from 1 to 8, at lengths on both sides
+    of each boundary (1, 256, 257, ..., 1,793, 2,048)."""
+    lengths = [1, 256] + [n for k in range(1, 8) for n in (256 * k + 1, 256 * (k + 1))]
+    args, kernel, plain = _paged_case(cuda, len(lengths), 1, kv, seed=17)
+    pos = torch.tensor(lengths, device=cuda, dtype=torch.int32) - 1
+    g = torch.Generator(device=cuda).manual_seed(5)
+    table = (torch.randperm(299, generator=g, device=cuda)[: len(lengths) * 16] + 1).reshape(-1, 16)
+    args = (*args[:3], table.to(torch.int32), pos, *args[5:])
+    out = kernel(*args)
+    torch.cuda.synchronize()
+    atol, ulps, rms = PAGED_BOUNDS[kv]
+    errs = flash_errors(out, plain(*args), atol, ulps)
+    assert errs["worst_vs_bound"] <= 1.0 and errs["rel_rms_err"] <= rms, errs
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_paged_attention_folds_splits_in_order(cuda, kv):
+    """A row whose f32 sums are exact only when its three splits are folded
+    in order 0, 1, 2 gives exactly bf16(256 / 768)."""
+    from outline_rag_tpu_torch.ops.paged_attention import paged_attention
+
+    args, want = paged_order_case(cuda, kv)
+    out = paged_attention(*args)
+    torch.cuda.synchronize()
+    assert bool((out.float() == want).all()), float(out.float().flatten()[0])
 
 
 @pytest.mark.parametrize("kv", ["bf16", "int8", "f32"])

@@ -17,7 +17,11 @@ import pytest
 import torch
 
 from outline_rag_tpu.ops import paged_attention as jpa
+from outline_rag_tpu_torch.ops import _build
 from outline_rag_tpu_torch.ops.paged_attention import (
+    MASKED,
+    SPLIT,
+    SPLIT_CLUSTER,
     paged_attention,
     paged_attention_plain,
     paged_kv_write,
@@ -152,6 +156,159 @@ def test_wrapper_on_cpu_is_the_twin_and_checks_its_inputs():
         paged_attention(tq, tk.bfloat16(), tv.bfloat16(), to_torch(table), to_torch(pos))
     with pytest.raises(ValueError, match="does not fit a pool"):
         paged_attention(tq[..., :32], tk, tv, to_torch(table), to_torch(pos))
+
+
+# ----------------------------------------------------------------------
+# the kernel's split and fold, in plain torch
+# ----------------------------------------------------------------------
+
+EMPTY = -1e30  # m of a row that has seen no key
+
+
+def split_partials(q, pool_k, pool_v, table, pos):
+    """Each ``SPLIT``-slot split's softmax state over an f32 pool, as the
+    kernel keeps it: ``m`` [B, T, H, S] over the keys a row may see (EMPTY
+    if none), ``l`` the sum of ``exp(s - m)`` over them, ``acc`` [B, T, H,
+    S, Dh] the same weights times v."""
+    b, t, h, dh = q.shape
+    _, kvh, page, _ = pool_k.shape
+    c = table.shape[1] * page
+    n_splits = -(-c // SPLIT)
+    tbl = table.long()
+    kc, vc = (pool[tbl].permute(0, 2, 1, 3, 4).reshape(b, kvh, c, dh) for pool in (pool_k, pool_v))
+    s = torch.einsum("btngd,bncd->btngc", q.reshape(b, t, kvh, h // kvh, dh), kc) / dh**0.5
+    positions = pos.long()[:, None] + torch.arange(t)[None, :]
+    live = (torch.arange(c)[None, None, :] <= positions[:, :, None])[:, :, None, None, :]
+    live = live.expand_as(s)
+    pad = n_splits * SPLIT - c
+    s, live = (torch.nn.functional.pad(x, (0, pad)) for x in (s, live))
+    vc = torch.nn.functional.pad(vc, (0, 0, 0, pad))
+    s, live = s.reshape(*s.shape[:-1], n_splits, SPLIT), live.reshape(*live.shape[:-1], n_splits, SPLIT)
+    m = torch.where(live, s, torch.full_like(s, EMPTY)).amax(dim=-1)
+    p = torch.where(live, torch.exp(s - m[..., None]), torch.zeros_like(s))
+    acc = torch.einsum("btngsj,bnsjd->btngsd", p, vc.reshape(b, kvh, n_splits, SPLIT, dh))
+    return (m.reshape(b, t, h, n_splits), p.sum(dim=-1).reshape(b, t, h, n_splits),
+            acc.reshape(b, t, h, n_splits, dh))
+
+
+def fold(m, l, acc):
+    """Partials [..., S] (acc [..., S, Dh]) folded in split order."""
+    big_m = m.amax(dim=-1)
+    tot_l, tot_acc = torch.zeros_like(l[..., 0]), torch.zeros_like(acc[..., 0, :])
+    for i in range(m.shape[-1]):
+        w = torch.exp(m[..., i] - big_m)
+        tot_l = tot_l + l[..., i] * w
+        tot_acc = tot_acc + acc[..., i, :] * w[..., None]
+    return big_m, tot_l, tot_acc
+
+
+def split_fold_reference(q, pool_k, pool_v, table, pos):
+    """The kernel's function by its own arithmetic: block c of a cluster
+    folds splits c, c + SPLIT_CLUSTER, ... in order into one state, and the
+    blocks' states are folded in block order (split order up to
+    SPLIT_CLUSTER splits)."""
+    m, l, acc = split_partials(q, pool_k, pool_v, table, pos)
+    blocks = [fold(m[..., c::SPLIT_CLUSTER], l[..., c::SPLIT_CLUSTER], acc[..., c::SPLIT_CLUSTER, :])
+              for c in range(min(SPLIT_CLUSTER, m.shape[-1]))]
+    bm, bl, ba = zip(*blocks)
+    _, l, acc = fold(torch.stack(bm, dim=-1), torch.stack(bl, dim=-1), torch.stack(ba, dim=-2))
+    return acc / torch.where(l <= 0, torch.ones_like(l), l)[..., None]
+
+
+SPLIT_CASES = {
+    # T = 1 at each side of the first and second split boundary
+    "t1_boundaries": dict(b=5, t=1, maxp=8, seed=21, pos=[254, 255, 256, 511, 512]),
+    # speculative windows: rows whose horizon lies before a split their window walks
+    "t4_window": dict(b=4, t=4, maxp=8, seed=22, pos=[253, 254, 509, 766]),
+    "t64_chunk": dict(b=2, t=64, maxp=8, seed=23, pos=[200, 990]),
+}
+
+
+@pytest.mark.parametrize("case", list(SPLIT_CASES))
+def test_split_fold_reference_matches_pallas_interpret_f32(case):
+    """The split-and-fold arithmetic computes the Pallas kernel's function:
+    a row's splits at multiples of SPLIT slots, folded in order, at positions
+    that straddle split boundaries."""
+    args = setup(pages=16, **SPLIT_CASES[case])
+    want = np.asarray(jpa.paged_attention(*map(jnp.asarray, args), interpret=True))
+    q, pool_k, pool_v, table, pos = args
+    got = split_fold_reference(to_torch(q), pool_to_torch(pool_k), pool_to_torch(pool_v),
+                               to_torch(table), to_torch(pos))
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
+
+
+def test_split_fold_reference_past_a_cluster_matches_the_twin_f32():
+    """More splits than a cluster has blocks (2,560 slots in pages of 16):
+    block c folds splits c, c + 8, ... first; the result is still the
+    function the twin computes."""
+    q, pool_k, pool_v, table, pos = setup(b=3, t=2, page=16, pages=200, maxp=160, seed=24,
+                                          pos=[2300, 1800, 300])
+    args = (to_torch(q), pool_to_torch(pool_k), pool_to_torch(pool_v), to_torch(table), to_torch(pos))
+    np.testing.assert_allclose(split_fold_reference(*args).numpy(),
+                               paged_attention_plain(*args).numpy(), atol=1e-5, rtol=1e-5)
+
+
+def test_an_empty_split_folds_to_a_bit_identical_result():
+    """A split past every key a row may see leaves (-1e30, 0, 0), and
+    folding it in, at the end or between live splits, changes no bit."""
+    q, pool_k, pool_v, table, pos = setup(b=2, t=4, pages=16, maxp=8, seed=25, pos=[254, 700])
+    m, l, acc = split_partials(to_torch(q), pool_to_torch(pool_k), pool_to_torch(pool_v),
+                               to_torch(table), to_torch(pos))
+    # row 0 at t = 0, 1 sees slots up to 254, 255: splits 1-3 are empty
+    assert bool((m[0, :2, :, 1:] == EMPTY).all())
+    assert bool((l[0, :2, :, 1:] == 0).all()) and bool((acc[0, :2, :, 1:] == 0).all())
+    live = fold(m[..., :1], l[..., :1], acc[..., :1, :])
+    with_empty = fold(m, l, acc)
+    for a, b in zip(live[1:], with_empty[1:]):
+        assert torch.equal(a[0, :2], b[0, :2])
+    empty = (torch.full_like(m[..., :1], EMPTY), torch.zeros_like(l[..., :1]),
+             torch.zeros_like(acc[..., :1, :]))
+    between = fold(torch.cat([m[..., :1], empty[0], m[..., 1:]], dim=-1),
+                   torch.cat([l[..., :1], empty[1], l[..., 1:]], dim=-1),
+                   torch.cat([acc[..., :1, :], empty[2], acc[..., 1:, :]], dim=-2))
+    for a, b in zip(with_empty, between):
+        assert torch.equal(a, b)
+    assert MASKED > EMPTY  # a masked logit never stands for a row that saw no key
+
+
+def test_the_kernel_names_the_same_split_and_cluster():
+    """``SPLIT`` and ``SPLIT_CLUSTER`` are the kernel's ``SPLIT`` and
+    ``CLUSTER``: the split reference and the card tests read them here."""
+    text = (_build.CSRC_DIR / "paged_attention.cu").read_text()
+    assert f"constexpr int SPLIT = {SPLIT};" in text
+    assert f"constexpr int CLUSTER = {SPLIT_CLUSTER};" in text
+    assert f"__cluster_dims__(CLUSTER, 1, 1)" in text
+
+
+def _paged_source_edits():
+    from outline_rag_tpu_torch.tools import kernel_mutants
+
+    for name, (old, new) in kernel_mutants.PAGED_MUTANTS.items():
+        if old:
+            yield pytest.param((old, new), id=name)
+
+
+@pytest.mark.parametrize("edit", list(_paged_source_edits()))
+def test_every_paged_mutant_edit_applies_to_the_source(edit):
+    """``tools/kernel_mutants.py`` edits a copy of ``csrc/paged_attention.cu``
+    and refuses an edit whose text is not there exactly once."""
+    old, new = edit
+    assert old != new
+    assert (_build.CSRC_DIR / "paged_attention.cu").read_text().count(old) == 1
+
+
+def test_decoder_control_paged_mode_reads_its_line():
+    """``tools/decoder_control.py --paged`` runs a snippet in each checkout
+    that prints one line of device times and bounds; the summary keeps it."""
+    import json
+
+    from outline_rag_tpu_torch.tools import decoder_control
+
+    timed = {"bf16_b64_t1": {"device_ms": 0.1, "bound_ms": 0.02, "bound_by": "bytes"}}
+    line = json.dumps({"config": "paged_attention", "phase": "paged", **timed})
+    assert decoder_control.summarize(["noise", line]) == {"paged_attention": timed}
+    assert "import jax" not in decoder_control._PAGED
+    assert "paged_bound" in decoder_control._PAGED and "cuda_ms_many" in decoder_control._PAGED
 
 
 # ----------------------------------------------------------------------
