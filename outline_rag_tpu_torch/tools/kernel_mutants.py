@@ -1,6 +1,7 @@
 """How strong are the checks that hold the kernels to their twins?
 
     python -m outline_rag_tpu_torch.tools.kernel_mutants [kernel ...]
+    python -m outline_rag_tpu_torch.tools.kernel_mutants --ablate paged_attention
 
 Run it on a machine with one CUDA card and ``nvcc`` (all kernels, or those
 named among ``paged_attention``, ``int8_linear``, ``int4``,
@@ -9,14 +10,19 @@ named among ``paged_attention``, ``int8_linear``, ``int4``,
 ``csrc/int8_linear.cu`` and ``csrc/int4_linear.cu`` into a temporary
 directory, applies one fault at a time to the copy (a skipped key tile, a
 missing rescale, an unswizzled tile, a horizon off by one, a dropped scale,
-swapped nibbles, a missing sign extension, a group combined out of order,
-...), builds each mutant into a library of its own, runs it through the
-package's wrapper at the model's shapes, and prints whether the comparison
-``chip_smoke.py`` and the card tests use would have passed it. The sources in the package are
-never changed. The unmutated copy must pass and every structural mutant must
-fail; a mutant that only moves a rounding (``p_not_rounded``) is below what
-a tolerance for bf16 rounding can see, and is listed to say so. The
-speculative decoding path has no kernel of its own and so no mutant.
+splits folded out of order, a ring slot read before it landed, swapped
+nibbles, a missing sign extension, a group combined out of order, ...),
+builds each mutant into a library of its own, runs it through the package's
+wrapper at the model's shapes, and prints whether the comparison
+``chip_smoke.py`` and the card tests use would have passed it. The sources
+in the package are never changed. The unmutated copy must pass and every
+structural mutant must fail (a paged mutant in at least one of its cases on
+each pool: some faults show only where a tile straddles a split boundary, or
+in the fold-order row); a mutant that only moves a rounding
+(``p_not_rounded``) is below what a tolerance for bf16 rounding can see, and
+is listed to say so. ``--ablate paged_attention`` times the copies of
+``PAGED_VARIANTS`` instead. The speculative decoding path has no kernel of
+its own and so no mutant.
 """
 
 from __future__ import annotations
@@ -65,34 +71,55 @@ FLASH_MUTANTS = {
 
 _FOLD_LOOP = ("    for (int c = 0; c < CLUSTER; ++c) {\n      if (c < live_blocks) {\n"
               "        const float w")
+_REQUEST = "    request(k + STAGES - 1);  // into the slot tile k - 1 held"
 PAGED_MUTANTS = {
     "as_is": ("", ""),
-    "skip_tile": ("    for (int k0 = sp * SPLIT; k0 < s_end; k0 += TK) {",
-                  "    for (int k0 = sp * SPLIT; k0 < s_end; k0 += TK) {\n"
-                  "      if (k0 == SPLIT + TK) continue;"),
-    "no_acc_rescale": ("for (int i = 0; i < DPT; ++i) acc[i] *= alpha;",
-                       "for (int i = 0; i < DPT; ++i) acc[i] *= 1.f;"),
-    "no_l_rescale": ("l[i] = __fadd_rn(__fmul_rn(l[i], alpha), sum);",
+    "skip_tile": (_REQUEST, _REQUEST + "\n    if (k == 1) continue;"),
+    "no_acc_rescale": ("for (int x = 0; x < DPL; ++x) acc[i][x] *= alpha[i];",
+                       "for (int x = 0; x < DPL; ++x) acc[i][x] *= 1.f;"),
+    "no_l_rescale": ("l[i] = __fadd_rn(__fmul_rn(l[i], alpha[i]), sum);",
                      "l[i] = __fadd_rn(l[i], sum);"),
     "horizon_off_by_one": ("const bool live = lane < cnt && slot <= horizon[i];",
                            "const bool live = lane < cnt && slot < horizon[i];"),
-    "no_k_scale": ("if (kv_kind == KIND_INT8) v = __fmul_rn(v, Sc[lane]);", ""),
-    "no_v_scale": ("if (kv_kind == KIND_INT8) pw = __fmul_rn(p, Sc[TK + lane]);", ""),
+    "no_k_scale": ("if (KV == KIND_INT8) v = __fmul_rn(v, sc[lane]);", ""),
+    "no_v_scale": ("if (KV == KIND_INT8) pw = __fmul_rn(p, sc[TK + lane]);", ""),
     "p_not_rounded": (
-        "if (kv_kind == KIND_BF16) pw = __bfloat162float(__float2bfloat16_rn(p));", ""),
+        "if (KV == KIND_BF16) pw = __bfloat162float(__float2bfloat16_rn(p));", ""),
     "last_split_not_folded": ("const int live_blocks = min(n_splits, CLUSTER);",
                               "const int live_blocks = max(min(n_splits, CLUSTER) - 1, 1);"),
     "splits_folded_out_of_order": (
         _FOLD_LOOP, _FOLD_LOOP.replace("int c = 0; c < CLUSTER; ++c", "int c = CLUSTER - 1; c >= 0; --c")),
-    # a key the row may not see counted as exp(MASKED - m): 0 once the row has
-    # a real max, +inf in a tile that opens a split past the row's horizon
+    # a key the row may not see counted as exp(-1e9 - m) (its logit masked as
+    # the twin masks it): 0 once the row has a real max, +inf in a tile that
+    # opens a split past the row's horizon
     "empty_split_counts": ("const float p = live ? expf(v - m_new) : 0.f;",
-                           "const float p = expf(v - m_new);"),
+                           "const float p = expf((live ? v : -1e9f) - m_new);"),
     "split_boundary_off_by_one": ("const int s_end = min((sp + 1) * SPLIT, n_slots);",
                                   "const int s_end = min((sp + 1) * SPLIT - 1, n_slots);"),
+    # a tile read before this thread's copies of it have landed
+    "ring_not_waited": ("cp_async_wait<STAGES - 2>();  // this thread's copies of tile k are there",
+                        "cp_async_wait<STAGES - 1>();"),
 }
 # mutants that only move a rounding: below what a bound for bf16 rounding sees
 PAGED_ROUNDING_ONLY = ("p_not_rounded",)
+# copies of csrc/paged_attention.cu timed by ``--ablate``: two other designs
+# (a two-tile ring; blocks without a split wait at the cluster barriers and
+# every block folds R / 8 rows) and one part taken out (the arithmetic:
+# loads, barriers and the fold alone)
+_EXIT = "  if (rank >= n_splits) return;\n"
+_FOLD_ROWS = ("  const int my_rows = (R - rank + live_blocks - 1) / live_blocks;\n"
+              "  for (int i = tid; i < my_rows * (DH / 4); i += THREADS) {\n"
+              "    const int r = rank + live_blocks * (i / (DH / 4)), d = 4 * (i % (DH / 4));")
+PAGED_VARIANTS = {
+    "as_is": [],
+    "stages_2": [("constexpr int STAGES = 3;", "constexpr int STAGES = 2;", 1)],
+    "loads_only": [(_REQUEST, _REQUEST + "\n    continue;", 1)],
+    "idle_blocks_wait": [
+        (_EXIT, "", 1),
+        (_FOLD_ROWS, "  for (int i = tid; i < (R / CLUSTER) * (DH / 4); i += THREADS) {\n"
+                     "    const int r = rank + CLUSTER * (i / (DH / 4)), d = 4 * (i % (DH / 4));", 1)],
+}
+PAGED_HELD = ("as_is", "stages_2", "idle_blocks_wait")  # the variants that must stay right
 LINEAR_MUTANTS = {
     "as_is": ("", ""),
     "f32_scale": ("sc[r] = n < N ? __bfloat162float(__float2bfloat16_rn(s[n])) : 0.f;",
@@ -314,13 +341,15 @@ def flash_mutants(tmp: Path, dev, g) -> int:
 
 def paged_mutants(tmp: Path, dev, g) -> int:
     """Every paged-attention mutant on a bf16 and an int8 pool at the
-    decoder's shapes (B = 64 decode, a 256-token prefill chunk from 512),
-    a speculative window (B = 8, T = 4) and a prefill chunk from 254 whose
-    query tiles straddle a split boundary (rows whose horizon lies before a
-    split their tile walks), each under chip_smoke.py's bound; and the
-    fold-order row of ``paged_order_case``, which must be exact."""
+    decoder's shapes (B = 64 decode at row lengths 1-2,047 and with every
+    row at the capacity, where the memory is busiest; a 256-token prefill
+    chunk from 512), a speculative window (B = 8, T = 4) and a prefill chunk
+    from 254 whose query tiles straddle a split boundary (rows whose horizon
+    lies before a split their tile walks), each under chip_smoke.py's bound;
+    and the fold-order row of ``paged_order_case``, which must be exact."""
     window = [253, 254, 255, 509, 510, 511, 1021, 2044]
     cases = {kv: [paged_attention_case(dev, g, 64, 1, kv),
+                  paged_attention_case(dev, g, 64, 1, kv, pos=[2047] * 64),
                   paged_attention_case(dev, g, 1, 256, kv, pos=[512]),
                   paged_attention_case(dev, g, 8, 4, kv, pos=window),
                   paged_attention_case(dev, g, 1, 256, kv, pos=[254])]
@@ -362,6 +391,36 @@ def paged_mutants(tmp: Path, dev, g) -> int:
             unexpected += caught != expect_caught
     paged_module._launch_fns["attention"] = real
     return unexpected
+
+
+def paged_ablation(dev, g) -> None:
+    """Each of ``PAGED_VARIANTS`` timed through ``paged_attention`` at the
+    decoder's three shapes (B = 64, T = 1 at row lengths 1-2,047; B = 8,
+    T = 4; B = 1, T = 256 from 512) on a bf16 and an int8 pool; the variants
+    of ``PAGED_HELD`` are also held to the twin under chip_smoke.py's bound."""
+    m = paged_module
+    m._launcher("attention")
+    real = m._launch_fns["attention"]
+
+    def install(lib):
+        fn = real if lib is None else lib.paged_attention_launch
+        fn.argtypes, fn.restype = real.argtypes, real.restype
+        m._launch_fns["attention"] = fn
+
+    runs = []
+    for kv, (atol, ulps, rms) in PAGED_BOUNDS.items():
+        lens = torch.randint(1, 2048, (64,), generator=g, device=dev)
+        for label, (b, t, pos) in (("b64_t1", (64, 1, lens - 1)), ("b8_t4", (8, 4, None)),
+                                   ("b1_t256_512", (1, 256, [512]))):
+            args = paged_attention_case(dev, g, b, t, kv, pos=pos)
+            plain = m.paged_attention_plain(*args)
+
+            def check(args=args, plain=plain, atol=atol, ulps=ulps, rms=rms):
+                e = flash_errors(m.paged_attention(*args), plain, atol, ulps)
+                return e["worst_vs_bound"] <= 1.0 and e["rel_rms_err"] <= rms
+
+            runs.append((f"{kv}_{label}", lambda args=args: m.paged_attention(*args), check))
+    ablate(_build.CSRC_DIR / "paged_attention.cu", PAGED_VARIANTS, install, runs, PAGED_HELD)
 
 
 def linear_mutants(tmp: Path, dev, g) -> int:
@@ -406,6 +465,11 @@ def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("kernel_mutants: no CUDA device; nothing was run", file=sys.stderr)
         return 2
+    if argv == ["--ablate", "paged_attention"]:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dev = torch.device("cuda", torch.cuda.current_device())
+        paged_ablation(dev, torch.Generator(device=dev).manual_seed(1))
+        return 0
     chosen = argv or list(KERNELS)
     if set(chosen) - set(KERNELS):
         print(f"kernel_mutants: choose among {', '.join(KERNELS)}", file=sys.stderr)

@@ -285,16 +285,19 @@ def _paged_source_edits():
 
     for name, (old, new) in kernel_mutants.PAGED_MUTANTS.items():
         if old:
-            yield pytest.param((old, new), id=name)
+            yield pytest.param((old, new, 1), id=f"mutant-{name}")
+    for name, edits in kernel_mutants.PAGED_VARIANTS.items():
+        for i, edit in enumerate(edits):
+            yield pytest.param(edit, id=f"variant-{name}-{i}")
 
 
 @pytest.mark.parametrize("edit", list(_paged_source_edits()))
-def test_every_paged_mutant_edit_applies_to_the_source(edit):
+def test_every_paged_mutant_and_variant_edit_applies_to_the_source(edit):
     """``tools/kernel_mutants.py`` edits a copy of ``csrc/paged_attention.cu``
-    and refuses an edit whose text is not there exactly once."""
-    old, new = edit
+    and refuses an edit whose text occurs another number of times."""
+    old, new, occurrences = edit
     assert old != new
-    assert (_build.CSRC_DIR / "paged_attention.cu").read_text().count(old) == 1
+    assert (_build.CSRC_DIR / "paged_attention.cu").read_text().count(old) == occurrences
 
 
 def test_decoder_control_paged_mode_reads_its_line():
