@@ -38,7 +38,10 @@ printing one JSON line; any failure raises and the exit code is non-zero:
            within 1e-5 and rows equal wherever the twin's neighbouring
            values are further apart (the sums run in another order); the
            copies tie exactly and come lowest row first. Median of 10
-           CUDA-event timings of both at B = 32 and 128, K = 64, TF32 off.
+           CUDA-event timings of both at B = 32 and 128, K = 64, TF32 off,
+           and at B = 32 (fp32, bf16) of a library pair as a yardstick:
+           ``q @ corpus.T + penalty`` then ``torch.topk`` (two calls, and no
+           order among ties: not the same function).
            Then a 65,536-row ``VectorIndex`` of the dtype that scans in the
            mode (float32, bfloat16, f32x2) answers a query through the
            kernel.
@@ -78,7 +81,9 @@ printing one JSON line; any failure raises and the exit code is non-zero:
            exact fp32 top-12, also when rows within 1e-5 of the exact 12th
            score count as ties (random weights put whole-document
            embeddings within ~1e-6 of one another); 32 seeded unit queries
-           through ``VectorIndex.query`` have recall@12 >= 0.99.
+           through ``VectorIndex.query`` have recall@12 >= 0.99. The batch's
+           ``fused_query`` is then timed by stage (median of 5): the encoder,
+           the scan, and the rest (token gather, cross-encoder, final sort).
 
 8. kernel_paged  ``paged_attention`` (the CUDA kernel) against
            ``paged_attention_plain`` at TinyLlama-1.1B's shape (H 32, KvH 4,
@@ -589,6 +594,11 @@ def kernel_float_phase(torch, dev, seed: int) -> dict:
             if k == 64 and b in (32, 128) and pen is penalty:
                 row["ms"] = cuda_ms(torch, lambda: topk_float(*args))
                 row["plain_ms"] = cuda_ms(torch, lambda: topk_float_plain(*args))
+                if b == 32 and mode != "f32x2":
+                    # a yardstick of two library calls, not the same function:
+                    # torch.topk keeps no order among ties
+                    row["library_pair_ms"] = cuda_ms(
+                        torch, lambda: torch.topk(q @ corpus.T + pen, k, dim=1))
                 timed[b] = row
             emit("kernel_float", **row)
         # the floors on the same corpus: against their twins, nomerge against
@@ -635,10 +645,15 @@ def kernel_float_phase(torch, dev, seed: int) -> dict:
         products = 3 if mode == "f32x2" else 1
         out[mode] = {"max_abs_err": max_err, "ms": timed[32]["ms"],
                      "plain_ms": timed[32]["plain_ms"], "ms_b128": timed[128]["ms"],
+                     "library_pair_ms": timed[32].get("library_pair_ms"),
                      "plain_ms_b128": timed[128]["plain_ms"],
                      **bound(N_ROWS * (row_bytes + 4) + 32 * row_bytes + 32 * 64 * 8,
                              2 * products * 32 * N_ROWS * DIM,
                              "f32" if mode == "fp32" else "bf16"),
+                     **{key + "_b128": value for key, value in bound(
+                         N_ROWS * (row_bytes + 4) + 128 * row_bytes + 128 * 64 * 8,
+                         2 * products * 128 * N_ROWS * DIM,
+                         "f32" if mode == "fp32" else "bf16").items()},
                      # the floor reads the rows and the queries and writes B maxima
                      "floor": {**floor_row, **bound(N_ROWS * row_bytes + 32 * row_bytes + 32 * 4,
                                                     2 * products * 32 * N_ROWS * DIM,
@@ -756,6 +771,7 @@ def long_phase(torch, dev, seed: int) -> dict:
     from outline_rag_tpu_torch.models.tokenizer import HashTokenizer
     from outline_rag_tpu_torch.ops.attention import flash_attention, flash_attention_plain
     from outline_rag_tpu_torch.ops.topk import (
+        cosine_topk,
         split_f32_bf16x2,
         topk_float,
         topk_float_plain,
@@ -891,6 +907,18 @@ def long_phase(torch, dev, seed: int) -> dict:
         probe = unit_rows(torch, MAX_BATCH, gen, dev)
         probe_ids, _ = index.query(probe, TOP_K)
         _, probe_oi = topk_plain(probe, oracle, TOP_K, state.penalty)
+        # fused_query's stages for this batch, median of 5 each: the encoder,
+        # the scan, and the whole call (the rest is the token gather, the
+        # cross-encoder and the final sort)
+        stages = {
+            "encode_ms": cuda_ms(torch, lambda: pooled_embeddings(encoder, q_ids, q_mask), runs=5),
+            "scan_ms": cuda_ms(torch, lambda: cosine_topk(q_emb, state.vectors, TOP_K,
+                                                          state.penalty), runs=5),
+            "fused_ms": cuda_ms(torch, lambda: fused_query(
+                encoder, reranker, q_ids, q_mask, state.vectors, state.scales, state.penalty,
+                tokens_state.ids, tokens_state.mask, top_k=TOP_K, rerank_k=RERANK_K), runs=5),
+        }
+        stages["gather_rerank_ms"] = stages["fused_ms"] - stages["encode_ms"] - stages["scan_ms"]
     mismatches = tie_aware_mismatches(vals, idx, pv, pi, FLOAT_TOL)
     err = float((vals - pv[:, :TOP_K]).abs().max())
     hits = [len(set(a) & set(b[:TOP_K])) for a, b in zip(idx.tolist(), oi.tolist())]
@@ -906,7 +934,8 @@ def long_phase(torch, dev, seed: int) -> dict:
     emit("retrieval_f32x2", batch=len(hits), recall_at_12=recall,
          tie_aware_recall_at_12=tie_recall, vector_query_recall_at_12=probe_recall,
          mismatches_vs_plain=mismatches, max_abs_err_vs_plain=err,
-         min_oracle_gap_12_13=float((ov[:, TOP_K - 1] - ov[:, TOP_K]).min()))
+         min_oracle_gap_12_13=float((ov[:, TOP_K - 1] - ov[:, TOP_K]).min()),
+         stages=stages)
     require(mismatches == 0, "fused top-12 equals the plain path's (tie-aware)")
     require(recall >= RECALL_MIN, f"recall@12 {recall} >= {RECALL_MIN}")
     require(tie_recall >= RECALL_MIN, f"tie-aware recall@12 {tie_recall} >= {RECALL_MIN}")

@@ -18,34 +18,36 @@
 //
 // sorted by score descending, the lower row first on ties. A row scoring
 // <= NEG/2 is never selected, and unfilled slots come out as (NEG, 0), as
-// the Pallas kernel emits them. The fp32 mode runs true fp32 fused
-// multiply-adds on the CUDA cores: no TF32 (the Precision.HIGHEST rule).
+// the Pallas kernel emits them.
 //
 // What bounds it on the card: at 1M x 1024 the fp32 and f32x2 corpora are
-// 4 GiB (1.28 ms at 3.35 TB/s), bf16 2 GiB. A 32-query tile does
-// 32 x 1M x 1024 FMAs (68.7 GFLOP at B = 32, about 1.1 ms at the H100's
-// ~60 TFLOP/s of f32 FMA); f32x2 does three times that. So the fp32 and
-// bf16 modes sit near the line between memory and FMA rate at B = 32, and
-// f32x2 and every mode at B = 128 are bound by FMAs. As written, the loop
-// below is bound before either: its 4 x 4 register tile reads one float
-// from shared memory per two FMAs (per three in f32x2), and shared memory
-// feeds an SM 32 floats a clock against 128 FMA lanes, so it runs at most
-// at half the FMA rate (f32x2 three quarters); a wider register tile is
-// the next step. The [B, N] score matrix never reaches device memory:
-// only [chunks, B, K] partial lists.
+// 4 GiB (1.28 ms at 3.35 TB/s), bf16 2 GiB (0.64 ms). The bf16 and f32x2
+// dots run on the tensor cores, as the reference gives them to the TPU's
+// matrix unit (Precision.DEFAULT, and three bf16 passes for f32x2): at
+// B = 32 their work is 0.07 / 0.21 ms at the bf16 peak, so both are bound by
+// bytes. fp32 stays on the CUDA cores (Precision.HIGHEST; no TF32): a
+// 32-query tile does 32 x 1M x 1024 FMAs, 1.03 ms at 67 TFLOP/s, so fp32
+// sits on the line between bytes and FMAs at B = 32 and is bound by FMAs
+// above it. The [B, N] score matrix never reaches device memory: only
+// [chunks, B, K] partial lists.
 //
-// Design (the two passes of topk_int8.cu, simple first; wgmma, TMA and a
-// fused single pass are later work):
+// Design (two passes):
 //   pass 1 (scan_kernel): a block owns 32 queries and a contiguous chunk of
-//     rows, walked in 128-row tiles (the score pass is topk_float_tile.cuh,
-//     shared with topk_floor.cu). For each 32-dimension step, coalesced
-//     16-byte loads stage a [32 queries][32] and a [128 rows][32] slab in
-//     shared memory as f32 (bf16 widens exactly); each of the 256 threads
-//     forms a 4-row x 4-query block of dots with fmaf, in d order. Every
-//     row's score comes from the same instruction sequence wherever the row
-//     sits in a tile or chunk, so duplicated rows tie exactly and the lower
-//     row wins. One warp per query then inserts the tile's scores into a
-//     sorted running top-K list in shared memory (topk_common.cuh).
+//     rows (a multiple of 256), walked in tiles of 128 rows (bf16, f32x2) or
+//     256 (fp32). The score pass (topk_float_tile.cuh, shared with
+//     topk_floor.cu) streams 64-dimension (32 for fp32) slabs of the tile and
+//     of the queries through a three-slot cp.async ring in their storage
+//     type, so the next slabs are in flight while one is multiplied, across
+//     tile edges too. After a tile's last slab each thread adds the penalty
+//     to its scores and writes them to shared memory; one warp per query
+//     then reads the tile's scores and votes whether any beats the query's
+//     k-th value, kept in a register (the Pallas kernel's needs_merge test).
+//     Only then are the scores that beat it appended to the query's buffer
+//     in shared memory (one vote and a prefix count a 32-row group); a full
+//     buffer is sorted by a warp's bitonic network and merged into the
+//     query's sorted running list of 64, which the warp holds in registers
+//     (two entries a lane), raising the k-th value. Once a list is full,
+//     most tiles cost the one vote.
 //   pass 2 (merge_kernel, topk_common.cuh): one block per query merges the
 //     chunks' lists; it writes [B, K] or, for cmajor, [K, B].
 // Row offsets are 64-bit.
@@ -54,92 +56,144 @@
 
 namespace {
 
-template <typename T, bool COMP>
-__global__ void __launch_bounds__(THREADS)
-scan_kernel(const T* __restrict__ q, const T* __restrict__ corpus,
-            const float* __restrict__ penalty, int B, long long N, int D,
-            int K, long long rows_per_chunk, float* __restrict__ part_v,
-            int* __restrict__ part_i) {
-  extern __shared__ __align__(16) float smem[];
-  constexpr int PLANES = COMP ? 2 : 1;     // hi (and lo) slabs
-  float* cs = smem;                        // [PLANES][TN][CW] corpus slabs
-  float* qs = cs + PLANES * TN * CW;       // [PLANES][TB][CW] query slabs
-  float* st = cs;                          // [TB][TN] scores (reuses cs)
-  float* lv = qs + PLANES * TB * CW;       // [TB][KMAX]
-  int* li = reinterpret_cast<int*>(lv + TB * KMAX);  // [TB][KMAX]
-  int* cnt = li + TB * KMAX;                         // [TB]
+constexpr int LIST = 64;  // entries of a running list and of its buffer (two a lane)
+static_assert(KMAX <= LIST, "a list holds K entries");
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int q0 = blockIdx.x * TB;
+template <int MODE>
+__host__ __device__ constexpr int scan_smem() {
+  return ring_bytes<MODE>() + TB * (Shape<MODE>::TN + STW) * 4 + TB * LIST * 8;
+}
+
+// A query's running list of the LIST best entries seen, sorted by (value
+// desc, row asc), held by one warp in registers: entry e is x[e / 32] of
+// lane e % 32.
+struct WarpList {
+  Entry x[2] = {{-INFINITY, NO_ROW}, {-INFINITY, NO_ROW}};
+};
+
+// The buffered candidates (n of them, in `bv`/`bi`) merged into the list:
+// the buffer is sorted descending, its reverse met entry by entry with the
+// list (the better of each pair is the best 64 of both, in a bitonic
+// order), and that sorted. Exact: the order is a total one on (value, row).
+__device__ __forceinline__ void flush(WarpList& L, const float* bv, const int* bi, int n) {
+  const int lane = threadIdx.x & 31;
+  __syncwarp();  // the buffer's entries are written
+  Entry c[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int e = lane + 32 * r;
+    c[r] = e < n ? Entry{bv[e], bi[e]} : Entry{-INFINITY, NO_ROW};
+  }
+  __syncwarp();  // read before the buffer is refilled
+#pragma unroll
+  for (int size = 2; size <= LIST; size <<= 1)
+#pragma unroll
+    for (int j = size >> 1; j > 0; j >>= 1) bitonic_step(c, size, j);
+  merge_sorted(L.x, c);
+}
+
+// The value a score must beat to enter the list's first k: its k-th entry's
+// once there are k, else DEAD. Within a chunk rows come in increasing
+// order, so a later score equal to it ranks after it: the test is exact.
+__device__ __forceinline__ float list_kth(const WarpList& L, int k) {
+  const float v = __shfl_sync(0xffffffffu, k - 1 < 32 ? L.x[0].v : L.x[1].v, (k - 1) & 31);
+  return fmaxf(v, DEAD);
+}
+
+template <int MODE>
+__global__ void __launch_bounds__(THREADS, Shape<MODE>::MIN_BLOCKS)
+scan_kernel(const typename Shape<MODE>::T* __restrict__ q,
+            const typename Shape<MODE>::T* __restrict__ corpus,
+            const float* __restrict__ penalty, int B, long long N, int D, int K,
+            long long rows_per_chunk, float* __restrict__ part_v, int* __restrict__ part_i) {
+  constexpr int TN = Shape<MODE>::TN;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* st = reinterpret_cast<float*>(smem + ring_bytes<MODE>());  // [TB][TN + STW] scores
+  float* buf_v = st + TB * (TN + STW);                               // [TB][LIST] candidates
+  int* buf_i = reinterpret_cast<int*>(buf_v + TB * LIST);            // [TB][LIST]
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  Scan<MODE> sc{q, corpus, B, D, static_cast<int>(blockIdx.x) * TB, 0, 0};
   const long long chunk = blockIdx.y;
-  const long long row_begin = chunk * rows_per_chunk;
-  const long long row_end =
-      row_begin + rows_per_chunk < N ? row_begin + rows_per_chunk : N;
-  const long long W = COMP ? 2LL * D : D;  // stored row width
-  if (tid < TB) cnt[tid] = 0;
-  __syncthreads();
+  chunk_rows(chunk, rows_per_chunk, N, sc.row_begin, sc.row_end);
+  const long long row_end = sc.row_end;
 
-  // thread (lane, warp) computes rows lane + 32*a of the tile against
-  // queries 4*warp + b of the block; warp w also selects for those queries
-  for (long long tile = row_begin; tile < row_end; tile += TN) {
-    float acc[4][4], acc_hl[4][4], acc_lh[4][4];
-    score_tile<T, COMP>(q, corpus, W, tile, row_end, q0, B, D, cs, qs, acc,
-                        acc_hl, acc_lh);
+  // warp w selects for queries 4w .. 4w + 3: their lists, the value a score
+  // must beat to be a candidate, and how many candidates wait in the buffer
+  WarpList list[4];
+  float kth[4] = {DEAD, DEAD, DEAD, DEAD};
+  int waiting[4] = {0, 0, 0, 0};
 
-    // epilogue: (hi.hi + hi.lo) + lo.hi, then + penalty, each rounded alone
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const long long row = tile + lane + 32 * a;
-      const bool in_range = row < row_end;
-      const float pen = in_range ? penalty[row] : NEG;
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const float dot = tile_dot<COMP>(acc[a][b], acc_hl[a][b], acc_lh[a][b]);
-        st[(warp * 4 + b) * TN + lane + 32 * a] = in_range ? __fadd_rn(dot, pen) : NEG;
-      }
-    }
+  score_rows<MODE>(sc, smem, [&](long long tile, const auto& acc) {
+    // epilogue: + penalty, each rounded alone; rows past the chunk are NEG
+    acc.visit([&](int, int r, int qq, float dot) {
+      const long long row = tile + r;
+      st[qq * (TN + STW) + r] = row < row_end ? __fadd_rn(dot, penalty[row]) : NEG;
+    });
     __syncthreads();
-
-#pragma unroll 1
+#pragma unroll
     for (int b = 0; b < 4; ++b) {
       const int qq = warp * 4 + b;
-      if (q0 + qq >= B) break;  // the same in every lane of the warp
-      int n = cnt[qq];
+      if (sc.q0 + qq >= B) break;  // the same in every lane of the warp
+      const float* srow = st + qq * (TN + STW);
+      bool beats = false;
+#pragma unroll
+      for (int a = 0; a < TN / 32; ++a) beats |= srow[lane + 32 * a] > kth[b];
+      // the tile-max test: once a list is full, most tiles stop at this vote
+      if (!__any_sync(0xffffffffu, beats)) continue;
+      float* bv = buf_v + qq * LIST;
+      int* bi = buf_i + qq * LIST;
 #pragma unroll 1
-      for (int a = 0; a < 4; ++a) {
-        const int r = lane + 32 * a;
-        warp_offer(lv + qq * KMAX, li + qq * KMAX, n, K, st[qq * TN + r],
-                   static_cast<int>(tile + r), tile + r < row_end);
+      for (int a = 0; a < TN / 32; ++a) {
+        const float va = srow[lane + 32 * a];
+        unsigned win = __ballot_sync(0xffffffffu, va > kth[b]);
+        if (waiting[b] + __popc(win) > LIST) {  // no room: merge the buffer first
+          flush(list[b], bv, bi, waiting[b]);
+          kth[b] = list_kth(list[b], K);
+          waiting[b] = 0;
+          win = __ballot_sync(0xffffffffu, va > kth[b]);
+        }
+        if (win >> lane & 1) {
+          const int slot = waiting[b] + __popc(win & ((1u << lane) - 1));
+          bv[slot] = va;
+          bi[slot] = static_cast<int>(tile + lane + 32 * a);
+        }
+        waiting[b] += __popc(win);
       }
-      if (lane == 0) cnt[qq] = n;
     }
-    __syncthreads();
-  }
+  });
 
+#pragma unroll
   for (int b = 0; b < 4; ++b) {
     const int qq = warp * 4 + b;
-    if (q0 + qq >= B) break;
-    const long long base = (chunk * B + (q0 + qq)) * (long long)K;
-    warp_write(lv + qq * KMAX, li + qq * KMAX, cnt[qq], K, part_v + base,
-               part_i + base, 1);
+    if (sc.q0 + qq >= B) break;
+    if (waiting[b] > 0) flush(list[b], buf_v + qq * LIST, buf_i + qq * LIST, waiting[b]);
+    const long long base = (chunk * B + (sc.q0 + qq)) * (long long)K;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int e = lane + 32 * r;
+      const Entry x = list[b].x[r];
+      if (e < K) {
+        part_v[base + e] = x.v > DEAD ? x.v : NEG;
+        part_i[base + e] = x.v > DEAD ? x.i : 0;
+      }
+    }
   }
 }
 
-template <typename T, bool COMP>
-int launch_scan(const void* q, const void* corpus, const void* penalty, int B,
-                long long N, int D, int K, int n_chunks,
-                long long rows_per_chunk, void* part_v, void* part_i,
-                cudaStream_t s) {
-  constexpr int PLANES = COMP ? 2 : 1;
-  const size_t smem = (size_t)PLANES * (TN + TB) * CW * sizeof(float) +
-                      (size_t)TB * KMAX * (sizeof(float) + sizeof(int)) +
-                      TB * sizeof(int);
+static_assert(scan_smem<FP32>() <= 232448 && scan_smem<F32X2>() <= 232448, "one block an SM");
+static_assert(2 * (scan_smem<BF16>() + 1024) <= 233472, "two bf16 blocks an SM");
+
+template <int MODE>
+int launch_scan(const void* q, const void* corpus, const void* penalty, int B, long long N,
+                int D, int K, int n_chunks, long long rows_per_chunk, void* part_v,
+                void* part_i, cudaStream_t s) {
+  using T = typename Shape<MODE>::T;
   cudaError_t err = cudaFuncSetAttribute(
-      scan_kernel<T, COMP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      scan_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, scan_smem<MODE>());
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((B + TB - 1) / TB, n_chunks);
-  scan_kernel<T, COMP><<<grid, THREADS, smem, s>>>(
+  scan_kernel<MODE><<<grid, THREADS, scan_smem<MODE>(), s>>>(
       static_cast<const T*>(q), static_cast<const T*>(corpus),
       static_cast<const float*>(penalty), B, N, D, K, rows_per_chunk,
       static_cast<float*>(part_v), static_cast<int*>(part_i));
@@ -158,23 +212,21 @@ extern "C" int topk_float_launch(int mode, const void* q, const void* corpus,
                                  int transposed, void* part_v, void* part_i,
                                  void* out_v, void* out_i, void* stream) {
   if (mode < FP32 || mode > F32X2 || B <= 0 || N <= 0 || N > 0x7fffffffLL ||
-      D <= 0 || D % DC || K <= 0 || K > KMAX || K > N || n_chunks <= 0 ||
-      n_chunks > 65535 || rows_per_chunk <= 0 || rows_per_chunk % TN ||
+      D <= 0 || D % DSTEP || K <= 0 || K > KMAX || K > N || n_chunks <= 0 ||
+      n_chunks > 65535 || rows_per_chunk <= 0 || rows_per_chunk % CHUNK_ROWS ||
       (long long)n_chunks * rows_per_chunk < N)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int rc;
   if (mode == FP32)
-    rc = launch_scan<float, false>(q, corpus, penalty, B, N, D, K, n_chunks,
-                                   rows_per_chunk, part_v, part_i, s);
+    rc = launch_scan<FP32>(q, corpus, penalty, B, N, D, K, n_chunks, rows_per_chunk, part_v,
+                           part_i, s);
   else if (mode == BF16)
-    rc = launch_scan<__nv_bfloat16, false>(q, corpus, penalty, B, N, D, K,
-                                           n_chunks, rows_per_chunk, part_v,
-                                           part_i, s);
+    rc = launch_scan<BF16>(q, corpus, penalty, B, N, D, K, n_chunks, rows_per_chunk, part_v,
+                           part_i, s);
   else
-    rc = launch_scan<__nv_bfloat16, true>(q, corpus, penalty, B, N, D, K,
-                                          n_chunks, rows_per_chunk, part_v,
-                                          part_i, s);
+    rc = launch_scan<F32X2>(q, corpus, penalty, B, N, D, K, n_chunks, rows_per_chunk, part_v,
+                            part_i, s);
   if (rc != 0) return rc;
   merge_kernel<<<B, THREADS, 0, s>>>(
       static_cast<const float*>(part_v), static_cast<const int*>(part_i), B, K,

@@ -18,17 +18,19 @@
 // `nomerge` is what the per-row maximum costs.
 //
 // What bounds it on the card: what bounds topk_float.cu's score pass (its
-// header says: the corpus bytes, or the FMA rate; as written, shared-memory
-// reads of the 4 x 4 register tile), since this kernel is that pass.
+// header says: the corpus bytes for bf16 and f32x2 on the tensor cores, the
+// bytes or the FMA rate for fp32), since this kernel is that pass.
 //
-// Design: pass 1 is scan_kernel's loop over a chunk's tiles with
-// score_tile() from topk_float_tile.cuh, so the scores are bit-equal to the
-// full kernel's; each thread keeps the maximum of its 4 queries over its
-// rows in registers, a warp shuffle folds the 32 lanes, and lane 0 writes
-// [chunks, B] partial maxima. `tile_rows` is a run-time argument, so the
-// compiler cannot drop the products of rows that `matmul` does not read.
-// Pass 2 takes the maximum over chunks, one thread a query. A maximum does
-// not depend on order: two runs are bit-equal.
+// Design: pass 1 is scan_kernel's walk over a chunk with score_rows() from
+// topk_float_tile.cuh (the same cp.async ring, tensor-core products and
+// fp32 tile), so the scores are bit-equal to the full kernel's; each
+// thread keeps the maximum of each of its outputs over its tiles in
+// registers, and at the end folds them into one maximum per query in shared
+// memory (atomicMax on an order-preserving integer image of the float), and
+// the block writes [chunks, B] partial maxima. `tile_rows` is a run-time
+// argument, so the compiler cannot drop the products of rows that `matmul`
+// does not read. Pass 2 takes the maximum over chunks, one thread a query.
+// A maximum does not depend on order: two runs are bit-equal.
 
 #include "topk_float_tile.cuh"
 
@@ -36,51 +38,52 @@ namespace {
 
 constexpr float FLOOR_INIT = -1e30f;
 
-template <typename T, bool COMP>
-__global__ void __launch_bounds__(THREADS)
-floor_kernel(const T* __restrict__ q, const T* __restrict__ corpus, int B,
-             long long N, int D, long long rows_per_chunk, int first_row_only,
-             int tile_rows, float* __restrict__ part) {
-  extern __shared__ __align__(16) float smem[];
-  constexpr int PLANES = COMP ? 2 : 1;
-  float* cs = smem;                   // [PLANES][TN][CW] corpus slabs
-  float* qs = cs + PLANES * TN * CW;  // [PLANES][TB][CW] query slabs
+// an integer whose order is the float's (for finite values and infinities)
+__device__ __forceinline__ int ordered(float v) {
+  const int i = __float_as_int(v);
+  return i >= 0 ? i : i ^ 0x7fffffff;
+}
+__device__ __forceinline__ float from_ordered(int i) {
+  return __int_as_float(i >= 0 ? i : i ^ 0x7fffffff);
+}
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int q0 = blockIdx.x * TB;
+template <int MODE>
+__host__ __device__ constexpr int floor_smem() { return ring_bytes<MODE>() + TB * 4; }
+
+template <int MODE>
+__global__ void __launch_bounds__(THREADS, Shape<MODE>::MIN_BLOCKS)
+floor_kernel(const typename Shape<MODE>::T* __restrict__ q,
+             const typename Shape<MODE>::T* __restrict__ corpus, int B, long long N, int D,
+             long long rows_per_chunk, int first_row_only, int tile_rows,
+             float* __restrict__ part) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  int* best_q = reinterpret_cast<int*>(smem + ring_bytes<MODE>());  // [TB]
+  if (threadIdx.x < TB) best_q[threadIdx.x] = ordered(FLOOR_INIT);
+
+  Scan<MODE> sc{q, corpus, B, D, static_cast<int>(blockIdx.x) * TB, 0, 0};
   const long long chunk = blockIdx.y;
-  const long long row_begin = chunk * rows_per_chunk;
-  const long long row_end =
-      row_begin + rows_per_chunk < N ? row_begin + rows_per_chunk : N;
-  const long long W = COMP ? 2LL * D : D;  // stored row width
+  chunk_rows(chunk, rows_per_chunk, N, sc.row_begin, sc.row_end);
+  const long long row_end = sc.row_end;
 
-  float best[4] = {FLOOR_INIT, FLOOR_INIT, FLOOR_INIT, FLOOR_INIT};
-  for (long long tile = row_begin; tile < row_end; tile += TN) {
-    float acc[4][4], acc_hl[4][4], acc_lh[4][4];
-    score_tile<T, COMP>(q, corpus, W, tile, row_end, q0, B, D, cs, qs, acc,
-                        acc_hl, acc_lh);
+  using A = Acc<MODE>;
+  float best[A::OUTPUTS];  // per output of this thread
 #pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const long long row = tile + lane + 32 * a;
-      const bool take =
-          row < row_end && (!first_row_only || row % tile_rows == 0);
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const float dot = tile_dot<COMP>(acc[a][b], acc_hl[a][b], acc_lh[a][b]);
-        if (take) best[b] = fmaxf(best[b], dot);
-      }
-    }
-  }
+  for (int i = 0; i < A::OUTPUTS; ++i) best[i] = FLOOR_INIT;
+  score_rows<MODE>(sc, smem, [&](long long tile, const auto& acc) {
+    acc.visit([&](int i, int r, int, float dot) {
+      const long long row = tile + r;
+      if (row < row_end && (!first_row_only || row % tile_rows == 0))
+        best[i] = fmaxf(best[i], dot);
+    });
+  });
 
-#pragma unroll
-  for (int b = 0; b < 4; ++b) {
-    float v = best[b];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-    const int qq = q0 + warp * 4 + b;
-    if (lane == 0 && qq < B) part[chunk * B + qq] = v;
-  }
+  __syncthreads();  // best_q's first values are written
+  A::place([&](int i, int, int qq) {
+    if (best[i] > FLOOR_INIT) atomicMax(best_q + qq, ordered(best[i]));
+  });
+  __syncthreads();
+  const int qq = sc.q0 + threadIdx.x;
+  if (threadIdx.x < TB && qq < B) part[chunk * B + qq] = from_ordered(best_q[threadIdx.x]);
 }
 
 __global__ void floor_max_kernel(const float* __restrict__ part, int B,
@@ -92,17 +95,16 @@ __global__ void floor_max_kernel(const float* __restrict__ part, int B,
   out[b] = v;
 }
 
-template <typename T, bool COMP>
+template <int MODE>
 int launch_floor(const void* q, const void* corpus, int B, long long N, int D,
                  int n_chunks, long long rows_per_chunk, int first_row_only,
                  int tile_rows, void* part, cudaStream_t s) {
-  const size_t smem = (size_t)tile_floats<COMP>() * sizeof(float);
+  using T = typename Shape<MODE>::T;
   cudaError_t err = cudaFuncSetAttribute(
-      floor_kernel<T, COMP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      floor_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, floor_smem<MODE>());
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((B + TB - 1) / TB, n_chunks);
-  floor_kernel<T, COMP><<<grid, THREADS, smem, s>>>(
+  floor_kernel<MODE><<<grid, THREADS, floor_smem<MODE>(), s>>>(
       static_cast<const T*>(q), static_cast<const T*>(corpus), B, N, D,
       rows_per_chunk, first_row_only, tile_rows, static_cast<float*>(part));
   return static_cast<int>(cudaGetLastError());
@@ -121,24 +123,22 @@ extern "C" int topk_floor_launch(int mode, const void* q, const void* corpus,
                                  int tile_rows, void* part, void* out,
                                  void* stream) {
   if (mode < FP32 || mode > F32X2 || B <= 0 || N <= 0 || N > 0x7fffffffLL ||
-      D <= 0 || D % DC || n_chunks <= 0 || n_chunks > 65535 ||
-      rows_per_chunk <= 0 || rows_per_chunk % TN ||
+      D <= 0 || D % DSTEP || n_chunks <= 0 || n_chunks > 65535 ||
+      rows_per_chunk <= 0 || rows_per_chunk % CHUNK_ROWS ||
       (long long)n_chunks * rows_per_chunk < N || tile_rows <= 0 ||
       (first_row_only != 0 && first_row_only != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int rc;
   if (mode == FP32)
-    rc = launch_floor<float, false>(q, corpus, B, N, D, n_chunks, rows_per_chunk,
-                                    first_row_only, tile_rows, part, s);
+    rc = launch_floor<FP32>(q, corpus, B, N, D, n_chunks, rows_per_chunk, first_row_only,
+                            tile_rows, part, s);
   else if (mode == BF16)
-    rc = launch_floor<__nv_bfloat16, false>(q, corpus, B, N, D, n_chunks,
-                                            rows_per_chunk, first_row_only,
-                                            tile_rows, part, s);
+    rc = launch_floor<BF16>(q, corpus, B, N, D, n_chunks, rows_per_chunk, first_row_only,
+                            tile_rows, part, s);
   else
-    rc = launch_floor<__nv_bfloat16, true>(q, corpus, B, N, D, n_chunks,
-                                           rows_per_chunk, first_row_only,
-                                           tile_rows, part, s);
+    rc = launch_floor<F32X2>(q, corpus, B, N, D, n_chunks, rows_per_chunk, first_row_only,
+                             tile_rows, part, s);
   if (rc != 0) return rc;
   floor_max_kernel<<<(B + 127) / 128, 128, 0, s>>>(
       static_cast<const float*>(part), B, n_chunks, static_cast<float*>(out));

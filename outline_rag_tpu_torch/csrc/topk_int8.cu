@@ -37,8 +37,8 @@
 //     fail the k-th-value test and cost one ballot. The list is written out
 //     as the chunk's partial top-K.
 //   pass 2 (merge_kernel, topk_common.cuh): one block per query merges the
-//     chunks' partial lists with the same warp insertion, then merges the
-//     eight warp lists.
+//     chunks' sorted partial lists, one bitonic merge a list in each warp,
+//     then merges the eight warp lists.
 // Row offsets are 64-bit: N * D passes 2^31 at 10M x 1024.
 
 #include "topk_common.cuh"

@@ -39,16 +39,24 @@ NEG = -1e30
 # corpus slice and the [B, rows] score matrix.
 PLAIN_ROWS_PER_STEP = 1 << 18
 
-# Tile sizes of csrc/topk_int8.cu and csrc/topk_float.cu (TB queries x TN
-# rows) and their limit on K.
+# Tile sizes of csrc/topk_int8.cu (TB queries x TN rows) and the scans'
+# limit on K.
 _KERNEL_TB = 32
 _KERNEL_TN = 128
 KERNEL_MAX_K = 64
 
-# The float scan's modes, by their code in csrc/topk_float.cu, and its step
-# over the dimensions (D must be a multiple).
+# The float scan's modes, by their code in csrc/topk_float.cu, and the
+# constants of csrc/topk_float_tile.cuh: queries a block, the rows a chunk
+# is a multiple of (the fp32 tile; the bf16 and f32x2 tiles of 128 divide
+# it), and the step over the dimensions (D must be a multiple).
 FLOAT_MODES = {"fp32": 0, "bf16": 1, "f32x2": 2}
+_FLOAT_KERNEL_TB = 32
+_FLOAT_KERNEL_CHUNK_ROWS = 256
 _FLOAT_KERNEL_DC = 32
+# Blocks of the float scan an SM holds at once (its shared memory), by mode:
+# ``MIN_BLOCKS`` of each ``Shape`` in csrc/topk_float_tile.cuh. Pass 1 runs
+# one wave of them: fewer, longer chunks leave fewer lists to fill and merge.
+_FLOAT_RESIDENT = {"fp32": 1, "bf16": 2, "f32x2": 1}
 ORIENTATIONS = ("qmajor", "cmajor")
 
 
@@ -147,6 +155,18 @@ def _kernel_plan(b: int, n: int, device: torch.device) -> tuple[int, int]:
     tiles = -(-n // _KERNEL_TN)
     chunks = min(tiles, max(1, (4 * sms) // q_tiles))
     rows_per_chunk = -(-tiles // chunks) * _KERNEL_TN
+    return -(-n // rows_per_chunk), rows_per_chunk
+
+
+def _float_kernel_plan(b: int, n: int, device: torch.device, mode: str) -> tuple[int, int]:
+    """(chunks, rows per chunk) for the float scan's pass 1 (and its
+    floor): one wave of the blocks the card holds at once in ``mode``, each
+    walking a whole number of ``_FLOAT_KERNEL_CHUNK_ROWS`` rows."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    q_tiles = -(-b // _FLOAT_KERNEL_TB)
+    steps = -(-n // _FLOAT_KERNEL_CHUNK_ROWS)
+    chunks = min(steps, max(1, (_FLOAT_RESIDENT[mode] * sms) // q_tiles))
+    rows_per_chunk = -(-steps // chunks) * _FLOAT_KERNEL_CHUNK_ROWS
     return -(-n // rows_per_chunk), rows_per_chunk
 
 
@@ -374,7 +394,7 @@ def topk_float(
     b, d, n = _check_float_inputs(queries, corpus, penalty, k, mode)
     dev = corpus.device
     cmajor = orientation == "cmajor"
-    chunks, rows_per_chunk = _kernel_plan(b, n, dev)
+    chunks, rows_per_chunk = _float_kernel_plan(b, n, dev, mode)
     part_v = torch.empty((chunks, b, k), dtype=torch.float32, device=dev)
     part_i = torch.empty((chunks, b, k), dtype=torch.int32, device=dev)
     out_shape = (k, b) if cmajor else (b, k)
@@ -473,7 +493,8 @@ def topk_floor(
     ``variant="nomerge"``: the maximum over all rows, which is the first
     column of :func:`topk_float`'s values. ``variant="matmul"``: the maximum
     over the rows that are multiples of ``tile_rows`` only (by default the
-    kernel's own 128-row tile; the JAX tool's tiles are 1024 rows), the
+    128-row tile of the int8 scan and the float scan's bf16 and f32x2 modes;
+    the JAX tool's tiles are 1024 rows), the
     cheapest use of a tile that still needs all of it computed. The f32x2
     mode has ``nomerge`` only, as in the JAX tool. The full scan's time
     minus this one's is what selecting the top K costs. On CUDA tensors
@@ -487,7 +508,7 @@ def topk_floor(
         raise ValueError(f"topk_floor runs on cpu or cuda tensors, not {corpus.device}")
     dev = corpus.device
     b, d, n = _check_float_inputs(queries, corpus, None, 1, mode)
-    chunks, rows_per_chunk = _kernel_plan(b, n, dev)
+    chunks, rows_per_chunk = _float_kernel_plan(b, n, dev, mode)
     part = torch.empty((chunks, b), dtype=torch.float32, device=dev)
     out = torch.empty((b,), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):

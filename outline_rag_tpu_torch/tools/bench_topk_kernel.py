@@ -1,7 +1,8 @@
 """What the float scan's selection costs on the card: the full scan beside
-its floors.
+its floors; and the scan of several checkouts side by side.
 
     python -m outline_rag_tpu_torch.tools.bench_topk_kernel [N] [B] [MODE ...]
+    python -m outline_rag_tpu_torch.tools.bench_topk_kernel --scan DIR [DIR ...]
 
 The port's counterpart of the JAX package's ``tools/bench_topk_kernel.py``.
 Run it on a machine with one CUDA card and ``nvcc``. Variants a mode (fp32,
@@ -17,12 +18,22 @@ over a seeded corpus of N unit rows x 1024 (default 1,048,576) and B queries
 (default 32). ``full - nomerge`` is the selection's cost. Each time is the
 median of 10 CUDA-event timings (``BENCH_RUNS``). One JSON line a mode, with
 the card's name and power limit.
+
+With ``--scan``, each ``DIR`` is a checkout of this repository (an older one
+unpacked with ``git archive``, or ``.``); for each, in the order given, a
+fresh process starts in that directory, builds that checkout's kernels and
+times its ``topk_float`` at K = 64 over the same seeded 1,048,576 x 1024
+corpus in each mode, at B = 32 and 128, and at the serving shape B = 32,
+K = 12 (one JSON line a checkout). Give an
+older checkout on both sides of a newer one (``old new new old``) to see the
+spread beside the difference.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import subprocess
 import sys
 
 import torch
@@ -31,6 +42,34 @@ from outline_rag_tpu_torch.ops.topk import FLOAT_MODES, split_f32_bf16x2, topk_f
 from outline_rag_tpu_torch.tools.timing import card, cuda_ms
 
 DIM, TOP_K = 1024, 12
+
+# one checkout's scan, on inputs every checkout draws alike
+_SCAN = """
+import json, os, sys
+sys.path.insert(0, os.getcwd())
+import torch
+from outline_rag_tpu_torch.ops.topk import split_f32_bf16x2, topk_float
+from outline_rag_tpu_torch.tools.timing import cuda_ms
+torch.backends.cuda.matmul.allow_tf32 = False
+dev = torch.device("cuda", torch.cuda.current_device())
+g = torch.Generator(device=dev).manual_seed(11)
+corpus = torch.nn.functional.normalize(torch.randn((1 << 20, 1024), generator=g, device=dev), dim=1)
+queries = {b: torch.nn.functional.normalize(torch.randn((b, 1024), generator=g, device=dev), dim=1)
+           for b in (32, 128)}
+penalty = torch.zeros(corpus.shape[0], device=dev)
+store = {"fp32": lambda x: x, "bf16": lambda x: x.to(torch.bfloat16), "f32x2": split_f32_bf16x2}
+out = {}
+for mode, cast in store.items():
+    c = cast(corpus)
+    for b, q in queries.items():
+        qc = cast(q)
+        out[mode + "_b" + str(b) + "_ms"] = cuda_ms(lambda: topk_float(qc, c, 64, penalty, mode))
+    qc = cast(queries[32])  # the serving scan: B = 32, K = 12
+    out[mode + "_b32_k12_ms"] = cuda_ms(lambda: topk_float(qc, c, 12, penalty, mode))
+    del c
+    torch.cuda.empty_cache()
+print(json.dumps(out))
+"""
 
 
 def bench_mode(queries: torch.Tensor, corpus: torch.Tensor, mode: str, runs: int = 10) -> dict:
@@ -56,10 +95,26 @@ def store(x: torch.Tensor, mode: str) -> torch.Tensor:
     return x.to(torch.bfloat16) if mode == "bf16" else split_f32_bf16x2(x)
 
 
+def scan_checkouts(directories: list[str]) -> None:
+    """``--scan``: each checkout's ``topk_float`` in a fresh process of its own."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    smi = card()
+    for i, directory in enumerate(directories):
+        done = subprocess.run([sys.executable, "-c", _SCAN], cwd=directory, env=env,
+                              capture_output=True, text=True, check=False)
+        if done.returncode != 0:
+            raise RuntimeError(f"the scan in {directory} failed:\n" + done.stderr[-2000:])
+        times = json.loads(done.stdout.strip().splitlines()[-1])
+        print(json.dumps({"run": i, "checkout": directory, **times, "card": smi}), flush=True)
+
+
 def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("bench_topk_kernel: no CUDA device; nothing was run", file=sys.stderr)
         return 2
+    if argv[:1] == ["--scan"]:
+        scan_checkouts(argv[1:] or ["."])
+        return 0
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", torch.cuda.current_device())
     n = int(argv[0]) if argv else 1_048_576

@@ -5,13 +5,15 @@
 
 Run it on a machine with one CUDA card and ``nvcc`` (all kernels, or those
 named among ``paged_attention``, ``int8_linear``, ``int4``,
-``flash_attention``). It copies
+``flash_attention``, ``topk_float``). It copies
 ``csrc/flash_attention.cu``, ``csrc/paged_attention.cu``,
-``csrc/int8_linear.cu`` and ``csrc/int4_linear.cu`` into a temporary
+``csrc/int8_linear.cu``, ``csrc/int4_linear.cu`` and ``csrc/topk_float.cu``
+(with its headers) into a temporary
 directory, applies one fault at a time to the copy (a skipped key tile, a
 missing rescale, an unswizzled tile, a horizon off by one, a dropped scale,
 splits folded out of order, a ring slot read before it landed, swapped
-nibbles, a missing sign extension, a group combined out of order, ...),
+nibbles, a missing sign extension, a group combined out of order, a dropped
+k-step or compensation term, a missing penalty, ...),
 builds each mutant into a library of its own, runs it through the package's
 wrapper at the model's shapes, and prints whether the comparison
 ``chip_smoke.py`` and the card tests use would have passed it. The sources
@@ -40,6 +42,7 @@ import outline_rag_tpu_torch.ops.attention as attention_module
 import outline_rag_tpu_torch.ops.int4_linear as int4_linear_module
 import outline_rag_tpu_torch.ops.int8_linear as int8_linear_module
 import outline_rag_tpu_torch.ops.paged_attention as paged_module
+import outline_rag_tpu_torch.ops.topk as topk_module
 from outline_rag_tpu_torch.ops import _build
 from outline_rag_tpu_torch.testing import (
     flash_errors,
@@ -47,6 +50,7 @@ from outline_rag_tpu_torch.testing import (
     paged_order_case,
     quantizer_rows,
     scaled_errors,
+    tie_aware_mismatches,
 )
 from outline_rag_tpu_torch.tools.timing import cuda_ms_many
 
@@ -203,18 +207,68 @@ INT4_MUTANTS = {
 }
 
 
-def build_mutant(tmp: Path, source: Path, name: str, old, new: str = "", symbol: str | None = None):
-    """Build a copy of ``source`` with ``old`` replaced by ``new`` (or with
-    every ``(old, new, occurrences)`` edit of a list) into a library of its
-    own; returns its ``symbol``, or the library."""
-    text = source.read_text()
-    edits = old if isinstance(old, list) else ([(old, new, 1)] if old else [])
+# the float scan: {label: ({file: [(old, new, occurrences)]}, modes it reaches)};
+# topk_float.cu and the headers of its score pass (topk_float_tile.cuh) and
+# selection (topk_common.cuh)
+_TILE, _SCAN = "topk_float_tile.cuh", "topk_float.cu"
+_DOT = "return COMP ? __fadd_rn(__fadd_rn(run[j][e], hl[j][e]), lh[j][e]) : run[j][e];"
+_CHUNK_END = "end = begin + rows_per_chunk < N ? begin + rows_per_chunk : N;"
+_PRODUCT = "acc.product(ring + slot * slot_bytes<MODE>(), min(S::DC, sc.D - ds * S::DC) / 16);"
+_ALL = ("fp32", "bf16", "f32x2")
+TOPK_MUTANTS = {
+    "as_is": ({}, _ALL),
+    # the last 16-dimension step of every tile's dimensions never multiplied
+    "last_k_step_dropped": ({_TILE: [(_PRODUCT, _PRODUCT.replace("/ 16);", "/ 16 - (ds == slabs - 1));"), 1)]},
+                            ("bf16", "f32x2")),
+    "lo_hi_dropped": ({_TILE: [(_DOT, _DOT.replace("__fadd_rn(__fadd_rn(run[j][e], hl[j][e]), lh[j][e])",
+                                                   "__fadd_rn(run[j][e], hl[j][e])"), 1)]}, ("f32x2",)),
+    "hi_lo_dropped": ({_TILE: [(_DOT, _DOT.replace("__fadd_rn(__fadd_rn(run[j][e], hl[j][e]), lh[j][e])",
+                                                   "__fadd_rn(run[j][e], lh[j][e])"), 1)]}, ("f32x2",)),
+    "penalty_not_added": ({_SCAN: [("row < row_end ? __fadd_rn(dot, penalty[row]) : NEG;",
+                                    "row < row_end ? dot : NEG;", 1)]}, _ALL),
+    "last_row_of_chunk_skipped": ({_TILE: [(_CHUNK_END, _CHUNK_END.replace(" : N;", " : N;\n  --end;"), 1)]},
+                                  _ALL),
+    # the tile-max test against entry k - 1 of the list's 0 .. k - 1 taken as
+    # entry k - 2, and a tie let in
+    "tile_max_test_wrong_slot": ({_SCAN: [("k - 1 < 32 ? L.x[0].v : L.x[1].v, (k - 1) & 31",
+                                           "k - 2 < 32 ? L.x[0].v : L.x[1].v, (k - 2) & 31", 1),
+                                          ("unsigned win = __ballot_sync(0xffffffffu, va > kth[b]);",
+                                           "unsigned win = __ballot_sync(0xffffffffu, va >= kth[b]);", 1)]},
+                                 _ALL),
+    # slab s read with one group fewer waited for: the block's first slab is
+    # read right after it was requested
+    "ring_not_waited": ({_TILE: [("cp_async_wait<STAGES - 2>();  // this thread's copies of slab s are there",
+                                  "cp_async_wait<STAGES - 1>();", 1)]}, _ALL),
+}
+
+
+def _edited(text: str, edits, name: str) -> str:
     for old_text, new_text, count in edits:
         if text.count(old_text) != count:
             raise RuntimeError(
                 f"{name}: the line to mutate occurs {text.count(old_text)} times, not {count}")
         text = text.replace(old_text, new_text)
-    cu, so = tmp / f"{source.stem}_{name}.cu", tmp / f"{source.stem}_{name}.so"
+    return text
+
+
+def build_mutant(tmp: Path, source: Path, name: str, old, new: str = "", symbol: str | None = None,
+                 headers: dict | None = None):
+    """Build a copy of ``source`` with ``old`` replaced by ``new`` (or with
+    every ``(old, new, occurrences)`` edit of a list) into a library of its
+    own; returns its ``symbol``, or the library. ``headers`` maps a header
+    of ``csrc/`` to a list of edits of its own: the copy is then built in a
+    directory of its own beside copies of every header, edited or not, and
+    its quoted includes find those first."""
+    edits = old if isinstance(old, list) else ([(old, new, 1)] if old else [])
+    text = _edited(source.read_text(), edits, name)
+    work = tmp
+    if headers:
+        work = tmp / name
+        work.mkdir(exist_ok=True)
+        for header in _build.CSRC_DIR.glob("*.cuh"):
+            (work / header.name).write_text(
+                _edited(header.read_text(), headers.get(header.name, []), name))
+    cu, so = work / f"{source.stem}_{name}.cu", work / f"{source.stem}_{name}.so"
     cu.write_text(text)
     cmd = [_build._nvcc(), *_build.ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
            "-I", str(_build.CSRC_DIR), "-shared", "-o", str(so), str(cu)]
@@ -457,8 +511,102 @@ def linear_mutants(tmp: Path, dev, g) -> int:
     return unexpected
 
 
+def float_scan_case(dev, g, n: int, d: int, b: int, mode: str, copies: list[int]):
+    """Unit rows in ``mode``'s storage, 1% tombstoned, and ``copies`` of one
+    row (the first of them is the original); query 0 is that row, so the
+    copies tie at its top. Returns (queries, corpus, penalty)."""
+    corpus = torch.nn.functional.normalize(torch.randn((n, d), generator=g, device=dev), dim=1)
+    corpus[copies] = corpus[copies[0]].clone()
+    penalty = torch.where(torch.rand(n, generator=g, device=dev) < 0.01, topk_module.NEG, 0.0)
+    penalty[copies] = 0.0
+    q = torch.nn.functional.normalize(torch.randn((b, d), generator=g, device=dev), dim=1)
+    q[0] = corpus[copies[0]]
+    store = {"fp32": lambda x: x, "bf16": lambda x: x.to(torch.bfloat16),
+             "f32x2": topk_module.split_f32_bf16x2}[mode]
+    return store(q), store(corpus), penalty.float()
+
+
+def float_threshold_case(dev, g, mode: str):
+    """256 rows x 128, one chunk, K = 4: query 0 is the first axis and row
+    i scores exactly its first element, 1, 15/16, 7/8 and 13/16 for rows 0-3,
+    under 1/2 for the others but row 100, which scores 27/32: once the first
+    64 rows fill a list, row 100 must still beat its 4th entry (13/16) and
+    come out 4th. Returns (queries, corpus, penalty, k, the rows query 0
+    must get)."""
+    n, d, b = 256, 128, 8
+    corpus = torch.randn((n, d), generator=g, device=dev) / 16
+    corpus[:, 0] = (torch.arange(n, device=dev) % 7).float() / 16
+    corpus[:4, 0] = torch.tensor([1.0, 15 / 16, 7 / 8, 13 / 16], device=dev)
+    corpus[100, 0] = 27 / 32
+    q = torch.nn.functional.normalize(torch.randn((b, d), generator=g, device=dev), dim=1)
+    q[0] = 0.0
+    q[0, 0] = 1.0
+    store = {"fp32": lambda x: x, "bf16": lambda x: x.to(torch.bfloat16),
+             "f32x2": topk_module.split_f32_bf16x2}[mode]
+    return store(q), store(corpus), torch.zeros(n, device=dev), 4, [0, 1, 2, 100]
+
+
+def topk_mutants(tmp: Path, dev, g) -> int:
+    """Every float-scan mutant through ``topk_float`` in the modes it reaches,
+    under the check of ``chip_smoke.py`` and the card tests: values within
+    1e-5 of the twin's, no tie-aware mismatch, and query 0's first rows as
+    the case wants them (the copies of its row tied bit for bit, lowest row
+    first). Cases: 200,003 rows x 1024 at B = 33,
+    K = 64, with copies at positions 0, 7, 8 and 15 of an MMA fragment, in a
+    second warp, across a tile edge and across the edge of chunk 0; 256 rows x
+    96 at B = 8, K = 64, one chunk (its list is the result), D not a multiple
+    of a 64-dimension slab; 20,000 rows x 1056 at B = 128, K = 12; and 256
+    rows x 128 at B = 33, K = 4, one chunk, where a list's k-th entry is the
+    result's; and ``float_threshold_case``. The L2 cache is overwritten
+    before each launch."""
+    m = topk_module
+    shapes = [(200_003, 1024, 33, 64), (256, 96, 8, 64), (20_000, 1056, 128, 12), (256, 128, 33, 4)]
+    cases = {}
+    for mode in _ALL:
+        for n, d, b, k in shapes:
+            chunk = m._float_kernel_plan(b, n, dev, mode)[1]
+            copies = sorted(r for r in {0, 7, 8, 15, 16 + 3, 127, 128, 255, chunk - 1, chunk} if r < n)
+            q, c, pen = float_scan_case(dev, g, n, d, b, mode, copies)
+            pv, pi = m.topk_float_plain(q, c, k + 1, pen, mode)
+            cases.setdefault(mode, []).append((q, c, pen, k, copies, True, pv, pi))
+        q, c, pen, k, want = float_threshold_case(dev, g, mode)
+        pv, pi = m.topk_float_plain(q, c, k + 1, pen, mode)
+        cases[mode].append((q, c, pen, k, want, False, pv, pi))
+    # written before each launch: the kernel finds its rows in device memory,
+    # not in the L2 cache, so a slot read before its copies land shows
+    flush_l2 = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    real = m._float_launcher()
+    unexpected = 0
+    for name, (headers, modes) in TOPK_MUTANTS.items():
+        fn = build_mutant(tmp, _build.CSRC_DIR / _SCAN, name, headers.get(_SCAN, []),
+                          symbol="topk_float_launch",
+                          headers={h: e for h, e in headers.items() if h != _SCAN} or {_TILE: []})
+        fn.argtypes, fn.restype = real.argtypes, real.restype
+        m._float_launch_fn = fn
+        caught = False
+        for mode in modes:
+            for q, c, pen, k, rows, tie, pv, pi in cases[mode]:
+                flush_l2.zero_()
+                vals, idx = m.topk_float(q, c, k, pen, mode)
+                torch.cuda.synchronize()
+                err = float((vals - pv[:, :k]).abs().max())
+                mism = tie_aware_mismatches(vals, idx, pv, pi, 1e-5)
+                head = min(k, len(rows))
+                first = (idx[0, :head].tolist() == rows[:head]
+                         and (not tie or bool((vals[0, :head] == vals[0, 0]).all())))
+                ok = err <= 1e-5 and mism == 0 and first
+                caught |= not ok
+                print(f"topk_float      {name:26s} {mode:5s} N={c.shape[0]:6d} D={q.shape[1]:4d} "
+                      f"B={q.shape[0]:3d} K={k:2d} passes={ok} max_abs_err={err:.3g} "
+                      f"mismatches={mism} query0_rows={first}", flush=True)
+        unexpected += caught != (name != "as_is")
+    m._float_launch_fn = real
+    return unexpected
+
+
 KERNELS = {"paged_attention": paged_mutants, "int8_linear": linear_mutants,
-           "int4": int4_mutants, "flash_attention": flash_mutants}
+           "int4": int4_mutants, "flash_attention": flash_mutants,
+           "topk_float": topk_mutants}
 
 
 def main(argv: list[str]) -> int:

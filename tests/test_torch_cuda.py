@@ -171,6 +171,83 @@ def test_topk_float_kernel_refuses_bad_shapes(cuda):
         topk_float(q, corpus, 12, penalty, "f32x2")  # f32 pairs
 
 
+@pytest.mark.parametrize("mode", ["fp32", "bf16", "f32x2"])
+@pytest.mark.parametrize("n,b", [(300_007, 33), (40_000, 128)])
+def test_topk_float_copies_tie_in_every_position(cuda, mode, n, b):
+    """Copies of one row at positions 0, 7, 8 and 15 of a 16-row MMA
+    fragment, in a second warp's fragment, on both sides of a tile edge and
+    of the first chunk's edge all score bit for bit alike and come out lowest
+    row first (every output element sums in one order fixed by d)."""
+    from outline_rag_tpu_torch.ops.topk import _float_kernel_plan
+    from outline_rag_tpu_torch.tools.kernel_mutants import float_scan_case
+
+    chunk = _float_kernel_plan(b, n, cuda, mode)[1]
+    copies = sorted({0, 7, 8, 15, 16 + 0, 16 + 7, 16 + 8, 16 + 15, 127, 128, 255, 256,
+                     chunk - 1, chunk})
+    assert chunk < n
+    g = torch.Generator(device=cuda).manual_seed(n + b)
+    q, corpus, penalty = float_scan_case(cuda, g, n, 1024, b, mode, copies)
+    vals, idx = topk_float(q, corpus, 64, penalty, mode)
+    torch.cuda.synchronize()
+    assert idx[0, : len(copies)].tolist() == copies
+    assert (vals[0, : len(copies)] == vals[0, 0]).all()
+    pv, pi = topk_float_plain(q, corpus, 65, penalty, mode)
+    assert tie_aware_mismatches(vals, idx, pv, pi, 1e-5) == 0
+    assert float((vals - pv[:, :64]).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("mode", ["fp32", "bf16", "f32x2"])
+def test_topk_float_threshold_is_the_lists_kth_entry(cuda, mode):
+    """A row that arrives after a list is full and scores between its
+    (k-1)-th and k-th entries still enters: the test a score must pass is
+    the k-th entry, exactly."""
+    from outline_rag_tpu_torch.tools.kernel_mutants import float_threshold_case
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q, corpus, penalty, k, want = float_threshold_case(cuda, g, mode)
+    vals, idx = topk_float(q, corpus, k, penalty, mode)
+    torch.cuda.synchronize()
+    assert idx[0].tolist() == want
+    assert vals[0].tolist() == [1.0, 15 / 16, 7 / 8, 27 / 32]
+    pv, pi = topk_float_plain(q, corpus, k + 1, penalty, mode)
+    assert tie_aware_mismatches(vals, idx, pv, pi, 1e-5) == 0
+
+
+@pytest.mark.parametrize("mode", ["fp32", "bf16", "f32x2"])
+@pytest.mark.parametrize(
+    "n,d,b,k,orientation",
+    [(70_001, 96, 1, 64, "qmajor"), (9_000, 1056, 33, 64, "cmajor"), (5_003, 1056, 128, 12, "qmajor"),
+     (255, 96, 33, 64, "cmajor"), (130_000, 1024, 128, 64, "cmajor")],
+)
+def test_topk_float_kernel_shapes_of_the_new_tiles(cuda, mode, n, d, b, k, orientation):
+    """D that a 64-dimension slab does not divide (96, 1056), N that no tile
+    divides, B of 1, 33 and 128 and both orientations: within 1e-5 of the
+    twin, no tie-aware mismatch, and two runs bit-equal."""
+    q, corpus, penalty = _float_case(cuda, n, d, b, mode, seed=n + d + b)
+    vals, idx = topk_float(q, corpus, k, penalty, mode, orientation)
+    torch.cuda.synchronize()
+    pv, pi = topk_float_plain(q, corpus, k + 1, penalty, mode)
+    assert float((vals - pv[:, :k]).abs().max()) <= 1e-5
+    assert tie_aware_mismatches(vals, idx, pv, pi, 1e-5) == 0
+    again = topk_float(q, corpus, k, penalty, mode, orientation)
+    assert torch.equal(vals, again[0]) and torch.equal(idx, again[1])
+
+
+@pytest.mark.parametrize("mode", ["fp32", "bf16", "f32x2"])
+@pytest.mark.parametrize("d,b", [(96, 33), (1056, 128)])
+def test_topk_float_kernel_few_live_rows(cuda, mode, d, b):
+    """Fewer live rows than K, spread over several chunks: the unfilled
+    slots are (NEG, 0)."""
+    q, corpus, _ = _float_case(cuda, 50_000, d, b, mode, seed=d + b)
+    penalty = torch.full((50_000,), NEG, device=cuda)
+    penalty[torch.arange(11, 50_000, 5000, device=cuda)] = 0.0  # 10 live rows
+    vals, idx = topk_float(q, corpus, 64, penalty, mode, "cmajor")
+    pv, pi = topk_float_plain(q, corpus, 64, penalty, mode)
+    assert tie_aware_mismatches(vals, idx, pv, pi, 1e-5) == 0
+    assert (vals[:, 10:] == NEG).all() and (idx[:, 10:] == 0).all()
+    assert (vals[:, :10] > NEG / 2).all()
+
+
 def _attention_case(dev, b, s, h, lengths, seed, dtype=torch.bfloat16):
     """A row's live keys: the first n for an int, else a list of (from, to)
     spans (a bias that is no prefix mask)."""

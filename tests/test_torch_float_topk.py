@@ -174,3 +174,79 @@ def test_tie_aware_mismatches_counts_only_real_disagreements():
     assert tie_aware_mismatches(ref_v, dead, ref_v, ref_i, TOL) == 1
     off = ref_v + torch.tensor([[0.0, 0.0, 0.0, 1e-3, 0.0]])
     assert tie_aware_mismatches(off, ref_i, ref_v, ref_i, TOL) == 1
+
+
+def _shape_constants():
+    """The ``Shape`` constants of csrc/topk_float_tile.cuh, by mode."""
+    import re
+
+    from outline_rag_tpu_torch.ops import _build
+
+    text = (_build.CSRC_DIR / "topk_float_tile.cuh").read_text()
+    shapes = {}
+    for mode, body in re.findall(r"struct Shape<(\w+)> \{(.*?)\n\};", text, re.S):
+        shapes[mode] = {k: int(v) for k, v in re.findall(r"constexpr int (\w+) = (\d+);", body)}
+    return text, shapes
+
+
+def test_float_kernel_constants_match_the_source():
+    """The wrapper plans chunks with the kernel's own constants."""
+    from outline_rag_tpu_torch.ops import topk
+
+    text, shapes = _shape_constants()
+    assert f"constexpr int TB = {topk._FLOAT_KERNEL_TB};" in text
+    assert f"constexpr int CHUNK_ROWS = {topk._FLOAT_KERNEL_CHUNK_ROWS};" in text
+    assert f"constexpr int DSTEP = {topk._FLOAT_KERNEL_DC};" in text
+    by_mode = {"FP32": "fp32", "BF16": "bf16", "F32X2": "f32x2"}
+    assert {by_mode[m]: s["MIN_BLOCKS"] for m, s in shapes.items()} == topk._FLOAT_RESIDENT
+    for s in shapes.values():  # every tile divides a chunk
+        assert topk._FLOAT_KERNEL_CHUNK_ROWS % s["TN"] == 0
+
+
+@pytest.mark.parametrize("mode", ["fp32", "bf16", "f32x2"])
+@pytest.mark.parametrize("b,n", [(1, 1), (1, 255), (32, 1_048_576), (33, 70_001), (128, 5_003),
+                                 (4096, 20_000)])
+def test_float_kernel_plan_covers_every_row_once(monkeypatch, mode, b, n):
+    """Whole chunks of 256-row steps, the last one holding a row, one wave of
+    the blocks the card holds at once (a 132-SM card)."""
+    from outline_rag_tpu_torch.ops import topk
+
+    class Props:
+        multi_processor_count = 132
+
+    monkeypatch.setattr(torch.cuda, "get_device_properties", lambda device: Props())
+    chunks, rows = topk._float_kernel_plan(b, n, torch.device("cpu"), mode)
+    assert rows % topk._FLOAT_KERNEL_CHUNK_ROWS == 0
+    assert (chunks - 1) * rows < n <= chunks * rows
+    q_tiles = -(-b // topk._FLOAT_KERNEL_TB)
+    assert chunks * q_tiles <= max(q_tiles, topk._FLOAT_RESIDENT[mode] * 132)
+
+
+def _topk_mutant_edits():
+    from outline_rag_tpu_torch.tools import kernel_mutants
+
+    for name, (files, _) in kernel_mutants.TOPK_MUTANTS.items():
+        for source, edits in files.items():
+            for i, edit in enumerate(edits):
+                yield pytest.param(source, edit, id=f"{name}-{i}")
+
+
+@pytest.mark.parametrize("source,edit", list(_topk_mutant_edits()))
+def test_every_topk_float_mutant_edit_applies_to_the_source(source, edit):
+    """The card tool edits copies of ``csrc/topk_float.cu`` and its headers
+    and refuses an edit whose text occurs another number of times: each one
+    still finds its line, and changes it."""
+    from outline_rag_tpu_torch.ops import _build
+
+    old, new, occurrences = edit
+    assert old != new
+    assert (_build.CSRC_DIR / source).read_text().count(old) == occurrences
+
+
+def test_every_topk_float_mutant_reaches_a_mode():
+    from outline_rag_tpu_torch.tools import kernel_mutants
+
+    assert "topk_float" in kernel_mutants.KERNELS
+    for name, (files, modes) in kernel_mutants.TOPK_MUTANTS.items():
+        assert set(modes) <= {"fp32", "bf16", "f32x2"} and modes
+        assert (name == "as_is") == (not files)
