@@ -1,11 +1,12 @@
 // topk_common.cuh — the selection half shared by the top-K scan kernels
-// (topk_int8.cu, topk_float.cu): the warp insertion into a sorted running
-// top-K list in shared memory and the write-out of a chunk's list (the int8
-// scan), a warp's bitonic network over 64 entries held in registers (the
-// float scan's lists), and the per-query merge pass over the chunks' lists.
+// (topk_int8.cu, topk_float.cu): a warp's bitonic network over 64 entries
+// held in registers; the one selection both scans run after their epilogue
+// (a per-query running list in registers, fed through a buffer in shared
+// memory, and the write-out of a chunk's list); and the per-query merge pass
+// over the chunks' lists.
 //
 // Order: value descending, the lower row index first on ties. A candidate
-// scoring <= NEG/2 is never inserted, and unfilled slots are written as
+// scoring <= NEG/2 is never kept, and unfilled slots are written as
 // (NEG, 0), exactly as the Pallas kernel emits them.
 
 #pragma once
@@ -24,54 +25,6 @@ constexpr float DEAD = -5e29f;  // NEG / 2: scores at or below are never kept
 
 __device__ __forceinline__ bool ranks_before(float va, int ia, float vb, int ib) {
   return va > vb || (va == vb && ia < ib);
-}
-
-// One warp offers up to 32 candidates, one per lane (`valid` marks the real
-// ones), to a list in shared memory: lv/li hold n entries (n is the same in
-// every lane) sorted by (value desc, index asc), at most k of them. Accepted
-// candidates are inserted one at a time at their rank.
-__device__ __forceinline__ void warp_offer(float* lv, int* li, int& n, int k,
-                                           float v, int i, bool valid) {
-  const unsigned full = 0xffffffffu;
-  const int lane = threadIdx.x & 31;
-  const bool want =
-      valid && v > DEAD && (n < k || ranks_before(v, i, lv[k - 1], li[k - 1]));
-  unsigned pending = __ballot_sync(full, want);
-  while (pending) {
-    const int src = __ffs(pending) - 1;
-    pending &= pending - 1;
-    const float cv = __shfl_sync(full, v, src);
-    const int ci = __shfl_sync(full, i, src);
-    // the k-th entry may have risen since the ballot
-    if (n == k && !ranks_before(cv, ci, lv[k - 1], li[k - 1])) continue;
-    const int e0 = lane, e1 = lane + 32;
-    float v0 = 0.f, v1 = 0.f;
-    int i0 = 0, i1 = 0;
-    if (e0 < n) { v0 = lv[e0]; i0 = li[e0]; }
-    if (e1 < n) { v1 = lv[e1]; i1 = li[e1]; }
-    const int pos =
-        __popc(__ballot_sync(full, e0 < n && ranks_before(v0, i0, cv, ci))) +
-        __popc(__ballot_sync(full, e1 < n && ranks_before(v1, i1, cv, ci)));
-    const int nn = n < k ? n + 1 : k;
-    __syncwarp();
-    // entries pos .. nn-2 move down one slot; the last one drops when full
-    if (e0 >= pos && e0 + 1 < nn) { lv[e0 + 1] = v0; li[e0 + 1] = i0; }
-    if (e1 >= pos && e1 + 1 < nn) { lv[e1 + 1] = v1; li[e1 + 1] = i1; }
-    if (lane == 0) { lv[pos] = cv; li[pos] = ci; }
-    __syncwarp();
-    n = nn;
-  }
-}
-
-// One warp writes a list of n entries as K slots at out + e * stride,
-// unfilled slots as (NEG, 0).
-__device__ __forceinline__ void warp_write(const float* lv, const int* li,
-                                           int n, int k, float* out_v,
-                                           int* out_i, long long stride) {
-  for (int e = threadIdx.x & 31; e < k; e += 32) {
-    out_v[e * stride] = e < n ? lv[e] : NEG;
-    out_i[e * stride] = e < n ? li[e] : 0;
-  }
 }
 
 // An entry of a list: a score and its row. Empty entries are (-inf, INT_MAX)
@@ -126,6 +79,146 @@ __device__ __forceinline__ void merge_sorted(Entry (&x)[2], const Entry (&y)[2])
 #pragma unroll
   for (int j = 32; j > 0; j >>= 1) bitonic_step(x, 128, j);
 }
+
+constexpr int LIST = 64;  // entries of a running list and of its buffer (two a lane)
+static_assert(KMAX <= LIST, "a list holds K entries");
+
+// A query's running list of the LIST best entries seen, sorted by (value
+// desc, row asc), held by one warp in registers: entry e is x[e / 32] of
+// lane e % 32.
+struct WarpList {
+  Entry x[2] = {{-INFINITY, NO_ROW}, {-INFINITY, NO_ROW}};
+};
+
+// The buffered candidates (n of them, in `bv`/`bi`) merged into the list:
+// the buffer is sorted descending, its reverse met entry by entry with the
+// list (the better of each pair is the best 64 of both, in a bitonic
+// order), and that sorted. Exact: the order is a total one on (value, row).
+__device__ __forceinline__ void flush(WarpList& L, const float* bv, const int* bi, int n) {
+  const int lane = threadIdx.x & 31;
+  __syncwarp();  // the buffer's entries are written
+  Entry c[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int e = lane + 32 * r;
+    c[r] = e < n ? Entry{bv[e], bi[e]} : Entry{-INFINITY, NO_ROW};
+  }
+  __syncwarp();  // read before the buffer is refilled
+#pragma unroll
+  for (int size = 2; size <= LIST; size <<= 1)
+#pragma unroll
+    for (int j = size >> 1; j > 0; j >>= 1) bitonic_step(c, size, j);
+  merge_sorted(L.x, c);
+}
+
+// The value a score must beat to enter the list's first k: its k-th entry's
+// once there are k, else DEAD. Within a chunk rows come in increasing
+// order, so a later score equal to it ranks after it: the test is exact.
+__device__ __forceinline__ float list_kth(const WarpList& L, int k) {
+  const float v = __shfl_sync(0xffffffffu, k - 1 < 32 ? L.x[0].v : L.x[1].v, (k - 1) & 31);
+  return fmaxf(v, DEAD);
+}
+
+// The selection of a scan block of 4 * SEL_WARPS queries over its chunk:
+// warp w selects for queries 4w .. 4w + 3 of the block. For each it keeps
+// the running list, the value a score must beat to be a candidate (the
+// list's k-th, in a register) and how many candidates wait in the query's
+// buffer of LIST in shared memory (`buf_v`/`buf_i`: [4 * SEL_WARPS][LIST]).
+// `live` is how many of the block's queries exist (B - q0); the others are
+// never selected for.
+struct WarpSelect {
+  WarpList list[4];
+  float kth[4] = {DEAD, DEAD, DEAD, DEAD};
+  int waiting[4] = {0, 0, 0, 0};
+
+  // One tile's scores, query qq's row r at st[qq * STRIDE + r], for rows
+  // tile .. tile + TN - 1 (a row past the chunk scores NEG). Each warp reads
+  // its queries' scores and votes, a 32-row group at a time, which beat the
+  // query's k-th value (the Pallas kernel's needs_merge test: once a list is
+  // full, most tiles stop at these votes). The winners are appended to the
+  // query's buffer in row order, all at once where the buffer has room for
+  // them; else a group at a time, a full buffer merged into the list first,
+  // which raises the k-th value.
+  template <int TN, int STRIDE>
+  __device__ __forceinline__ void offer(const float* st, float* buf_v, int* buf_i, long long tile,
+                                        int live, int k) {
+    constexpr int GROUPS = TN / 32;
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const unsigned below = (1u << lane) - 1;  // the lanes before this one
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const int qq = warp * 4 + b;
+      if (qq >= live) break;  // the same in every lane of the warp
+      const float* srow = st + qq * STRIDE;
+      float vs[GROUPS];
+      unsigned wins[GROUPS];
+      int total = 0;
+#pragma unroll
+      for (int a = 0; a < GROUPS; ++a) {
+        vs[a] = srow[lane + 32 * a];
+        wins[a] = __ballot_sync(0xffffffffu, vs[a] > kth[b]);
+        total += __popc(wins[a]);
+      }
+      if (total == 0) continue;
+      float* bv = buf_v + qq * LIST;
+      int* bi = buf_i + qq * LIST;
+      if (waiting[b] + total <= LIST) {
+#pragma unroll
+        for (int a = 0; a < GROUPS; ++a) {
+          if (wins[a] >> lane & 1) {
+            const int slot = waiting[b] + __popc(wins[a] & below);
+            bv[slot] = vs[a];
+            bi[slot] = static_cast<int>(tile + lane + 32 * a);
+          }
+          waiting[b] += __popc(wins[a]);
+        }
+        continue;
+      }
+#pragma unroll 1
+      for (int a = 0; a < GROUPS; ++a) {
+        const float va = srow[lane + 32 * a];
+        unsigned win = __ballot_sync(0xffffffffu, va > kth[b]);
+        if (waiting[b] + __popc(win) > LIST) {  // no room: merge the buffer first
+          flush(list[b], bv, bi, waiting[b]);
+          kth[b] = list_kth(list[b], k);
+          waiting[b] = 0;
+          win = __ballot_sync(0xffffffffu, va > kth[b]);
+        }
+        if (win >> lane & 1) {
+          const int slot = waiting[b] + __popc(win & below);
+          bv[slot] = va;
+          bi[slot] = static_cast<int>(tile + lane + 32 * a);
+        }
+        waiting[b] += __popc(win);
+      }
+    }
+  }
+
+  // The chunk's lists, after its last tile: what still waits is merged, and
+  // query qq's first k entries go to part_v/part_i + (first + qq) * k, dead
+  // ones as (NEG, 0). `first` is the row of the block's query 0 in the
+  // [chunks * B] lists.
+  __device__ __forceinline__ void write(const float* buf_v, const int* buf_i, int live, int k,
+                                        long long first, float* part_v, int* part_i) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const int qq = warp * 4 + b;
+      if (qq >= live) break;
+      if (waiting[b] > 0) flush(list[b], buf_v + qq * LIST, buf_i + qq * LIST, waiting[b]);
+      const long long base = (first + qq) * k;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int e = lane + 32 * r;
+        const Entry x = list[b].x[r];
+        if (e < k) {
+          part_v[base + e] = x.v > DEAD ? x.v : NEG;
+          part_i[base + e] = x.v > DEAD ? x.i : 0;
+        }
+      }
+    }
+  }
+};
 
 // Entry e (< k) of a chunk's sorted list of k at v/i; a dead or missing slot
 // is empty.

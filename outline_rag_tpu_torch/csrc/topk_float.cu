@@ -39,8 +39,9 @@
 //     of the queries through a three-slot cp.async ring in their storage
 //     type, so the next slabs are in flight while one is multiplied, across
 //     tile edges too. After a tile's last slab each thread adds the penalty
-//     to its scores and writes them to shared memory; one warp per query
-//     then reads the tile's scores and votes whether any beats the query's
+//     to its scores and writes them to shared memory; the selection
+//     (topk_common.cuh's WarpSelect, which topk_int8.cu runs too): one warp
+//     per query reads the tile's scores and votes whether any beats the query's
 //     k-th value, kept in a register (the Pallas kernel's needs_merge test).
 //     Only then are the scores that beat it appended to the query's buffer
 //     in shared memory (one vote and a prefix count a 32-row group); a full
@@ -56,48 +57,9 @@
 
 namespace {
 
-constexpr int LIST = 64;  // entries of a running list and of its buffer (two a lane)
-static_assert(KMAX <= LIST, "a list holds K entries");
-
 template <int MODE>
 __host__ __device__ constexpr int scan_smem() {
   return ring_bytes<MODE>() + TB * (Shape<MODE>::TN + STW) * 4 + TB * LIST * 8;
-}
-
-// A query's running list of the LIST best entries seen, sorted by (value
-// desc, row asc), held by one warp in registers: entry e is x[e / 32] of
-// lane e % 32.
-struct WarpList {
-  Entry x[2] = {{-INFINITY, NO_ROW}, {-INFINITY, NO_ROW}};
-};
-
-// The buffered candidates (n of them, in `bv`/`bi`) merged into the list:
-// the buffer is sorted descending, its reverse met entry by entry with the
-// list (the better of each pair is the best 64 of both, in a bitonic
-// order), and that sorted. Exact: the order is a total one on (value, row).
-__device__ __forceinline__ void flush(WarpList& L, const float* bv, const int* bi, int n) {
-  const int lane = threadIdx.x & 31;
-  __syncwarp();  // the buffer's entries are written
-  Entry c[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int e = lane + 32 * r;
-    c[r] = e < n ? Entry{bv[e], bi[e]} : Entry{-INFINITY, NO_ROW};
-  }
-  __syncwarp();  // read before the buffer is refilled
-#pragma unroll
-  for (int size = 2; size <= LIST; size <<= 1)
-#pragma unroll
-    for (int j = size >> 1; j > 0; j >>= 1) bitonic_step(c, size, j);
-  merge_sorted(L.x, c);
-}
-
-// The value a score must beat to enter the list's first k: its k-th entry's
-// once there are k, else DEAD. Within a chunk rows come in increasing
-// order, so a later score equal to it ranks after it: the test is exact.
-__device__ __forceinline__ float list_kth(const WarpList& L, int k) {
-  const float v = __shfl_sync(0xffffffffu, k - 1 < 32 ? L.x[0].v : L.x[1].v, (k - 1) & 31);
-  return fmaxf(v, DEAD);
 }
 
 template <int MODE>
@@ -112,18 +74,13 @@ scan_kernel(const typename Shape<MODE>::T* __restrict__ q,
   float* buf_v = st + TB * (TN + STW);                               // [TB][LIST] candidates
   int* buf_i = reinterpret_cast<int*>(buf_v + TB * LIST);            // [TB][LIST]
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   Scan<MODE> sc{q, corpus, B, D, static_cast<int>(blockIdx.x) * TB, 0, 0};
   const long long chunk = blockIdx.y;
   chunk_rows(chunk, rows_per_chunk, N, sc.row_begin, sc.row_end);
   const long long row_end = sc.row_end;
 
-  // warp w selects for queries 4w .. 4w + 3: their lists, the value a score
-  // must beat to be a candidate, and how many candidates wait in the buffer
-  WarpList list[4];
-  float kth[4] = {DEAD, DEAD, DEAD, DEAD};
-  int waiting[4] = {0, 0, 0, 0};
-
+  WarpSelect sel;  // warp w selects for queries 4w .. 4w + 3
+  const int live = B - sc.q0;
   score_rows<MODE>(sc, smem, [&](long long tile, const auto& acc) {
     // epilogue: + penalty, each rounded alone; rows past the chunk are NEG
     acc.visit([&](int, int r, int qq, float dot) {
@@ -131,54 +88,9 @@ scan_kernel(const typename Shape<MODE>::T* __restrict__ q,
       st[qq * (TN + STW) + r] = row < row_end ? __fadd_rn(dot, penalty[row]) : NEG;
     });
     __syncthreads();
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      const int qq = warp * 4 + b;
-      if (sc.q0 + qq >= B) break;  // the same in every lane of the warp
-      const float* srow = st + qq * (TN + STW);
-      bool beats = false;
-#pragma unroll
-      for (int a = 0; a < TN / 32; ++a) beats |= srow[lane + 32 * a] > kth[b];
-      // the tile-max test: once a list is full, most tiles stop at this vote
-      if (!__any_sync(0xffffffffu, beats)) continue;
-      float* bv = buf_v + qq * LIST;
-      int* bi = buf_i + qq * LIST;
-#pragma unroll 1
-      for (int a = 0; a < TN / 32; ++a) {
-        const float va = srow[lane + 32 * a];
-        unsigned win = __ballot_sync(0xffffffffu, va > kth[b]);
-        if (waiting[b] + __popc(win) > LIST) {  // no room: merge the buffer first
-          flush(list[b], bv, bi, waiting[b]);
-          kth[b] = list_kth(list[b], K);
-          waiting[b] = 0;
-          win = __ballot_sync(0xffffffffu, va > kth[b]);
-        }
-        if (win >> lane & 1) {
-          const int slot = waiting[b] + __popc(win & ((1u << lane) - 1));
-          bv[slot] = va;
-          bi[slot] = static_cast<int>(tile + lane + 32 * a);
-        }
-        waiting[b] += __popc(win);
-      }
-    }
+    sel.offer<TN, TN + STW>(st, buf_v, buf_i, tile, live, K);
   });
-
-#pragma unroll
-  for (int b = 0; b < 4; ++b) {
-    const int qq = warp * 4 + b;
-    if (sc.q0 + qq >= B) break;
-    if (waiting[b] > 0) flush(list[b], buf_v + qq * LIST, buf_i + qq * LIST, waiting[b]);
-    const long long base = (chunk * B + (sc.q0 + qq)) * (long long)K;
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int e = lane + 32 * r;
-      const Entry x = list[b].x[r];
-      if (e < K) {
-        part_v[base + e] = x.v > DEAD ? x.v : NEG;
-        part_i[base + e] = x.v > DEAD ? x.i : 0;
-      }
-    }
-  }
+  sel.write(buf_v, buf_i, live, K, chunk * B + sc.q0, part_v, part_i);
 }
 
 static_assert(scan_smem<FP32>() <= 232448 && scan_smem<F32X2>() <= 232448, "one block an SM");

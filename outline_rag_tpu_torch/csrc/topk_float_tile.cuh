@@ -1,8 +1,9 @@
-// topk_float_tile.cuh — the score pass shared by the float scan kernels
-// (topk_float.cu, which selects a top-K from the scores, and topk_floor.cu,
-// which only keeps a running maximum): the per-mode tile shapes, the ring of
-// shared-memory slabs fed by cp.async in the storage type, and the products
-// of one tile of corpus rows against the block's queries.
+// topk_float_tile.cuh — the score pass shared by the scan kernels
+// (topk_float.cu and topk_int8.cu, which select a top-K from the scores, and
+// topk_floor.cu, which only keeps a running maximum): the per-mode tile
+// shapes, the ring of shared-memory slabs fed by cp.async in the storage
+// type, and the products of one tile of corpus rows against the block's
+// queries.
 //
 //   bf16, f32x2: mma.sync.m16n8k16 (bf16 x bf16 -> f32) fed by ldmatrix. The
 //     corpus tile is the A operand ([rows, d] as stored), the queries the B
@@ -13,6 +14,14 @@
 //     tensor core's truncating accumulation only ever sees a slab's partial
 //     sum; f32x2's hi.lo and lo.hi sums (2^-8 of the score) run on the tensor
 //     core over all of D.
+//   int8: mma.sync.m16n8k32 (s8 x s8 -> s32) fed by ldmatrix, laid out as
+//     bf16's: a 16-row x 32-byte A fragment and an 8-query x 32-byte B
+//     fragment have bf16's byte addresses, so warp w owns rows 16w .. 16w +
+//     15 of a 128-row tile against the 32 queries, in four n8 tiles of int32
+//     sums. Slabs are 128 bytes (four 32-byte k-steps); a D with D % 32 ==
+//     16 multiplies a last half k-step of zero-filled bytes. The int32 sums
+//     are exact (|sum| <= 127^2 D), so they need no per-slab fold and equal
+//     the plain version's whatever the order.
 //   fp32: true fp32 fused multiply-adds on the CUDA cores in d order (no
 //     TF32: the Precision.HIGHEST rule). A thread forms 4 rows x 8 queries of
 //     a 256-row tile: its rows are its own, its queries the same in every
@@ -33,7 +42,7 @@
 
 namespace {
 
-enum Mode { FP32 = 0, BF16 = 1, F32X2 = 2 };
+enum Mode { FP32 = 0, BF16 = 1, F32X2 = 2, INT8 = 3 };
 
 constexpr int THREADS = SEL_THREADS;  // 8 warps
 constexpr int TB = 32;                // queries a block
@@ -64,6 +73,13 @@ template <> struct Shape<F32X2> {
   static constexpr int PLANES = 2;    // hi, lo
   static constexpr int MIN_BLOCKS = 1;
 };
+template <> struct Shape<INT8> {
+  using T = int8_t;
+  static constexpr int TN = 128;
+  static constexpr int DC = 128;      // bytes: four 32-byte k-steps
+  static constexpr int PLANES = 1;
+  static constexpr int MIN_BLOCKS = 2;
+};
 
 // A staged row: a slab's bytes of one row and 16 of padding, so that the
 // 16-byte reads of 8 rows hit all 32 banks; 16-byte pieces a row.
@@ -81,8 +97,11 @@ __host__ __device__ constexpr int slot_bytes() {
 template <int MODE>
 __host__ __device__ constexpr int ring_bytes() { return STAGES * slot_bytes<MODE>(); }
 
-static_assert(CHUNK_ROWS % Shape<FP32>::TN == 0 && CHUNK_ROWS % Shape<BF16>::TN == 0, "tiles");
-static_assert(Shape<BF16>::TN == 16 * (THREADS / 32), "a warp owns 16 rows");
+static_assert(CHUNK_ROWS % Shape<FP32>::TN == 0 && CHUNK_ROWS % Shape<BF16>::TN == 0 &&
+                  CHUNK_ROWS % Shape<INT8>::TN == 0, "tiles");
+static_assert(Shape<BF16>::TN == 16 * (THREADS / 32) && Shape<INT8>::TN == 16 * (THREADS / 32),
+              "a warp owns 16 rows");
+static_assert(TB == 4 * SEL_WARPS, "a warp selects for 4 queries");
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];"
@@ -97,6 +116,44 @@ __device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void mma_16832_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                             uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Where the outputs of an m16n8 tensor-core tile lie: warp w's rows 16w ..
+// 16w + 15 against four n8 tiles of queries, four outputs a tile a thread.
+struct MmaPlace {
+  // f(i, row in the tile, query in the block) for each output i of this thread
+  template <typename F>
+  static __device__ __forceinline__ void place(F&& f) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+      f(i, 16 * warp + g + 8 * ((i & 3) >> 1), 8 * (i >> 2) + 2 * t + (i & 1));
+  }
+  static constexpr int OUTPUTS = 16;
+};
+
+// ldmatrix row addresses in a slot of MODE: A, rows 16w + (lane & 15), k
+// half lane >> 4; B, for n8 tiles (2p, 2p + 1): query 16p + 8 (lane >> 4) +
+// (lane & 7), k half (lane >> 3) & 1 (a k half is 16 bytes)
+template <int MODE>
+__device__ __forceinline__ const unsigned char* a_rows(const unsigned char* slot) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  return slot + (16 * warp + (lane & 15)) * row_bytes<MODE>() + (lane >> 4) * 16;
+}
+template <int MODE>
+__device__ __forceinline__ const unsigned char* b_rows(const unsigned char* slot) {
+  const int lane = threadIdx.x & 31;
+  return slot + (Shape<MODE>::TN + 8 * (lane >> 4) + (lane & 7)) * row_bytes<MODE>() +
+         ((lane >> 3) & 1) * 16;
 }
 
 // What the score pass hands a block: its operands and its rows.
@@ -115,7 +172,7 @@ template <int MODE, bool MMA = (MODE != FP32)>
 struct Acc;
 
 template <int MODE>
-struct Acc<MODE, true> {
+struct Acc<MODE, true> : MmaPlace {
   static constexpr bool COMP = MODE == F32X2;
   float hh[4][4], run[4][4], hl[4][4], lh[4][4];  // [n8 tile][fragment element]
 
@@ -141,13 +198,8 @@ struct Acc<MODE, true> {
   // ksteps 16-dimension steps of the slab in `slot`
   __device__ __forceinline__ void product(const unsigned char* slot, int ksteps) {
     constexpr int TN = Shape<MODE>::TN, ROW_BYTES = row_bytes<MODE>();
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    // ldmatrix row addresses: A, rows 16w + (lane & 15), k half lane >> 4;
-    // B, for n8 tiles (2p, 2p + 1): query 16p + 8 (lane >> 4) + (lane & 7),
-    // k half (lane >> 3) & 1
-    const unsigned char* a_row = slot + (16 * warp + (lane & 15)) * ROW_BYTES + (lane >> 4) * 16;
-    const unsigned char* b_row =
-        slot + (TN + 8 * (lane >> 4) + (lane & 7)) * ROW_BYTES + ((lane >> 3) & 1) * 16;
+    const unsigned char* a_row = a_rows<MODE>(slot);
+    const unsigned char* b_row = b_rows<MODE>(slot);
     constexpr int PLANE = (TN + TB) * ROW_BYTES;
 #pragma unroll
     for (int s = 0; s < Shape<MODE>::DC / 16; ++s) {
@@ -181,19 +233,50 @@ struct Acc<MODE, true> {
     const int j = i >> 2, e = i & 3;
     return COMP ? __fadd_rn(__fadd_rn(run[j][e], hl[j][e]), lh[j][e]) : run[j][e];
   }
-  // f(i, row in the tile, query in the block) for each output i of this thread
-  template <typename F>
-  static __device__ __forceinline__ void place(F&& f) {
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-    for (int i = 0; i < 16; ++i)
-      f(i, 16 * warp + g + 8 * ((i & 3) >> 1), 8 * (i >> 2) + 2 * t + (i & 1));
-  }
-  static constexpr int OUTPUTS = 16;
   template <typename F>
   __device__ __forceinline__ void visit(F&& f) const {
     place([&](int i, int r, int qq) { f(i, r, qq, dot(i)); });
+  }
+};
+
+// int8: exact int32 sums over all of D, handed to the epilogue as they are.
+template <>
+struct Acc<INT8, true> : MmaPlace {
+  int acc[4][4];  // [n8 tile][fragment element]
+
+  __device__ __forceinline__ void start_tile() {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] = 0;
+  }
+  __device__ __forceinline__ void start_slab() {}
+  __device__ __forceinline__ void end_slab() {}
+
+  // the slab in `slot` up to its n16-th 16-byte piece: 32-byte k-steps, a
+  // last odd piece met by the zero-filled piece after it
+  __device__ __forceinline__ void product(const unsigned char* slot, int n16) {
+    constexpr int ROW_BYTES = row_bytes<INT8>();
+    const unsigned char* a_row = a_rows<INT8>(slot);
+    const unsigned char* b_row = b_rows<INT8>(slot);
+    const int ksteps = (n16 + 1) >> 1;
+#pragma unroll
+    for (int s = 0; s < Shape<INT8>::DC / 32; ++s) {
+      if (s < ksteps) {
+        uint32_t a[4], b[2][4];
+        ldmatrix_x4(a, a_row + 32 * s);
+        ldmatrix_x4(b[0], b_row + 32 * s);
+        ldmatrix_x4(b[1], b_row + 16 * ROW_BYTES + 32 * s);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          mma_16832_s8(acc[j], a, b[j >> 1][2 * (j & 1)], b[j >> 1][2 * (j & 1) + 1]);
+      }
+    }
+  }
+
+  template <typename F>
+  __device__ __forceinline__ void visit(F&& f) const {
+    place([&](int i, int r, int qq) { f(i, r, qq, acc[i >> 2][i & 3]); });
   }
 };
 

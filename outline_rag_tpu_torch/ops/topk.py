@@ -39,11 +39,16 @@ NEG = -1e30
 # corpus slice and the [B, rows] score matrix.
 PLAIN_ROWS_PER_STEP = 1 << 18
 
-# Tile sizes of csrc/topk_int8.cu (TB queries x TN rows) and the scans'
-# limit on K.
-_KERNEL_TB = 32
-_KERNEL_TN = 128
+# The scans' limit on K.
 KERNEL_MAX_K = 64
+
+# The int8 scan's constants, from ``Shape<INT8>`` and the score pass of
+# csrc/topk_float_tile.cuh: queries a block, the rows a chunk is a multiple
+# of (its 128-row tile divides it), and the blocks an SM holds at once
+# (``MIN_BLOCKS``, its shared memory). Pass 1 runs one wave of them.
+_INT8_KERNEL_TB = 32
+_INT8_KERNEL_CHUNK_ROWS = 256
+_INT8_RESIDENT = 2
 
 # The float scan's modes, by their code in csrc/topk_float.cu, and the
 # constants of csrc/topk_float_tile.cuh: queries a block, the rows a chunk
@@ -58,6 +63,9 @@ _FLOAT_KERNEL_DC = 32
 # one wave of them: fewer, longer chunks leave fewer lists to fill and merge.
 _FLOAT_RESIDENT = {"fp32": 1, "bf16": 2, "f32x2": 1}
 ORIENTATIONS = ("qmajor", "cmajor")
+# The rows of a tile whose first row the ``matmul`` floor keeps: the 128-row
+# tile of the bf16 and f32x2 float scans.
+_FLOOR_TILE_ROWS = 128
 
 
 def _select(scores: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -147,27 +155,30 @@ def topk_int8_plain(
     return vals.masked_fill(dead, NEG), idx.masked_fill(dead, 0)
 
 
-def _kernel_plan(b: int, n: int, device: torch.device) -> tuple[int, int]:
-    """(chunks, rows per chunk) for pass 1: about four blocks per SM in
-    all, each walking a whole number of 128-row tiles."""
+def _chunk_plan(n: int, device: torch.device, q_tiles: int, resident: int,
+                chunk_rows: int) -> tuple[int, int]:
+    """(chunks, rows per chunk) for a scan's pass 1: one wave of the blocks
+    the card holds at once (``resident`` an SM, ``q_tiles`` blocks a chunk),
+    each walking a whole number of ``chunk_rows`` rows. Fewer, longer chunks
+    leave fewer lists to fill and merge."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    q_tiles = -(-b // _KERNEL_TB)
-    tiles = -(-n // _KERNEL_TN)
-    chunks = min(tiles, max(1, (4 * sms) // q_tiles))
-    rows_per_chunk = -(-tiles // chunks) * _KERNEL_TN
+    steps = -(-n // chunk_rows)
+    chunks = min(steps, max(1, (resident * sms) // q_tiles))
+    rows_per_chunk = -(-steps // chunks) * chunk_rows
     return -(-n // rows_per_chunk), rows_per_chunk
+
+
+def _int8_kernel_plan(b: int, n: int, device: torch.device) -> tuple[int, int]:
+    """(chunks, rows per chunk) for the int8 scan's pass 1."""
+    return _chunk_plan(n, device, -(-b // _INT8_KERNEL_TB), _INT8_RESIDENT,
+                       _INT8_KERNEL_CHUNK_ROWS)
 
 
 def _float_kernel_plan(b: int, n: int, device: torch.device, mode: str) -> tuple[int, int]:
     """(chunks, rows per chunk) for the float scan's pass 1 (and its
-    floor): one wave of the blocks the card holds at once in ``mode``, each
-    walking a whole number of ``_FLOAT_KERNEL_CHUNK_ROWS`` rows."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    q_tiles = -(-b // _FLOAT_KERNEL_TB)
-    steps = -(-n // _FLOAT_KERNEL_CHUNK_ROWS)
-    chunks = min(steps, max(1, (_FLOAT_RESIDENT[mode] * sms) // q_tiles))
-    rows_per_chunk = -(-steps // chunks) * _FLOAT_KERNEL_CHUNK_ROWS
-    return -(-n // rows_per_chunk), rows_per_chunk
+    floor) in ``mode``."""
+    return _chunk_plan(n, device, -(-b // _FLOAT_KERNEL_TB), _FLOAT_RESIDENT[mode],
+                       _FLOAT_KERNEL_CHUNK_ROWS)
 
 
 _launch_fn = None
@@ -233,7 +244,7 @@ def topk_int8(
     b, d = q_queries.shape
     n = corpus.shape[0]
     dev = corpus.device
-    chunks, rows_per_chunk = _kernel_plan(b, n, dev)
+    chunks, rows_per_chunk = _int8_kernel_plan(b, n, dev)
     part_v = torch.empty((chunks, b, k), dtype=torch.float32, device=dev)
     part_i = torch.empty((chunks, b, k), dtype=torch.int32, device=dev)
     out_v = torch.empty((b, k), dtype=torch.float32, device=dev)
@@ -440,7 +451,7 @@ def topk_floor_plain(
     corpus: torch.Tensor,
     mode: str = "fp32",
     variant: str = "nomerge",
-    tile_rows: int = _KERNEL_TN,
+    tile_rows: int = _FLOOR_TILE_ROWS,
 ) -> torch.Tensor:
     """:func:`topk_floor` in plain PyTorch: ``[B]`` f32. Callers keep TF32
     off."""
@@ -484,7 +495,7 @@ def topk_floor(
     corpus: torch.Tensor,
     mode: str = "fp32",
     variant: str = "nomerge",
-    tile_rows: int = _KERNEL_TN,
+    tile_rows: int = _FLOOR_TILE_ROWS,
 ) -> torch.Tensor:
     """The float scan's floor: every score of :func:`topk_float` (same
     inputs, no penalty) is computed, and all that is kept is a running
@@ -493,8 +504,8 @@ def topk_floor(
     ``variant="nomerge"``: the maximum over all rows, which is the first
     column of :func:`topk_float`'s values. ``variant="matmul"``: the maximum
     over the rows that are multiples of ``tile_rows`` only (by default the
-    128-row tile of the int8 scan and the float scan's bf16 and f32x2 modes;
-    the JAX tool's tiles are 1024 rows), the
+    128-row tile of the float scan's bf16 and f32x2 modes; the JAX tool's
+    tiles are 1024 rows), the
     cheapest use of a tile that still needs all of it computed. The f32x2
     mode has ``nomerge`` only, as in the JAX tool. The full scan's time
     minus this one's is what selecting the top K costs. On CUDA tensors

@@ -1,5 +1,5 @@
 """What the float scan's selection costs on the card: the full scan beside
-its floors; and the scan of several checkouts side by side.
+its floors; and the scans of several checkouts side by side.
 
     python -m outline_rag_tpu_torch.tools.bench_topk_kernel [N] [B] [MODE ...]
     python -m outline_rag_tpu_torch.tools.bench_topk_kernel --scan DIR [DIR ...]
@@ -24,7 +24,8 @@ unpacked with ``git archive``, or ``.``); for each, in the order given, a
 fresh process starts in that directory, builds that checkout's kernels and
 times its ``topk_float`` at K = 64 over the same seeded 1,048,576 x 1024
 corpus in each mode, at B = 32 and 128, and at the serving shape B = 32,
-K = 12 (one JSON line a checkout). Give an
+K = 12; then its ``topk_int8`` the same way over a seeded 1,048,576 x 1024
+int8 corpus (one JSON line a checkout). Give an
 older checkout on both sides of a newer one (``old new new old``) to see the
 spread beside the difference.
 """
@@ -48,7 +49,7 @@ _SCAN = """
 import json, os, sys
 sys.path.insert(0, os.getcwd())
 import torch
-from outline_rag_tpu_torch.ops.topk import split_f32_bf16x2, topk_float
+from outline_rag_tpu_torch.ops.topk import split_f32_bf16x2, topk_float, topk_int8
 from outline_rag_tpu_torch.tools.timing import cuda_ms
 torch.backends.cuda.matmul.allow_tf32 = False
 dev = torch.device("cuda", torch.cuda.current_device())
@@ -68,6 +69,14 @@ for mode, cast in store.items():
     out[mode + "_b32_k12_ms"] = cuda_ms(lambda: topk_float(qc, c, 12, penalty, mode))
     del c
     torch.cuda.empty_cache()
+codes = torch.randint(-127, 128, (1 << 20, 1024), generator=g, device=dev, dtype=torch.int8)
+cscale = (torch.rand(1 << 20, generator=g, device=dev) + 0.5) / 127
+for b in (32, 128):
+    qc = torch.randint(-127, 128, (b, 1024), generator=g, device=dev, dtype=torch.int8)
+    qs = (torch.rand(b, generator=g, device=dev) + 0.5) / 127
+    out["int8_b" + str(b) + "_ms"] = cuda_ms(lambda: topk_int8(qc, qs, codes, cscale, 64, penalty))
+    if b == 32:
+        out["int8_b32_k12_ms"] = cuda_ms(lambda: topk_int8(qc, qs, codes, cscale, 12, penalty))
 print(json.dumps(out))
 """
 
@@ -96,7 +105,8 @@ def store(x: torch.Tensor, mode: str) -> torch.Tensor:
 
 
 def scan_checkouts(directories: list[str]) -> None:
-    """``--scan``: each checkout's ``topk_float`` in a fresh process of its own."""
+    """``--scan``: each checkout's ``topk_float`` and ``topk_int8`` in a fresh
+    process of its own."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     smi = card()
     for i, directory in enumerate(directories):

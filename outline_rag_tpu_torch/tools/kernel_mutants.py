@@ -1,19 +1,19 @@
 """How strong are the checks that hold the kernels to their twins?
 
     python -m outline_rag_tpu_torch.tools.kernel_mutants [kernel ...]
-    python -m outline_rag_tpu_torch.tools.kernel_mutants --ablate paged_attention
+    python -m outline_rag_tpu_torch.tools.kernel_mutants --ablate paged_attention|topk_int8
 
 Run it on a machine with one CUDA card and ``nvcc`` (all kernels, or those
 named among ``paged_attention``, ``int8_linear``, ``int4``,
-``flash_attention``, ``topk_float``). It copies
+``flash_attention``, ``topk_float``, ``topk_int8``). It copies
 ``csrc/flash_attention.cu``, ``csrc/paged_attention.cu``,
-``csrc/int8_linear.cu``, ``csrc/int4_linear.cu`` and ``csrc/topk_float.cu``
-(with its headers) into a temporary
+``csrc/int8_linear.cu``, ``csrc/int4_linear.cu``, ``csrc/topk_float.cu`` and
+``csrc/topk_int8.cu`` (with their headers) into a temporary
 directory, applies one fault at a time to the copy (a skipped key tile, a
 missing rescale, an unswizzled tile, a horizon off by one, a dropped scale,
 splits folded out of order, a ring slot read before it landed, swapped
 nibbles, a missing sign extension, a group combined out of order, a dropped
-k-step or compensation term, a missing penalty, ...),
+k-step or compensation term, a missing penalty, scales in another order, ...),
 builds each mutant into a library of its own, runs it through the package's
 wrapper at the model's shapes, and prints whether the comparison
 ``chip_smoke.py`` and the card tests use would have passed it. The sources
@@ -23,7 +23,7 @@ each pool: some faults show only where a tile straddles a split boundary, or
 in the fold-order row); a mutant that only moves a rounding
 (``p_not_rounded``) is below what a tolerance for bf16 rounding can see, and
 is listed to say so. ``--ablate paged_attention`` times the copies of
-``PAGED_VARIANTS`` instead. The speculative decoding path has no kernel of
+``PAGED_VARIANTS`` instead, ``--ablate topk_int8`` those of ``INT8_VARIANTS``. The speculative decoding path has no kernel of
 its own and so no mutant.
 """
 
@@ -210,7 +210,7 @@ INT4_MUTANTS = {
 # the float scan: {label: ({file: [(old, new, occurrences)]}, modes it reaches)};
 # topk_float.cu and the headers of its score pass (topk_float_tile.cuh) and
 # selection (topk_common.cuh)
-_TILE, _SCAN = "topk_float_tile.cuh", "topk_float.cu"
+_TILE, _SCAN, _COMMON = "topk_float_tile.cuh", "topk_float.cu", "topk_common.cuh"
 _DOT = "return COMP ? __fadd_rn(__fadd_rn(run[j][e], hl[j][e]), lh[j][e]) : run[j][e];"
 _CHUNK_END = "end = begin + rows_per_chunk < N ? begin + rows_per_chunk : N;"
 _PRODUCT = "acc.product(ring + slot * slot_bytes<MODE>(), min(S::DC, sc.D - ds * S::DC) / 16);"
@@ -230,16 +230,51 @@ TOPK_MUTANTS = {
                                   _ALL),
     # the tile-max test against entry k - 1 of the list's 0 .. k - 1 taken as
     # entry k - 2, and a tie let in
-    "tile_max_test_wrong_slot": ({_SCAN: [("k - 1 < 32 ? L.x[0].v : L.x[1].v, (k - 1) & 31",
-                                           "k - 2 < 32 ? L.x[0].v : L.x[1].v, (k - 2) & 31", 1),
-                                          ("unsigned win = __ballot_sync(0xffffffffu, va > kth[b]);",
-                                           "unsigned win = __ballot_sync(0xffffffffu, va >= kth[b]);", 1)]},
+    "tile_max_test_wrong_slot": ({_COMMON: [("k - 1 < 32 ? L.x[0].v : L.x[1].v, (k - 1) & 31",
+                                             "k - 2 < 32 ? L.x[0].v : L.x[1].v, (k - 2) & 31", 1),
+                                            ("unsigned win = __ballot_sync(0xffffffffu, va > kth[b]);",
+                                             "unsigned win = __ballot_sync(0xffffffffu, va >= kth[b]);", 1)]},
                                  _ALL),
     # slab s read with one group fewer waited for: the block's first slab is
     # read right after it was requested
     "ring_not_waited": ({_TILE: [("cp_async_wait<STAGES - 2>();  // this thread's copies of slab s are there",
                                   "cp_async_wait<STAGES - 1>();", 1)]}, _ALL),
 }
+
+
+# the int8 scan: {label: {file: [(old, new, occurrences)]}}; topk_int8.cu and
+# the headers it shares with the float scan
+_INT8 = "topk_int8.cu"
+_SCALED = "__fmul_rn(__fmul_rn(__int2float_rn(dot), csc), qsc[qq])"
+_EPILOGUE = f"s = __fadd_rn({_SCALED}, penalty[row]);"
+TOPK_INT8_MUTANTS = {
+    "as_is": {},
+    "scales_swapped": {_INT8: [(_SCALED, "__fmul_rn(__fmul_rn(__int2float_rn(dot), qsc[qq]), csc)", 1)]},
+    # exact below 2^24, so only the wide case (D = 4,096) can see it
+    "int2float_rz": {_INT8: [(_SCALED, _SCALED.replace("_rn(dot)", "_rz(dot)"), 1)]},
+    "cscale_dropped": {_INT8: [(_SCALED, "__fmul_rn(__int2float_rn(dot), qsc[qq])", 1)]},
+    "penalty_dropped": {_INT8: [(_EPILOGUE, f"s = {_SCALED};", 1)]},
+    # the last 32-byte k-step of every tile's dimensions never multiplied
+    "last_k_step_dropped": {_TILE: [(_PRODUCT, _PRODUCT.replace("/ 16);", "/ 16 - 2 * (ds == slabs - 1));"),
+                                     1)]},
+    "last_row_of_chunk_skipped": {_TILE: [(_CHUNK_END, _CHUNK_END.replace(" : N;", " : N;\n  --end;"), 1)]},
+    # the k-th value a score must beat read from entry k - 2 of the list
+    "kth_slot_read_one_early": {_COMMON: [("k - 1 < 32 ? L.x[0].v : L.x[1].v, (k - 1) & 31",
+                                           "k - 2 < 32 ? L.x[0].v : L.x[1].v, (k - 2) & 31", 1)]},
+    "ring_not_waited": TOPK_MUTANTS["ring_not_waited"][0],
+}
+
+
+# copies of the int8 scan with a part taken out, timed by ``--ablate
+# topk_int8``: {variant: {file: [(old, new, occurrences)]}}
+_OFFER = "    sel.offer<TN, TN + STW>(st, buf_v, buf_i, tile, live, K);\n"
+INT8_VARIANTS = {
+    "as_is": {},
+    "no_selection": {_INT8: [(_OFFER, "", 1)]},
+    "no_products": {_TILE: [(_PRODUCT, "", 1)]},
+    "loads_only": {_INT8: [(_OFFER, "", 1)], _TILE: [(_PRODUCT, "", 1)]},
+}
+INT8_HELD = ("as_is",)  # the variants held to the twin
 
 
 def _edited(text: str, edits, name: str) -> str:
@@ -292,7 +327,12 @@ def ablate(source: Path, variants: dict, install, runs, held_to_the_twin) -> Non
     try:
         with tempfile.TemporaryDirectory() as tmp:
             for name, edits in variants.items():
-                install(build_mutant(Path(tmp), source, name, edits))
+                if isinstance(edits, dict):  # {file: edits}, the source's and its headers'
+                    headers = {h: e for h, e in edits.items() if h != source.name}
+                    install(build_mutant(Path(tmp), source, name, edits.get(source.name, []),
+                                         headers=headers or None))
+                else:
+                    install(build_mutant(Path(tmp), source, name, edits))
                 row = {"variant": name}
                 for label, call, check in runs:
                     if name in held_to_the_twin:
@@ -477,6 +517,41 @@ def paged_ablation(dev, g) -> None:
     ablate(_build.CSRC_DIR / "paged_attention.cu", PAGED_VARIANTS, install, runs, PAGED_HELD)
 
 
+def int8_ablation(dev, g) -> None:
+    """Each of ``INT8_VARIANTS`` timed through ``topk_int8`` over a seeded
+    1,048,576 x 1024 corpus (1% rows tombstoned) at B = 32 and 128, K = 64,
+    and at B = 32, K = 12; the variants of ``INT8_HELD`` are also held
+    bit-equal to the twin."""
+    m = topk_module
+    real = m._launcher()
+
+    def install(lib):
+        fn = real if lib is None else lib.topk_int8_launch
+        fn.argtypes, fn.restype = real.argtypes, real.restype
+        m._launch_fn = fn
+
+    n, d = 1 << 20, 1024
+    corpus = torch.randint(-127, 128, (n, d), generator=g, device=dev, dtype=torch.int8)
+    cscale = (torch.rand(n, generator=g, device=dev) + 0.5) / 127
+    penalty = torch.where(torch.rand(n, generator=g, device=dev) < 0.01, m.NEG, 0.0).float()
+    runs = []
+    for b, k in ((32, 64), (128, 64), (32, 12)):
+        q = torch.randint(-127, 128, (b, d), generator=g, device=dev, dtype=torch.int8)
+        qscale = (torch.rand(b, generator=g, device=dev) + 0.5) / 127
+        args = (q, qscale, corpus, cscale, k, penalty)
+        plain = m.topk_int8_plain(*args)
+
+        def check(args=args, plain=plain):
+            vals, idx = m.topk_int8(*args)
+            return bool(torch.equal(vals, plain[0]) and torch.equal(idx, plain[1]))
+
+        runs.append((f"b{b}_k{k}", lambda args=args: m.topk_int8(*args), check))
+    ablate(_build.CSRC_DIR / _INT8, INT8_VARIANTS, install, runs, INT8_HELD)
+
+
+ABLATIONS = {"paged_attention": paged_ablation, "topk_int8": int8_ablation}
+
+
 def linear_mutants(tmp: Path, dev, g) -> int:
     """Every w8a16 linear mutant at each of ``LINEAR_CASES``, under the bound
     of ``chip_smoke.py`` and the card tests: 1e-5 of the output's scale, plus
@@ -604,19 +679,135 @@ def topk_mutants(tmp: Path, dev, g) -> int:
     return unexpected
 
 
+def int8_scan_case(dev, g, n: int, d: int, b: int, copies: list[int]):
+    """Seeded int8 codes and scales, 1% rows tombstoned, and ``copies`` of
+    one row (the first of them is the original) at the largest row scale;
+    query 0 is that row, so the copies tie at its top. Returns the wrapper's
+    arguments but K: (queries, query scales, corpus, row scales, penalty)."""
+    corpus = torch.randint(-127, 128, (n, d), generator=g, device=dev, dtype=torch.int8)
+    cscale = (torch.rand(n, generator=g, device=dev) + 0.5) / 127
+    penalty = torch.where(torch.rand(n, generator=g, device=dev) < 0.01, topk_module.NEG, 0.0)
+    corpus[copies] = corpus[copies[0]].clone()
+    cscale[copies] = 1.5 / 127
+    penalty[copies] = 0.0
+    q = torch.randint(-127, 128, (b, d), generator=g, device=dev, dtype=torch.int8)
+    q[0] = corpus[copies[0]]
+    qscale = (torch.rand(b, generator=g, device=dev) + 0.5) / 127
+    return q, qscale, corpus, cscale, penalty.float()
+
+
+def int8_threshold_case(dev, g):
+    """``float_threshold_case`` in codes: 256 rows x 128, one chunk, K = 4,
+    every scale 1. Query 0 is 127 on the first axis, so row i scores 127
+    times its first code: 127, 120, 112 and 104 for rows 0-3, at most 48 for
+    the others but row 100, with 108: once the first 64 rows fill a list,
+    row 100 must still beat its 4th entry and come out 4th. Returns (the
+    wrapper's arguments but K, k, the rows query 0 must get)."""
+    n, d, b = 256, 128, 8
+    corpus = torch.randint(-8, 9, (n, d), generator=g, device=dev, dtype=torch.int8)
+    corpus[:, 0] = ((torch.arange(n, device=dev) % 7) * 8).to(torch.int8)
+    corpus[:4, 0] = torch.tensor([127, 120, 112, 104], device=dev, dtype=torch.int8)
+    corpus[100, 0] = 108
+    q = torch.randint(-127, 128, (b, d), generator=g, device=dev, dtype=torch.int8)
+    q[0] = 0
+    q[0, 0] = 127
+    ones = torch.ones(n, device=dev)
+    return (q, torch.ones(b, device=dev), corpus, ones, torch.zeros(n, device=dev)), 4, [0, 1, 2, 100]
+
+
+def int8_wide_case(dev, g):
+    """3,000 rows x 4,096 (wider than the plain twin's exact 1,040), B = 8,
+    K = 64: every row a copy of one row of large codes (100-127 in size)
+    moved by up to 20, and query 0 that row, so its int32 sums pass 2^24
+    and converting them to f32 rounds. Returns the wrapper's arguments but
+    K."""
+    n, d, b = 3000, 4096, 8
+    sign = torch.randint(0, 2, (d,), generator=g, device=dev) * 2 - 1
+    base = sign * torch.randint(100, 128, (d,), generator=g, device=dev)
+    noise = torch.randint(-20, 21, (n, d), generator=g, device=dev)
+    corpus = (base + noise).clamp(-127, 127).to(torch.int8)
+    cscale = (torch.rand(n, generator=g, device=dev) + 0.5) / 127
+    q = torch.randint(-127, 128, (b, d), generator=g, device=dev, dtype=torch.int8)
+    q[0] = base.to(torch.int8)
+    qscale = (torch.rand(b, generator=g, device=dev) + 0.5) / 127
+    return q, qscale, corpus, cscale, torch.zeros(n, device=dev)
+
+
+def int8_exact_topk(q_queries, q_scale, corpus, c_scale, k, penalty):
+    """The int8 scan's function at any width: the int32 dot in float64
+    (exact), rounded once to f32, then ``topk_int8_plain``'s order and
+    selection. Equals the twin wherever the twin is exact (D <= 1,040)."""
+    raw = (q_queries.double() @ corpus.double().T).float()
+    scores = raw * c_scale[None, :] * q_scale[:, None] + penalty[None, :]
+    vals, idx = torch.sort(scores, dim=1, descending=True, stable=True)
+    vals, idx = vals[:, :k], idx[:, :k].to(torch.int32)
+    dead = vals <= topk_module.NEG / 2
+    return vals.masked_fill(dead, topk_module.NEG), idx.masked_fill(dead, 0)
+
+
+def topk_int8_mutants(tmp: Path, dev, g) -> int:
+    """Every int8-scan mutant through ``topk_int8``, under the check of
+    ``chip_smoke.py`` and the card tests: values and rows bit-equal to the
+    twin's, and query 0's first rows as the case wants them. Cases: 200,003
+    rows x 1024 at B = 33, K = 64, with copies at positions 0, 7, 8 and 15
+    of an MMA fragment, in a second warp, across a tile edge and across the
+    edge of chunk 0; 256 rows x 96 at B = 8, K = 64, one chunk (its list is
+    the result), D not a multiple of a 128-byte slab; 20,000 rows x 1040
+    (half a last k-step) at B = 128, K = 12; 256 rows x 48 at B = 33, K = 4,
+    one chunk; ``int8_threshold_case``; and ``int8_wide_case``, held to
+    ``int8_exact_topk``. The L2 cache is overwritten before each launch."""
+    m = topk_module
+    cases = []
+    for n, d, b, k in [(200_003, 1024, 33, 64), (256, 96, 8, 64), (20_000, 1040, 128, 12),
+                       (256, 48, 33, 4)]:
+        chunk = m._int8_kernel_plan(b, n, dev)[1]
+        copies = sorted(r for r in {0, 7, 8, 15, 16 + 3, 127, 128, 255, chunk - 1, chunk} if r < n)
+        args = int8_scan_case(dev, g, n, d, b, copies)
+        cases.append((args, k, copies, m.topk_int8_plain(*args[:4], k, args[4])))
+    args, k, want = int8_threshold_case(dev, g)
+    cases.append((args, k, want, m.topk_int8_plain(*args[:4], k, args[4])))
+    args = int8_wide_case(dev, g)
+    cases.append((args, 64, None, int8_exact_topk(*args[:4], 64, args[4])))
+    flush_l2 = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    real = m._launcher()
+    unexpected = 0
+    for name, files in TOPK_INT8_MUTANTS.items():
+        fn = build_mutant(tmp, _build.CSRC_DIR / _INT8, f"int8_{name}", files.get(_INT8, []),
+                          symbol="topk_int8_launch",
+                          headers={h: e for h, e in files.items() if h != _INT8} or {_TILE: []})
+        fn.argtypes, fn.restype = real.argtypes, real.restype
+        m._launch_fn = fn
+        caught = False
+        for args, k, rows, (pv, pi) in cases:
+            flush_l2.zero_()
+            vals, idx = m.topk_int8(*args[:4], k, args[4])
+            torch.cuda.synchronize()
+            bit_equal = bool(torch.equal(vals, pv) and torch.equal(idx, pi))
+            first = rows is None or idx[0, : min(k, len(rows))].tolist() == rows[:k]
+            ok = bit_equal and first
+            caught |= not ok
+            q, c = args[0], args[2]
+            print(f"topk_int8       {name:26s} N={c.shape[0]:6d} D={q.shape[1]:4d} B={q.shape[0]:3d} "
+                  f"K={k:2d} passes={ok} bit_equal={bit_equal} "
+                  f"max_abs_err={float((vals - pv).abs().max()):.3g} query0_rows={first}", flush=True)
+        unexpected += caught != (name != "as_is")
+    m._launch_fn = real
+    return unexpected
+
+
 KERNELS = {"paged_attention": paged_mutants, "int8_linear": linear_mutants,
            "int4": int4_mutants, "flash_attention": flash_mutants,
-           "topk_float": topk_mutants}
+           "topk_float": topk_mutants, "topk_int8": topk_int8_mutants}
 
 
 def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("kernel_mutants: no CUDA device; nothing was run", file=sys.stderr)
         return 2
-    if argv == ["--ablate", "paged_attention"]:
+    if argv[:1] == ["--ablate"] and len(argv) == 2 and argv[1] in ABLATIONS:
         torch.backends.cuda.matmul.allow_tf32 = False
         dev = torch.device("cuda", torch.cuda.current_device())
-        paged_ablation(dev, torch.Generator(device=dev).manual_seed(1))
+        ABLATIONS[argv[1]](dev, torch.Generator(device=dev).manual_seed(1))
         return 0
     chosen = argv or list(KERNELS)
     if set(chosen) - set(KERNELS):

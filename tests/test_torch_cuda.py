@@ -105,6 +105,95 @@ def test_topk_int8_kernel_refuses_bad_shapes(cuda):
         topk_int8(q[:, :40], qscale, corpus[:, :40], cscale, 12, penalty)  # D % 16
 
 
+@pytest.mark.parametrize(
+    "n,d,b,k",
+    [(5_003, 1024, 1, 1), (70_001, 1040, 128, 12), (20_000, 96, 33, 64), (9_000, 48, 128, 1),
+     (3_001, 80, 1, 64), (100, 1040, 33, 64), (255, 96, 128, 12), (64, 48, 1, 64),
+     (130_001, 1024, 128, 64), (40_000, 80, 33, 1)],
+)
+def test_topk_int8_kernel_bit_equal_at_the_new_tiles(cuda, n, d, b, k):
+    """D = 1024, 1040 (the twin's widest exact width), 96, and 48 and 80 (a
+    half k-step of zeros); B = 1, 33, 128; K = 1, 12, 64; N that no tile
+    divides and N under one tile: values and rows bit-equal to the twin,
+    ties lowest row first, two runs bit-equal."""
+    q, qscale, corpus, cscale, penalty = _case(cuda, n, d, b, seed=n + d + b + k)
+    args = (q, qscale, corpus, cscale, k, penalty)
+    vals, idx = topk_int8(*args)
+    torch.cuda.synchronize()
+    pv, pi = topk_int8_plain(*args)
+    assert torch.equal(idx, pi) and torch.equal(vals, pv)
+    tied = vals[:, 1:] == vals[:, :-1]
+    assert (idx[:, 1:][tied] > idx[:, :-1][tied]).all()
+    again = topk_int8(*args)
+    assert torch.equal(vals, again[0]) and torch.equal(idx, again[1])
+
+
+@pytest.mark.parametrize("n,b", [(300_007, 33), (40_000, 128)])
+def test_topk_int8_copies_tie_in_every_position(cuda, n, b):
+    """Copies of one row at positions 0, 7, 8 and 15 of a 16-row MMA
+    fragment, in a second warp's fragment, on both sides of a tile edge and
+    of the first chunk's edge score alike and come out lowest row first."""
+    from outline_rag_tpu_torch.ops.topk import _int8_kernel_plan
+    from outline_rag_tpu_torch.tools.kernel_mutants import int8_scan_case
+
+    chunk = _int8_kernel_plan(b, n, cuda)[1]
+    copies = sorted({0, 7, 8, 15, 16 + 0, 16 + 7, 16 + 8, 16 + 15, 127, 128, 255, 256,
+                     chunk - 1, chunk})
+    assert chunk < n
+    g = torch.Generator(device=cuda).manual_seed(n + b)
+    q, qscale, corpus, cscale, penalty = int8_scan_case(cuda, g, n, 1024, b, copies)
+    vals, idx = topk_int8(q, qscale, corpus, cscale, 64, penalty)
+    torch.cuda.synchronize()
+    assert idx[0, : len(copies)].tolist() == copies
+    assert (vals[0, : len(copies)] == vals[0, 0]).all()
+    pv, pi = topk_int8_plain(q, qscale, corpus, cscale, 64, penalty)
+    assert torch.equal(idx, pi) and torch.equal(vals, pv)
+
+
+def test_topk_int8_threshold_is_the_lists_kth_entry(cuda):
+    """A row that arrives after a list is full and scores between its
+    (k-1)-th and k-th entries still enters."""
+    from outline_rag_tpu_torch.tools.kernel_mutants import int8_threshold_case
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+    args, k, want = int8_threshold_case(cuda, g)
+    vals, idx = topk_int8(*args[:4], k, args[4])
+    torch.cuda.synchronize()
+    assert idx[0].tolist() == want
+    assert vals[0].tolist() == [127.0 * 127, 127.0 * 120, 127.0 * 112, 127.0 * 108]
+    pv, pi = topk_int8_plain(*args[:4], k, args[4])
+    assert torch.equal(idx, pi) and torch.equal(vals, pv)
+
+
+def test_topk_int8_kernel_wide_rows_match_an_exact_reference(cuda):
+    """D = 4,096, past the twin's exact width: int32 sums above 2^24 are
+    converted to f32 once, rounding to nearest, as the float64 reference
+    does."""
+    from outline_rag_tpu_torch.tools.kernel_mutants import int8_exact_topk, int8_wide_case
+
+    g = torch.Generator(device=cuda).manual_seed(7)
+    args = int8_wide_case(cuda, g)
+    vals, idx = topk_int8(*args[:4], 64, args[4])
+    torch.cuda.synchronize()
+    ev, ei = int8_exact_topk(*args[:4], 64, args[4])
+    assert torch.equal(idx, ei) and torch.equal(vals, ev)
+    assert float(vals[0, 0] / (args[3][idx[0, 0]] * args[1][0])) > 1 << 24  # the sums do round
+
+
+@pytest.mark.parametrize("d,b", [(48, 33), (1040, 128)])
+def test_topk_int8_kernel_few_live_rows(cuda, d, b):
+    """Fewer live rows than K, spread over several chunks: the unfilled
+    slots are (NEG, 0)."""
+    q, qscale, corpus, cscale, _ = _case(cuda, 50_000, d, b, seed=d + b)
+    penalty = torch.full((50_000,), NEG, device=cuda)
+    penalty[torch.arange(11, 50_000, 5000, device=cuda)] = 0.0  # 10 live rows
+    vals, idx = topk_int8(q, qscale, corpus, cscale, 64, penalty)
+    pv, pi = topk_int8_plain(q, qscale, corpus, cscale, 64, penalty)
+    assert torch.equal(idx, pi) and torch.equal(vals, pv)
+    assert (vals[:, 10:] == NEG).all() and (idx[:, 10:] == 0).all()
+    assert (vals[:, :10] > NEG / 2).all()
+
+
 def _float_case(dev, n, d, b, mode, seed):
     """Unit rows in the mode's storage, 1% tombstoned, row 0 and 9 copies
     of it; query 0 is row 0, so the copies tie at its top."""

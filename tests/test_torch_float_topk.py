@@ -198,7 +198,8 @@ def test_float_kernel_constants_match_the_source():
     assert f"constexpr int CHUNK_ROWS = {topk._FLOAT_KERNEL_CHUNK_ROWS};" in text
     assert f"constexpr int DSTEP = {topk._FLOAT_KERNEL_DC};" in text
     by_mode = {"FP32": "fp32", "BF16": "bf16", "F32X2": "f32x2"}
-    assert {by_mode[m]: s["MIN_BLOCKS"] for m, s in shapes.items()} == topk._FLOAT_RESIDENT
+    float_shapes = {by_mode[m]: s["MIN_BLOCKS"] for m, s in shapes.items() if m in by_mode}
+    assert float_shapes == topk._FLOAT_RESIDENT
     for s in shapes.values():  # every tile divides a chunk
         assert topk._FLOAT_KERNEL_CHUNK_ROWS % s["TN"] == 0
 

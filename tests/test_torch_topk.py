@@ -150,3 +150,98 @@ def test_plain_scan_refuses_inexact_width():
     c = torch.zeros((4, 1056), dtype=torch.int8)
     with pytest.raises(ValueError, match="not exact"):
         topk_int8_plain(q, torch.ones(1), c, torch.ones(4), 2)
+
+
+def _int8_shape():
+    """``Shape<INT8>`` and the block constants of csrc/topk_float_tile.cuh."""
+    import re
+
+    from outline_rag_tpu_torch.ops import _build
+
+    text = (_build.CSRC_DIR / "topk_float_tile.cuh").read_text()
+    body = re.search(r"struct Shape<INT8> \{(.*?)\n\};", text, re.S).group(1)
+    return text, {k: int(v) for k, v in re.findall(r"constexpr int (\w+) = (\d+);", body)}
+
+
+def test_int8_kernel_constants_match_the_source():
+    """The wrapper plans the int8 scan's chunks with the kernel's own
+    constants: its queries a block, the rows a chunk is a multiple of, and
+    the blocks an SM holds; its tile divides a chunk."""
+    text, shape = _int8_shape()
+    assert f"constexpr int TB = {port_topk._INT8_KERNEL_TB};" in text
+    assert f"constexpr int CHUNK_ROWS = {port_topk._INT8_KERNEL_CHUNK_ROWS};" in text
+    assert shape["MIN_BLOCKS"] == port_topk._INT8_RESIDENT
+    assert port_topk._INT8_KERNEL_CHUNK_ROWS % shape["TN"] == 0
+    from outline_rag_tpu_torch.ops import _build
+
+    assert "rows_per_chunk % CHUNK_ROWS" in (_build.CSRC_DIR / "topk_int8.cu").read_text()
+
+
+@pytest.mark.parametrize("b,n", [(1, 1), (1, 255), (2, 257), (32, 1_048_576), (33, 70_001),
+                                 (128, 5_003), (129, 131_072), (4096, 20_000)])
+def test_int8_kernel_plan_covers_every_row_once(monkeypatch, b, n):
+    """Whole chunks of 256-row steps, the last one holding a row, one wave of
+    the blocks a 132-SM card holds at once."""
+
+    class Props:
+        multi_processor_count = 132
+
+    monkeypatch.setattr(torch.cuda, "get_device_properties", lambda device: Props())
+    chunks, rows = port_topk._int8_kernel_plan(b, n, torch.device("cpu"))
+    assert rows % port_topk._INT8_KERNEL_CHUNK_ROWS == 0
+    assert (chunks - 1) * rows < n <= chunks * rows
+    q_tiles = -(-b // port_topk._INT8_KERNEL_TB)
+    assert chunks * q_tiles <= max(q_tiles, port_topk._INT8_RESIDENT * 132)
+
+
+def _int8_mutant_edits():
+    from outline_rag_tpu_torch.tools import kernel_mutants
+
+    for name, files in kernel_mutants.TOPK_INT8_MUTANTS.items():
+        for source, edits in files.items():
+            for i, edit in enumerate(edits):
+                yield pytest.param(source, edit, id=f"{name}-{i}")
+
+
+@pytest.mark.parametrize("source,edit", list(_int8_mutant_edits()))
+def test_every_topk_int8_mutant_edit_applies_to_the_source(source, edit):
+    """The card tool edits copies of ``csrc/topk_int8.cu`` and the headers it
+    shares, and refuses an edit whose text occurs another number of times:
+    each one still finds its line, and changes it."""
+    from outline_rag_tpu_torch.ops import _build
+
+    old, new, occurrences = edit
+    assert old != new
+    assert (_build.CSRC_DIR / source).read_text().count(old) == occurrences
+
+
+def test_topk_int8_mutants_are_listed():
+    from outline_rag_tpu_torch.tools import kernel_mutants
+
+    assert "topk_int8" in kernel_mutants.KERNELS
+    for name, files in kernel_mutants.TOPK_INT8_MUTANTS.items():
+        assert (name == "as_is") == (not files)
+        assert set(files) <= {"topk_int8.cu", "topk_float_tile.cuh", "topk_common.cuh"}
+
+
+@pytest.mark.parametrize("b,k", [(5, 12), (37, 64)])
+def test_int8_exact_reference_equals_the_twin(b, k):
+    """The wide-width reference of the card tool (a float64 dot rounded once)
+    is the twin's function wherever the twin is exact."""
+    from outline_rag_tpu_torch.tools.kernel_mutants import int8_exact_topk
+
+    case = [torch.from_numpy(x) for x in _int8_case(b + k, b)]
+    ev, ei = int8_exact_topk(case[0], case[1], case[2], case[3], k, case[4])
+    pv, pi = topk_int8_plain(case[0], case[1], case[2], case[3], k, case[4])
+    assert torch.equal(ei, pi) and torch.equal(ev, pv)
+
+
+def test_int8_threshold_case_wants_the_twins_rows():
+    """The threshold case's expected rows and values are the twin's."""
+    from outline_rag_tpu_torch.tools.kernel_mutants import int8_threshold_case
+
+    g = torch.Generator().manual_seed(5)
+    args, k, want = int8_threshold_case(torch.device("cpu"), g)
+    vals, idx = topk_int8_plain(*args[:4], k, args[4])
+    assert idx[0].tolist() == want
+    assert vals[0].tolist() == [127.0 * 127, 127.0 * 120, 127.0 * 112, 127.0 * 108]
