@@ -35,6 +35,24 @@ printing one JSON line; any failure raises and the exit code is non-zero:
            over the f32 corpus (kept on the card) is at least 0.99; and
            ``fused_query``'s stages for that batch (encode, scan: quantize,
            ``topk_int8`` at K = 64 and the rescore, gather + rerank).
+4b. lifecycle  continues on the slice's index, service and models. Delta
+           updates: whole seeded sources re-added under the same chunk ids
+           (``replace=True``, 4,096 rows each) until an add finds no free row
+           and the index compacts at 1,048,576 (generation higher, cursor ==
+           live rows). Growth: new sources until an add does not fit; the
+           index grows to 2,097,152, and the peak of
+           ``torch.cuda.max_memory_allocated`` over that add must stay below
+           what was allocated before it plus the new index's bytes (the old
+           planes are freed first). Snapshot: ``save`` to a temporary
+           directory, ``VectorIndex.load``, ``adopt`` into the served index,
+           files deleted. After each step a burst of 64 concurrent requests
+           through the same service: answers checked against the deleted
+           chunks, ``topk_int8`` launched, one batch's fused top-12 equal to
+           the plain path's (values within 1e-6) with every row its chunk's
+           current row, and recall@12 >= 0.99 against an fp32 oracle keyed by
+           chunk id. Seconds of each step, live rows, capacity, generation,
+           the snapshot's bytes, and the scan's ``scan_ms`` / ``kernel_ms`` at
+           2,097,152 rows.
 5. kernel_float  ``topk_float`` (the CUDA kernel) against
            ``topk_float_plain`` for each of its modes (fp32, bf16, f32x2),
            each over a seeded 1,048,576 x 1024 corpus of unit rows in that
@@ -200,6 +218,20 @@ printing one JSON line; any failure raises and the exit code is non-zero:
            against its twin (1e-5), ``nomerge`` bit-equal to the first column
            of ``topk_float``'s values, then the package's
            ``tools/bench_topk_kernel.py``: full / nomerge / matmul at B = 32.
+15. hybrid  BGE-m3's lexical and ColBERT terms at bge-m3 width: a seeded
+           bge-m3 encoder with the sparse and ColBERT (1024 -> 1024) heads, an
+           int8r index of capacity 131,072 with a 64-wide token cache and
+           rank-128 ColBERT codes (the JAX package's defaults once
+           COLBERT_WEIGHT > 0); 4,096 text chunks through ``embed``,
+           ``token_weights`` and ``colbert_cache``, seeded rows up to 120,000
+           live. 64 concurrent requests through ``RetrievalService(lex_weight=
+           0.3, colbert_weight=0.2)`` and ``QueryBatcher``: valid answers and
+           ``topk_int8`` launches; for one batch the cached form's retrieval
+           rows and values equal a plain composition (``topk_int8_plain``,
+           ``rescore_candidates``, ``lexical_overlap_scores``,
+           ``late_interaction_scores``) within 1e-5, both terms non-zero for
+           most live candidates, and the rerank top-3 equal. ``fused_query``
+           timed with the terms off, cached and recomputed, and by stage.
 
 The last lines are the kernel summary (each kernel's time beside its bound:
 the larger of its bytes over 3.35 TB/s and its operations over the card's
@@ -221,6 +253,12 @@ N_ROWS, DIM, CAPACITY = 1_048_576, 1024, 1_048_576
 LIVE_ROWS, TEXT_CHUNKS, BLOCK = 1_000_000, 4096, 4096
 TOKEN_WIDTH, TOP_K, RERANK_K, CANDIDATES = 64, 12, 3, 64
 REQUESTS, MAX_BATCH = 64, 32
+# lifecycle: oracle slots for the chunks added past the slice's rows
+LIFE_EXTRA_SLOTS = 16 * 4096
+# hybrid: the JAX package's default capacity (1 << 17), its ColBERT rank once
+# COLBERT_WEIGHT > 0, the live rows, the weights of tests/test_mesh_serving.py
+HYB_CAPACITY, HYB_RANK, HYB_LIVE = 1 << 17, 128, 120_000
+HYB_LEX, HYB_COLBERT, HYB_TOL, HYB_VOCAB = 0.3, 0.2, 1e-5, 64
 VALUE_TOL, RECALL_MIN = 1e-6, 0.99
 FLOAT_TOL = 1e-5  # float scan: sums in another order than the twin's
 N_DUPS = 12
@@ -421,7 +459,23 @@ def make_texts(rng, n: int, vocab: list[str]) -> list[str]:
     return [" ".join(rng.choice(vocab, size=int(rng.integers(20, 60)))) for _ in range(n)]
 
 
-def slice_phase(torch, dev, seed: int) -> int:
+def random_chunks(torch, n: int, gen, dev, tok, vocab_size: int):
+    """n seeded chunks: Gaussian vectors, and token rows of 8-64 random ids
+    (CLS first, padded)."""
+    v = torch.randn((n, DIM), generator=gen, device=dev)
+    lengths = torch.randint(8, TOKEN_WIDTH + 1, (n, 1), generator=gen, device=dev)
+    mask = (torch.arange(TOKEN_WIDTH, device=dev)[None, :] < lengths).to(torch.int32)
+    ids = torch.randint(3, vocab_size, (n, TOKEN_WIDTH), generator=gen, device=dev,
+                        dtype=torch.int32)
+    ids = torch.where(mask.bool(), ids, tok.pad_id)
+    ids[:, 0] = tok.cls_id
+    return v, ids, mask
+
+
+def slice_phase(torch, dev, seed: int) -> tuple[int, dict]:
+    """Returns the kernel's launch count over the burst, and what the
+    ``lifecycle`` phase continues on: the index, its service, the models,
+    the oracle rows and the requests."""
     import numpy as np
 
     from outline_rag_tpu_torch.engine import (
@@ -476,17 +530,10 @@ def slice_phase(torch, dev, seed: int) -> int:
             torch.as_tensor(vecs[s : s + 64], device=dev)
         )
     # ingest 2: seeded unit vectors with random token rows, in blocks
-    positions = torch.arange(TOKEN_WIDTH, device=dev)
     n_src = 0
     while index.size < LIVE_ROWS:
         n = min(BLOCK, LIVE_ROWS - index.size)
-        v = torch.randn((n, DIM), generator=gen, device=dev)
-        lengths = torch.randint(8, TOKEN_WIDTH + 1, (n, 1), generator=gen, device=dev)
-        mask = (positions[None, :] < lengths).to(torch.int32)
-        ids = torch.randint(3, cfg.vocab_size, (n, TOKEN_WIDTH), generator=gen, device=dev,
-                            dtype=torch.int32)
-        ids = torch.where(mask.bool(), ids, tok.pad_id)
-        ids[:, 0] = tok.cls_id
+        v, ids, mask = random_chunks(torch, n, gen, dev, tok, cfg.vocab_size)
         rows = index.add_chunks(
             [f"rand{n_src}:{i}" for i in range(n)], v, f"rand{n_src}",
             token_ids=ids, token_mask=mask,
@@ -563,7 +610,413 @@ def slice_phase(torch, dev, seed: int) -> int:
          min_oracle_gap_12_13=float((ov[:, TOP_K - 1] - ov[:, TOP_K]).min()),
          min_oracle_gap_1_12=float((ov[:, :TOP_K - 1] - ov[:, 1:TOP_K]).min()), stages=stages)
     require(recall >= RECALL_MIN, f"recall@12 {recall} >= {RECALL_MIN}")
-    return launches
+    handover = dict(index=index, service=service, encoder=encoder, reranker=reranker, tok=tok,
+                    oracle=oracle, queries=queries, deleted=deleted, n_src=n_src, gone=gone)
+    return launches, handover
+
+
+class ChunkOracle:
+    """Exact fp32 copies of the index's vectors keyed by chunk id, so the
+    recall check follows chunks through re-adds, compaction, growth and a
+    snapshot whatever rows they land on. ``vec`` [slots, DIM] unit rows,
+    ``pen`` [slots] 0 for a live chunk and NEG for a dead slot, ``ids``
+    the chunk id of each slot."""
+
+    def __init__(self, torch, rows, index, slots: int):
+        import numpy as np
+
+        from outline_rag_tpu_torch.ops.topk import NEG
+
+        dev = rows.device
+        n = rows.shape[0]
+        self.vec = torch.zeros((slots, DIM), dtype=torch.float32, device=dev)
+        self.vec[:n] = rows  # the slice phase's oracle, indexed by its rows
+        self.pen = torch.full((slots,), NEG, dtype=torch.float32, device=dev)
+        self.ids = np.full(slots, "", dtype=object)
+        self.slot = {}
+        for cid, row in index._by_chunk.items():
+            self.slot[cid] = row
+            self.ids[row] = cid
+        live = torch.as_tensor(list(self.slot.values()), device=dev)
+        self.pen[live] = 0.0
+        self.used = n
+
+    def put(self, torch, cids: list[str], unit):
+        """Chunks ``cids`` now have the unit vectors ``unit`` [n, DIM]."""
+        at = []
+        for cid in cids:
+            if cid not in self.slot:
+                self.slot[cid] = self.used
+                self.ids[self.used] = cid
+                self.used += 1
+            at.append(self.slot[cid])
+        at = torch.as_tensor(at, device=self.vec.device)
+        self.vec[at] = unit
+        self.pen[at] = 0.0
+
+    def top_ids(self, torch, q_emb, k: int) -> list[list[str]]:
+        from outline_rag_tpu_torch.ops.topk import topk_plain
+
+        _, slots = topk_plain(q_emb, self.vec[: self.used], k, self.pen[: self.used])
+        return [[self.ids[j] for j in row] for row in slots.tolist()]
+
+
+def lifecycle_phase(torch, dev, seed: int, handover: dict) -> dict:
+    """The slice phase's 1,048,576-row int8r index through delta updates
+    until it compacts at its capacity, a growth to 2,097,152 rows and a
+    snapshot round trip (save, load, adopt), each step followed by a burst
+    through the same service and the checks of ``lifecycle_checks``."""
+    import shutil
+    import tempfile
+
+    from outline_rag_tpu_torch.index import VectorIndex
+    from outline_rag_tpu_torch.index.store import normalize_rows
+
+    t_phase = time.perf_counter()
+    index, service, tok = handover["index"], handover["service"], handover["tok"]
+    oracle = ChunkOracle(torch, handover["oracle"], index, CAPACITY + LIFE_EXTRA_SLOTS)
+    del handover["oracle"]
+    deleted = handover["deleted"]
+    gen = torch.Generator(device=dev).manual_seed(seed + 11)
+    vocab_size = handover["encoder"].cfg.vocab_size
+    from outline_rag_tpu_torch.tools.timing import card
+
+    smi = card()
+    out = {"card": smi, "launches": {}}
+
+    def add(source: str, n: int) -> float:
+        v, ids, mask = random_chunks(torch, n, gen, dev, tok, vocab_size)
+        cids = [f"{source}:{i}" for i in range(n)]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        index.add_chunks(cids, v, source, token_ids=ids, token_mask=mask)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        oracle.put(torch, cids, normalize_rows(v))
+        return seconds
+
+    def step(name: str, **fields):
+        checks = lifecycle_checks(torch, dev, handover, oracle, deleted)
+        out["launches"][name] = checks.pop("topk_int8_launches")
+        out[name] = {**fields, **checks, "live_rows": index.size, "capacity": index.capacity,
+                     "generation": index.generation, "card": smi}
+        emit("lifecycle", step=name, **out[name], topk_int8_launches=out["launches"][name])
+
+    # 1. delta updates: whole rand sources re-added under the same ids
+    # (replace=True) until an add finds no free row and compacts
+    cap0, gen0 = index.capacity, index.generation
+    rounds, add_s = 0, []
+    while True:
+        src = rounds if rounds < handover["gone"] else rounds + 1  # the deleted one stays so
+        free_before = index._shard.free
+        add_s.append(add(f"rand{src}", BLOCK))
+        rounds += 1
+        if free_before < BLOCK:
+            break
+        require(rounds <= 16, "delta updates reach a compaction within 16 rounds")
+    require(index.capacity == cap0, "the churn compacted at the same capacity")
+    require(index.generation > gen0, "the generation moved on")
+    require(index._shard.cursor == index.size, "no tombstone left after compaction")
+    step("compaction", rounds=rounds, compaction_s=add_s[-1],
+         delta_add_s_median=statistics.median(add_s[:-1]))
+
+    # 2. growth: new sources until an add does not fit
+    grow_adds = 0
+    while index._shard.free >= BLOCK:
+        add(f"grow{grow_adds}", BLOCK)
+        grow_adds += 1
+    old_bytes = index._index_bytes(index.capacity)
+    new_bytes = index._index_bytes(2 * index.capacity)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    growth_s = add(f"grow{grow_adds}", BLOCK)
+    peak = torch.cuda.max_memory_allocated(dev)
+    require(index.capacity == 2 * cap0, f"grew to {2 * cap0} rows, not {index.capacity}")
+    require(peak < before + new_bytes,
+            f"growth peak {peak} below allocated-before {before} + new index {new_bytes}")
+    step("growth", adds_before=grow_adds, growth_s=growth_s, allocated_before_bytes=before,
+         peak_allocated_bytes=peak, reserved_bytes=torch.cuda.memory_reserved(dev),
+         old_index_bytes=old_bytes, new_index_bytes=new_bytes,
+         stages_at_2m=scan_stages(torch, dev, handover))
+    out["growth"]["peak_minus_before_bytes"] = peak - before
+
+    # 3. snapshot round trip into the served index
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_snapshot_")
+    try:
+        path = os.path.join(tmp, "index")
+        t = time.perf_counter()
+        index.save(path)
+        save_s = time.perf_counter() - t
+        disk = {name: os.path.getsize(os.path.join(tmp, name)) for name in os.listdir(tmp)}
+        t = time.perf_counter()
+        loaded = VectorIndex.load(path, device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t
+    finally:
+        shutil.rmtree(tmp)
+    require(loaded.size == index.size and loaded.capacity == index.capacity,
+            "the snapshot holds every live row at the same capacity")
+    t = time.perf_counter()
+    index.adopt(loaded)
+    adopt_s = time.perf_counter() - t
+    del loaded
+    step("snapshot", save_s=save_s, load_s=load_s, adopt_s=adopt_s, bytes_on_disk=disk,
+         snapshot_bytes=sum(disk.values()))
+    out["seconds"] = time.perf_counter() - t_phase
+    emit("lifecycle_done", seconds=out["seconds"], card=smi)
+    return out
+
+
+def lifecycle_checks(torch, dev, handover: dict, oracle: ChunkOracle, deleted: set) -> dict:
+    """A burst of REQUESTS through the service (answers checked, the
+    kernel's launches counted), then one batch: the fused top-12 against
+    the plain path (``topk_int8_plain`` + ``rescore_candidates``), every row
+    the current row of its chunk, and recall@12 against the oracle."""
+    import numpy as np
+
+    from outline_rag_tpu_torch.engine import fused_query
+    from outline_rag_tpu_torch.models import pooled_embeddings
+    from outline_rag_tpu_torch.ops.quant import quantize_rows_int8, rescore_candidates
+    from outline_rag_tpu_torch.ops.topk import topk_int8, topk_int8_plain
+
+    index, service, tok = handover["index"], handover["service"], handover["tok"]
+    encoder, reranker, queries = handover["encoder"], handover["reranker"], handover["queries"]
+    topk_int8.launches = 0
+    answers, wall_s = serve_burst(service, queries)
+    launches = topk_int8.launches
+    require(launches > 0, "the burst launched the topk_int8 kernel")
+    check_answers(np, answers, deleted)
+    tb = tok.batch(queries[:MAX_BATCH], TOKEN_WIDTH, buckets=(TOKEN_WIDTH,))
+    q_ids = torch.as_tensor(tb.input_ids, device=dev)
+    q_mask = torch.as_tensor(tb.attention_mask, device=dev)
+    with torch.inference_mode(), index.read_section():
+        state, row_ids = index.snapshot()
+        tokens = index.tokens.state
+        _, _, _, idx, vals = fused_query(
+            encoder, reranker, q_ids, q_mask, state.vectors, state.scales, state.penalty,
+            tokens.ids, tokens.mask, state.residual, top_k=TOP_K, rerank_k=RERANK_K,
+        )
+        q_emb = pooled_embeddings(encoder, q_ids, q_mask)
+        qq, qs = quantize_rows_int8(q_emb)
+        cand = topk_int8_plain(qq, qs, state.vectors, state.scales, CANDIDATES, state.penalty)
+        pv, pi = rescore_candidates(
+            q_emb, *cand, state.vectors, state.scales, TOP_K, state.penalty, state.residual
+        )
+        fused_ids = [[str(row_ids[r]) for r in row] for row in idx.tolist()]
+        current = all(index._by_chunk.get(row_ids[r]) == r for row in idx.tolist() for r in row)
+        del state, tokens
+    require(torch.equal(idx, pi), "fused top-12 equals the plain path's")
+    err = float((vals - pv).abs().max())
+    require(err <= VALUE_TOL, f"fused top-12 values within {VALUE_TOL} of the plain path's")
+    require(current, "every returned row is its chunk's current row (no replaced row)")
+    want = oracle.top_ids(torch, q_emb, TOP_K)
+    hits = [len(set(a) & set(b)) for a, b in zip(fused_ids, want)]
+    recall = sum(hits) / (TOP_K * len(hits))
+    require(recall >= RECALL_MIN, f"recall@12 {recall} >= {RECALL_MIN}")
+    return {"recall_at_12": recall, "max_abs_err_vs_plain": err, "topk_int8_launches": launches,
+            **latency_fields(answers, wall_s)}
+
+
+def scan_stages(torch, dev, handover: dict) -> dict:
+    """``fused_query``'s scan (quantize, the kernel at K = 64, the rescore)
+    and the kernel alone for the first batch of requests, median of 5."""
+    from outline_rag_tpu_torch.models import pooled_embeddings
+    from outline_rag_tpu_torch.ops.quant import int8_topk, quantize_rows_int8
+    from outline_rag_tpu_torch.ops.topk import topk_int8
+
+    index, tok, encoder = handover["index"], handover["tok"], handover["encoder"]
+    tb = tok.batch(handover["queries"][:MAX_BATCH], TOKEN_WIDTH, buckets=(TOKEN_WIDTH,))
+    q_ids = torch.as_tensor(tb.input_ids, device=dev)
+    q_mask = torch.as_tensor(tb.attention_mask, device=dev)
+    with torch.inference_mode(), index.read_section():
+        state, _ = index.snapshot()
+        q_emb = pooled_embeddings(encoder, q_ids, q_mask)
+        qq, qs = quantize_rows_int8(q_emb)
+        out = {
+            "rows": state.capacity,
+            "scan_ms": cuda_ms(torch, lambda: int8_topk(
+                *quantize_rows_int8(q_emb), state.vectors, state.scales, TOP_K, state.penalty,
+                rescore_queries=q_emb, rescore_residual=state.residual), runs=5),
+            "kernel_ms": cuda_ms(torch, lambda: topk_int8(
+                qq, qs, state.vectors, state.scales, CANDIDATES, state.penalty), runs=5),
+        }
+        del state
+    return out
+
+
+def hybrid_phase(torch, dev, seed: int) -> dict:
+    """BGE-m3's lexical and ColBERT terms in the fused query at bge-m3 width:
+    a seeded encoder with both heads over an int8r index of 131,072 rows
+    with a 64-wide token cache and rank-128 ColBERT codes, 120,000 live."""
+    import numpy as np
+
+    from outline_rag_tpu_torch.engine import (
+        CrossEncoderReranker,
+        EncoderEmbedder,
+        RetrievalService,
+        add_hybrid_terms,
+        encode_queries,
+        fused_query,
+    )
+    from outline_rag_tpu_torch.index import VectorIndex
+    from outline_rag_tpu_torch.models import (
+        EncoderConfig,
+        colbert_vectors_from_hidden,
+        init_colbert_head,
+        init_encoder,
+        init_reranker,
+        init_sparse_head,
+        late_interaction_scores,
+        lexical_overlap_scores,
+        sparse_weights_from_hidden,
+    )
+    from outline_rag_tpu_torch.models.tokenizer import HashTokenizer
+    from outline_rag_tpu_torch.ops.quant import int8_topk, quantize_rows_int8, rescore_candidates
+    from outline_rag_tpu_torch.ops.topk import NEG, topk_int8, topk_int8_plain
+    from outline_rag_tpu_torch.tools.timing import card
+
+    t_phase = time.perf_counter()
+    cfg = EncoderConfig.bge_m3()
+    gen = torch.Generator(device=dev).manual_seed(seed + 13)
+    encoder = init_colbert_head(init_sparse_head(init_encoder(cfg, gen, dev), gen), gen)
+    reranker = init_reranker(cfg, gen, dev)
+    tok = HashTokenizer(vocab_size=cfg.vocab_size)
+    embedder = EncoderEmbedder(encoder, tok)
+    index = VectorIndex(dim=DIM, capacity=HYB_CAPACITY, dtype="int8r", device=dev,
+                        token_width=TOKEN_WIDTH, colbert_rank=HYB_RANK)
+    proj = index.colbert_projection_for(encoder.colbert.out_features)
+
+    # 4,096 text chunks through the three heads, 64 per source; a small
+    # vocabulary, so queries share tokens with the chunks they retrieve
+    rng = np.random.default_rng(seed + 13)
+    vocab = [f"w{i}" for i in rng.permutation(20_000)[:HYB_VOCAB]]
+    texts = make_texts(rng, TEXT_CHUNKS, vocab)
+    tb = tok.batch(texts, TOKEN_WIDTH, buckets=(TOKEN_WIDTH,))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    vecs = embedder.embed(texts)
+    weights = embedder.token_weights(tb.input_ids, tb.attention_mask)
+    codes, scales = embedder.colbert_cache(tb.input_ids, tb.attention_mask, HYB_RANK, proj)
+    heads_s = time.perf_counter() - t
+    require(np.isfinite(vecs).all() and np.isfinite(weights).all() and np.isfinite(scales).all(),
+            "finite embeddings, weights and scales")
+    for s in range(0, TEXT_CHUNKS, 64):
+        part = slice(s, s + 64)
+        index.add_chunks([f"text{s // 64}:{i}" for i in range(64)], vecs[part], f"text{s // 64}",
+                         token_ids=tb.input_ids[part], token_mask=tb.attention_mask[part],
+                         token_weights=weights[part], colbert_codes=codes[part],
+                         colbert_scales=scales[part])
+    # seeded rows up to HYB_LIVE: unit vectors, random token rows, non-negative
+    # weights, codes and scales (0 at CLS and padding)
+    n_src = 0
+    while index.size < HYB_LIVE:
+        n = min(BLOCK, HYB_LIVE - index.size)
+        v, ids, mask = random_chunks(torch, n, gen, dev, tok, cfg.vocab_size)
+        real = mask.float()
+        real[:, 0] = 0.0
+        w = torch.rand((n, TOKEN_WIDTH), generator=gen, device=dev) * real
+        c = torch.randint(-127, 128, (n, TOKEN_WIDTH, HYB_RANK), generator=gen, device=dev,
+                          dtype=torch.int8)
+        sc = torch.rand((n, TOKEN_WIDTH), generator=gen, device=dev) * (0.02 / 127) * real
+        index.add_chunks([f"rand{n_src}:{i}" for i in range(n)], v, f"rand{n_src}",
+                         token_ids=ids, token_mask=mask, token_weights=w,
+                         colbert_codes=c * real[..., None].to(torch.int8), colbert_scales=sc)
+        n_src += 1
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t
+    require(index.size == HYB_LIVE, f"live rows {index.size}")
+    smi = card()
+    emit("hybrid_ingest", heads_s=heads_s, ingest_s=ingest_s, live_rows=index.size,
+         capacity=HYB_CAPACITY, colbert_rank=HYB_RANK,
+         colbert_bytes=index.tokens.colbert.codes.numel() + 4 * index.tokens.colbert.scales.numel(),
+         card=smi)
+
+    picks = rng.integers(0, TEXT_CHUNKS, REQUESTS)
+    queries = [" ".join(texts[j].split()[3:15]) for j in picks]
+    service = RetrievalService(index, embedder, CrossEncoderReranker(reranker, tok), top_k=TOP_K,
+                               rerank_k=RERANK_K, lex_weight=HYB_LEX, colbert_weight=HYB_COLBERT)
+    require(service.fused, "the service runs the fused path")
+    serve_burst(service, queries[:MAX_BATCH])  # warm-up
+    topk_int8.launches = 0
+    answers, wall_s = serve_burst(service, queries)
+    launches = topk_int8.launches
+    require(launches > 0, "the hybrid burst launched the topk_int8 kernel")
+    check_answers(np, answers, set())
+
+    # one batch: the cached form against its plain composition
+    qb = tok.batch(queries[:MAX_BATCH], TOKEN_WIDTH, buckets=(TOKEN_WIDTH,))
+    q_ids = torch.as_tensor(qb.input_ids, device=dev)
+    q_mask = torch.as_tensor(qb.attention_mask, device=dev)
+    proj_t = torch.as_tensor(proj, device=dev)
+    with torch.inference_mode():
+        state, _ = index.snapshot()
+        t_, cb = index.tokens.state, index.tokens.colbert
+        common = (encoder, reranker, q_ids, q_mask, state.vectors, state.scales, state.penalty,
+                  t_.ids, t_.mask, state.residual)
+        cached = dict(top_k=TOP_K, rerank_k=RERANK_K, tok_weights=t_.weights,
+                      tok_cvecs=cb.codes, tok_cscale=cb.scales, colbert_proj=proj_t,
+                      lex_weight=HYB_LEX, colbert_weight=HYB_COLBERT)
+        recompute = {**cached, "tok_cvecs": None, "tok_cscale": None, "colbert_proj": None}
+        off = dict(top_k=TOP_K, rerank_k=RERANK_K)
+        r_rows, _, _, idx, vals = fused_query(*common, **cached)
+        # the composition, from the port's parts
+        q_hidden, q_emb = encode_queries(encoder, q_ids, q_mask)
+        qq, qs = quantize_rows_int8(q_emb)
+        cand = topk_int8_plain(qq, qs, state.vectors, state.scales, CANDIDATES, state.penalty)
+        pv, pi = rescore_candidates(q_emb, *cand, state.vectors, state.scales, TOP_K,
+                                    state.penalty, state.residual)
+        rows = pi.long()
+        lex = lexical_overlap_scores(
+            q_ids, sparse_weights_from_hidden(encoder, q_hidden, q_ids, q_mask), t_.ids[rows],
+            t_.weights[rows])
+        q_cb = colbert_vectors_from_hidden(encoder, q_hidden, q_mask) @ proj_t
+        late = late_interaction_scores(q_cb, q_mask, cb.codes[rows].float() * cb.scales[rows][..., None])
+        composed = pv + HYB_LEX * lex + HYB_COLBERT * late
+        pairs = t_.ids[rows]
+        pairs[:, :, 0] = tok.eos_id
+        b, k = rows.shape
+        rr = reranker(
+            torch.cat([q_ids[:, None, :].expand(b, k, -1).to(pairs.dtype), pairs], 2).reshape(b * k, -1),
+            torch.cat([q_mask[:, None, :].expand(b, k, -1).to(pairs.dtype), t_.mask[rows]], 2)
+            .reshape(b * k, -1),
+        ).reshape(b, k).masked_fill(composed <= NEG / 2, NEG)
+        want_top3 = torch.gather(pi, 1, torch.sort(rr, dim=1, descending=True, stable=True)[1][:, :RERANK_K])
+        live = pv > NEG / 2
+        lex_share = float(((lex != 0) & live).sum() / live.sum())
+        late_share = float(((late != 0) & live).sum() / live.sum())
+
+        # timings of the batch, median of 5: the path with the terms off, the
+        # cached and the recompute forms, and the cached form's stages
+        timing = {
+            "off_ms": cuda_ms(torch, lambda: fused_query(*common, **off), runs=5),
+            "cached_ms": cuda_ms(torch, lambda: fused_query(*common, **cached), runs=5),
+            "recompute_ms": cuda_ms(torch, lambda: fused_query(*common, **recompute), runs=5),
+            "encode_ms": cuda_ms(torch, lambda: encode_queries(encoder, q_ids, q_mask), runs=5),
+            "terms_ms": cuda_ms(torch, lambda: add_hybrid_terms(
+                pv, encoder, q_hidden, q_ids, q_mask, t_.ids[rows], t_.mask[rows],
+                t_.weights[rows], cb.codes[rows], cb.scales[rows], proj_t,
+                lex_weight=HYB_LEX, colbert_weight=HYB_COLBERT), runs=5),
+        }
+        timing["scan_ms"] = cuda_ms(torch, lambda: int8_topk(
+            *quantize_rows_int8(q_emb), state.vectors, state.scales, TOP_K, state.penalty,
+            rescore_queries=q_emb, rescore_residual=state.residual), runs=5)
+        timing["gather_rerank_ms"] = (timing["cached_ms"] - timing["encode_ms"]
+                                      - timing["scan_ms"] - timing["terms_ms"])
+        del state, t_, cb, common, cached, recompute
+    require(torch.equal(idx, pi), "the hybrid retrieval rows equal the composition's")
+    err = float((vals - composed)[live].abs().max())
+    require(err <= HYB_TOL, f"hybrid retrieval values within {HYB_TOL} of the composition's: {err}")
+    require(lex_share > 0.5 and late_share > 0.5,
+            f"both terms non-zero for most live candidates ({lex_share}, {late_share})")
+    require(torch.equal(r_rows, want_top3), "the rerank top-3 equals the composition's")
+    out = {"topk_int8_launches": launches, "max_abs_err_vs_composition": err,
+           "lexical_nonzero_share": lex_share, "late_nonzero_share": late_share,
+           "stages": timing, "seconds": time.perf_counter() - t_phase, "card": smi,
+           **latency_fields(answers, wall_s)}
+    emit("hybrid", **out)
+    del service, index, encoder, reranker, embedder
+    return out
 
 
 def unit_rows(torch, n: int, gen, dev):
@@ -1917,7 +2370,9 @@ def main() -> int:
 
     kernel = kernel_phase(torch, dev, args.seed)
     torch.cuda.empty_cache()
-    launches = slice_phase(torch, dev, args.seed)
+    launches, handover = slice_phase(torch, dev, args.seed)
+    life = lifecycle_phase(torch, dev, args.seed, handover)
+    del handover  # the index, service and models of both phases
     torch.cuda.empty_cache()
     floats, scan_floor_launches = kernel_float_phase(torch, dev, args.seed)
     flash = flash_phase(torch, dev, args.seed)
@@ -1932,6 +2387,8 @@ def main() -> int:
     int4_floor = kernel_int4_floor_phase(torch, dev, args.seed)
     torch.cuda.empty_cache()
     chat = decoder_phase(torch, dev, args.seed)
+    torch.cuda.empty_cache()
+    hybrid = hybrid_phase(torch, dev, args.seed)
 
     # ms / plain_ms / bound_ms: topk_* at B = 32, K = 64 (topk_int8's B = 128
     # and K = 12 beside them, its shared headers under "headers"; topk_float in the
@@ -1949,7 +2406,9 @@ def main() -> int:
     # call scans with a penalty and selects, walks a page table, or scatters
     # by one); for topk_int8 the yardstick of two calls, torch._int_mm then
     # torch.topk (null, with library_error, where _int_mm refuses the shape);
-    # launches: the count over that kernel's main-path run.
+    # launches: the count over that kernel's main-path run; topk_int8's
+    # launches_lifecycle and launches_hybrid: its counts over the bursts of
+    # those phases.
     print(json.dumps({"kernels": [{
         "name": "topk_int8", "route": "cuda",
         "source": "outline_rag_tpu_torch/csrc/topk_int8.cu",
@@ -1964,6 +2423,8 @@ def main() -> int:
                                         "bound_ms_b128", "bound_by_b128", "ms_k12",
                                         "library_error")
            if key in kernel},
+        "launches_lifecycle": life["launches"],
+        "launches_hybrid": hybrid["topk_int8_launches"],
     }, {
         "name": "topk_float", "route": "cuda",
         "source": "outline_rag_tpu_torch/csrc/topk_float.cu",

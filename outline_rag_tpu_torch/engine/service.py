@@ -38,6 +38,8 @@ class RetrievalService:
         top_k: int = 12,
         rerank_k: int = 3,
         chunk_text_lookup=None,  # callable chunk_id -> text (staged rerank)
+        lex_weight: float = 0.0,  # > 0: the fused path's lexical term
+        colbert_weight: float = 0.0,  # > 0: the fused path's ColBERT term
     ):
         self.index = index
         self.embedder = embedder
@@ -51,7 +53,10 @@ class RetrievalService:
             and isinstance(self.reranker, CrossEncoderReranker)
             and index.tokens is not None
         ):
-            self._fused = FusedEngine(embedder, self.reranker, index, top_k, rerank_k)
+            self._fused = FusedEngine(
+                embedder, self.reranker, index, top_k, rerank_k,
+                lex_weight=lex_weight, colbert_weight=colbert_weight,
+            )
 
     @property
     def fused(self) -> bool:

@@ -3,7 +3,7 @@
 Port of ``outline_rag_tpu/index/shard.py``. A shard is a capacity-padded
 row matrix with per-row scales and an additive validity penalty
 (0 = live, NEG = tombstoned or unused), all preallocated on the index's
-device. Mutations write in place (``index_copy_`` / ``index_fill_``) — the
+device. Mutations write in place (slice copies / ``index_fill_``) — the
 port's analogue of the JAX package's donated buffers — so nothing is
 reallocated, and the scan always runs over the full capacity with the
 penalty masking dead rows.
@@ -78,9 +78,10 @@ def init_state(
 
 
 class DeviceShard:
-    """Host-side manager for one shard: the write cursor, the live count
-    and the row -> chunk-id map (device row indices are translated
-    here)."""
+    """Host-side manager for one shard: the write cursor, the live count,
+    the row -> chunk-id map (device row indices are translated here) and
+    the generation, bumped by every append and tombstone that writes a
+    row."""
 
     def __init__(
         self, capacity: int, dim: int, dtype: str, device: str | torch.device
@@ -90,6 +91,7 @@ class DeviceShard:
         self.row_ids: np.ndarray = np.full(capacity, "", dtype=object)
         self.cursor = 0  # next free row
         self.live = 0
+        self.generation = 0
 
     @property
     def capacity(self) -> int:
@@ -102,7 +104,7 @@ class DeviceShard:
     def append(
         self,
         chunk_ids: list[str],
-        rows: torch.Tensor,  # [n, w] in the storage dtype (cast exactly)
+        rows: torch.Tensor,  # [n, w], any device; cast to the storage dtype
         scales: torch.Tensor,  # [n] f32
         residual: torch.Tensor | None = None,  # [n, dim] int8 (int8r mode)
     ) -> np.ndarray:
@@ -114,17 +116,19 @@ class DeviceShard:
             raise IndexError(f"shard full: {n} rows requested, {self.free} free")
         if self.state.residual.shape[1] and residual is None:
             raise ValueError("int8r shard append requires the residual plane")
-        at = torch.arange(self.cursor, self.cursor + n, device=self.device)
-        vectors = self.state.vectors
-        vectors.index_copy_(0, at, rows.to(self.device, vectors.dtype))
-        self.state.scales.index_copy_(0, at, scales.to(self.device, torch.float32))
-        self.state.penalty.index_fill_(0, at, 0.0)
+        # the rows are contiguous: slice copies cast in place and take rows
+        # from the host without a staging copy on the device
+        at = slice(self.cursor, self.cursor + n)
+        self.state.vectors[at].copy_(rows)
+        self.state.scales[at].copy_(scales)
+        self.state.penalty[at] = 0.0
         if self.state.residual.shape[1]:
-            self.state.residual.index_copy_(0, at, residual.to(self.device, torch.int8))
+            self.state.residual[at].copy_(residual)
         assigned = np.arange(self.cursor, self.cursor + n)
         self.row_ids[self.cursor : self.cursor + n] = chunk_ids
         self.cursor += n
         self.live += n
+        self.generation += 1
         return assigned
 
     def tombstone(self, rows: np.ndarray) -> None:
@@ -134,6 +138,7 @@ class DeviceShard:
         self.state.penalty.index_fill_(0, torch.as_tensor(rows, device=self.device), NEG)
         self.row_ids[rows] = ""
         self.live -= rows.size
+        self.generation += 1
 
     def snapshot(self) -> tuple[ShardState, np.ndarray]:
         """(state, row-id map) for a reader. The tensors are written in

@@ -32,7 +32,7 @@ from outline_rag_tpu_torch.models.decoder import (
     PagedKV,
     cast_decoder_params,
 )
-from outline_rag_tpu_torch.models.encoder import Encoder, EncoderConfig
+from outline_rag_tpu_torch.models.encoder import Encoder, EncoderConfig, zero_linear
 from outline_rag_tpu_torch.models.reranker import Reranker
 
 
@@ -91,15 +91,24 @@ def _load_encoder(enc: Encoder, params: Mapping[str, Any]) -> None:
 
 
 def encoder_from_jax(
-    params_np: Mapping[str, Any], cfg: EncoderConfig, device: str | torch.device = "cpu"
+    params_np: Mapping[str, Any], cfg: EncoderConfig, device: str | torch.device
 ) -> Encoder:
-    enc = Encoder(cfg, device)
+    """The encoder, with BGE-m3's sparse and ColBERT heads where
+    ``params_np`` has them (``"sparse"``, ``"colbert"``)."""
+    heads = {k: params_np[k] for k in ("sparse", "colbert") if k in params_np}
+    enc = Encoder(
+        cfg, device, sparse="sparse" in heads,
+        colbert_dim=np.shape(heads["colbert"]["w"])[1] if "colbert" in heads else 0,
+    )
     _load_encoder(enc, params_np)
+    with torch.no_grad():
+        for name, head in heads.items():
+            _set_linear(getattr(enc, name), head["w"], head["b"])
     return enc.eval()
 
 
 def reranker_from_jax(
-    params_np: Mapping[str, Any], cfg: EncoderConfig, device: str | torch.device = "cpu"
+    params_np: Mapping[str, Any], cfg: EncoderConfig, device: str | torch.device
 ) -> Reranker:
     rr = Reranker(cfg, device)
     _load_encoder(rr.encoder, params_np)
@@ -131,6 +140,25 @@ def init_encoder(
     enc = Encoder(cfg, device)
     fill_normal_(enc, generator)
     return enc.eval()
+
+
+def init_sparse_head(encoder: Encoder, generator: torch.Generator) -> Encoder:
+    """Give ``encoder`` a seeded BGE-m3 sparse head, Linear(H, 1) with
+    N(0, 0.02) weights and a zero bias (the JAX package's
+    ``init_sparse_head``); returns the encoder."""
+    encoder.sparse = zero_linear(encoder.cfg.hidden, 1, encoder.cfg, encoder.word.device)
+    fill_normal_(encoder.sparse, generator)
+    return encoder
+
+
+def init_colbert_head(encoder: Encoder, generator: torch.Generator) -> Encoder:
+    """Give ``encoder`` a seeded BGE-m3 ColBERT head, Linear(H, H) (bge-m3's
+    ``colbert_linear`` is 1024 -> 1024), N(0, 0.02) weights and a zero bias
+    (``init_colbert_head``)."""
+    cfg = encoder.cfg
+    encoder.colbert = zero_linear(cfg.hidden, cfg.hidden, cfg, encoder.word.device)
+    fill_normal_(encoder.colbert, generator)
+    return encoder
 
 
 def init_reranker(
@@ -177,7 +205,7 @@ def _leaf(x, device) -> torch.Tensor:
 
 
 def decoder_from_jax(
-    params_np: Mapping[str, Any], cfg: DecoderConfig, device: str | torch.device = "cpu"
+    params_np: Mapping[str, Any], cfg: DecoderConfig, device: str | torch.device
 ) -> dict:
     """The JAX package's decoder parameters (numpy leaves) as the port's.
 
@@ -208,7 +236,7 @@ def decoder_from_jax(
     return cast_decoder_params(out, cfg.dtype)
 
 
-def paged_kv_from_jax(cache_np, device: str | torch.device = "cpu") -> PagedKV:
+def paged_kv_from_jax(cache_np, device: str | torch.device) -> PagedKV:
     """A JAX ``PagedKV`` whose leaves are numpy arrays (read by attribute)
     as the port's: pools ``[L, P, KvH, Dh, page]`` (position minor) become
     ``[L, P, KvH, page, Dh]``; the table and the int8 pool's scales
@@ -231,7 +259,7 @@ def paged_kv_from_jax(cache_np, device: str | torch.device = "cpu") -> PagedKV:
 
 
 def decoder_params_from_state_dict(
-    sd: Mapping[str, Any], cfg: DecoderConfig, device: str | torch.device = "cpu"
+    sd: Mapping[str, Any], cfg: DecoderConfig, device: str | torch.device
 ) -> dict:
     """An HF ``LlamaForCausalLM`` / ``Qwen2ForCausalLM`` state dict (tensors
     or arrays) as the port's unfused decoder parameters, in f32 (cast with

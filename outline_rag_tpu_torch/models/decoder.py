@@ -637,7 +637,7 @@ def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     return _mix64(_mix64(key) + data * _GOLDEN)
 
 
-def make_key(seed, device: str | torch.device = "cpu") -> torch.Tensor:
+def make_key(seed, device: str | torch.device) -> torch.Tensor:
     """The base key of an integer seed (a tensor of seeds gives a tensor of
     keys): int64."""
     seed = torch.as_tensor(seed, dtype=torch.int64, device=device)

@@ -2,7 +2,8 @@
 whole-document ingest, the decoder's paged attention, KV page write and
 w8a16 linear, the int4 linears (w4a8, w4a16) and the floors of the scan and
 of the int4 stream (each a CUDA kernel with its plain twin), the row and
-weight quantizers, the w8a8 product and the exact fp32 candidate rescore."""
+weight quantizers, the w8a8 product, the exact fp32 candidate rescore and
+its host-residual tier."""
 
 from outline_rag_tpu_torch.ops.attention import (
     NEG_BIAS,
@@ -12,6 +13,7 @@ from outline_rag_tpu_torch.ops.attention import (
 # ``int8_linear`` and ``paged_attention`` are imported from their modules of
 # the same name, not re-exported here: a package attribute would shadow the
 # submodule for ``import outline_rag_tpu_torch.ops.paged_attention as m``.
+from outline_rag_tpu_torch.ops.hostres import host_residual_topk
 from outline_rag_tpu_torch.ops.int4_linear import (
     int4_kernel_eligible,
     int4_stream_floor,
@@ -37,6 +39,7 @@ from outline_rag_tpu_torch.ops.paged_attention import (
 from outline_rag_tpu_torch.ops.quant import (
     dequantize_rows_int8,
     int8_topk,
+    int8_topk_candidates,
     quantize_rows_int8,
     quantize_rows_int8_residual,
     rescore_candidates,
@@ -68,7 +71,9 @@ __all__ = [
     "int4_stream_floor",
     "int4_stream_floor_plain",
     "int8_linear_plain",
+    "host_residual_topk",
     "int8_topk",
+    "int8_topk_candidates",
     "join_bf16x2",
     "merge_topk",
     "paged_attention_plain",

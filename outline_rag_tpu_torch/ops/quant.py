@@ -57,6 +57,39 @@ def rescore_fp32(
     return torch.einsum("bd,bkd->bk", queries, corpus_rows)
 
 
+def _rescore_exact(
+    queries: torch.Tensor,  # [B, D] f32 exact query values
+    cand_vals: torch.Tensor,  # [B, M] scan values
+    cand_idx: torch.Tensor,  # [B, M] scan rows
+    corpus: torch.Tensor,  # [N, D] int8 (the q1 plane)
+    c_scale: torch.Tensor,  # [N] f32
+    penalty: torch.Tensor | None,  # [N] f32
+    residual: torch.Tensor | None,  # [N, D] int8 (the q2 plane)
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The exact f32 scores of the scan's candidates, shared by the device
+    rescore and the host tier: ``(scores [B, M], rows [B, M] ascending,
+    row scales [B, M])``.
+
+    Candidates are put in ascending row order first, so a stable sort of
+    the scores keeps the lowest-row-wins tie rule. Rows dequantize from q1
+    (plus q2 when ``residual`` is given) and score with the penalty added.
+    A candidate the scan marked dead (value <= NEG/2, the ``(NEG, 0)``
+    slots of an index with fewer live rows than M) scores NEG whatever its
+    row: the JAX package rescored those slots as row 0 and could return
+    row 0 several times."""
+    order = torch.argsort(cand_idx, dim=1, stable=True)
+    idx_c = torch.gather(cand_idx, 1, order).long()
+    dead = torch.gather(cand_vals, 1, order) <= NEG / 2
+    taken_scale = c_scale[idx_c]  # [B, M]
+    rows = corpus[idx_c].float() * taken_scale[..., None]
+    if residual is not None:
+        rows = rows + residual[idx_c].float() * (taken_scale[..., None] / 254.0)
+    scores = rescore_fp32(queries.float(), rows)
+    if penalty is not None:
+        scores = scores + penalty[idx_c]
+    return scores.masked_fill(dead, NEG), idx_c, taken_scale
+
+
 def rescore_candidates(
     queries: torch.Tensor,  # [B, D] f32 exact query values
     cand_vals: torch.Tensor,  # [B, M] scan values
@@ -68,26 +101,35 @@ def rescore_candidates(
     residual: torch.Tensor | None = None,  # [N, D] int8 (the q2 plane)
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Re-rank the scan's candidates by the exact f32 ``query . row`` with
-    rows dequantized from q1 (and q2 when given); top-k of those.
-
-    Candidates are put in ascending row order first, so a stable sort
-    keeps the lowest-row-wins tie rule. A candidate the scan marked dead
-    (value <= NEG/2, the ``(NEG, 0)`` slots of an index with fewer live
-    rows than M) scores NEG whatever its row: the JAX package rescored
-    those slots as row 0 and could return row 0 several times."""
-    order = torch.argsort(cand_idx, dim=1, stable=True)
-    idx_c = torch.gather(cand_idx, 1, order).long()
-    dead = torch.gather(cand_vals, 1, order) <= NEG / 2
-    taken_scale = c_scale[idx_c]  # [B, M]
-    rows = corpus[idx_c].float() * taken_scale[..., None]
-    if residual is not None:
-        rows = rows + residual[idx_c].float() * (taken_scale[..., None] / 254.0)
-    scores = rescore_fp32(queries.float(), rows)
-    if penalty is not None:
-        scores = scores + penalty[idx_c]
-    scores = scores.masked_fill(dead, NEG)
+    rows dequantized from q1 (and q2 when given); top-k of those, lowest
+    row first among ties (:func:`_rescore_exact`)."""
+    scores, idx_c, _ = _rescore_exact(
+        queries, cand_vals, cand_idx, corpus, c_scale, penalty, residual
+    )
     vals, pos = torch.sort(scores, dim=1, descending=True, stable=True)
     return vals[:, :k], torch.gather(idx_c, 1, pos[:, :k]).to(torch.int32)
+
+
+def int8_topk_candidates(
+    q_queries: torch.Tensor,  # [B, D] int8
+    q_scale: torch.Tensor,  # [B] f32
+    corpus: torch.Tensor,  # [N, D] int8 (the q1 plane)
+    c_scale: torch.Tensor,  # [N] f32
+    m: int,
+    rescore_queries: torch.Tensor,  # [B, D] f32 exact query values
+    penalty: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Device half of the host-residual rescore tier: the int8 scan's top
+    ``m`` candidates with their exact f32 q1-part scores. Returns
+    ``(scores_q1 [B, m] f32, idx [B, m] int32 ascending, scale_c [B, m]
+    f32)`` for ``ops/hostres.py::host_residual_topk`` to finish with the
+    q2 plane held in host memory."""
+    kq = min(m, corpus.shape[0])
+    vals_c, idx_c = topk_int8(q_queries, q_scale, corpus, c_scale, kq, penalty)
+    scores, idx_c, taken_scale = _rescore_exact(
+        rescore_queries, vals_c, idx_c, corpus, c_scale, penalty, None
+    )
+    return scores, idx_c.to(torch.int32), taken_scale
 
 
 def int8_topk(

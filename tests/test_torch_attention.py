@@ -176,7 +176,8 @@ def test_encoder_flash_route_matches_jax(enc_params, dtype):
     want = je.encoder_forward(je.cast_params(enc_params, jdt), tb.input_ids,
                               tb.attention_mask, jcfg)
     enc = convert.encoder_from_jax(
-        jax.tree_util.tree_map(np.asarray, enc_params), convert.config_from_jax(jcfg)
+        jax.tree_util.tree_map(np.asarray, enc_params), convert.config_from_jax(jcfg),
+        device="cpu",
     )
     assert enc.cfg.attn_impl == "flash"
     with torch.no_grad():
@@ -202,7 +203,8 @@ def test_whole_document_embedder_matches_jax():
     j_emb = JaxEmbedder(params, jcfg, tok, max_tokens=2048, batch_buckets=(2,))
     p_emb = EncoderEmbedder(
         convert.encoder_from_jax(
-            jax.tree_util.tree_map(np.asarray, params), convert.config_from_jax(jcfg)
+            jax.tree_util.tree_map(np.asarray, params), convert.config_from_jax(jcfg),
+            device="cpu",
         ),
         tok, max_tokens=2048,
     )

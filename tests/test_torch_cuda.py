@@ -938,3 +938,125 @@ def test_spec_batcher_on_the_card_runs_windows_through_the_paged_kernels(cuda):
     assert warm == cold and 0 < len(cold) <= 12
     assert st["spec_tokens_per_step"] >= 1.0 and st["active"] == 0
     assert st["pages_free"] + st["pages_cached"] == st["pages_total"]
+
+
+def _lifecycle(dev, tmp_path):
+    """Growth, churn compaction and a snapshot round trip of a small int8r
+    index with a ColBERT cache: the answers after each step."""
+    import numpy as np
+
+    from outline_rag_tpu_torch.index import VectorIndex
+
+    index = VectorIndex(dim=64, capacity=1024, dtype="int8r", device=dev, token_width=8,
+                        colbert_rank=4)
+    index.colbert_proj = np.eye(16, 4, dtype=np.float32)
+    rng = np.random.default_rng(0)
+
+    def add(source, n):
+        index.add_chunks(
+            [f"{source}:{i}" for i in range(n)],
+            rng.integers(-20, 21, (n, 64)).astype(np.float32), source,
+            token_ids=rng.integers(3, 500, (n, 8)).astype(np.int32),
+            colbert_codes=rng.integers(-127, 128, (n, 8, 4)).astype(np.int8),
+            colbert_scales=rng.random((n, 8)).astype(np.float32),
+        )
+
+    queries = np.random.default_rng(1).integers(-20, 21, (6, 64)).astype(np.float32)
+    answers = []
+    for s in range(5):
+        add(f"s{s}", 200)
+    add("s1", 200)  # no free row: compacts at 1,024
+    answers.append((index.capacity, index.query(queries, 12)))
+    add("s9", 300)  # grows to 2,048
+    answers.append((index.capacity, index.query(queries, 12)))
+    index.save(str(tmp_path / "snap"))
+    loaded = VectorIndex.load(str(tmp_path / "snap"), device=dev)
+    index.adopt(loaded)
+    answers.append((index.capacity, index.query(queries, 12)))
+    codes = {c: index.tokens.colbert.codes[r].cpu() for c, r in index._by_chunk.items()}
+    return answers, codes
+
+
+def test_index_lifecycle_on_the_card_matches_the_cpu(cuda, tmp_path):
+    before = topk_int8.launches
+    got, got_codes = _lifecycle(cuda, tmp_path / "card")
+    assert topk_int8.launches > before
+    want, want_codes = _lifecycle(torch.device("cpu"), tmp_path / "cpu")
+    assert [cap for cap, _ in got] == [cap for cap, _ in want] == [1024, 2048, 2048]
+    for (_, (gids, gvals)), (_, (wids, wvals)) in zip(got, want):
+        assert gids == wids
+        assert abs(gvals - wvals).max() <= 1e-6
+    assert got_codes.keys() == want_codes.keys()
+    assert all(torch.equal(got_codes[c], want_codes[c]) for c in got_codes)
+
+
+def _hybrid_run(dev):
+    """The hybrid fused query of a tiny seeded encoder with both heads over
+    an int8r index with lexical weights and ColBERT codes, cached and
+    recompute forms."""
+    import numpy as np
+
+    from outline_rag_tpu_torch.engine import EncoderEmbedder, fused_query
+    from outline_rag_tpu_torch.index import VectorIndex
+    from outline_rag_tpu_torch.models import (
+        EncoderConfig,
+        init_colbert_head,
+        init_encoder,
+        init_reranker,
+        init_sparse_head,
+    )
+    from outline_rag_tpu_torch.models.tokenizer import HashTokenizer
+
+    cfg = EncoderConfig.tiny()
+    gen = torch.Generator().manual_seed(0)
+    enc = init_encoder(cfg, gen, "cpu")
+    with torch.no_grad():  # a trunk wider than the init's std 0.02, as the CPU tests use
+        for p in enc.parameters():
+            if p.dim() == 2:
+                p.mul_(25)
+    enc = init_colbert_head(init_sparse_head(enc, gen), gen).to(dev)
+    rr = init_reranker(cfg, gen, "cpu").to(dev)
+    tok = HashTokenizer(cfg.vocab_size)
+    emb = EncoderEmbedder(enc, tok, max_tokens=64, seq_buckets=(32, 64))
+    index = VectorIndex(dim=64, capacity=1024, dtype="int8r", device=dev, token_width=32,
+                        colbert_rank=16)
+    proj = index.colbert_projection_for(64)
+    rng = np.random.default_rng(0)
+    words = [f"w{i}" for i in range(40)]
+    texts = [" ".join(rng.choice(words, rng.integers(4, 20))) for _ in range(200)]
+    tb = tok.batch(texts, 32, buckets=(32,))
+    codes, scales = emb.colbert_cache(tb.input_ids, tb.attention_mask, 16, proj)
+    index.add_chunks([f"c{i}" for i in range(200)], emb.embed(texts), "s",
+                     token_ids=tb.input_ids, token_mask=tb.attention_mask,
+                     token_weights=emb.token_weights(tb.input_ids, tb.attention_mask),
+                     colbert_codes=codes, colbert_scales=scales)
+    q = tok.batch([" ".join(words[i : i + 5]) for i in range(0, 30, 6)], 64, buckets=(64,))
+    state, _ = index.snapshot()
+    t, cb = index.tokens.state, index.tokens.colbert
+    out = {}
+    with torch.no_grad():
+        for form in ("cached", "recompute"):
+            cached = form == "cached"
+            out[form] = [x.cpu() for x in fused_query(
+                enc, rr, torch.as_tensor(q.input_ids, device=dev),
+                torch.as_tensor(q.attention_mask, device=dev), state.vectors, state.scales,
+                state.penalty, t.ids, t.mask, state.residual, top_k=12, rerank_k=3,
+                tok_weights=t.weights, tok_cvecs=cb.codes if cached else None,
+                tok_cscale=cb.scales if cached else None,
+                colbert_proj=torch.as_tensor(proj, device=dev) if cached else None,
+                lex_weight=0.3, colbert_weight=0.2,
+            )]
+    return out
+
+
+def test_hybrid_fused_query_on_the_card_matches_the_cpu(cuda):
+    before = topk_int8.launches
+    got = _hybrid_run(cuda)
+    assert topk_int8.launches > before
+    want = _hybrid_run(torch.device("cpu"))
+    for form in ("cached", "recompute"):
+        g, w = got[form], want[form]
+        assert torch.equal(g[3], w[3])  # retrieval rows
+        assert (g[4] - w[4]).abs().max() <= 1e-5
+        assert torch.equal(g[0], w[0])  # rerank rows
+        assert (g[1] - w[1]).abs().max() <= 1e-4 and (g[2] - w[2]).abs().max() <= 1e-4

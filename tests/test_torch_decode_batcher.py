@@ -42,7 +42,7 @@ def setup():
     jcfg = jdec.DecoderConfig.tiny()
     jparams = jdec.init_decoder_params(jax.random.key(0), jcfg)
     cfg = decoder_config_from_jax(jcfg)
-    params = decoder_from_jax(jax.tree_util.tree_map(np.asarray, jparams), cfg)
+    params = decoder_from_jax(jax.tree_util.tree_map(np.asarray, jparams), cfg, device="cpu")
     return cfg, params, jcfg, jparams
 
 

@@ -62,14 +62,14 @@ def jax_cache(jcfg, kind, b=2):
 def port_cache(cfg, jcache):
     if isinstance(jcache, tuple):
         return tdec.init_cache(cfg, jcache[0].shape[1], "cpu")
-    return paged_kv_from_jax(to_np(jcache))
+    return paged_kv_from_jax(to_np(jcache), device="cpu")
 
 
 def run_both(jcfg, jparams, kind, steps=3):
     """Prefill 7 tokens, then `steps` single-token steps, in both packages:
     [(jax logits, port logits)] per call."""
     cfg = decoder_config_from_jax(jcfg)
-    params = decoder_from_jax(to_np(jparams), cfg)
+    params = decoder_from_jax(to_np(jparams), cfg, device="cpu")
     jcache = jax_cache(jcfg, kind)
     tcache = port_cache(cfg, jcache)
     toks = tokens()
@@ -120,7 +120,7 @@ def test_int8_mm_matches_jax_on_the_same_input(monkeypatch, mode):
     monkeypatch.setattr(tdec, "_INT8_MODE", mode)
     jcfg, jparams = jax_model()
     jq = jdec.quantize_decoder_params(jdec.fuse_decoder_params(jparams))
-    tq = decoder_from_jax(to_np(jq), decoder_config_from_jax(jcfg))
+    tq = decoder_from_jax(to_np(jq), decoder_config_from_jax(jcfg), device="cpu")
     rng = np.random.default_rng(4)
     leaves = [(jq["lm_head"], tq["lm_head"])] + [
         ({k: v[1] for k, v in jq["layers"][name].items()}, tq["layers"][1][name])
@@ -162,7 +162,7 @@ def test_quantize_decoder_params_matches_jax_codes():
     cfg = decoder_config_from_jax(jcfg)
     fused = jdec.fuse_decoder_params(jparams)
     want = to_np(jdec.quantize_decoder_params(fused))
-    got = tdec.quantize_decoder_params(decoder_from_jax(to_np(fused), cfg))
+    got = tdec.quantize_decoder_params(decoder_from_jax(to_np(fused), cfg, device="cpu"))
     assert set(got["layers"][0]) == set(want["layers"])
     for name in ("wqkv", "wo", "wgu", "wd"):
         for li in range(cfg.layers):
@@ -203,7 +203,7 @@ def test_kernel_mode_refuses_a_width_the_kernel_cannot_take(monkeypatch, n):
 def test_paged_pool_is_updated_in_place_and_matches_jax_pool():
     jcfg, jparams = jax_model()
     cfg = decoder_config_from_jax(jcfg)
-    params = decoder_from_jax(to_np(jparams), cfg)
+    params = decoder_from_jax(to_np(jparams), cfg, device="cpu")
     jcache = jax_cache(jcfg, "paged_int8")
     tcache = port_cache(cfg, jcache)
     k_before = tcache.k
@@ -214,7 +214,7 @@ def test_paged_pool_is_updated_in_place_and_matches_jax_pool():
         _, out = tdec.decoder_forward(params, torch.from_numpy(toks), tcache,
                                       torch.zeros(2, dtype=torch.int32), cfg)
     assert out is tcache and out.k is k_before and out.page == 16
-    want = paged_kv_from_jax(to_np(jcache))
+    want = paged_kv_from_jax(to_np(jcache), device="cpu")
     live = np.unique(TABLE[:, :2])  # the pages the 20 tokens touched
     # int8 codes may differ by one where x/s lands on a rounding boundary
     assert (out.k[:, live].int() - want.k[:, live].int()).abs().max() <= 1
@@ -238,7 +238,7 @@ def test_init_paged_cache_checks():
 def test_greedy_generate_chunk_tokens_equal_jax(kind):
     jcfg, jparams = jax_model()
     cfg = decoder_config_from_jax(jcfg)
-    params = decoder_from_jax(to_np(jparams), cfg)
+    params = decoder_from_jax(to_np(jparams), cfg, device="cpu")
     jcache = jax_cache(jcfg, kind)
     tcache = port_cache(cfg, jcache)
     toks = tokens()
@@ -252,7 +252,7 @@ def test_greedy_generate_chunk_tokens_equal_jax(kind):
                                          torch.zeros(2, dtype=torch.int32), cfg)
         got, _, ttok, tpos = tdec.generate_chunk(
             params, tcache, torch.from_numpy(first.copy()), torch.full((2,), 7, dtype=torch.int32),
-            tdec.make_key(1), cfg, n_steps=32, temperature=0.0, top_p=1.0, eos_id=-1)
+            tdec.make_key(1, "cpu"), cfg, n_steps=32, temperature=0.0, top_p=1.0, eos_id=-1)
     assert got.tolist() == np.asarray(want).tolist()
     assert ttok.tolist() == np.asarray(jtok).tolist() and tpos.tolist() == np.asarray(jpos).tolist()
 
@@ -260,17 +260,17 @@ def test_greedy_generate_chunk_tokens_equal_jax(kind):
 def test_generate_chunk_freezes_on_eos():
     jcfg, jparams = jax_model()
     cfg = decoder_config_from_jax(jcfg)
-    params = decoder_from_jax(to_np(jparams), cfg)
+    params = decoder_from_jax(to_np(jparams), cfg, device="cpu")
     with torch.inference_mode():
         cache = tdec.init_cache(cfg, 2, "cpu")
         free, *_ = tdec.generate_chunk(
             params, cache, torch.tensor([5, 9]), torch.zeros(2, dtype=torch.int32),
-            tdec.make_key(0), cfg, n_steps=8, temperature=0.0, top_p=1.0, eos_id=-1)
+            tdec.make_key(0, "cpu"), cfg, n_steps=8, temperature=0.0, top_p=1.0, eos_id=-1)
         eos = int(free[0, 2])  # make row 0's third token the eos
         cache = tdec.init_cache(cfg, 2, "cpu")
         got, _, tok, _ = tdec.generate_chunk(
             params, cache, torch.tensor([5, 9]), torch.zeros(2, dtype=torch.int32),
-            tdec.make_key(0), cfg, n_steps=8, temperature=0.0, top_p=1.0, eos_id=eos)
+            tdec.make_key(0, "cpu"), cfg, n_steps=8, temperature=0.0, top_p=1.0, eos_id=eos)
     assert got[0, :3].tolist() == free[0, :3].tolist()
     assert (got[0, 2:] == eos).all() and int(tok[0]) == eos
     row1 = free[1].tolist()
@@ -351,7 +351,7 @@ def test_quantize_decoder_params_int4_matches_jax_codes():
     cfg = decoder_config_from_jax(jcfg)
     fused = jdec.fuse_decoder_params(jparams)
     want = to_np(jdec.quantize_decoder_params_int4(fused))
-    got = tdec.quantize_decoder_params_int4(decoder_from_jax(to_np(fused), cfg))
+    got = tdec.quantize_decoder_params_int4(decoder_from_jax(to_np(fused), cfg, device="cpu"))
     assert set(got["layers"][0]) == set(want["layers"])
     for name in ("wqkv", "wo", "wgu", "wd"):
         for li in range(cfg.layers):
@@ -449,7 +449,7 @@ def test_sampler_follows_the_nucleus_distribution(temperature, top_p):
     rng = np.random.default_rng(0)
     logits = rng.standard_normal(12).astype(np.float32)
     n = 20_000
-    keys = tdec.key_at(tdec.make_key(7), torch.arange(n))
+    keys = tdec.key_at(tdec.make_key(7, "cpu"), torch.arange(n))
     draws = tdec.sample_token(torch.from_numpy(logits).expand(n, 12), keys, temperature, top_p)
     counts = np.bincount(draws.numpy(), minlength=12)
     want = nucleus_probs(logits, temperature, top_p)
@@ -466,21 +466,21 @@ def test_sampler_position_contract():
     logits = torch.from_numpy(rng.standard_normal((6, 256)).astype(np.float32))
     seeds = torch.tensor([11, 12, 13, 11, 12, 13])
     pos = torch.tensor([5, 6, 7, 8, 6, 7])
-    keys = tdec.key_at(tdec.make_key(seeds), pos)
+    keys = tdec.key_at(tdec.make_key(seeds, "cpu"), pos)
     batch = tdec.sample_token(logits, keys, 1.2, 0.95)
     for i in range(6):
-        solo = tdec._sample_one(logits[i], tdec.key_at(tdec.make_key(int(seeds[i])), int(pos[i])),
+        solo = tdec._sample_one(logits[i], tdec.key_at(tdec.make_key(int(seeds[i]), "cpu"), int(pos[i])),
                                 1.2, 0.95)
         assert int(solo) == int(batch[i])
     perm = torch.tensor([3, 0, 5, 1, 4, 2])
     assert torch.equal(tdec.sample_token(logits[perm], keys[perm], 1.2, 0.95), batch[perm])
     # same seed and logits at another position draw with another key
-    assert len({int(tdec.key_at(tdec.make_key(11), q)) for q in range(100)}) == 100
+    assert len({int(tdec.key_at(tdec.make_key(11, "cpu"), q)) for q in range(100)}) == 100
 
 
 def test_sampler_greedy_and_mixed_rows():
     logits = torch.tensor([[0.0, 3.0, 3.0, 1.0], [2.0, 0.0, 0.0, 2.0]])
-    key = tdec.make_key(0)
+    key = tdec.make_key(0, "cpu")
     assert tdec.sample_token(logits, key, 0.0, 1.0).tolist() == [1, 0]  # ties: lowest index
     temp = torch.tensor([0.0, 1e-6])
     # row 1 samples at a vanishing temperature within top_p -> its best token, lowest index first
@@ -490,9 +490,9 @@ def test_sampler_greedy_and_mixed_rows():
 
 def test_sampler_one_key_gives_rows_their_own_noise():
     logits = torch.zeros((64, 50))
-    draws = tdec.sample_token(logits, tdec.make_key(3), 1.0, 1.0)
+    draws = tdec.sample_token(logits, tdec.make_key(3, "cpu"), 1.0, 1.0)
     assert len(set(draws.tolist())) > 10
-    assert torch.equal(draws, tdec.sample_token(logits, tdec.make_key(3), 1.0, 1.0))
+    assert torch.equal(draws, tdec.sample_token(logits, tdec.make_key(3, "cpu"), 1.0, 1.0))
 
 
 # ----------------------------------------------------------------------
@@ -504,20 +504,20 @@ def test_decoder_from_jax_takes_list_or_stacked_and_rejects_int4():
     jcfg = jdec.DecoderConfig.tiny()
     jlist = jdec.init_decoder_params(jax.random.key(0), jcfg)
     cfg = decoder_config_from_jax(jcfg)
-    a = decoder_from_jax(to_np(jlist), cfg)
-    b = decoder_from_jax(to_np(jdec.stack_decoder_params(jlist)), cfg)
+    a = decoder_from_jax(to_np(jlist), cfg, device="cpu")
+    b = decoder_from_jax(to_np(jdec.stack_decoder_params(jlist)), cfg, device="cpu")
     assert len(a["layers"]) == len(b["layers"]) == 2
     for la, lb in zip(a["layers"], b["layers"]):
         assert la.keys() == lb.keys() and all(torch.equal(la[k], lb[k]) for k in la)
-    bf = decoder_from_jax(to_np(jlist), dataclasses.replace(cfg, dtype=torch.bfloat16))
+    bf = decoder_from_jax(to_np(jlist), dataclasses.replace(cfg, dtype=torch.bfloat16), device="cpu")
     want = np.asarray(jdec.cast_decoder_params(jlist, jnp.bfloat16)["layers"][0]["wq"].astype(jnp.float32))
     np.testing.assert_array_equal(bf["layers"][0]["wq"].float().numpy(), want)
     assert bf["layers"][0]["ln1"].dtype == torch.float32
     with pytest.raises(ValueError, match="layers"):
-        decoder_from_jax(to_np(jlist), dataclasses.replace(cfg, layers=3))
+        decoder_from_jax(to_np(jlist), dataclasses.replace(cfg, layers=3), device="cpu")
     # an int4 tree is taken as it is (the name dates from when it was refused)
     q4 = to_np(jdec.quantize_decoder_params_int4(jdec.stack_decoder_params(jlist)))
-    got = decoder_from_jax(q4, cfg)
+    got = decoder_from_jax(q4, cfg, device="cpu")
     leaf = got["layers"][1]["wd"]
     assert leaf["q4"].dtype == torch.uint8 and leaf["s4"].dtype == torch.float32
     np.testing.assert_array_equal(leaf["q4"].numpy(), q4["layers"]["wd"]["q4"][1])
@@ -550,7 +550,8 @@ def test_decoder_params_from_state_dict_synthesized():
                 sd[f"{pre}{name}.bias"] = rng.standard_normal(shape[0]) * 0.1
     sd = {k: v.astype(np.float32) for k, v in sd.items()}
     jparams = jdec.stack_decoder_params(jax.tree_util.tree_map(jnp.asarray, jax_from_sd(sd, jcfg)))
-    params = decoder_params_from_state_dict({k: torch.from_numpy(v) for k, v in sd.items()}, cfg)
+    params = decoder_params_from_state_dict({k: torch.from_numpy(v) for k, v in sd.items()}, cfg,
+                                            device="cpu")
     assert tuple(params["layers"][0]["wq"].shape) == (h, cfg.heads * hd)
     toks = tokens()
     jl, _ = jdec.decoder_forward(jparams, jnp.asarray(toks), jdec.init_cache(jcfg, 2),
@@ -567,7 +568,7 @@ def test_paged_kv_from_jax_relays_the_pool():
     rng = np.random.default_rng(0)
     k = rng.integers(-127, 128, cache.k.shape).astype(np.int8)
     cache = dataclasses.replace(cache, k=jnp.asarray(k), table=jnp.asarray(TABLE))
-    got = paged_kv_from_jax(to_np(cache))
+    got = paged_kv_from_jax(to_np(cache), device="cpu")
     assert tuple(got.k.shape) == (2, 5, 2, 16, 16) and got.k.dtype == torch.int8
     assert got.k.is_contiguous() and got.table.dtype == torch.int32
     np.testing.assert_array_equal(got.k.numpy(), k.transpose(0, 1, 2, 4, 3))

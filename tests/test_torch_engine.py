@@ -90,9 +90,9 @@ def stacks():
     np_tree = lambda p: jax.tree_util.tree_map(np.asarray, p)  # noqa: E731
     pcfg = EncoderConfig.tiny()
     p_emb = EncoderEmbedder(
-        encoder_from_jax(np_tree(enc_p), pcfg), tok, max_tokens=64, seq_buckets=(32, 64)
+        encoder_from_jax(np_tree(enc_p), pcfg, device="cpu"), tok, max_tokens=64, seq_buckets=(32, 64)
     )
-    p_rr = CrossEncoderReranker(reranker_from_jax(np_tree(rr_p), pcfg), tok, max_tokens=128)
+    p_rr = CrossEncoderReranker(reranker_from_jax(np_tree(rr_p), pcfg, device="cpu"), tok, max_tokens=128)
     p_idx = VectorIndex(dim=64, capacity=2048, dtype="int8r", device="cpu", token_width=WIDTH)
     _ingest(p_idx, p_emb, tok, docs)
     for index in (j_idx, p_idx):

@@ -90,12 +90,16 @@ def _assert_fewer_live_rows_than_k_returns_each_once(dtype):
     assert (vals[:, 10:] == np.float32(NEG)).all()
 
 
-def test_add_past_capacity_raises_and_changes_nothing():
+def test_add_past_capacity_raises_and_changes_nothing(monkeypatch):
+    """An add that needs a growth the device cannot hold (the memory check
+    patched to refuse) raises before it tombstones anything."""
     index = VectorIndex(dim=DIM, capacity=1024, dtype="int8", device="cpu")
     index.add_chunks([f"a{i}" for i in range(1000)], _vectors(1, 1000), source_id="a")
-    with pytest.raises(IndexError, match="index full"):
-        index.add_chunks([f"b{i}" for i in range(30)], _vectors(2, 30), source_id="a")
+    monkeypatch.setattr(index, "_growth_would_fit", lambda cap: False)
+    with pytest.raises(RuntimeError, match="terminal capacity"):
+        index.add_chunks([f"b{i}" for i in range(1100)], _vectors(2, 1100), source_id="a")
     assert index.size == 1000  # the refused replace tombstoned nothing
+    assert index.capacity == 1024
     assert index.query(_vectors(1, 1000)[:1], 1)[0] == [["a0"]]
 
 

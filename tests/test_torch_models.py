@@ -56,7 +56,7 @@ def test_encoder_hidden_states_match_jax(enc_params, dtype):
     jcfg, pcfg, tol = _configs(dtype)
     ids, mask = _batch()
     want = je.encoder_forward(je.cast_params(enc_params, jcfg.dtype), ids, mask, jcfg)
-    enc = convert.encoder_from_jax(_np_tree(enc_params), pcfg)
+    enc = convert.encoder_from_jax(_np_tree(enc_params), pcfg, device="cpu")
     with torch.no_grad():
         got = enc(torch.from_numpy(ids), torch.from_numpy(mask))
     assert got.dtype == pcfg.dtype
@@ -70,7 +70,7 @@ def test_pooled_embeddings_match_jax(enc_params, dtype):
     jcfg, pcfg, tol = _configs(dtype)
     ids, mask = _batch()
     want = je.pooled_embeddings(je.cast_params(enc_params, jcfg.dtype), ids, mask, jcfg)
-    enc = convert.encoder_from_jax(_np_tree(enc_params), pcfg)
+    enc = convert.encoder_from_jax(_np_tree(enc_params), pcfg, device="cpu")
     with torch.no_grad():
         got = pooled_embeddings(enc, torch.from_numpy(ids), torch.from_numpy(mask))
     assert got.dtype == torch.float32
@@ -84,7 +84,7 @@ def test_reranker_scores_match_jax(rr_params, dtype):
     want = reranker_forward(
         je.cast_params(rr_params, jcfg.dtype), tb.input_ids, tb.attention_mask, jcfg
     )
-    rr = convert.reranker_from_jax(_np_tree(rr_params), pcfg)
+    rr = convert.reranker_from_jax(_np_tree(rr_params), pcfg, device="cpu")
     with torch.no_grad():
         got = rr(torch.from_numpy(tb.input_ids), torch.from_numpy(tb.attention_mask))
     assert got.dtype == torch.float32 and tuple(got.shape) == (4,)
@@ -97,6 +97,7 @@ def test_cast_rule_dtypes():
     rr = convert.reranker_from_jax(
         _np_tree(init_reranker_params(jax.random.key(1), je.EncoderConfig.tiny())),
         EncoderConfig.tiny(dtype=torch.bfloat16),
+        device="cpu",
     )
     for name, p in rr.named_parameters():
         want = torch.float32 if "_ln." in name else torch.bfloat16

@@ -38,7 +38,7 @@ def model():
     jcfg = jdec.DecoderConfig.tiny()
     jparams = jdec.stack_decoder_params(jdec.init_decoder_params(jax.random.key(0), jcfg))
     cfg = decoder_config_from_jax(jcfg)
-    return jcfg, jparams, cfg, decoder_from_jax(to_np(jparams), cfg)
+    return jcfg, jparams, cfg, decoder_from_jax(to_np(jparams), cfg, device="cpu")
 
 
 def planted_buffers():
@@ -86,7 +86,7 @@ def prefill_both(model, kind, toks):
     else:
         jcache = jdec.init_paged_cache(jcfg, b, 13, 16, kv_dtype="int8" if kind == "paged_int8" else None)
         jcache = dataclasses.replace(jcache, table=jnp.asarray(TABLE[:b]))
-        tcache = paged_kv_from_jax(to_np(jcache))
+        tcache = paged_kv_from_jax(to_np(jcache), device="cpu")
     jl, jcache = jdec.decoder_forward(jparams, jnp.asarray(toks), jcache, jnp.zeros((b,), jnp.int32), jcfg)
     with torch.inference_mode():
         tl, tcache = tdec.decoder_forward(params, torch.from_numpy(toks.copy()), tcache,
@@ -121,7 +121,7 @@ def test_greedy_generate_chunk_spec_equals_jax_token_for_token(model, kind):
     with torch.inference_mode():
         got = tdec.generate_chunk_spec(
             params, tcache, torch.from_numpy(buf.copy()), torch.from_numpy(first.copy()),
-            torch.full((2,), t, dtype=torch.int32), tdec.make_key(1), cfg, n_steps=12, draft_k=3,
+            torch.full((2,), t, dtype=torch.int32), tdec.make_key(1, "cpu"), cfg, n_steps=12, draft_k=3,
             gram=2, temperature=0.0, top_p=1.0, eos_id=-1)
     w_out, w_cnt, w_buf, w_tok, w_pos = (np.asarray(want[i]) for i in (0, 1, 3, 4, 5))
     out, cnt, _, tbuf, tok, pos = got
@@ -166,7 +166,7 @@ def test_spec_equals_plain_positional_loop(model, kind, temperature, top_p):
     _, cache_b, _ = prefill_both(model, kind, toks)
     seeds = torch.tensor([11, 12, 13])
     key0 = torch.zeros((), dtype=torch.int64)
-    want = plain_positional(params, cfg, cache_a, first, [9, 9, 9], tdec.make_key(seeds), 40,
+    want = plain_positional(params, cfg, cache_a, first, [9, 9, 9], tdec.make_key(seeds, "cpu"), 40,
                             temperature, top_p)
     got, cnt, *_ = spec_stream(params, cfg, cache_b, torch.from_numpy(token_buffer(cfg, toks)),
                                first, [9, 9, 9], key0, 10, draft_k=3, gram=2, seeds=seeds,
@@ -184,7 +184,7 @@ def test_spec_single_stream_key_convention(model):
     toks = prompt(b=1, seed=6)
     _, cache_a, first = prefill_both(model, "ring", toks)
     _, cache_b, _ = prefill_both(model, "ring", toks)
-    key = tdec.make_key(5)
+    key = tdec.make_key(5, "cpu")
     want = plain_positional(params, cfg, cache_a, first, [9], key.reshape(1), 24, 1.1, 0.9)
     got, *_ = spec_stream(params, cfg, cache_b, torch.from_numpy(token_buffer(cfg, toks)), first,
                           [9], key, 8, draft_k=2, gram=2, temperature=1.1, top_p=0.9, eos_id=-1)
@@ -200,14 +200,14 @@ def test_spec_truncates_at_an_eos_inside_an_accepted_run(model):
     kw = dict(draft_k=3, gram=2, temperature=0.0, top_p=1.0, force_accept=True)
     _, cache, first = prefill_both(model, "ring", toks)
     free, *_ = spec_stream(params, cfg, cache, torch.from_numpy(token_buffer(cfg, toks)),
-                           first, [9, 9], tdec.make_key(1), 3, eos_id=-1, **kw)
+                           first, [9, 9], tdec.make_key(1, "cpu"), 3, eos_id=-1, **kw)
     assert [len(x) for x in free] == [12, 12]
     at = next(i for i in (2, 1, 3) if free[0][i] not in free[0][:i])  # inside the first run
     eos = free[0][at]
     _, cache2, _ = prefill_both(model, "ring", toks)
     got, cnt, _, tok, pos = spec_stream(
         params, cfg, cache2, torch.from_numpy(token_buffer(cfg, toks)), first, [9, 9],
-        tdec.make_key(1), 3, eos_id=eos, **kw)
+        tdec.make_key(1, "cpu"), 3, eos_id=eos, **kw)
     assert got[0] == free[0][: at + 1] and int(cnt[0]) == at + 1
     assert int(tok[0]) == eos and int(pos[0]) == 9 + at + 1
     stop1 = free[1].index(eos) + 1 if eos in free[1] else 12
@@ -224,13 +224,13 @@ def test_spec_capacity_guard_freezes_a_row(model):
     _, cache, first = prefill_both(model, "ring", toks)
     buf = torch.from_numpy(token_buffer(cfg, toks))
     pos = [c - 5, 9]  # row 0: room for one window of 4 (slots c-5 .. c-2), then none
-    got, _, buf, tok, pos2 = spec_stream(params, cfg, cache, buf, first, pos, tdec.make_key(3), 4,
+    got, _, buf, tok, pos2 = spec_stream(params, cfg, cache, buf, first, pos, tdec.make_key(3, "cpu"), 4,
                                            draft_k=3, gram=2, temperature=0.0, top_p=1.0, eos_id=-1)
     assert 1 <= len(got[0]) <= 4 and len(got[1]) >= 4
     assert int(pos2[0]) == c - 5 + len(got[0])
     frozen_at = int(pos2[0])
     if frozen_at + 4 > c:  # the guard tripped: a further chunk emits nothing for row 0
-        more, cnt2, *_ = spec_stream(params, cfg, cache, buf, tok, pos2, tdec.make_key(3), 2,
+        more, cnt2, *_ = spec_stream(params, cfg, cache, buf, tok, pos2, tdec.make_key(3, "cpu"), 2,
                                      draft_k=3, gram=2, temperature=0.0, top_p=1.0, eos_id=-1)
         assert more[0] == [] and int(cnt2[0]) == 0 and len(more[1]) >= 2
 
@@ -241,7 +241,7 @@ def test_spec_done_rows_are_skipped_and_force_accept_takes_every_draft(model):
     _, cache, first = prefill_both(model, "ring", toks)
     buf = torch.from_numpy(token_buffer(cfg, toks))
     got, cnt, _, tok, pos = spec_stream(
-        params, cfg, cache, buf, first, [9, 9], tdec.make_key(0), 3, draft_k=3, gram=2,
+        params, cfg, cache, buf, first, [9, 9], tdec.make_key(0, "cpu"), 3, draft_k=3, gram=2,
         temperature=0.0, top_p=1.0, eos_id=-1, done0=torch.tensor([False, True]),
         force_accept=True)
     assert cnt.tolist() == [12, 0] and got[1] == []  # 3 steps x (3 drafts + 1)
