@@ -53,6 +53,38 @@ printing one JSON line; any failure raises and the exit code is non-zero:
            chunk id. Seconds of each step, live rows, capacity, generation,
            the snapshot's bytes, and the scan's ``scan_ms`` / ``kernel_ms`` at
            2,097,152 rows.
+4c. http   a whole local RAG turn through the port's HTTP app over a
+           socket, after ``lifecycle``, with the slice's bge-m3 encoder and
+           cross-encoder: a fresh int8r index of capacity 1,048,576 x 1024
+           (64-wide token cache) holding 996,352 seeded rows in documents of
+           1,024 chunks, every row resolving to a chunk and a document in a
+           sqlite meta store on disk (written through ``upsert_document`` /
+           ``replace_chunks``); ``build_app`` with the JAX defaults
+           (``TOP_K`` 12, ``RERANK_K`` 3, ``QUERY_BATCH_MAX`` 32,
+           ``CHUNK_SIZE`` 1024) and ``LocalChatProvider`` at TinyLlama-1.1B
+           width (bf16, 64 slots, 1,025 pages of 128, chunks of 16, 64 new
+           tokens, ``ByteTokenizer``) behind a stand-in that classifies every
+           ask as Query (a random-weight decoder writes no JSON; the stand-in
+           is the one part that is not the port's code); ``serve()`` on
+           127.0.0.1 on a thread with its own event loop. 24 documents of
+           1,100-8,000 words come in through Outline sync (a stdlib fake wiki
+           on 127.0.0.1 that also lists the seeded documents; ``POST
+           /chat/update/all``, the task worker): their chunks are indexed and
+           stored, and /healthz's ``index_size`` grows by exactly their count.
+           Then 64 clients on threads (stdlib ``http.client``) each log in,
+           open a conversation, ``POST /chat/api/ask`` at once and read the
+           SSE stream to ``[DONE]``; half the questions come from the new
+           documents. Every stream parses and has a content frame; each
+           answer's sources equal the app's own ``RetrievalService`` called
+           directly on the batches the batcher formed, mapped to documents as
+           ``retrieve_docs`` maps them; ``topk_int8`` launched at least once a
+           batch, ``paged_attention`` and ``paged_kv_write`` launched;
+           ``/chat/api/metrics`` has the stage timings and the decoder's
+           stats. Printed: time to the first content frame and to ``[DONE]``
+           (p50 / p95), asks/s, streamed tokens/s, batches and their mean
+           size, each kernel's launches, prefix hits, backpressure waits, the
+           index and meta-store fill times, peak device memory, and the slice
+           phase's in-process burst p50.
 5. kernel_float  ``topk_float`` (the CUDA kernel) against
            ``topk_float_plain`` for each of its modes (fp32, bf16, f32x2),
            each over a seeded 1,048,576 x 1024 corpus of unit rows in that
@@ -232,6 +264,14 @@ printing one JSON line; any failure raises and the exit code is non-zero:
            ``late_interaction_scores``) within 1e-5, both terms non-zero for
            most live candidates, and the rerank top-3 equal. ``fused_query``
            timed with the terms off, cached and recomputed, and by stage.
+
+16. entry   ``python -m outline_rag_tpu_torch`` in a subprocess with
+           ``SECRET_KEY``, a temporary ``DATA_DIR`` and a free ``PORT``, all
+           else the defaults (hash embedder, int8r index on the card,
+           ``FakeChatProvider``): /healthz answers 200, a dev-login ask
+           streams to ``[DONE]``, SIGTERM ends it with exit 0 within the
+           drain timeout; then ``python -m outline_rag_tpu_torch status``
+           prints dtype ``int8r``.
 
 The last lines are the kernel summary (each kernel's time beside its bound:
 the larger of its bytes over 3.35 TB/s and its operations over the card's
@@ -564,7 +604,8 @@ def slice_phase(torch, dev, seed: int) -> tuple[int, dict]:
     require(launches > 0, "the main path launched the topk_int8 kernel")
     deleted = {f"text7:{i}" for i in range(64)} | {f"rand{gone}:{i}" for i in range(BLOCK)}
     check_answers(np, answers, deleted)
-    emit("serve", **latency_fields(answers, wall_s), topk_int8_launches=launches)
+    served = latency_fields(answers, wall_s)
+    emit("serve", **served, topk_int8_launches=launches)
 
     # the retrieval stage of one batch, against the plain path and fp32
     tb = tok.batch(queries[:MAX_BATCH], TOKEN_WIDTH, buckets=(TOKEN_WIDTH,))
@@ -611,7 +652,8 @@ def slice_phase(torch, dev, seed: int) -> tuple[int, dict]:
          min_oracle_gap_1_12=float((ov[:, :TOP_K - 1] - ov[:, 1:TOP_K]).min()), stages=stages)
     require(recall >= RECALL_MIN, f"recall@12 {recall} >= {RECALL_MIN}")
     handover = dict(index=index, service=service, encoder=encoder, reranker=reranker, tok=tok,
-                    oracle=oracle, queries=queries, deleted=deleted, n_src=n_src, gone=gone)
+                    oracle=oracle, queries=queries, deleted=deleted, n_src=n_src, gone=gone,
+                    serve_p50_ms=served["p50_ms"])
     return launches, handover
 
 
@@ -842,6 +884,539 @@ def scan_stages(torch, dev, handover: dict) -> dict:
                 qq, qs, state.vectors, state.scales, CANDIDATES, state.penalty), runs=5),
         }
         del state
+    return out
+
+
+# -- the HTTP app: a whole local RAG turn over a socket ------------------------
+
+HTTP_SOURCE_ROWS = 1024  # seeded rows per seeded document
+HTTP_LIVE = LIVE_ROWS - 64 - BLOCK  # 995,840: the slice index's live rows
+HTTP_DOCS = 24  # documents ingested through Outline sync during the phase
+HTTP_CLIENTS = 64
+
+
+class FakeWiki:
+    """An Outline API on 127.0.0.1 (stdlib ``http.server`` on a thread of its
+    own): ``collections.list``, paginated ``documents.list``,
+    ``documents.info`` and ``documents.export`` over ``docs``
+    ({id: {"id", "title", "text", "updatedAt", "url"}}), the replay the JAX
+    package's tests serve through ``tests/fake_outline.py``."""
+
+    def __init__(self, docs: dict):
+        import http.server
+        import threading
+
+        wiki = self
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def do_POST(self):
+                body = self.rfile.read(int(self.headers.get("content-length") or 0))
+                status, out = wiki.answer(self.path.split("/api/")[-1], json.loads(body or b"{}"))
+                data = json.dumps(out).encode()
+                self.send_response(status)
+                self.send_header("content-type", "application/json")
+                self.send_header("content-length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
+
+            def log_message(self, *args):
+                pass
+
+        self.docs = docs
+        self.calls: dict[str, int] = {}
+        self.server = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.url = f"http://127.0.0.1:{self.server.server_address[1]}"
+        self.thread = threading.Thread(target=self.server.serve_forever, daemon=True)
+        self.thread.start()
+
+    def answer(self, endpoint: str, payload: dict):
+        self.calls[endpoint] = self.calls.get(endpoint, 0) + 1
+        if endpoint == "collections.list":
+            return 200, {"data": [{"id": "col", "name": "col"}]}
+        if endpoint == "documents.list":
+            offset, limit = payload.get("offset", 0), payload.get("limit", 100)
+            page = sorted(self.docs)[offset : offset + limit]
+            return 200, {"data": [{k: self.docs[i][k] for k in ("id", "title", "updatedAt", "url")}
+                                  for i in page]}
+        doc = self.docs.get(payload.get("id"))
+        if doc is None:
+            return 404, {"error": "not found"}
+        if endpoint == "documents.info":
+            return 200, {"data": {k: doc[k] for k in ("id", "title", "updatedAt", "url")}}
+        if endpoint == "documents.export":
+            return 200, {"data": doc["text"]}
+        return 404, {"error": "unknown endpoint"}
+
+    def close(self):
+        self.server.shutdown()
+        self.server.server_close()
+        self.thread.join(10)
+
+
+def http_call(port: int, method: str, path: str, body=None, cookie: str | None = None,
+              form: bool = False):
+    """One request to the app over a fresh connection: (status, headers
+    (case-insensitive), body)."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    headers = {"Cookie": cookie} if cookie else {}
+    if form:
+        headers["Content-Type"] = "application/x-www-form-urlencoded"
+    elif body is not None:
+        body = json.dumps(body).encode()
+        headers["Content-Type"] = "application/json"
+    try:
+        conn.request(method, path, body=body, headers=headers)
+        resp = conn.getresponse()
+        return resp.status, resp.headers, resp.read()
+    finally:
+        conn.close()
+
+
+def http_login(port: int, name: str) -> str:
+    status, headers, _ = http_call(port, "POST", "/chat/login", f"name={name}".encode(), form=True)
+    require(status == 302, f"dev login answered {status}")
+    return headers["Set-Cookie"].split(";", 1)[0]
+
+
+def sse_ask(port: int, cookie: str, conv_id: str, question: str) -> dict:
+    """POST /chat/api/ask and read its SSE stream to the end: the parsed
+    frames, the seconds to the first content frame and to ``[DONE]``."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    t0 = time.perf_counter()
+    try:
+        conn.request("POST", "/chat/api/ask",
+                     body=json.dumps({"question": question, "conversation_id": conv_id}).encode(),
+                     headers={"Cookie": cookie, "Content-Type": "application/json"})
+        resp = conn.getresponse()
+        require(resp.status == 200, f"ask answered {resp.status}")
+        frames, first, done = [], None, None
+        while True:
+            line = resp.readline()
+            if not line:
+                break
+            line = line.decode().strip()
+            if not line.startswith("data:"):
+                continue
+            payload = line[5:].strip()
+            if payload == "[DONE]":
+                done = time.perf_counter() - t0
+                frames.append(payload)
+                continue
+            frame = json.loads(payload)  # every frame must parse
+            if first is None and frame["choices"][0]["delta"].get("content"):
+                first = time.perf_counter() - t0
+            frames.append(frame)
+        return {"frames": frames, "first_s": first, "done_s": done}
+    finally:
+        conn.close()
+
+
+def sources_of(frames) -> list[tuple[str, str]]:
+    """The (title, url) pairs of an answer's SourcesMap, in citation order."""
+    text = "".join(f["choices"][0]["delta"].get("content", "") for f in frames if f != "[DONE]")
+    lines = [ln for ln in text.splitlines() if ln.startswith("[SourcesMap]:")]
+    if not lines:
+        return []
+    smap = json.loads(lines[0][len("[SourcesMap]:"):])
+    return [(smap[k]["title"], smap[k]["url"]) for k in sorted(smap, key=int)]
+
+
+def percentiles(xs: list[float]) -> dict:
+    xs = sorted(xs)
+    return {"p50_ms": 1e3 * xs[len(xs) // 2], "p95_ms": 1e3 * xs[min(len(xs) - 1, int(0.95 * len(xs)))]}
+
+
+def http_phase(torch, dev, seed: int, embedder, reranker, slice_p50_ms: float) -> dict:
+    """A fully local RAG turn through the port's app, over a socket: Outline
+    sync into a 1M-row int8r index whose every row resolves in an on-disk
+    sqlite meta store, then 64 concurrent clients asking through
+    ``POST /chat/api/ask`` and reading the SSE stream, answered by the local
+    decoder at TinyLlama-1.1B width."""
+    import asyncio as aio
+    import shutil
+    import tempfile
+    import threading
+
+    import numpy as np
+
+    import outline_rag_tpu_torch.models.decoder as decoder
+    from outline_rag_tpu_torch.config import load_settings
+    from outline_rag_tpu_torch.index import VectorIndex
+    from outline_rag_tpu_torch.ops.paged_attention import paged_attention, paged_kv_write
+    from outline_rag_tpu_torch.ops.topk import topk_int8
+    from outline_rag_tpu_torch.serve import LocalChatProvider, build_app
+    from outline_rag_tpu_torch.serve.http import serve
+    from outline_rag_tpu_torch.storage import SqliteMetaStore
+    from outline_rag_tpu_torch.testing import ByteTokenizer
+    from outline_rag_tpu_torch.tools.timing import card
+    from outline_rag_tpu_torch.utils.profiling import metrics
+
+    t_phase = time.perf_counter()
+    out = {"card": card()}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_http_")
+    rng = np.random.default_rng(seed + 14)
+    gen = torch.Generator(device=dev).manual_seed(seed + 14)
+    vocab = [f"w{i}" for i in rng.permutation(20_000)[:5000]]
+
+    def words(n: int) -> str:
+        return " ".join(rng.choice(vocab, n))
+
+    # the index: seeded rows in documents of HTTP_SOURCE_ROWS chunks
+    tok = embedder.tokenizer
+    index = VectorIndex(dim=DIM, capacity=CAPACITY, dtype="int8r", device=dev,
+                        token_width=TOKEN_WIDTH)
+    seeded, t0 = [], time.perf_counter()
+    while index.size < HTTP_LIVE:
+        sid = f"seed{len(seeded):04d}"
+        v, ids, mask = random_chunks(torch, HTTP_SOURCE_ROWS, gen, dev, tok,
+                                     embedder.cfg.vocab_size)
+        index.add_chunks([f"{sid}:{i}" for i in range(HTTP_SOURCE_ROWS)], v, sid,
+                         token_ids=ids, token_mask=mask)
+        seeded.append(sid)
+    torch.cuda.synchronize()
+    out["index_fill_s"] = time.perf_counter() - t0
+    # every one of those rows resolves in the meta store, written through its own API
+    meta = SqliteMetaStore(os.path.join(tmp, "meta.sqlite3"))
+    wiki_docs, t0 = {}, time.perf_counter()
+    for n, sid in enumerate(seeded):
+        title, text = f"Seeded document {n}", words(600)
+        meta.upsert_document(sid, title, f"/doc/{sid}", "t0", text)
+        meta.replace_chunks(sid, [(f"{sid}:{i}", i, f"{title}, part {i}", 0)
+                                  for i in range(HTTP_SOURCE_ROWS)])
+        wiki_docs[sid] = {"id": sid, "title": title, "text": text, "updatedAt": "t0",
+                          "url": f"/doc/{sid}"}
+    out["meta_fill_s"] = time.perf_counter() - t0
+    require(meta.chunk_count() == index.size, "every live row has a chunk row")
+    # the documents Outline sync brings in: 1,100-8,000 words in paragraphs
+    new_docs = []
+    for n in range(HTTP_DOCS):
+        n_words = int(rng.integers(1100, 8001))
+        paras = [words(int(rng.integers(40, 120))) for _ in range(n_words // 80 + 1)]
+        text = "\n\n".join(paras)
+        new_docs.append(f"doc{n:02d}")
+        wiki_docs[new_docs[-1]] = {"id": new_docs[-1], "title": f"Wiki page {n}", "text": text,
+                                   "updatedAt": "t1", "url": f"/doc/{new_docs[-1]}"}
+
+    # the local decoder, behind the classifier stand-in
+    cfg = decoder.DecoderConfig.tinyllama_1b()
+    params = decoder.init_decoder(cfg, torch.Generator(device=dev).manual_seed(seed + 15), dev)
+
+    class KeptTokenizer(ByteTokenizer):
+        """Keeps each stream's id list, to count the tokens it decoded."""
+
+        def __init__(self):
+            self.lists = {}
+
+        def decode(self, ids):
+            self.lists[id(ids)] = ids
+            return super().decode(ids)
+
+    dtok = KeptTokenizer()
+    local = LocalChatProvider(params, cfg, dtok, batch_slots=DEC_SLOTS, kv_pages=KV_PAGES,
+                              page_size=PAGE, chunk_tokens=DEC_CHUNK, max_new_tokens=DEC_NEW,
+                              device=dev)
+
+    class ClassifiedAsQuery:
+        """Stands in for a trained model's classification, the one part of
+        this phase that is not the port's code: a random-weight decoder
+        never writes the classifier's JSON, and the pipeline would route
+        every ask to General and skip retrieval. Answers stream from the
+        local decoder."""
+
+        async def complete(self, model, messages, temperature=0.0, top_p=None,
+                           json_mode=False, max_tokens=None):
+            if json_mode:
+                return json.dumps({"category": "Query"})
+            return await local.complete(model, messages, temperature, top_p, json_mode, max_tokens)
+
+        def stream(self, *args, **kwargs):
+            return local.stream(*args, **kwargs)
+
+        def stats(self):
+            return local.stats()
+
+    wiki = FakeWiki(wiki_docs)
+    env = {"SECRET_KEY": "chip-smoke", "DATA_DIR": tmp, "VECTOR_DIM": str(DIM),
+           "OUTLINE_API_TOKEN": "chip-smoke", "OUTLINE_WEBHOOK_SECRET": "whsec",
+           "OUTLINE_API_URL": wiki.url}
+    settings = load_settings(env)
+    require((settings.top_k, settings.rerank_k, settings.query_batch_max, settings.chunk_size,
+             settings.token_width) == (TOP_K, RERANK_K, MAX_BATCH, 1024, TOKEN_WIDTH),
+            "the JAX defaults: TOP_K 12, RERANK_K 3, QUERY_BATCH_MAX 32, CHUNK_SIZE 1024")
+    app = build_app(settings, device=str(dev), provider=ClassifiedAsQuery(), embedder=embedder,
+                    reranker=reranker, index=index, meta=meta, start_workers=True)
+    retrieval = app.state["retrieval"]
+    require(retrieval.fused, "the app's retrieval runs the fused path")
+
+    # the server on a thread with its own event loop (signal handlers are the
+    # main thread's; serve() installs none)
+    loop = aio.new_event_loop()
+    booted, holder = threading.Event(), {}
+
+    def run_server():
+        aio.set_event_loop(loop)
+
+        async def boot():
+            holder["server"] = await serve(app, "127.0.0.1", 0)
+            booted.set()
+
+        loop.run_until_complete(boot())
+        loop.run_forever()
+
+    def fused_count():
+        return metrics.snapshot().get("retrieve.fused", {}).get("count", 0)
+
+    warm_before = fused_count()
+    server_thread = threading.Thread(target=run_server, daemon=True)
+    t0 = time.perf_counter()
+    server_thread.start()
+    require(booted.wait(120), "the server started")
+    port = holder["server"].sockets[0].getsockname()[1]
+    while fused_count() < warm_before + 2:  # the app's warm-up: a lone query, then 32
+        require(time.perf_counter() - t0 < 120, "the app's warm-up finished")
+        time.sleep(0.05)
+    out["startup_and_warmup_s"] = time.perf_counter() - t0
+    try:
+        status, _, body = http_call(port, "GET", "/healthz")
+        require(status == 200, "healthz answered 200")
+        size_before = json.loads(body)["index_size"]
+        require(size_before == index.size >= HTTP_LIVE, f"healthz index_size {size_before}")
+
+        # ingest through Outline sync: the refresh route, then the task worker
+        admin = http_login(port, "admin")
+        t0 = time.perf_counter()
+        status, _, _ = http_call(port, "POST", "/chat/update/all", cookie=admin)
+        require(status == 202, f"update/all answered {status}")
+        while True:
+            _, _, body = http_call(port, "GET", "/chat/api/refresh/status", cookie=admin)
+            state = json.loads(body)
+            if state.get("state") == "done":
+                break
+            require(time.perf_counter() - t0 < 300, f"the refresh finished: {state}")
+            time.sleep(0.1)
+        require(state.get("success") == HTTP_DOCS, f"refresh ingested {HTTP_DOCS}: {state}")
+        require(wiki.calls.get("documents.export") == HTTP_DOCS,
+                f"only the new documents were fetched: {wiki.calls}")
+        out["ingest_s"] = time.perf_counter() - t0
+        new_chunks = [c["chunk_id"] for sid in new_docs for c in meta.chunks_of(sid)]
+        require(all(meta.get_document(sid) for sid in new_docs), "the new documents are stored")
+        require(all(cid in index._by_chunk for cid in new_chunks), "their chunks are indexed")
+        _, _, body = http_call(port, "GET", "/healthz")
+        grew = json.loads(body)["index_size"] - size_before
+        require(grew == len(new_chunks) > 0,
+                f"healthz index_size grew by their {len(new_chunks)} chunks, not {grew}")
+        require(meta.chunk_count() == index.size, "every live row still resolves")
+        out.update(ingested_docs=HTTP_DOCS, ingested_chunks=len(new_chunks),
+                   index_size=index.size)
+
+        # 64 clients: login and a conversation each, then the asks at once
+        picks = rng.permutation(HTTP_DOCS * 4)[: HTTP_CLIENTS // 2]
+        questions = []
+        for p in picks:  # half from the ingested documents' text
+            text = wiki_docs[new_docs[p % HTTP_DOCS]]["text"].split()
+            at = int(rng.integers(0, len(text) - 12))
+            questions.append(" ".join(text[at : at + 12]))
+        while len(questions) < HTTP_CLIENTS:  # half from the seeded documents'
+            text = wiki_docs[seeded[int(rng.integers(0, len(seeded)))]]["text"].split()
+            at = int(rng.integers(0, len(text) - 12))
+            questions.append(" ".join(text[at : at + 12]))
+        require(len(set(questions)) == HTTP_CLIENTS, "distinct questions")
+        clients = []
+        for i in range(HTTP_CLIENTS):
+            cookie = http_login(port, f"user{i}")
+            _, _, body = http_call(port, "POST", "/chat/api/conversations", {"title": f"c{i}"},
+                                   cookie=cookie)
+            clients.append((cookie, json.loads(body)["id"]))
+
+        batches = []  # (queries, seconds) of each batch the batcher formed
+        batcher = app.state["batcher"]
+        inner = batcher.retrieve_batch
+
+        def recorded(queries):
+            t = time.perf_counter()
+            res = inner(queries)
+            batches.append((list(queries), time.perf_counter() - t))
+            return res
+
+        batcher.retrieve_batch = recorded
+        results = [None] * HTTP_CLIENTS
+        start = threading.Barrier(HTTP_CLIENTS + 1)
+
+        def client(i):
+            start.wait()
+            try:
+                results[i] = sse_ask(port, *clients[i], questions[i])
+            except Exception as exc:  # noqa: BLE001 — checked below
+                results[i] = exc
+
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(HTTP_CLIENTS)]
+        for t in threads:
+            t.start()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        dtok.lists.clear()
+        topk_int8.launches = paged_attention.launches = paged_kv_write.launches = 0
+        with metrics._lock:  # the stage timings below are the burst's alone
+            metrics._samples.clear()
+            metrics._counts.clear()
+        start.wait()
+        t0 = time.perf_counter()
+        for t in threads:
+            t.join(600)
+        wall_s = time.perf_counter() - t0
+        burst_stages = metrics.snapshot()
+        launches = {"topk_int8": topk_int8.launches, "paged_attention": paged_attention.launches,
+                    "paged_kv_write": paged_kv_write.launches}
+        generated = sum(len(ids) for ids in dtok.lists.values())
+        peak = torch.cuda.max_memory_allocated(dev)
+        batcher.retrieve_batch = inner
+
+        errors = [r for r in results if not isinstance(r, dict)]
+        require(not errors, f"every ask streamed: {errors[:3]}")
+        for r in results:
+            frames = r["frames"]
+            require(frames and frames[-1] == "[DONE]" and r["done_s"] is not None,
+                    "every stream ends with [DONE]")
+            require(r["first_s"] is not None, "every stream has a content frame")
+        require(sum(len(q) for q, _ in batches) == HTTP_CLIENTS, "each ask retrieved once")
+        require(launches["topk_int8"] >= len(batches) > 0,
+                f"topk_int8 launched at least once a batch: {launches}, {len(batches)} batches")
+        require(launches["paged_attention"] > 0 and launches["paged_kv_write"] > 0,
+                f"the local decoder's kernels launched: {launches}")
+
+        # the sources of every answer against the app's own retrieval, called
+        # directly on the batches the batcher formed
+        def doc_sources(chunks):
+            seen = []
+            for c in chunks:
+                row = meta.get_chunk(c.chunk_id)
+                if row and row["source_id"] not in seen:
+                    seen.append(row["source_id"])
+            return [(meta.get_document(s)["title"], meta.get_document(s)["url"]) for s in seen]
+
+        want = {}
+        for queries, _ in batches:
+            for q, chunks in zip(queries, retrieval.retrieve_batch(queries)):
+                want[q] = doc_sources(chunks)
+        for q, r in zip(questions, results):
+            got = sources_of(r["frames"])
+            require(got and got == want[q], f"the sources of {q!r}: {got} vs {want[q]}")
+        from_new = sum(any(url.removeprefix("/doc/") in new_docs for _, url in want[q])
+                       for q in questions[: HTTP_CLIENTS // 2])
+
+        status, _, body = http_call(port, "GET", "/chat/api/metrics", cookie=admin)
+        require(status == 200, f"metrics answered {status}")
+        m = json.loads(body)
+        require({"retrieve.fused", "llm.classify", "http.POST"} <= set(m["stages"]),
+                f"the metrics carry the stage timings: {sorted(m['stages'])}")
+        require({"prefix_hits", "backpressure_waits", "pages_total"} <= set(m.get("decoder", {})),
+                f"the metrics carry the decoder's stats: {m.get('decoder')}")
+        sizes = [len(q) for q, _ in batches]
+        out.update(
+            card=card(), asks=HTTP_CLIENTS, wall_s=wall_s, asks_per_s=HTTP_CLIENTS / wall_s,
+            first_content=percentiles([r["first_s"] for r in results]),
+            done=percentiles([r["done_s"] for r in results]),
+            streamed_tokens=generated, streamed_tokens_per_s=generated / wall_s,
+            batches=len(batches), mean_batch=sum(sizes) / len(sizes), batch_sizes=sizes,
+            retrieval_batch=percentiles([s for _, s in batches]),
+            launches=launches, decoder=m["decoder"],
+            prefix_hits=m["decoder"]["prefix_hits"],
+            backpressure_waits=m["decoder"]["backpressure_waits"],
+            questions_from_new_docs_citing_one=from_new,
+            peak_device_gb=peak / 1e9, slice_burst_p50_ms=slice_p50_ms,
+            stages={k: burst_stages[k] for k in ("retrieve.fused", "llm.classify", "http.POST")},
+        )
+    finally:
+        async def stop():
+            holder["server"].close()
+            await holder["server"].wait_closed()
+            await app.shutdown()
+
+        if "server" in holder:
+            aio.run_coroutine_threadsafe(stop(), loop).result(60)
+        loop.call_soon_threadsafe(loop.stop)
+        server_thread.join(30)
+        local.close()
+        wiki.close()
+        meta.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    emit("http", **out)
+    return out
+
+
+def entry_phase() -> dict:
+    """``python -m outline_rag_tpu_torch`` on the card with the defaults (hash
+    embedder, int8r index, fake provider): /healthz, one dev-login ask to
+    ``[DONE]``, SIGTERM to exit 0 within the drain timeout; then the
+    ``status`` command."""
+    import shutil
+    import signal
+    import socket
+    import subprocess
+    import tempfile
+
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_entry_")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = {**os.environ, "SECRET_KEY": "chip-smoke", "DATA_DIR": tmp, "PORT": str(port)}
+    log_path = os.path.join(tmp, "server.log")
+    out = {}
+    with open(log_path, "w") as log_file:
+        proc = subprocess.Popen([sys.executable, "-m", "outline_rag_tpu_torch"], cwd=root, env=env,
+                                stdout=log_file, stderr=subprocess.STDOUT)
+    try:
+        t0 = time.perf_counter()
+        while True:
+            require(proc.poll() is None, "the server process is running")
+            try:
+                status, _, body = http_call(port, "GET", "/healthz")
+                break
+            except OSError:
+                require(time.perf_counter() - t0 < 180, "the server answered within 180 s")
+                time.sleep(0.2)
+        out["boot_s"] = time.perf_counter() - t0
+        require(status == 200, f"healthz answered {status}")
+        out["healthz"] = json.loads(body)
+        cookie = http_login(port, "entry")
+        _, _, body = http_call(port, "POST", "/chat/api/conversations", {"title": "e"},
+                               cookie=cookie)
+        ask = sse_ask(port, cookie, json.loads(body)["id"], "what does the wiki say?")
+        require(ask["frames"][-1] == "[DONE]" and ask["first_s"] is not None,
+                "the ask streamed content to [DONE]")
+        out["ask_ms"] = 1e3 * ask["done_s"]
+        t0 = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=10.0 + 20)  # DRAIN_TIMEOUT's default, and shutdown
+        out.update(exit_code=rc, stop_s=time.perf_counter() - t0)
+        require(rc == 0, f"SIGTERM ended the server with exit 0, not {rc}")
+        require(out["stop_s"] <= 10.0, f"it stopped within the drain timeout: {out['stop_s']} s")
+        status_run = subprocess.run([sys.executable, "-m", "outline_rag_tpu_torch", "status"],
+                                    cwd=root, env=env, capture_output=True, text=True,
+                                    timeout=300)
+        require(status_run.returncode == 0, f"status exited {status_run.returncode}: "
+                f"{status_run.stderr[-2000:]}")
+        printed = status_run.stdout.strip().splitlines()[-1]
+        require("'dtype': 'int8r'" in printed, f"status printed dtype int8r: {printed}")
+        out["status"] = printed
+    except Exception:
+        with open(log_path) as f:
+            print(f.read()[-4000:], file=sys.stderr)
+        raise
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(30)
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    emit("entry", **out)
     return out
 
 
@@ -2372,7 +2947,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches, handover = slice_phase(torch, dev, args.seed)
     life = lifecycle_phase(torch, dev, args.seed, handover)
-    del handover  # the index, service and models of both phases
+    models = (handover["service"].embedder, handover["service"].reranker)
+    slice_p50_ms = handover["serve_p50_ms"]
+    del handover  # the index, service and oracle of both phases
+    torch.cuda.empty_cache()
+    web = http_phase(torch, dev, args.seed, *models, slice_p50_ms)
+    del models
     torch.cuda.empty_cache()
     floats, scan_floor_launches = kernel_float_phase(torch, dev, args.seed)
     flash = flash_phase(torch, dev, args.seed)
@@ -2389,6 +2969,7 @@ def main() -> int:
     chat = decoder_phase(torch, dev, args.seed)
     torch.cuda.empty_cache()
     hybrid = hybrid_phase(torch, dev, args.seed)
+    entry_phase()
 
     # ms / plain_ms / bound_ms: topk_* at B = 32, K = 64 (topk_int8's B = 128
     # and K = 12 beside them, its shared headers under "headers"; topk_float in the
@@ -2408,7 +2989,8 @@ def main() -> int:
     # torch.topk (null, with library_error, where _int_mm refuses the shape);
     # launches: the count over that kernel's main-path run; topk_int8's
     # launches_lifecycle and launches_hybrid: its counts over the bursts of
-    # those phases.
+    # those phases; launches_http (topk_int8, paged_attention,
+    # paged_kv_write): the counts over the http phase's burst of asks.
     print(json.dumps({"kernels": [{
         "name": "topk_int8", "route": "cuda",
         "source": "outline_rag_tpu_torch/csrc/topk_int8.cu",
@@ -2425,6 +3007,7 @@ def main() -> int:
            if key in kernel},
         "launches_lifecycle": life["launches"],
         "launches_hybrid": hybrid["topk_int8_launches"],
+        "launches_http": web["launches"]["topk_int8"],
     }, {
         "name": "topk_float", "route": "cuda",
         "source": "outline_rag_tpu_torch/csrc/topk_float.cu",
@@ -2457,6 +3040,7 @@ def main() -> int:
         **{f"{label}_{key}": paged["bf16"][f"{label}_{key}"]
            for label in ("spec_window", "prefill_256")
            for key in ("ms", "device_ms", "bound_ms", "bound_by")},
+        "launches_http": web["launches"]["paged_attention"],
     }, {
         "name": "paged_kv_write", "route": "cuda",
         "source": "outline_rag_tpu_torch/csrc/paged_kv_write.cu",
@@ -2466,7 +3050,7 @@ def main() -> int:
         "ms": kv_write["bf16"]["ms"], "plain_ms": kv_write["bf16"]["plain_ms"],
         "bound_ms": kv_write["bf16"]["bound_ms"], "bound_by": kv_write["bf16"]["bound_by"],
         "library_ms": None, "device_ms": kv_write["bf16"]["device_ms"],
-        "library_device_ms": None,
+        "library_device_ms": None, "launches_http": web["launches"]["paged_kv_write"],
     }, {
         "name": "int8_linear", "route": "cuda",
         "source": "outline_rag_tpu_torch/csrc/int8_linear.cu",

@@ -3,7 +3,7 @@ rerankers, the fused query and its hybrid terms, the retrieval service
 and the micro-batcher."""
 
 from outline_rag_tpu_torch.engine.batcher import QueryBatcher
-from outline_rag_tpu_torch.engine.embedder import EncoderEmbedder
+from outline_rag_tpu_torch.engine.embedder import EncoderEmbedder, get_embedder
 from outline_rag_tpu_torch.engine.fused import (
     Q_WIDTH,
     FusedEngine,
@@ -26,4 +26,5 @@ __all__ = [
     "add_hybrid_terms",
     "encode_queries",
     "fused_query",
+    "get_embedder",
 ]

@@ -113,3 +113,19 @@ class EncoderEmbedder:
             torch.cat([c for c, _ in outs]).cpu().numpy(),
             torch.cat([s for _, s in outs]).cpu().numpy(),
         )
+
+
+def get_embedder(settings=None, dim: int | None = None):
+    """Factory honouring Settings: the deterministic hash embedder (the
+    offline seam) when no weights path is configured. Loading a checkpoint
+    from ``ENCODER_WEIGHTS_PATH`` is not ported yet (ROADMAP.md Queue 1 #3):
+    a configured path raises rather than serving hash vectors in its place."""
+    from outline_rag_tpu_torch.models.hash_embedder import HashEmbedder
+
+    if settings is not None and settings.encoder_weights_path:
+        raise NotImplementedError(
+            "ENCODER_WEIGHTS_PATH is set, but loading an HF encoder checkpoint is not "
+            "ported yet (ROADMAP.md Queue 1 #3, checkpoint loading)"
+        )
+    d = dim or (settings.vector_dim if settings else 1024)
+    return HashEmbedder(dim=d)

@@ -9,7 +9,10 @@ Port of ``outline_rag_tpu/engine/service.py``. Two paths behind one
   without a cross-encoder or a token cache.
 
 An error on the fused path propagates: there is no retry and no downgrade
-to the staged path.
+to the staged path. Each batch is timed into the process's stage metrics
+(``utils/profiling.py``) under the JAX package's names: ``retrieve.fused``
+or ``retrieve.staged``, and the staged path's ``retrieve.embed`` and
+``retrieve.index``.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from outline_rag_tpu_torch.engine.embedder import EncoderEmbedder
 from outline_rag_tpu_torch.engine.fused import FusedEngine
 from outline_rag_tpu_torch.engine.rerank import CrossEncoderReranker, NoopReranker
 from outline_rag_tpu_torch.index.store import VectorIndex
+from outline_rag_tpu_torch.utils.profiling import metrics
 
 
 @dataclasses.dataclass
@@ -66,18 +70,23 @@ class RetrievalService:
         if not queries:
             return []
         if self._fused is not None:
+            with metrics.timeit("retrieve.fused"):
+                fused_out = self._fused.query(queries)
             return [
                 [RetrievedChunk(cid, dense, rerank_score=rr) for cid, rr, dense in row]
-                for row in self._fused.query(queries)
+                for row in fused_out
             ]
-        return self._staged(queries)
+        with metrics.timeit("retrieve.staged"):
+            return self._staged(queries)
 
     def retrieve(self, query: str) -> list[RetrievedChunk]:
         return self.retrieve_batch([query])[0]
 
     def _staged(self, queries: list[str]) -> list[list[RetrievedChunk]]:
-        qvecs = self.embedder.embed(queries)
-        ids, scores = self.index.query(qvecs, self.top_k)
+        with metrics.timeit("retrieve.embed"):
+            qvecs = self.embedder.embed(queries)
+        with metrics.timeit("retrieve.index"):
+            ids, scores = self.index.query(qvecs, self.top_k)
         out: list[list[RetrievedChunk]] = []
         for qi, (query, chunk_ids) in enumerate(zip(queries, ids)):
             if not chunk_ids:

@@ -1,10 +1,15 @@
-"""Serving: the continuous decode batcher and the local chat provider.
+"""HTTP serving layer, chat providers and the local decoder's batcher.
 
-Unlike ``outline_rag_tpu/serve/__init__.py`` this package imports nothing
-of the JAX package: the HTTP app and the remote provider stay there.
+The asyncio HTTP/1.1 framework (``serve.http``), the ``/chat`` API surface
+(``serve.app``), the ask pipeline (``serve.chat``), OIDC and dev login
+(``serve.auth``), the chat providers (``serve.llm``) and the continuous
+decode batcher (``serve.decode_batcher``). Nothing here imports the JAX
+package.
 """
 
+from outline_rag_tpu_torch.serve.app import build_app
 from outline_rag_tpu_torch.serve.decode_batcher import DONE, DecodeBatcher
+from outline_rag_tpu_torch.serve.http import App, Request, Response
 from outline_rag_tpu_torch.serve.llm import LocalChatProvider
 
-__all__ = ["DONE", "DecodeBatcher", "LocalChatProvider"]
+__all__ = ["App", "DONE", "DecodeBatcher", "LocalChatProvider", "Request", "Response", "build_app"]

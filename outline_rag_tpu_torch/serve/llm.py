@@ -1,9 +1,12 @@
-"""The local chat provider: a decoder LM on the card behind the chat
-provider seam.
+"""Chat providers: the seam between the ask pipeline and a language model.
 
-Port of ``LocalChatProvider`` from ``outline_rag_tpu/serve/llm.py``. It
-speaks the provider contract of the remote OpenAI-compatible client (which
-is framework-free and stays in the JAX package): ``complete`` returns the
+``OpenAICompatProvider`` (the remote OpenAI-compatible API, with its
+answer cache) and ``FakeChatProvider`` (the deterministic offline seam)
+are copies of the JAX package's, with ``httpx`` imported where the remote
+client is built, so that this module imports on a machine without it.
+
+``LocalChatProvider`` is the port of the JAX package's local provider: a
+decoder LM on the card behind the same contract. ``complete`` returns the
 answer's text, ``stream`` yields ``{"content", "thinking", "model"}``
 deltas. Generation runs in token chunks (``models/decoder.py``), and each
 chunk's new text streams out as a delta. With ``batch_slots > 1`` requests
@@ -20,8 +23,12 @@ Not ported yet: ``tp_devices > 1`` raises ``NotImplementedError``.
 from __future__ import annotations
 
 import asyncio
+import hashlib
+import json
+import logging
 import queue
 import threading
+from typing import AsyncIterator
 
 import torch
 
@@ -41,6 +48,176 @@ from outline_rag_tpu_torch.models.decoder import (
     sample_token,
 )
 from outline_rag_tpu_torch.serve.decode_batcher import DONE, DecodeBatcher
+
+
+log = logging.getLogger(__name__)
+
+
+class OpenAICompatProvider:
+    def __init__(
+        self,
+        api_base: str,
+        api_key: str,
+        bus=None,
+        cache_ttl: float = 3600.0,
+        transport: httpx.AsyncBaseTransport | None = None,
+        timeout: float = 120.0,
+    ):
+        import httpx  # here, not at import: LocalChatProvider needs no httpx
+
+        self.api_base = api_base.rstrip("/")
+        self.bus = bus
+        self.cache_ttl = cache_ttl
+        self._client = httpx.AsyncClient(
+            transport=transport,
+            timeout=timeout,
+            headers={"Authorization": f"Bearer {api_key}"},
+        )
+
+    async def aclose(self):
+        await self._client.aclose()
+
+    def _cache_key(self, payload: dict) -> str:
+        digest = hashlib.sha256(
+            json.dumps(payload, sort_keys=True).encode()
+        ).hexdigest()
+        return f"llm_cache:{digest}"
+
+    async def complete(
+        self,
+        model: str,
+        messages: list[dict],
+        temperature: float = 0.0,
+        top_p: float | None = None,
+        json_mode: bool = False,
+        max_tokens: int | None = None,
+    ) -> str:
+        payload: dict = {
+            "model": model,
+            "messages": messages,
+            "temperature": temperature,
+            "stream": False,
+        }
+        if top_p is not None:
+            payload["top_p"] = top_p
+        if max_tokens:
+            payload["max_tokens"] = max_tokens
+        if json_mode:
+            payload["response_format"] = {"type": "json_object"}
+        key = self._cache_key(payload)
+        if self.bus is not None:
+            cached = await self.bus.get(key)
+            if cached is not None:
+                return cached
+        resp = await self._client.post(
+            f"{self.api_base}/chat/completions", json=payload
+        )
+        resp.raise_for_status()
+        content = resp.json()["choices"][0]["message"]["content"] or ""
+        if self.bus is not None:
+            await self.bus.set(key, content, ex=self.cache_ttl)
+        return content
+
+    async def stream(
+        self,
+        model: str,
+        messages: list[dict],
+        temperature: float = 0.7,
+        top_p: float = 0.9,
+        extra_body: dict | None = None,
+    ) -> AsyncIterator[dict]:
+        """Yields {"content": str|None, "thinking": str|None, "model": str}
+        deltas until the upstream closes."""
+        payload = {
+            "model": model,
+            "messages": messages,
+            "temperature": temperature,
+            "top_p": top_p,
+            "stream": True,
+            "stream_options": {"include_usage": False},
+        }
+        if extra_body:
+            payload.update(extra_body)
+        async with self._client.stream(
+            "POST", f"{self.api_base}/chat/completions", json=payload
+        ) as resp:
+            resp.raise_for_status()
+            async for line in resp.aiter_lines():
+                line = line.strip()
+                if not line.startswith("data:"):
+                    continue
+                data = line[5:].strip()
+                if data == "[DONE]":
+                    return
+                try:
+                    obj = json.loads(data)
+                except json.JSONDecodeError:
+                    continue
+                choices = obj.get("choices") or []
+                if not choices:
+                    continue
+                delta = choices[0].get("delta") or {}
+                yield {
+                    "content": delta.get("content"),
+                    "thinking": delta.get("reasoning_content")
+                    or delta.get("thinking"),
+                    "model": obj.get("model", model),
+                }
+
+
+class FakeChatProvider:
+    """Deterministic offline provider: the classifier routes by keyword,
+    the rewriter echoes, the answer streams a canned summary of its context
+    word by word (with a thinking prelude for thinking-capable models)."""
+
+    def __init__(self, thinking: bool = False, answer_words: int = 24,
+                 cite: bool = False):
+        self.thinking = thinking
+        self.answer_words = answer_words
+        self.cite = cite  # end the answer with "[source 1]" when context has one
+        self.calls: list[dict] = []
+
+    async def complete(
+        self, model, messages, temperature=0.0, top_p=None,
+        json_mode=False, max_tokens=None,
+    ) -> str:
+        self.calls.append({"kind": "complete", "model": model, "messages": messages})
+        text = messages[-1]["content"] if messages else ""
+        if json_mode:
+            lower = text.lower()
+            if any(w in lower for w in ("story", "poem", "write me")):
+                cat = "Creative"
+            elif any(w in lower for w in ("act as", "roleplay", "pretend")):
+                cat = "Roleplay"
+            elif any(w in lower for w in ("hello", "hi!", "thanks", "who are you")):
+                cat = "General"
+            else:
+                cat = "Query"
+            return json.dumps({"category": cat})
+        # rewriter: echo the last question line
+        for line in reversed(text.splitlines()):
+            if line.strip():
+                return line.strip().removeprefix("Message:").strip()
+        return text
+
+    async def stream(
+        self, model, messages, temperature=0.7, top_p=0.9, extra_body=None
+    ):
+        self.calls.append({"kind": "stream", "model": model, "messages": messages})
+        if self.thinking:
+            for w in ["considering", "the", "context..."]:
+                yield {"content": None, "thinking": w + " ", "model": model}
+        ctx = ""
+        for m in messages:
+            if m["role"] == "system":
+                ctx = m["content"]
+        words = (
+            f"Answer based on: {ctx[:160]}" if ctx else "I have no context"
+        ).split()
+        for w in words[: self.answer_words]:
+            yield {"content": w + " ", "thinking": None, "model": model}
+        if self.cite and "[source 1]" in ctx:
+            yield {"content": "[source 1]", "thinking": None, "model": model}
 
 
 def _to_device(params, device):

@@ -1060,3 +1060,49 @@ def test_hybrid_fused_query_on_the_card_matches_the_cpu(cuda):
         assert (g[4] - w[4]).abs().max() <= 1e-5
         assert torch.equal(g[0], w[0])  # rerank rows
         assert (g[1] - w[1]).abs().max() <= 1e-4 and (g[2] - w[2]).abs().max() <= 1e-4
+
+
+def test_app_on_the_card_answers_an_ask_through_the_scan_kernel(cuda):
+    """``build_app(device="cuda")``: an int8r index on the card, documents
+    ingested through the app's own ingest code, and an ask over SSE whose
+    retrieval launches ``topk_int8``."""
+    import asyncio
+    import json
+
+    from outline_rag_tpu_torch.config import load_settings
+    from outline_rag_tpu_torch.models.hash_embedder import HashEmbedder
+    from outline_rag_tpu_torch.serve.app import build_app
+    from outline_rag_tpu_torch.serve.http import TestClient
+    from outline_rag_tpu_torch.serve.llm import FakeChatProvider
+    from outline_rag_tpu_torch.storage import SqliteMetaStore
+    from outline_rag_tpu_torch.sync.refresh import Ingestor
+
+    settings = load_settings({"SECRET_KEY": "k", "VECTOR_DIM": "256", "DATA_DIR": "",
+                              "SHARD_CAPACITY": "65536", "CHUNK_SIZE": "256"})
+    app = build_app(settings, device="cuda", provider=FakeChatProvider(cite=True),
+                    embedder=HashEmbedder(dim=256), meta=SqliteMetaStore(":memory:"),
+                    start_workers=False)
+    s = app.state
+    assert s["index"].device == cuda and s["index"].dtype == "int8r"
+    ingest = Ingestor(None, s["meta"], s["index"], s["embedder"], s["bus"], settings)
+    ingest.ingest_document("d1", "Wolves", "/doc/d1", "t1", "wolves hunt in packs across the tundra")
+    ingest.ingest_document("d2", "Rivers", "/doc/d2", "t1", "rivers carve canyons over millennia")
+    client = TestClient(app)
+
+    async def run():
+        r = await client.post("/chat/login", body=b"name=card",
+                              headers={"content-type": "application/x-www-form-urlencoded"})
+        assert r.status == 302
+        cid = json.loads((await client.post("/chat/api/conversations", json_body={})).body)["id"]
+        topk_int8.launches = 0
+        events = await client.sse("POST", "/chat/api/ask", json_body={
+            "question": "how do wolves hunt in the tundra?", "conversation_id": cid})
+        await app.shutdown()
+        return events
+
+    events = asyncio.run(run())
+    assert topk_int8.launches > 0
+    assert events[-1] == "[DONE]"
+    text = "".join(e["choices"][0]["delta"].get("content", "") for e in events if isinstance(e, dict))
+    line = [ln for ln in text.splitlines() if ln.startswith("[SourcesMap]:")][0]
+    assert json.loads(line[len("[SourcesMap]:"):])["1"]["title"] == "Wolves"
