@@ -272,6 +272,40 @@ printing one JSON line; any failure raises and the exit code is non-zero:
            streams to ``[DONE]``, SIGTERM ends it with exit 0 within the
            drain timeout; then ``python -m outline_rag_tpu_torch status``
            prints dtype ``int8r``.
+17. checkpoint  real HF checkpoint layouts at their published widths, with
+           seeded weights, synthesized on the card with ``transformers`` into a
+           temporary folder (~6.7 GB; deleted at the end): BGE-m3
+           (``XLMRobertaModel``, vocab 250,002, 24 layers of 1,024, f32
+           ``pytorch_model.bin`` with ``sparse_linear.pt`` and
+           ``colbert_linear.pt``), bge-reranker-v2-m3 (the same trunk with a
+           one-label classifier, f32 ``model.safetensors``) and
+           TinyLlama-1.1B-Chat (bf16, two safetensors shards and their index,
+           its chat template), each with a word-level fast tokenizer of the full
+           vocabulary in XLM-R's or Llama's special-token layout. The port's
+           ``load_pretrained`` / ``load_pretrained_decoder`` load them (seconds
+           each); in bf16 they are held to the HF models (f32, eager attention)
+           on the same token batches: CLS cosine > 0.999, the sparse head within
+           1e-2 (relative error norm) and ColBERT vectors at cosine > 0.999 of
+           ``nn.Linear`` on HF's hidden states, decoder logits at cosine >
+           0.999 per position; the cross-encoder's scores of 64 pairs correlated
+           > 0.999 when the port loads it in f32, and in bf16 an error norm at
+           most twice that of the HF model itself run in bf16 (seeded weights
+           spread the scores about as far as bf16 rounding moves them).
+           The ``http`` phase's seeded 996,352-row int8r index is written as the
+           snapshot the entry point adopts, with its meta store; then, in
+           process, ``ENCODER_INT8``'s A/B on that index with 4,096 text chunks
+           added: ``fused_query`` by stage at B = 32 with the float and the int8
+           trunks in turns, the top-3 agreement of the two over 64 asks, peak
+           memory; and the QKV fusion at the encoder forward's query (32 x 64),
+           rerank (384 x 128) and ingest (64 x 256) shapes. Last, ``python -m
+           outline_rag_tpu_torch``'s module run in a subprocess with the three
+           ``*_WEIGHTS_PATH`` and the decoder cell's ``DECODER_*`` settings (64
+           slots, 1,025 pages of 128, 64 new tokens), behind the ``http``
+           phase's classifier stand-in: boot to /healthz (the three loads and
+           the snapshot's adoption), the 24-document Outline sync, 32 asks at
+           once over the socket (every answer has sources, every ask drawn from
+           a new document cites one; ``topk_int8``, ``paged_attention`` and
+           ``paged_kv_write`` launched), SIGTERM to exit 0.
 
 The last lines are the kernel summary (each kernel's time beside its bound:
 the larger of its bytes over 3.35 TB/s and its operations over the card's
@@ -1030,6 +1064,98 @@ def percentiles(xs: list[float]) -> dict:
     return {"p50_ms": 1e3 * xs[len(xs) // 2], "p95_ms": 1e3 * xs[min(len(xs) - 1, int(0.95 * len(xs)))]}
 
 
+def wait_for_healthz(proc, port: int, limit_s: float) -> tuple[float, int, bytes]:
+    """Poll /healthz of a server process just started: (seconds until it
+    answered, status, body); fails if the process ends or ``limit_s`` passes."""
+    t0 = time.perf_counter()
+    while True:
+        require(proc.poll() is None, "the server process is running")
+        try:
+            status, _, body = http_call(port, "GET", "/healthz")
+            return time.perf_counter() - t0, status, body
+        except OSError:
+            require(time.perf_counter() - t0 < limit_s, f"the server answered within {limit_s} s")
+            time.sleep(0.2)
+
+
+def sync_wiki(port: int, admin: str, n_docs: int) -> float:
+    """``POST /chat/update/all``, then poll the refresh status until done:
+    the seconds it took; fails unless exactly ``n_docs`` documents came in."""
+    t0 = time.perf_counter()
+    status, _, _ = http_call(port, "POST", "/chat/update/all", cookie=admin)
+    require(status == 202, f"update/all answered {status}")
+    while True:
+        _, _, body = http_call(port, "GET", "/chat/api/refresh/status", cookie=admin)
+        state = json.loads(body)
+        if state.get("state") == "done":
+            break
+        require(time.perf_counter() - t0 < 300, f"the refresh finished: {state}")
+        time.sleep(0.1)
+    require(state.get("success") == n_docs, f"refresh ingested {n_docs}: {state}")
+    return time.perf_counter() - t0
+
+
+def wiki_questions(rng, wiki_docs: dict, new_docs: list[str], seeded: list[str], n: int) -> list[str]:
+    """``n`` distinct 12-word phrases: the first half from the newly synced
+    documents' text, the rest from the seeded documents'."""
+    questions = []
+
+    def phrase(sid):
+        words = wiki_docs[sid]["text"].split()
+        at = int(rng.integers(0, len(words) - 12))
+        questions.append(" ".join(words[at : at + 12]))
+
+    for p in rng.permutation(len(new_docs) * 4)[: n // 2]:
+        phrase(new_docs[p % len(new_docs)])
+    while len(questions) < n:
+        phrase(seeded[int(rng.integers(0, len(seeded)))])
+    require(len(set(questions)) == n, "distinct questions")
+    return questions
+
+
+def ask_at_once(port: int, questions: list[str], just_before=None) -> tuple[list[dict], float]:
+    """One client a question (stdlib ``http.client`` on a thread each): each
+    logs in and opens a conversation, then all ask at once and read their SSE
+    streams to the end. ``just_before()`` runs once every thread waits at the
+    barrier. Returns (each ask's ``sse_ask`` result, wall seconds); fails if
+    an ask did not stream."""
+    import threading
+
+    clients = []
+    for i in range(len(questions)):
+        cookie = http_login(port, f"user{i}")
+        _, _, body = http_call(port, "POST", "/chat/api/conversations", {"title": f"c{i}"},
+                               cookie=cookie)
+        clients.append((cookie, json.loads(body)["id"]))
+    results = [None] * len(questions)
+    start = threading.Barrier(len(questions) + 1)
+
+    def client(i):
+        start.wait()
+        try:
+            results[i] = sse_ask(port, *clients[i], questions[i])
+        except Exception as exc:  # noqa: BLE001 — checked below
+            results[i] = exc
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(len(questions))]
+    for t in threads:
+        t.start()
+    if just_before is not None:
+        just_before()
+    start.wait()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join(600)
+    wall_s = time.perf_counter() - t0
+    errors = [r for r in results if not isinstance(r, dict)]
+    require(not errors, f"every ask streamed: {errors[:3]}")
+    for r in results:
+        require(r["frames"] and r["frames"][-1] == "[DONE]" and r["done_s"] is not None,
+                "every stream ends with [DONE]")
+        require(r["first_s"] is not None, "every stream has a content frame")
+    return results, wall_s
+
+
 def http_phase(torch, dev, seed: int, embedder, reranker, slice_p50_ms: float) -> dict:
     """A fully local RAG turn through the port's app, over a socket: Outline
     sync into a 1M-row int8r index whose every row resolves in an on-disk
@@ -1188,20 +1314,9 @@ def http_phase(torch, dev, seed: int, embedder, reranker, slice_p50_ms: float) -
 
         # ingest through Outline sync: the refresh route, then the task worker
         admin = http_login(port, "admin")
-        t0 = time.perf_counter()
-        status, _, _ = http_call(port, "POST", "/chat/update/all", cookie=admin)
-        require(status == 202, f"update/all answered {status}")
-        while True:
-            _, _, body = http_call(port, "GET", "/chat/api/refresh/status", cookie=admin)
-            state = json.loads(body)
-            if state.get("state") == "done":
-                break
-            require(time.perf_counter() - t0 < 300, f"the refresh finished: {state}")
-            time.sleep(0.1)
-        require(state.get("success") == HTTP_DOCS, f"refresh ingested {HTTP_DOCS}: {state}")
+        out["ingest_s"] = sync_wiki(port, admin, HTTP_DOCS)
         require(wiki.calls.get("documents.export") == HTTP_DOCS,
                 f"only the new documents were fetched: {wiki.calls}")
-        out["ingest_s"] = time.perf_counter() - t0
         new_chunks = [c["chunk_id"] for sid in new_docs for c in meta.chunks_of(sid)]
         require(all(meta.get_document(sid) for sid in new_docs), "the new documents are stored")
         require(all(cid in index._by_chunk for cid in new_chunks), "their chunks are indexed")
@@ -1214,24 +1329,7 @@ def http_phase(torch, dev, seed: int, embedder, reranker, slice_p50_ms: float) -
                    index_size=index.size)
 
         # 64 clients: login and a conversation each, then the asks at once
-        picks = rng.permutation(HTTP_DOCS * 4)[: HTTP_CLIENTS // 2]
-        questions = []
-        for p in picks:  # half from the ingested documents' text
-            text = wiki_docs[new_docs[p % HTTP_DOCS]]["text"].split()
-            at = int(rng.integers(0, len(text) - 12))
-            questions.append(" ".join(text[at : at + 12]))
-        while len(questions) < HTTP_CLIENTS:  # half from the seeded documents'
-            text = wiki_docs[seeded[int(rng.integers(0, len(seeded)))]]["text"].split()
-            at = int(rng.integers(0, len(text) - 12))
-            questions.append(" ".join(text[at : at + 12]))
-        require(len(set(questions)) == HTTP_CLIENTS, "distinct questions")
-        clients = []
-        for i in range(HTTP_CLIENTS):
-            cookie = http_login(port, f"user{i}")
-            _, _, body = http_call(port, "POST", "/chat/api/conversations", {"title": f"c{i}"},
-                                   cookie=cookie)
-            clients.append((cookie, json.loads(body)["id"]))
-
+        questions = wiki_questions(rng, wiki_docs, new_docs, seeded, HTTP_CLIENTS)
         batches = []  # (queries, seconds) of each batch the batcher formed
         batcher = app.state["batcher"]
         inner = batcher.retrieve_batch
@@ -1243,45 +1341,25 @@ def http_phase(torch, dev, seed: int, embedder, reranker, slice_p50_ms: float) -
             return res
 
         batcher.retrieve_batch = recorded
-        results = [None] * HTTP_CLIENTS
-        start = threading.Barrier(HTTP_CLIENTS + 1)
 
-        def client(i):
-            start.wait()
-            try:
-                results[i] = sse_ask(port, *clients[i], questions[i])
-            except Exception as exc:  # noqa: BLE001 — checked below
-                results[i] = exc
+        def just_before():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            dtok.lists.clear()
+            topk_int8.launches = paged_attention.launches = paged_kv_write.launches = 0
+            with metrics._lock:  # the stage timings below are the burst's alone
+                metrics._samples.clear()
+                metrics._counts.clear()
 
-        threads = [threading.Thread(target=client, args=(i,)) for i in range(HTTP_CLIENTS)]
-        for t in threads:
-            t.start()
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(dev)
-        dtok.lists.clear()
-        topk_int8.launches = paged_attention.launches = paged_kv_write.launches = 0
-        with metrics._lock:  # the stage timings below are the burst's alone
-            metrics._samples.clear()
-            metrics._counts.clear()
-        start.wait()
-        t0 = time.perf_counter()
-        for t in threads:
-            t.join(600)
-        wall_s = time.perf_counter() - t0
+        try:
+            results, wall_s = ask_at_once(port, questions, just_before)
+        finally:
+            batcher.retrieve_batch = inner
         burst_stages = metrics.snapshot()
         launches = {"topk_int8": topk_int8.launches, "paged_attention": paged_attention.launches,
                     "paged_kv_write": paged_kv_write.launches}
         generated = sum(len(ids) for ids in dtok.lists.values())
         peak = torch.cuda.max_memory_allocated(dev)
-        batcher.retrieve_batch = inner
-
-        errors = [r for r in results if not isinstance(r, dict)]
-        require(not errors, f"every ask streamed: {errors[:3]}")
-        for r in results:
-            frames = r["frames"]
-            require(frames and frames[-1] == "[DONE]" and r["done_s"] is not None,
-                    "every stream ends with [DONE]")
-            require(r["first_s"] is not None, "every stream has a content frame")
         require(sum(len(q) for q, _ in batches) == HTTP_CLIENTS, "each ask retrieved once")
         require(launches["topk_int8"] >= len(batches) > 0,
                 f"topk_int8 launched at least once a batch: {launches}, {len(batches)} batches")
@@ -1373,16 +1451,7 @@ def entry_phase() -> dict:
         proc = subprocess.Popen([sys.executable, "-m", "outline_rag_tpu_torch"], cwd=root, env=env,
                                 stdout=log_file, stderr=subprocess.STDOUT)
     try:
-        t0 = time.perf_counter()
-        while True:
-            require(proc.poll() is None, "the server process is running")
-            try:
-                status, _, body = http_call(port, "GET", "/healthz")
-                break
-            except OSError:
-                require(time.perf_counter() - t0 < 180, "the server answered within 180 s")
-                time.sleep(0.2)
-        out["boot_s"] = time.perf_counter() - t0
+        out["boot_s"], status, body = wait_for_healthz(proc, port, 180)
         require(status == 200, f"healthz answered {status}")
         out["healthz"] = json.loads(body)
         cookie = http_login(port, "entry")
@@ -2911,6 +2980,575 @@ def decoder_phase(torch, dev, seed: int) -> dict:
     return out
 
 
+# --- checkpoint: real HF layouts on disk, loaded and served by the port ------
+
+# BAAI/bge-m3's config.json (bge-reranker-v2-m3 shares the trunk)
+CKPT_XLMR = dict(vocab_size=250_002, hidden_size=1024, num_hidden_layers=24,
+                 num_attention_heads=16, intermediate_size=4096, max_position_embeddings=8194,
+                 type_vocab_size=1, pad_token_id=1, bos_token_id=0, eos_token_id=2,
+                 layer_norm_eps=1e-5)
+# TinyLlama/TinyLlama-1.1B-Chat-v1.0's config.json and chat template
+CKPT_LLAMA = dict(vocab_size=32_000, hidden_size=2048, num_hidden_layers=22,
+                  num_attention_heads=32, num_key_value_heads=4, intermediate_size=5632,
+                  max_position_embeddings=2048, rope_theta=10000.0, rms_norm_eps=1e-5,
+                  tie_word_embeddings=False, bos_token_id=1, eos_token_id=2)
+TINYLLAMA_TEMPLATE = (
+    "{% for message in messages %}\n"
+    "{% if message['role'] == 'user' %}\n{{ '<|user|>\n' + message['content'] + eos_token }}\n"
+    "{% elif message['role'] == 'system' %}\n"
+    "{{ '<|system|>\n' + message['content'] + eos_token }}\n"
+    "{% elif message['role'] == 'assistant' %}\n"
+    "{{ '<|assistant|>\n'  + message['content'] + eos_token }}\n{% endif %}\n"
+    "{% if loop.last and add_generation_prompt %}\n{{ '<|assistant|>' }}\n{% endif %}\n"
+    "{% endfor %}"
+)
+CKPT_ASKS, CKPT_AB_ASKS = 32, 64
+# the encoder forward's shapes: a query batch, the rerank pairs of 32 queries
+# x 12 candidates (query row ++ chunk row), an ingest batch
+CKPT_FUSE_SHAPES = {"query": (MAX_BATCH, TOKEN_WIDTH), "rerank": (MAX_BATCH * TOP_K, 2 * TOKEN_WIDTH),
+                    "ingest": (64, 256)}
+CKPT_COS_MIN, CKPT_CORR_MIN = 0.999, 0.999
+# the port's bf16 cross-encoder against HF's f32 scores: its error norm at most
+# this many times that of the HF model itself run in bf16 on the same pairs
+CKPT_BF16_ERR_RATIO = 2.0
+CKPT_HEAD_REL = 1e-2  # the heads' bf16 weights against HF's f32 Linear, relative error norm
+CKPT_DISK_GB = 12.0  # three checkpoints (~6.7 GB) and the index snapshot (~3 GB)
+
+# Runs the package as ``python -m outline_rag_tpu_torch`` does, with two
+# additions: the classifier stand-in of the ``http`` phase (a random-weight
+# decoder writes no JSON, so every ask would route to General and skip
+# retrieval) and, on SIGUSR1, the launch counts of the path's kernels appended
+# to $CHIP_SMOKE_COUNTS and reset to 0.
+ENTRY_RUNNER = r'''
+import json, os, runpy, signal, sys
+from outline_rag_tpu_torch.ops.paged_attention import paged_attention, paged_kv_write
+from outline_rag_tpu_torch.ops.topk import topk_int8
+from outline_rag_tpu_torch.serve.llm import LocalChatProvider
+
+complete = LocalChatProvider.complete
+
+
+async def classified_as_query(self, model, messages, temperature=0.0, top_p=None,
+                              json_mode=False, max_tokens=None):
+    if json_mode:
+        return json.dumps({"category": "Query"})
+    return await complete(self, model, messages, temperature, top_p, json_mode, max_tokens)
+
+
+LocalChatProvider.complete = classified_as_query
+kernels = {"topk_int8": topk_int8, "paged_attention": paged_attention,
+           "paged_kv_write": paged_kv_write}
+
+
+def dump(signum, frame):
+    with open(os.environ["CHIP_SMOKE_COUNTS"], "a") as f:
+        f.write(json.dumps({name: fn.launches for name, fn in kernels.items()}) + "\n")
+    for fn in kernels.values():
+        fn.launches = 0
+
+
+signal.signal(signal.SIGUSR1, dump)
+sys.argv = ["outline_rag_tpu_torch"]
+runpy.run_module("outline_rag_tpu_torch", run_name="__main__", alter_sys=True)
+'''
+
+
+def word_tokenizer(path: str, vocab_size: int, specials: list[str], single: str, pair: str,
+                   chat_template: str | None = None, **names) -> None:
+    """A fast tokenizer of ``vocab_size`` entries written to ``path``:
+    ``specials`` first, then the words ``w0``, ``w1``, ... (the phase's texts
+    are made of them), whitespace pre-tokenization, ``single`` / ``pair`` as
+    its post-processor."""
+    from tokenizers import Tokenizer
+    from tokenizers.models import WordLevel
+    from tokenizers.pre_tokenizers import Whitespace
+    from tokenizers.processors import TemplateProcessing
+    from transformers import PreTrainedTokenizerFast
+
+    vocab = {tok: i for i, tok in enumerate(specials)}
+    vocab.update({f"w{i}": len(specials) + i for i in range(vocab_size - len(specials))})
+    tok = Tokenizer(WordLevel(vocab, unk_token="<unk>"))
+    tok.pre_tokenizer = Whitespace()
+    tok.add_special_tokens(specials)
+    tok.post_processor = TemplateProcessing(
+        single=single, pair=pair, special_tokens=[(s, vocab[s]) for s in ("<s>", "</s>")])
+    fast = PreTrainedTokenizerFast(tokenizer_object=tok, **names)
+    if chat_template:
+        fast.chat_template = chat_template
+    fast.save_pretrained(path)
+
+
+def synthesize_checkpoints(torch, dev, seed: int, root: str) -> tuple[dict, dict, dict]:
+    """BGE-m3 (``XLMRobertaModel``, f32 ``pytorch_model.bin`` and its sparse
+    and ColBERT sidecars), bge-reranker-v2-m3 (``XLMRobertaForSequenceClassification``,
+    one label, f32 ``model.safetensors``) and TinyLlama-1.1B-Chat (bf16, two
+    safetensors shards and their index) under ``root``, seeded, built on the
+    card. Returns (folders, the HF models in f32 eager attention, each
+    holding what its files hold, seconds and bytes per folder)."""
+    from safetensors.torch import save_file
+    from transformers import (
+        LlamaConfig,
+        LlamaForCausalLM,
+        XLMRobertaConfig,
+        XLMRobertaForSequenceClassification,
+        XLMRobertaModel,
+    )
+
+    def cpu(model, dtype=None):
+        return {k: v.detach().to("cpu", dtype).contiguous() for k, v in model.state_dict().items()}
+
+    dirs = {name: os.path.join(root, name)
+            for name in ("bge-m3", "bge-reranker-v2-m3", "tinyllama-1.1b-chat")}
+    xlmr_tok = dict(specials=["<s>", "<pad>", "</s>", "<unk>", "<mask>"],
+                    single="<s> $A </s>", pair="<s> $A </s> </s> $B </s>",
+                    bos_token="<s>", eos_token="</s>", unk_token="<unk>", pad_token="<pad>",
+                    cls_token="<s>", sep_token="</s>", mask_token="<mask>")
+    models, stats = {}, {}
+    with torch.device(dev):
+        # bge-m3
+        t0 = time.perf_counter()
+        torch.manual_seed(seed + 30)
+        cfg = XLMRobertaConfig(**CKPT_XLMR, attn_implementation="eager")
+        enc = XLMRobertaModel(cfg, add_pooling_layer=False).eval()
+        h = CKPT_XLMR["hidden_size"]
+        heads = {"sparse": torch.nn.Linear(h, 1), "colbert": torch.nn.Linear(h, h)}
+        path = dirs["bge-m3"]
+        os.makedirs(path)
+        torch.save(cpu(enc), os.path.join(path, "pytorch_model.bin"))
+        for name, head in heads.items():
+            torch.save(cpu(head), os.path.join(path, f"{name}_linear.pt"))
+        cfg.save_pretrained(path)
+        word_tokenizer(path, CKPT_XLMR["vocab_size"], **xlmr_tok)
+        models["bge-m3"] = (enc, heads)
+        stats["bge-m3"] = time.perf_counter() - t0
+        # bge-reranker-v2-m3
+        t0 = time.perf_counter()
+        torch.manual_seed(seed + 31)
+        cfg = XLMRobertaConfig(**CKPT_XLMR, num_labels=1, attn_implementation="eager")
+        rr = XLMRobertaForSequenceClassification(cfg).eval()
+        path = dirs["bge-reranker-v2-m3"]
+        os.makedirs(path)
+        save_file(cpu(rr), os.path.join(path, "model.safetensors"), metadata={"format": "pt"})
+        cfg.save_pretrained(path)
+        word_tokenizer(path, CKPT_XLMR["vocab_size"], **xlmr_tok)
+        models["bge-reranker-v2-m3"] = rr
+        stats["bge-reranker-v2-m3"] = time.perf_counter() - t0
+        # TinyLlama: the f32 model holds the bf16 values the shards hold
+        t0 = time.perf_counter()
+        torch.manual_seed(seed + 32)
+        cfg = LlamaConfig(**CKPT_LLAMA, attn_implementation="eager")
+        dec = LlamaForCausalLM(cfg).eval()
+        with torch.no_grad():
+            for p in dec.parameters():
+                p.copy_(p.to(torch.bfloat16))
+        path = dirs["tinyllama-1.1b-chat"]
+        os.makedirs(path)
+        sd = cpu(dec, torch.bfloat16)
+        keys = sorted(sd)
+        weight_map = {}
+        for n, part in enumerate((keys[: len(keys) // 2], keys[len(keys) // 2:])):
+            fname = f"model-0000{n + 1}-of-00002.safetensors"
+            save_file({k: sd[k] for k in part}, os.path.join(path, fname),
+                      metadata={"format": "pt"})
+            weight_map.update(dict.fromkeys(part, fname))
+        with open(os.path.join(path, "model.safetensors.index.json"), "w") as f:
+            json.dump({"metadata": {}, "weight_map": weight_map}, f)
+        del sd
+        cfg.save_pretrained(path)
+        word_tokenizer(path, CKPT_LLAMA["vocab_size"],
+                       ["<unk>", "<s>", "</s>", "<|system|>", "<|user|>", "<|assistant|>"],
+                       "<s> $A", "<s> $A $B", chat_template=TINYLLAMA_TEMPLATE,
+                       bos_token="<s>", eos_token="</s>", unk_token="<unk>")
+        models["tinyllama-1.1b-chat"] = dec
+        stats["tinyllama-1.1b-chat"] = time.perf_counter() - t0
+    sizes = {name: sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d)) / 1e9
+             for name, d in dirs.items()}
+    attn = {name: (m[0] if isinstance(m, tuple) else m).config._attn_implementation
+            for name, m in models.items()}
+    return dirs, models, {"write_s": stats, "disk_gb": sizes, "hf_attention": attn}
+
+
+def checkpoint_parity(torch, dev, seed: int, dirs: dict, hf: dict, enc, rr, dec_cfg, dec_params,
+                      vocab: list[str]) -> dict:
+    """The port's loaded models (bf16) against the HF models that wrote the
+    files (f32, eager attention), on the same token batches; the
+    cross-encoder also loaded in f32, and the HF cross-encoder also run in
+    bf16."""
+    import copy
+
+    import numpy as np
+    from transformers import AutoTokenizer
+
+    from outline_rag_tpu_torch.models import (
+        colbert_vectors_from_hidden,
+        decoder_forward,
+        init_cache,
+        load_pretrained,
+        pooled_embeddings,
+        sparse_weights_from_hidden,
+    )
+
+    def corr(a, b) -> float:
+        return float(np.corrcoef(a.float().cpu().numpy(), b.float().cpu().numpy())[0, 1])
+
+    rng = np.random.default_rng(seed + 33)
+    out = {}
+    hf_enc, heads = hf["bge-m3"]
+    tok = AutoTokenizer.from_pretrained(dirs["bge-m3"])
+    texts = make_texts(rng, MAX_BATCH, vocab)
+    with torch.inference_mode():
+        b = tok(texts, padding=True, truncation=True, max_length=512, return_tensors="pt").to(dev)
+        ids, mask = b["input_ids"], b["attention_mask"]
+        hidden = hf_enc(input_ids=ids, attention_mask=mask).last_hidden_state
+        ref = torch.nn.functional.normalize(hidden[:, 0], dim=-1)
+        cos = (pooled_embeddings(enc, ids, mask) * ref).sum(-1)
+        out["encoder_cls_cos_min"] = float(cos.min())
+        # the heads, on HF's hidden states, against nn.Linear in f32
+        live = (mask > 0) & (ids >= 3)
+        want = torch.relu(heads["sparse"](hidden)[..., 0]) * live
+        got = sparse_weights_from_hidden(enc, hidden, ids, mask)
+        out["sparse_rel_err"] = float((got - want).norm() / want.norm())
+        want = torch.nn.functional.normalize(heads["colbert"](hidden), dim=-1)
+        got = colbert_vectors_from_hidden(enc, hidden, mask)
+        keep = (mask > 0).clone()
+        keep[:, 0] = False
+        out["colbert_cos_min"] = float((got * want).sum(-1)[keep].min())
+        # the cross-encoder: 64 pairs, 8 queries x 8 passages
+        queries = [" ".join(rng.choice(vocab, 12)) for _ in range(8)]
+        passages = make_texts(rng, 64, vocab)
+        b = AutoTokenizer.from_pretrained(dirs["bge-reranker-v2-m3"])(
+            [q for q in queries for _ in range(8)], passages, padding=True, truncation=True,
+            max_length=512, return_tensors="pt").to(dev)
+        want = hf["bge-reranker-v2-m3"](**b).logits[:, 0]
+        got = rr(b["input_ids"], b["attention_mask"])
+        out["reranker_corr"] = corr(got, want)
+        out["reranker_max_abs_err"] = float((got - want).abs().max())
+        out["reranker_score_std"] = float(want.std())
+        # seeded weights spread the 64 scores by ~0.05, as far as bf16 rounding
+        # moves them: the port's loader in f32 is held to the bar, and its bf16
+        # model to the HF model's own bf16 error on the same pairs
+        rr32 = load_pretrained(dirs["bge-reranker-v2-m3"], dev, dtype=torch.float32)
+        got32 = rr32(b["input_ids"], b["attention_mask"])
+        out["reranker_f32_corr"] = corr(got32, want)
+        out["reranker_f32_max_abs_err"] = float((got32 - want).abs().max())
+        del rr32
+        hf16 = copy.deepcopy(hf["bge-reranker-v2-m3"]).to(torch.bfloat16)
+        ref16 = hf16(**b).logits[:, 0].float()
+        del hf16
+        out["hf_bf16_reranker_corr"] = corr(ref16, want)
+        out["reranker_err_over_hf_bf16_err"] = float((got - want).norm() / (ref16 - want).norm())
+        # the decoder: 4 rows of 128 seeded tokens, logits at every position
+        toks = torch.as_tensor(rng.integers(3, dec_cfg.vocab_size, (4, 128)), device=dev)
+        want = hf["tinyllama-1.1b-chat"](toks).logits.float()
+        got, _ = decoder_forward(dec_params, toks.to(torch.int32), init_cache(dec_cfg, 4, dev),
+                                 torch.zeros((4,), dtype=torch.int32, device=dev), dec_cfg)
+        cos = torch.nn.functional.cosine_similarity(got.float(), want, dim=-1)
+        out["decoder_logits_cos_min"] = float(cos.min())
+        out["decoder_logits_rel_err"] = float((got - want).norm() / want.norm())
+    require(out["encoder_cls_cos_min"] > CKPT_COS_MIN, f"encoder CLS cosine {out}")
+    require(out["sparse_rel_err"] < CKPT_HEAD_REL and out["colbert_cos_min"] > CKPT_COS_MIN,
+            f"the sparse and ColBERT heads against nn.Linear: {out}")
+    require(out["reranker_f32_corr"] > CKPT_CORR_MIN, f"reranker score correlation {out}")
+    require(out["reranker_err_over_hf_bf16_err"] <= CKPT_BF16_ERR_RATIO,
+            f"the bf16 cross-encoder within {CKPT_BF16_ERR_RATIO}x HF's own bf16 error: {out}")
+    require(out["decoder_logits_cos_min"] > CKPT_COS_MIN, f"decoder logits cosine {out}")
+    return out
+
+
+def trunk_ab(torch, dev, seed: int, dirs: dict, emb, rr, index, vocab: list[str]) -> dict:
+    """ENCODER_INT8 in process: ``fused_query`` per stage at B = 32 (median of
+    5, float and int8 trunks in turns), the top-3 agreement of the two over
+    64 asks, peak device memory; then the QKV fusion at the encoder
+    forward's three shapes (bf16, unfused and fused in turns)."""
+    import numpy as np
+
+    from outline_rag_tpu_torch.engine import CrossEncoderReranker, EncoderEmbedder, FusedEngine
+    from outline_rag_tpu_torch.engine.fused import fused_query
+    from outline_rag_tpu_torch.models import fuse_qkv_, load_pretrained, pooled_embeddings
+    from outline_rag_tpu_torch.ops.quant import int8_topk, quantize_rows_int8
+
+    rng = np.random.default_rng(seed + 34)
+    enc8 = EncoderEmbedder(load_pretrained(dirs["bge-m3"], dev), emb.tokenizer, int8=True)
+    rr8 = CrossEncoderReranker(load_pretrained(dirs["bge-reranker-v2-m3"], dev), rr.tokenizer,
+                               int8=True)
+    trunks = {"float": (emb, rr), "int8": (enc8, rr8)}
+
+    def weight_gb(module):
+        return sum(t.numel() * t.element_size()
+                   for t in list(module.parameters()) + list(module.buffers())) / 1e9
+
+    asks = [" ".join(rng.choice(vocab, 12)) for _ in range(CKPT_AB_ASKS)]
+    tb = emb.tokenizer.batch(asks[:MAX_BATCH], TOKEN_WIDTH, buckets=(TOKEN_WIDTH,))
+    q_ids = torch.as_tensor(tb.input_ids, device=dev)
+    q_mask = torch.as_tensor(tb.attention_mask, device=dev)
+    state, _ = index.snapshot()
+    tokens = index.tokens.state
+    out = {name: {"weights_gb": weight_gb(e.encoder) + weight_gb(r.model), "rounds": []}
+           for name, (e, r) in trunks.items()}
+
+    def stages(e, r):
+        enc, rer = e.encoder, r.model
+        q_emb = pooled_embeddings(enc, q_ids, q_mask)
+        st = {
+            "encode_ms": cuda_ms(torch, lambda: pooled_embeddings(enc, q_ids, q_mask), runs=5),
+            "scan_ms": cuda_ms(torch, lambda: int8_topk(
+                *quantize_rows_int8(q_emb), state.vectors, state.scales, TOP_K, state.penalty,
+                rescore_queries=q_emb, rescore_residual=state.residual), runs=5),
+            "fused_ms": cuda_ms(torch, lambda: fused_query(
+                enc, rer, q_ids, q_mask, state.vectors, state.scales, state.penalty,
+                tokens.ids, tokens.mask, state.residual, top_k=TOP_K, rerank_k=RERANK_K), runs=5),
+        }
+        st["gather_rerank_ms"] = st["fused_ms"] - st["encode_ms"] - st["scan_ms"]
+        return st
+
+    with torch.inference_mode():
+        for name in ("float", "int8", "int8", "float"):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            st = stages(*trunks[name])
+            st["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+            out[name]["rounds"].append(st)
+    answers = {name: FusedEngine(e, r, index, top_k=TOP_K, rerank_k=RERANK_K).query(asks)
+               for name, (e, r) in trunks.items()}
+    top3 = [(set(c for c, _, _ in a), [c for c, _, _ in a], [c for c, _, _ in b])
+            for a, b in zip(answers["float"], answers["int8"])]
+    out["top3_overlap"] = sum(len(s & set(b)) for s, _, b in top3) / (RERANK_K * len(top3))
+    out["top3_same_order"] = sum(a == b for _, a, b in top3) / len(top3)
+    require(all(len(a) == RERANK_K for a in answers["int8"]), "the int8 trunks answer every ask")
+    del trunks, enc8, rr8
+    torch.cuda.empty_cache()
+
+    # QKV fusion: the same checkpoint twice, one copy fused
+    fused = fuse_qkv_(load_pretrained(dirs["bge-m3"], dev))
+    plain = emb.encoder
+    fusion = {}
+    with torch.inference_mode():
+        for shape, (b, s) in CKPT_FUSE_SHAPES.items():
+            ids = torch.randint(3, CKPT_XLMR["vocab_size"], (b, s), device=dev)
+            mask = torch.ones_like(ids)
+            times = {"unfused": [], "fused": []}
+            for name, enc in (("unfused", plain), ("fused", fused), ("fused", fused),
+                              ("unfused", plain)):
+                times[name].append(cuda_ms(torch, lambda: enc(ids, mask), runs=5))
+            fusion[shape] = {"batch": b, "seq": s, "unfused_ms": times["unfused"],
+                             "fused_ms": times["fused"],
+                             "fused_over_unfused": sum(times["fused"]) / sum(times["unfused"])}
+    out["fusion"] = fusion
+    del fused
+    torch.cuda.empty_cache()
+    return out
+
+
+def checkpoint_phase(torch, dev, seed: int) -> dict:
+    """Serve real HF checkpoint layouts on the card: synthesize BGE-m3,
+    bge-reranker-v2-m3 and TinyLlama-1.1B-Chat folders at their published
+    widths, load them with the port's loaders and hold them to the HF models,
+    A/B the int8 trunk and the QKV fusion, then run ``python -m
+    outline_rag_tpu_torch`` on all three through ``*_WEIGHTS_PATH``."""
+    import shutil
+    import signal
+    import socket
+    import subprocess
+    import tempfile
+
+    import numpy as np
+
+    from outline_rag_tpu_torch.engine import CrossEncoderReranker, EncoderEmbedder
+    from outline_rag_tpu_torch.index import VectorIndex
+    from outline_rag_tpu_torch.models import load_pretrained, load_pretrained_decoder
+    from outline_rag_tpu_torch.models.tokenizer import HashTokenizer, HFTokenizer
+    from outline_rag_tpu_torch.storage import SqliteMetaStore
+    from outline_rag_tpu_torch.tools.timing import card
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    free_gb = shutil.disk_usage(tmp).free / 1e9
+    out = {"card": card(), "disk_free_gb": free_gb}
+    require(free_gb > CKPT_DISK_GB, f"{CKPT_DISK_GB} GB free for the checkpoints: {free_gb:.1f}")
+    rng = np.random.default_rng(seed + 35)
+    vocab = [f"w{i}" for i in rng.permutation(20_000)[:5000]]
+    proc = wiki = None
+    try:
+        t0 = time.perf_counter()
+        dirs, hf, written = synthesize_checkpoints(torch, dev, seed, os.path.join(tmp, "models"))
+        out.update(written, synthesize_s=time.perf_counter() - t0)
+
+        load_s = {}
+        t0 = time.perf_counter()
+        enc = load_pretrained(dirs["bge-m3"], dev)
+        torch.cuda.synchronize()
+        load_s["bge-m3"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rr = load_pretrained(dirs["bge-reranker-v2-m3"], dev)
+        torch.cuda.synchronize()
+        load_s["bge-reranker-v2-m3"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        dec_cfg, dec_params = load_pretrained_decoder(dirs["tinyllama-1.1b-chat"], dev)
+        torch.cuda.synchronize()
+        load_s["tinyllama-1.1b-chat"] = time.perf_counter() - t0
+        out["load_s"] = load_s  # files still in the page cache: written just before
+        require(enc.sparse is not None and enc.colbert.out_features == CKPT_XLMR["hidden_size"],
+                "bge-m3's sidecar heads loaded")
+        require((dec_cfg.kv_heads, dec_cfg.layers, dec_cfg.tie_embeddings)
+                == (CKPT_LLAMA["num_key_value_heads"], CKPT_LLAMA["num_hidden_layers"], False)
+                and "lm_head" in dec_params, "TinyLlama's GQA and untied head")
+        out["parity"] = checkpoint_parity(torch, dev, seed, dirs, hf, enc, rr, dec_cfg,
+                                          dec_params, vocab)
+        emit("checkpoint_parity", **out["parity"])
+        del hf, dec_params
+        torch.cuda.empty_cache()
+
+        # the served index: seeded rows in documents of HTTP_SOURCE_ROWS chunks,
+        # every row a chunk of a document in the meta store, as a snapshot the
+        # entry point adopts at boot (random_chunks' ids: XLM-R's CLS 0, pad 1,
+        # which HashTokenizer shares)
+        data = os.path.join(tmp, "data")
+        os.makedirs(data)
+        gen = torch.Generator(device=dev).manual_seed(seed + 36)
+        index = VectorIndex(dim=DIM, capacity=CAPACITY, dtype="int8r", device=dev,
+                            token_width=TOKEN_WIDTH)
+        seeded, t0 = [], time.perf_counter()
+        while index.size < HTTP_LIVE:
+            sid = f"seed{len(seeded):04d}"
+            v, ids, mask = random_chunks(torch, HTTP_SOURCE_ROWS, gen, dev, HashTokenizer,
+                                         CKPT_XLMR["vocab_size"])
+            index.add_chunks([f"{sid}:{i}" for i in range(HTTP_SOURCE_ROWS)], v, sid,
+                             token_ids=ids, token_mask=mask)
+            seeded.append(sid)
+        torch.cuda.synchronize()
+        out["index_fill_s"] = time.perf_counter() - t0
+        meta = SqliteMetaStore(os.path.join(data, "meta.sqlite3"))
+        wiki_docs, t0 = {}, time.perf_counter()
+        for n, sid in enumerate(seeded):
+            title, text = f"Seeded document {n}", " ".join(rng.choice(vocab, 600))
+            meta.upsert_document(sid, title, f"/doc/{sid}", "t0", text)
+            meta.replace_chunks(sid, [(f"{sid}:{i}", i, f"{title}, part {i}", 0)
+                                      for i in range(HTTP_SOURCE_ROWS)])
+            wiki_docs[sid] = {"id": sid, "title": title, "text": text, "updatedAt": "t0",
+                              "url": f"/doc/{sid}"}
+        require(meta.chunk_count() == index.size, "every live row has a chunk row")
+        meta.close()
+        out["meta_fill_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        index.save(os.path.join(data, "index_snapshot"))
+        out["snapshot_save_s"] = time.perf_counter() - t0
+        live_rows = index.size
+
+        # the trunks' A/B on that index, with 4,096 text chunks added to it
+        emb = EncoderEmbedder(enc, HFTokenizer(dirs["bge-m3"]))
+        cross = CrossEncoderReranker(rr, HFTokenizer(dirs["bge-reranker-v2-m3"]))
+        texts = make_texts(rng, TEXT_CHUNKS, vocab)
+        tb = emb.tokenizer.batch(texts, TOKEN_WIDTH, buckets=(TOKEN_WIDTH,))
+        for start in range(0, TEXT_CHUNKS, BLOCK // 4):
+            part = slice(start, start + BLOCK // 4)
+            index.add_chunks([f"text:{i}" for i in range(start, part.stop)],
+                             emb.embed(texts[part]), "text", token_ids=tb.input_ids[part],
+                             token_mask=tb.attention_mask[part])
+        out["int8_ab"] = trunk_ab(torch, dev, seed, dirs, emb, cross, index, vocab)
+        emit("checkpoint_ab", **out["int8_ab"])
+        del index, emb, cross, enc, rr
+        torch.cuda.empty_cache()
+
+        # the entry point, with the three checkpoints
+        new_docs = []
+        for n in range(HTTP_DOCS):
+            n_words = int(rng.integers(1100, 8001))
+            text = "\n\n".join(" ".join(rng.choice(vocab, int(rng.integers(40, 120))))
+                               for _ in range(n_words // 80 + 1))
+            new_docs.append(f"doc{n:02d}")
+            wiki_docs[new_docs[-1]] = {"id": new_docs[-1], "title": f"Wiki page {n}",
+                                       "text": text, "updatedAt": "t1",
+                                       "url": f"/doc/{new_docs[-1]}"}
+        wiki = FakeWiki(wiki_docs)
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        counts = os.path.join(tmp, "counts.jsonl")
+        env = {**os.environ, "SECRET_KEY": "chip-smoke", "DATA_DIR": data, "PORT": str(port),
+               "VECTOR_DIM": str(DIM), "SHARD_CAPACITY": str(CAPACITY), "INDEX_DTYPE": "int8r",
+               "TOKEN_WIDTH": str(TOKEN_WIDTH), "OUTLINE_API_URL": wiki.url,
+               "OUTLINE_API_TOKEN": "chip-smoke", "OUTLINE_WEBHOOK_SECRET": "whsec",
+               "ENCODER_WEIGHTS_PATH": dirs["bge-m3"],
+               "RERANKER_WEIGHTS_PATH": dirs["bge-reranker-v2-m3"],
+               "DECODER_WEIGHTS_PATH": dirs["tinyllama-1.1b-chat"],
+               "DECODER_BATCH_SLOTS": str(DEC_SLOTS), "DECODER_KV_PAGES": str(KV_PAGES),
+               "DECODER_PAGE_SIZE": str(PAGE), "DECODER_MAX_NEW_TOKENS": str(DEC_NEW),
+               "CHIP_SMOKE_COUNTS": counts}
+        log_path = os.path.join(tmp, "server.log")
+        root = os.path.dirname(os.path.abspath(__file__))
+        with open(log_path, "w") as log_file:
+            proc = subprocess.Popen([sys.executable, "-c", ENTRY_RUNNER], cwd=root, env=env,
+                                    stdout=log_file, stderr=subprocess.STDOUT)
+        out["boot_to_healthz_s"], status, body = wait_for_healthz(proc, port, 300)
+        require(status == 200, f"healthz answered {status}")
+        size_before = json.loads(body)["index_size"]
+        require(size_before == live_rows, f"the snapshot was adopted: {size_before} rows")
+
+        admin = http_login(port, "admin")
+        out["sync_s"] = sync_wiki(port, admin, HTTP_DOCS)
+        _, _, body = http_call(port, "GET", "/healthz")
+        out["ingested_chunks"] = json.loads(body)["index_size"] - size_before
+        require(out["ingested_chunks"] > 0, "the sync added chunks")
+
+        questions = wiki_questions(rng, wiki_docs, new_docs, seeded, CKPT_ASKS)
+
+        def read_counts(n_lines):
+            t = time.perf_counter()
+            while time.perf_counter() - t < 30:
+                if os.path.exists(counts):
+                    with open(counts) as f:
+                        lines = f.read().splitlines()
+                    if len(lines) >= n_lines:
+                        return json.loads(lines[n_lines - 1])
+                time.sleep(0.05)
+            raise RuntimeError("check failed: the server wrote its launch counts")
+
+        def zero_counts():  # the counts to 0 just before the asks
+            proc.send_signal(signal.SIGUSR1)
+            read_counts(1)
+
+        results, wall_s = ask_at_once(port, questions, zero_counts)
+        proc.send_signal(signal.SIGUSR1)
+        launches = read_counts(2)
+        cites_new = []
+        for q, r in zip(questions, results):
+            got = sources_of(r["frames"])
+            require(got, f"the answer to {q!r} has sources")
+            cites_new.append(any(url.removeprefix("/doc/") in new_docs for _, url in got))
+        require(all(cites_new[: CKPT_ASKS // 2]),
+                f"every ask from a new document cites one: {cites_new}")
+        require(all(v > 0 for v in launches.values()), f"the path's kernels launched: {launches}")
+        _, _, body = http_call(port, "GET", "/chat/api/metrics", cookie=admin)
+        m = json.loads(body)
+        out.update(
+            asks=CKPT_ASKS, wall_s=wall_s, asks_per_s=CKPT_ASKS / wall_s,
+            first_content=percentiles([r["first_s"] for r in results]),
+            done=percentiles([r["done_s"] for r in results]),
+            asks_citing_a_new_document=sum(cites_new), launches=launches,
+            decoder=m.get("decoder"),
+        )
+        t0 = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=10.0 + 20)
+        out.update(exit_code=rc, stop_s=time.perf_counter() - t0)
+        require(rc == 0, f"SIGTERM ended the server with exit 0, not {rc}")
+    except Exception:
+        if proc is not None:
+            with open(os.path.join(tmp, "server.log")) as f:
+                print(f.read()[-6000:], file=sys.stderr)
+        raise
+    finally:
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait(30)
+        if wiki is not None:
+            wiki.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    emit("checkpoint", **out)
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2970,6 +3608,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     hybrid = hybrid_phase(torch, dev, args.seed)
     entry_phase()
+    torch.cuda.empty_cache()
+    ckpt = checkpoint_phase(torch, dev, args.seed)
 
     # ms / plain_ms / bound_ms: topk_* at B = 32, K = 64 (topk_int8's B = 128
     # and K = 12 beside them, its shared headers under "headers"; topk_float in the
@@ -2989,8 +3629,9 @@ def main() -> int:
     # torch.topk (null, with library_error, where _int_mm refuses the shape);
     # launches: the count over that kernel's main-path run; topk_int8's
     # launches_lifecycle and launches_hybrid: its counts over the bursts of
-    # those phases; launches_http (topk_int8, paged_attention,
-    # paged_kv_write): the counts over the http phase's burst of asks.
+    # those phases; launches_http and launches_checkpoint (topk_int8,
+    # paged_attention, paged_kv_write): the counts over the http phase's burst
+    # of asks and over the checkpoint phase's asks to the entry point.
     print(json.dumps({"kernels": [{
         "name": "topk_int8", "route": "cuda",
         "source": "outline_rag_tpu_torch/csrc/topk_int8.cu",
@@ -3008,6 +3649,7 @@ def main() -> int:
         "launches_lifecycle": life["launches"],
         "launches_hybrid": hybrid["topk_int8_launches"],
         "launches_http": web["launches"]["topk_int8"],
+        "launches_checkpoint": ckpt["launches"]["topk_int8"],
     }, {
         "name": "topk_float", "route": "cuda",
         "source": "outline_rag_tpu_torch/csrc/topk_float.cu",
@@ -3041,6 +3683,7 @@ def main() -> int:
            for label in ("spec_window", "prefill_256")
            for key in ("ms", "device_ms", "bound_ms", "bound_by")},
         "launches_http": web["launches"]["paged_attention"],
+        "launches_checkpoint": ckpt["launches"]["paged_attention"],
     }, {
         "name": "paged_kv_write", "route": "cuda",
         "source": "outline_rag_tpu_torch/csrc/paged_kv_write.cu",
@@ -3051,6 +3694,7 @@ def main() -> int:
         "bound_ms": kv_write["bf16"]["bound_ms"], "bound_by": kv_write["bf16"]["bound_by"],
         "library_ms": None, "device_ms": kv_write["bf16"]["device_ms"],
         "library_device_ms": None, "launches_http": web["launches"]["paged_kv_write"],
+        "launches_checkpoint": ckpt["launches"]["paged_kv_write"],
     }, {
         "name": "int8_linear", "route": "cuda",
         "source": "outline_rag_tpu_torch/csrc/int8_linear.cu",

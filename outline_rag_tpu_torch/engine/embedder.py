@@ -13,6 +13,10 @@ embedder is in whole-document mode: the ladder runs up to ``max_tokens``
 those widths goes through the flash kernel (``EncoderConfig.attn_impl``).
 The JAX package also padded the batch dimension to a ladder, to bound
 recompiles; eager PyTorch has none, so batches run at their real size.
+
+The embedder owns its encoder: the QKV-fusion policy (``ORT_ENCODER_FUSE``)
+and, with ``int8=True`` (``ENCODER_INT8``), the w8a8 trunk rewrite it in
+place, in that order, as the JAX package casts, fuses, then quantizes.
 """
 
 from __future__ import annotations
@@ -23,7 +27,9 @@ import torch
 from outline_rag_tpu_torch.models.encoder import (
     Encoder,
     colbert_cache_codes,
+    maybe_fuse_qkv_,
     pooled_embeddings,
+    quantize_encoder_,
     sparse_token_weights,
 )
 from outline_rag_tpu_torch.models.tokenizer import DEFAULT_BUCKETS, buckets_for
@@ -40,7 +46,11 @@ class EncoderEmbedder:
         tokenizer,
         max_tokens: int = 512,
         seq_buckets=DEFAULT_BUCKETS,
+        int8: bool = False,
     ):
+        maybe_fuse_qkv_(encoder)
+        if int8:
+            quantize_encoder_(encoder)
         self.encoder = encoder.eval()
         self.cfg = encoder.cfg
         self.device = encoder.word.device
@@ -115,17 +125,31 @@ class EncoderEmbedder:
         )
 
 
-def get_embedder(settings=None, dim: int | None = None):
-    """Factory honouring Settings: the deterministic hash embedder (the
-    offline seam) when no weights path is configured. Loading a checkpoint
-    from ``ENCODER_WEIGHTS_PATH`` is not ported yet (ROADMAP.md Queue 1 #3):
-    a configured path raises rather than serving hash vectors in its place."""
+def get_embedder(settings=None, dim: int | None = None, device: str = "cuda"):
+    """Factory honouring Settings: the encoder of ``ENCODER_WEIGHTS_PATH``
+    on ``device`` (``HFTokenizer``, ``ENCODER_MAX_TOKENS``,
+    ``ENCODER_INT8``) when a path is configured, the deterministic hash
+    embedder (the offline seam) otherwise. A configured checkpoint that
+    fails to load raises ``RuntimeError`` naming the path: serving hash
+    vectors in its place would break retrieval without a word."""
     from outline_rag_tpu_torch.models.hash_embedder import HashEmbedder
 
     if settings is not None and settings.encoder_weights_path:
-        raise NotImplementedError(
-            "ENCODER_WEIGHTS_PATH is set, but loading an HF encoder checkpoint is not "
-            "ported yet (ROADMAP.md Queue 1 #3, checkpoint loading)"
-        )
+        path = settings.encoder_weights_path
+        try:
+            from outline_rag_tpu_torch.models.convert import load_pretrained
+            from outline_rag_tpu_torch.models.tokenizer import HFTokenizer
+
+            model = load_pretrained(path, device)
+            # a cross-encoder checkpoint embeds with its trunk, as in the JAX package
+            encoder = getattr(model, "encoder", model)
+            return EncoderEmbedder(
+                encoder, HFTokenizer(path), max_tokens=settings.encoder_max_tokens,
+                int8=settings.encoder_int8,
+            )
+        except Exception as exc:
+            raise RuntimeError(
+                f"ENCODER_WEIGHTS_PATH is set but the checkpoint failed to load from {path!r}"
+            ) from exc
     d = dim or (settings.vector_dim if settings else 1024)
     return HashEmbedder(dim=d)

@@ -261,7 +261,7 @@ class FusedEngine:
                 state.residual if state.residual.shape[1] else None,
                 top_k=min(self.top_k, state.capacity),
                 rerank_k=min(self.rerank_k, self.top_k),
-                eos_id=tok.eos_id,
+                eos_id=getattr(tok, "eos_id", 2),  # HFTokenizer has none: XLM-R's </s>
                 tok_weights=tokens.state.weights,
                 tok_cvecs=colbert.codes if colbert is not None else None,
                 tok_cscale=colbert.scales if colbert is not None else None,

@@ -3,7 +3,9 @@
 Port of ``outline_rag_tpu/engine/rerank.py``. Interface:
 ``rerank(query, passages, top_n) -> list[(orig_index, score)]`` sorted by
 score descending. The JAX package's cross-encoder returned ``[]`` on any
-error; here an error propagates to the caller.
+error; here an error propagates to the caller. The cross-encoder owns its
+module: the QKV-fusion policy and, with ``int8=True`` (``ENCODER_INT8``),
+the w8a8 trunk rewrite its trunk in place; the classifier head stays f32.
 """
 
 from __future__ import annotations
@@ -11,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from outline_rag_tpu_torch.models.encoder import maybe_fuse_qkv_, quantize_encoder_
 from outline_rag_tpu_torch.models.reranker import Reranker
 
 
@@ -31,7 +34,11 @@ class CrossEncoderReranker:
         tokenizer,
         max_tokens: int = 512,
         pair_buckets=(64, 128, 256, 512),
+        int8: bool = False,
     ):
+        maybe_fuse_qkv_(reranker.encoder)
+        if int8:
+            quantize_encoder_(reranker.encoder)
         self.model = reranker.eval()
         self.device = reranker.encoder.word.device
         self.tokenizer = tokenizer

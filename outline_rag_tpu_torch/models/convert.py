@@ -1,5 +1,18 @@
-"""Model weights: the JAX parameter pytree -> the port's modules, and the
-seeded random init used where no checkpoint is available.
+"""Model weights: HF checkpoints on disk and the JAX parameter pytree ->
+the port's modules, and the seeded random init used where no checkpoint is
+available.
+
+:func:`load_pretrained` reads a local XLM-RoBERTa-family checkpoint
+(``BAAI/bge-m3``, ``BAAI/bge-reranker-v2-m3``) and
+:func:`load_pretrained_decoder` a Llama / Qwen2 one, as the JAX package's
+``models/convert.py`` does: ``pytorch_model.bin``, ``model.safetensors`` or
+the sharded ``model.safetensors.index.json``; the ``roberta.`` / ``model.``
+/ ``bert.`` task prefix stripped; BGE-m3's ``sparse_linear.pt`` and
+``colbert_linear.pt`` heads beside the trunk; a ``classifier.*`` head makes
+a :class:`Reranker`. Tensors go from the files straight into the module's
+parameters (``nn.Linear`` holds ``[out, in]`` as the files do), cast to the
+model dtype by ``copy_`` (round to nearest even, as the JAX package's
+``cast_params``) on the module's device.
 
 The JAX package's encoder and reranker parameters (``init_encoder_params``
 / ``init_reranker_params`` layout, per-layer list form) arrive as numpy
@@ -21,6 +34,8 @@ JAX ``PagedKV`` is re-laid from position-minor pages to the port's
 
 from __future__ import annotations
 
+import json
+import os
 from typing import Any, Mapping
 
 import numpy as np
@@ -259,25 +274,30 @@ def paged_kv_from_jax(cache_np, device: str | torch.device) -> PagedKV:
 
 
 def decoder_params_from_state_dict(
-    sd: Mapping[str, Any], cfg: DecoderConfig, device: str | torch.device
+    sd: Mapping[str, Any],
+    cfg: DecoderConfig,
+    device: str | torch.device,
+    dtype: torch.dtype = torch.float32,
 ) -> dict:
     """An HF ``LlamaForCausalLM`` / ``Qwen2ForCausalLM`` state dict (tensors
-    or arrays) as the port's unfused decoder parameters, in f32 (cast with
-    ``cast_decoder_params``). ``nn.Linear`` holds ``[out, in]``; the
-    decoder multiplies ``x @ w``, so every projection is transposed."""
+    or arrays) as the port's unfused decoder parameters: projections, the
+    embedding table and the ``lm_head`` in ``dtype``, norm scales and biases
+    in f32 (``cast_decoder_params``'s rule, so casting again changes
+    nothing). ``nn.Linear`` holds ``[out, in]``; the decoder multiplies
+    ``x @ w``, so every projection is transposed."""
 
-    def get(name):
+    def get(name, to=torch.float32):
         x = sd[name]
-        x = x.detach().to(torch.float32) if isinstance(x, torch.Tensor) else _t(x)
-        return x.to(device)
+        x = x.detach() if isinstance(x, torch.Tensor) else _t(x)
+        return x.to(device=device, dtype=to)
 
     p = {
-        "embed": get("model.embed_tokens.weight"),
+        "embed": get("model.embed_tokens.weight", dtype),
         "final_norm": get("model.norm.weight"),
         "layers": [],
     }
     if not cfg.tie_embeddings and "lm_head.weight" in sd:
-        p["lm_head"] = get("lm_head.weight").T.contiguous()
+        p["lm_head"] = get("lm_head.weight", dtype).T.contiguous()
     names = (("wq", "self_attn.q_proj"), ("wk", "self_attn.k_proj"), ("wv", "self_attn.v_proj"),
              ("wo", "self_attn.o_proj"), ("wg", "mlp.gate_proj"), ("wu", "mlp.up_proj"),
              ("wd", "mlp.down_proj"))
@@ -288,9 +308,164 @@ def decoder_params_from_state_dict(
             "ln2": get(pre + "post_attention_layernorm.weight"),
         }
         for ours, theirs in names:
-            layer[ours] = get(f"{pre}{theirs}.weight").T.contiguous()
+            layer[ours] = get(f"{pre}{theirs}.weight", dtype).T.contiguous()
         if cfg.attn_bias:
             for ours, theirs in names[:3]:
                 layer["b" + ours[1]] = get(f"{pre}{theirs}.bias")
         p["layers"].append(layer)
     return p
+
+
+# ---------------------------------------------------------------------------
+# HF checkpoints on disk
+# ---------------------------------------------------------------------------
+
+
+def _load_state_dict(path: str) -> dict:
+    """Weight-file discovery shared by every loader: ``pytorch_model.bin``
+    or ``model.safetensors``, else the sharded layout
+    (``model.safetensors.index.json`` -> its shards). Tensors stay on the
+    CPU in their file dtype (a ``.bin`` is memory-mapped)."""
+    from safetensors.torch import load_file  # noqa: PLC0415
+
+    for fname in ("pytorch_model.bin", "model.safetensors"):
+        full = os.path.join(path, fname)
+        if os.path.exists(full):
+            if fname.endswith(".safetensors"):
+                return load_file(full)
+            return torch.load(full, map_location="cpu", weights_only=True, mmap=True)
+    index = os.path.join(path, "model.safetensors.index.json")
+    if os.path.exists(index):
+        with open(index) as f:
+            weight_map = json.load(f)["weight_map"]
+        sd = {}
+        for shard in sorted(set(weight_map.values())):
+            sd.update(load_file(os.path.join(path, shard)))
+        return sd
+    raise FileNotFoundError(f"no weight file found under {path}")
+
+
+def config_from_hf(hf_config, dtype: torch.dtype = torch.bfloat16) -> EncoderConfig:
+    return EncoderConfig(
+        vocab_size=hf_config.vocab_size,
+        hidden=hf_config.hidden_size,
+        layers=hf_config.num_hidden_layers,
+        heads=hf_config.num_attention_heads,
+        intermediate=hf_config.intermediate_size,
+        max_positions=hf_config.max_position_embeddings,
+        pad_id=hf_config.pad_token_id,
+        layer_norm_eps=hf_config.layer_norm_eps,
+        dtype=dtype,
+    )
+
+
+def _strip_task_prefix(sd: dict) -> dict:
+    """Drop the task model's prefix (``roberta.``, ``model.``, ``bert.``)
+    where the trunk's embeddings carry it."""
+    for prefix in ("roberta.", "model.", "bert."):
+        if any(k.startswith(prefix + "embeddings") for k in sd):
+            return {(k[len(prefix):] if k.startswith(prefix) else k): v for k, v in sd.items()}
+    return sd
+
+
+def _copy_linear(lin: nn.Linear, weight, bias) -> None:
+    lin.weight.copy_(weight)
+    lin.bias.copy_(bias)
+
+
+def _copy_encoder_state(enc: Encoder, sd: Mapping[str, torch.Tensor]) -> None:
+    """An HF XLM-R trunk state dict (prefix stripped) into ``enc``."""
+    with torch.no_grad():
+        enc.word.copy_(sd["embeddings.word_embeddings.weight"])
+        enc.position.copy_(sd["embeddings.position_embeddings.weight"])
+        enc.token_type.copy_(sd["embeddings.token_type_embeddings.weight"][:1])
+        enc.embed_ln.weight.copy_(sd["embeddings.LayerNorm.weight"])
+        enc.embed_ln.bias.copy_(sd["embeddings.LayerNorm.bias"])
+        for i, layer in enumerate(enc.layers):
+            b = f"encoder.layer.{i}."
+            for lin, name in ((layer.q, "attention.self.query"), (layer.k, "attention.self.key"),
+                              (layer.v, "attention.self.value"),
+                              (layer.o, "attention.output.dense"),
+                              (layer.mlp_in, "intermediate.dense"),
+                              (layer.mlp_out, "output.dense")):
+                _copy_linear(lin, sd[b + name + ".weight"], sd[b + name + ".bias"])
+            for ln, name in ((layer.attn_ln, "attention.output.LayerNorm"),
+                             (layer.mlp_ln, "output.LayerNorm")):
+                ln.weight.copy_(sd[b + name + ".weight"])
+                ln.bias.copy_(sd[b + name + ".bias"])
+
+
+def load_pretrained(
+    path: str, device: str | torch.device, dtype: torch.dtype = torch.bfloat16
+) -> Encoder | Reranker:
+    """A local XLM-RoBERTa-family checkpoint as the port's module on
+    ``device``, in ``dtype``: a :class:`Reranker` when the weights hold a
+    ``classifier.*`` head, else an :class:`Encoder` with BGE-m3's sparse
+    (``sparse_linear.pt``, H -> 1) and ColBERT (``colbert_linear.pt``,
+    H -> Hc) heads where those files are present."""
+    from transformers import AutoConfig  # noqa: PLC0415
+
+    cfg = config_from_hf(AutoConfig.from_pretrained(path), dtype)
+    sd = _strip_task_prefix(_load_state_dict(path))
+    if "classifier.dense.weight" in sd:
+        model = Reranker(cfg, device)
+        _copy_encoder_state(model.encoder, sd)
+        with torch.no_grad():
+            _copy_linear(model.dense, sd["classifier.dense.weight"], sd["classifier.dense.bias"])
+            _copy_linear(model.out, sd["classifier.out_proj.weight"], sd["classifier.out_proj.bias"])
+        return model.eval()
+    heads = {}
+    for name in ("sparse", "colbert"):
+        head_path = os.path.join(path, f"{name}_linear.pt")
+        if os.path.exists(head_path):
+            heads[name] = torch.load(head_path, map_location="cpu", weights_only=True)
+    model = Encoder(
+        cfg, device, sparse="sparse" in heads,
+        colbert_dim=heads["colbert"]["weight"].shape[0] if "colbert" in heads else 0,
+    )
+    _copy_encoder_state(model, sd)
+    with torch.no_grad():
+        for name, head in heads.items():
+            _copy_linear(getattr(model, name), head["weight"], head["bias"])
+    return model.eval()
+
+
+def _rope_theta(hf_config) -> float:
+    """``rope_theta``, read where ``transformers`` 5 keeps it too
+    (``rope_parameters``); 10,000 when neither says."""
+    theta = getattr(hf_config, "rope_theta", None)
+    if theta is None:
+        theta = (getattr(hf_config, "rope_parameters", None) or {}).get("rope_theta", 10000.0)
+    return float(theta)
+
+
+def decoder_config_from_hf(hf_config, dtype: torch.dtype = torch.bfloat16) -> DecoderConfig:
+    return DecoderConfig(
+        vocab_size=hf_config.vocab_size,
+        hidden=hf_config.hidden_size,
+        layers=hf_config.num_hidden_layers,
+        heads=hf_config.num_attention_heads,
+        kv_heads=getattr(hf_config, "num_key_value_heads", hf_config.num_attention_heads),
+        intermediate=hf_config.intermediate_size,
+        head_dim=getattr(hf_config, "head_dim", None),
+        rope_theta=_rope_theta(hf_config),
+        norm_eps=hf_config.rms_norm_eps,
+        attn_bias=bool(
+            getattr(hf_config, "attention_bias", False)
+            or getattr(hf_config, "model_type", "") == "qwen2"
+        ),
+        tie_embeddings=bool(getattr(hf_config, "tie_word_embeddings", False)),
+        dtype=dtype,
+    )
+
+
+def load_pretrained_decoder(
+    path: str, device: str | torch.device, dtype: torch.dtype = torch.bfloat16
+) -> tuple[DecoderConfig, dict]:
+    """``(cfg, params)`` of a local Llama / Qwen2-family checkpoint on
+    ``device``: GQA head counts, Qwen2's q/k/v biases, a tied or untied
+    ``lm_head``, ``head_dim`` and ``rope_theta`` where the config has them."""
+    from transformers import AutoConfig  # noqa: PLC0415
+
+    cfg = decoder_config_from_hf(AutoConfig.from_pretrained(path), dtype)
+    return cfg, decoder_params_from_state_dict(_load_state_dict(path), cfg, device, dtype)

@@ -18,6 +18,15 @@ Attention has two routes, chosen per call by ``EncoderConfig.attn_impl``
 ``ops/attention.py::flash_attention``, the streaming kernel that
 whole-document ingest needs at S >= 2048.
 
+Two rewrites of a loaded trunk, both in place and both the JAX package's
+(``fuse_encoder_params``, ``quantize_encoder_params``): :func:`fuse_qkv_`
+makes each layer's three attention projections one ``[H, 3H]`` projection
+(chosen by ``ORT_ENCODER_FUSE``, :func:`maybe_fuse_qkv_`; unfused by
+default), and :func:`quantize_encoder_` turns the six trunk projections of
+every layer into :class:`Int8Linear` (w8a8: int8 codes per output channel,
+activations quantized per row at every call; ``ENCODER_INT8``). Embeddings,
+layernorms, biases and every head keep their dtypes.
+
 BGE-m3's two other heads are optional submodules: ``sparse`` (Linear(H, 1)
 + ReLU: per-token lexical weights) and ``colbert`` (Linear(H, Hc):
 per-token late-interaction vectors), with the functions that score them
@@ -31,6 +40,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 
 import torch
 import torch.nn.functional as F
@@ -38,6 +48,7 @@ from torch import nn
 
 from outline_rag_tpu_torch.device import resolve_device
 from outline_rag_tpu_torch.ops.attention import flash_attention
+from outline_rag_tpu_torch.ops.int8_linear import w8a8_matmul
 
 ATTN_IMPLS = ("auto", "flash", "einsum")
 
@@ -125,8 +136,43 @@ def zero_linear(n_in: int, n_out: int, cfg: EncoderConfig, device) -> nn.Linear:
     return lin
 
 
+class Int8Linear(nn.Module):
+    """A w8a8 projection: ``codes [N, K]`` int8 and ``scales [N]`` f32 per
+    output channel, the bias in the compute dtype. The forward is the JAX
+    package's ``_emm`` then the bias: each row of ``x`` quantized to int8,
+    the exact integer product, the f32 rescale (``ops/int8_linear.py::
+    w8a8_matmul``), rounded to ``x.dtype`` before the bias is added."""
+
+    def __init__(self, codes: torch.Tensor, scales: torch.Tensor, bias: torch.Tensor):
+        super().__init__()
+        self.out_features, self.in_features = codes.shape
+        self.register_buffer("codes", codes)
+        self.register_buffer("scales", scales)
+        self.bias = nn.Parameter(bias, requires_grad=False)
+
+    @classmethod
+    def from_linear(cls, lin: nn.Linear) -> "Int8Linear":
+        """The codes of ``lin``'s weight as it is held (already in the
+        compute dtype): per output channel, ``scale = amax * f32(1/127)``
+        (the JAX package quantizes the trunk under ``jit``, and XLA compiles
+        ``amax / 127`` as that product; ``ops/int8_linear.py::
+        quantize_linear_weight`` divides, as JAX does eagerly), floored at
+        1e-12, ``codes = round(w / scale)`` clipped to +-127."""
+        w = lin.weight.detach().float()
+        scales = (w.abs().amax(dim=1) * (1.0 / 127.0)).clamp_min(1e-12)
+        codes = torch.round(w / scales[:, None]).clamp(-127, 127).to(torch.int8)
+        return cls(codes.contiguous(), scales.contiguous(), lin.bias.detach())
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        lead = x.shape[:-1]
+        out = w8a8_matmul(x.reshape(-1, self.in_features), self.codes, self.scales)
+        return out.reshape(*lead, self.out_features).to(x.dtype) + self.bias.to(x.dtype)
+
+
 class EncoderLayer(nn.Module):
-    """Post-layernorm transformer block: attention, then the GELU MLP."""
+    """Post-layernorm transformer block: attention, then the GELU MLP. The
+    attention projections are ``q``, ``k``, ``v``, or one ``qkv`` once
+    fused (:func:`fuse_qkv_`)."""
 
     def __init__(self, cfg: EncoderConfig, device: torch.device):
         super().__init__()
@@ -135,6 +181,7 @@ class EncoderLayer(nn.Module):
         self.q = zero_linear(h, h, cfg, device)
         self.k = zero_linear(h, h, cfg, device)
         self.v = zero_linear(h, h, cfg, device)
+        self.qkv = None
         self.o = zero_linear(h, h, cfg, device)
         self.attn_ln = LayerNorm(h, cfg.layer_norm_eps, device)
         self.mlp_in = zero_linear(h, cfg.intermediate, cfg, device)
@@ -144,10 +191,13 @@ class EncoderLayer(nn.Module):
     def attention(self, x: torch.Tensor, mask_bias: torch.Tensor) -> torch.Tensor:
         b, s, h = x.shape
         nh, hd = self.cfg.heads, self.cfg.head_dim
-        q = self.q(x).reshape(b, s, nh, hd)
-        k = self.k(x).reshape(b, s, nh, hd)
-        v = self.v(x).reshape(b, s, nh, hd)
+        if self.qkv is not None:
+            q, k, v = self.qkv(x).split(h, dim=-1)
+        else:
+            q, k, v = self.q(x), self.k(x), self.v(x)
+        q, k, v = (t.reshape(b, s, nh, hd) for t in (q, k, v))
         if use_flash(self.cfg, b, s, x.device):
+            q, k, v = (t.contiguous() for t in (q, k, v))  # slices of a fused projection
             ctx = flash_attention(q, k, v, mask_bias[:, 0, 0, :]).reshape(b, s, h)
         else:
             logits = torch.einsum("bqnd,bknd->bnqk", q.float(), k.float())
@@ -202,6 +252,54 @@ class Encoder(nn.Module):
         for layer in self.layers:
             x = layer(x, mask_bias)
         return x
+
+
+def fuse_qkv_(encoder: Encoder) -> Encoder:
+    """Fuse each layer's q, k and v into one ``qkv`` projection of ``3H``
+    outputs, in place (a layer already fused is left as it is). Output
+    channels are concatenated, so per-channel int8 codes of the fused weight
+    are those of the three, byte for byte; fuse before
+    :func:`quantize_encoder_`. Returns the encoder."""
+    for layer in encoder.layers:
+        if layer.qkv is not None:
+            continue
+        parts = (layer.q, layer.k, layer.v)
+        if not all(isinstance(p, nn.Linear) for p in parts):
+            raise ValueError("fuse before quantizing: the projections are no longer nn.Linear")
+        w = parts[0].weight
+        fused = nn.Linear(w.shape[1], 3 * w.shape[0], device=w.device, dtype=w.dtype)
+        with torch.no_grad():
+            fused.weight.copy_(torch.cat([p.weight for p in parts]))
+            fused.bias.copy_(torch.cat([p.bias for p in parts]))
+        layer.qkv = fused
+        layer.q = layer.k = layer.v = None
+    return encoder
+
+
+def maybe_fuse_qkv_(encoder: Encoder) -> Encoder:
+    """The serving path's QKV-fusion policy, the JAX package's
+    ``maybe_fuse_encoder_params``: fused only with ``ORT_ENCODER_FUSE=1``
+    (the JAX package's default is unfused, chosen by its own A/B; the
+    card's A/B at the query, rerank and ingest shapes is in PERF.md)."""
+    if os.environ.get("ORT_ENCODER_FUSE", "0") == "1":
+        return fuse_qkv_(encoder)
+    return encoder
+
+
+TRUNK_PROJECTIONS = ("q", "k", "v", "qkv", "o", "mlp_in", "mlp_out")
+
+
+def quantize_encoder_(encoder: Encoder) -> Encoder:
+    """The w8a8 trunk (``ENCODER_INT8``), in place: every layer's q, k, v
+    (or fused qkv), attention out, intermediate and output projections
+    become :class:`Int8Linear`; embeddings, layernorms and the heads stay as
+    they are. Apply after the cast and the fusion. Returns the encoder."""
+    for layer in encoder.layers:
+        for name in TRUNK_PROJECTIONS:
+            lin = getattr(layer, name)
+            if isinstance(lin, nn.Linear):
+                setattr(layer, name, Int8Linear.from_linear(lin))
+    return encoder
 
 
 def cls_pooled(hidden: torch.Tensor) -> torch.Tensor:

@@ -1,8 +1,16 @@
 """Host-side tokenization with fixed-shape bucketing.
 
-Port of ``outline_rag_tpu/models/tokenizer.py``: the deterministic
-whitespace + hash tokenizer and the bucket ladder, producing the same ids
-as the JAX package. The HF tokenizer wrapper is not ported yet.
+The reference never tokenizes (remote APIs do); its only tokenizer artifact
+is a pre-cached-but-unused tiktoken BPE (reference
+``app/llm_services.py:111-116``). Here tokenization is a real pipeline
+stage: HF fast tokenizer (sentencepiece/XLM-R) on the host producing fixed
+padded shapes from a small bucket ladder, so every encoder invocation hits
+an already-compiled XLA program (SURVEY.md section 5 "long-context": fixed
+padded batches, document-level parallelism).
+
+When no tokenizer asset is available (offline test environments) a
+deterministic whitespace+hash tokenizer stands in behind the same
+interface — the fake-backend seam of SURVEY.md section 4.
 """
 
 from __future__ import annotations
@@ -12,7 +20,8 @@ import hashlib
 import numpy as np
 
 DEFAULT_BUCKETS = (32, 64, 128, 256, 512)
-# Whole-document embedding ladder (BGE-m3 supports 8192 tokens).
+# Whole-document embedding ladder (BGE-m3 supports 8192 tokens); the
+# encoder switches to the flash-attention kernel at these lengths.
 LONG_BUCKETS = DEFAULT_BUCKETS + (1024, 2048, 4096, 8192)
 
 
@@ -35,16 +44,6 @@ class TokenBatch:
     def __init__(self, input_ids: np.ndarray, attention_mask: np.ndarray):
         self.input_ids = input_ids
         self.attention_mask = attention_mask
-
-
-def _pad_rows(encoded: list[list[int]], width: int, pad_id: int) -> TokenBatch:
-    ids = np.full((len(encoded), width), pad_id, np.int32)
-    mask = np.zeros((len(encoded), width), np.int32)
-    for i, e in enumerate(encoded):
-        e = e[:width]
-        ids[i, : len(e)] = e
-        mask[i, : len(e)] = 1
-    return TokenBatch(ids, mask)
 
 
 class HashTokenizer:
@@ -75,7 +74,13 @@ class HashTokenizer:
         encoded = [self.encode(t, max_len) for t in texts]
         longest = max((len(e) for e in encoded), default=1)
         width = min(pick_bucket(longest, buckets), max_len)
-        return _pad_rows(encoded, width, self.pad_id)
+        ids = np.full((len(texts), width), self.pad_id, np.int32)
+        mask = np.zeros((len(texts), width), np.int32)
+        for i, e in enumerate(encoded):
+            e = e[:width]
+            ids[i, : len(e)] = e
+            mask[i, : len(e)] = 1
+        return TokenBatch(ids, mask)
 
     def batch_pairs(
         self,
@@ -87,7 +92,8 @@ class HashTokenizer:
         """Cross-encoder pair encoding: CLS q EOS EOS p EOS (XLM-R pair
         layout)."""
         encoded = []
-        # each distinct query is encoded once, not once per pair
+        # rerank calls pass the SAME query for every passage: encode each
+        # distinct query once, not once per pair (serving hot path)
         q_cache: dict[str, list[int]] = {}
         for q, p in zip(queries, passages):
             qe = q_cache.get(q)
@@ -97,4 +103,60 @@ class HashTokenizer:
             encoded.append(qe + [self.eos_id] + pe)
         longest = max((len(e) for e in encoded), default=1)
         width = min(pick_bucket(longest, buckets), max_len)
-        return _pad_rows(encoded, width, self.pad_id)
+        ids = np.full((len(encoded), width), self.pad_id, np.int32)
+        mask = np.zeros((len(encoded), width), np.int32)
+        for i, e in enumerate(encoded):
+            e = e[:width]
+            ids[i, : len(e)] = e
+            mask[i, : len(e)] = 1
+        return TokenBatch(ids, mask)
+
+
+class HFTokenizer:
+    """HF fast-tokenizer wrapper producing the same bucketed TokenBatch."""
+
+    def __init__(self, path: str):
+        from transformers import AutoTokenizer  # noqa: PLC0415
+
+        self.tok = AutoTokenizer.from_pretrained(path)
+        self.pad_id = self.tok.pad_token_id
+
+    def batch(self, texts, max_len: int = 512, buckets=DEFAULT_BUCKETS):
+        enc = self.tok(
+            list(texts), truncation=True, max_length=max_len, padding=False
+        )
+        longest = max((len(e) for e in enc["input_ids"]), default=1)
+        width = min(pick_bucket(longest, buckets), max_len)
+        # HF pad(padding="max_length") never TRUNCATES: when max_len is
+        # not itself a bucket value (e.g. ENCODER_MAX_TOKENS=600 over a
+        # 512-top ladder) rows longer than the picked width must be cut
+        # or return_tensors="np" gets ragged rows and raises
+        enc["input_ids"] = [e[:width] for e in enc["input_ids"]]
+        enc["attention_mask"] = [m[:width] for m in enc["attention_mask"]]
+        out = self.tok.pad(
+            enc, padding="max_length", max_length=width, return_tensors="np"
+        )
+        return TokenBatch(
+            out["input_ids"].astype(np.int32),
+            out["attention_mask"].astype(np.int32),
+        )
+
+    def batch_pairs(self, queries, passages, max_len: int = 512, buckets=DEFAULT_BUCKETS):
+        enc = self.tok(
+            list(queries),
+            list(passages),
+            truncation=True,
+            max_length=max_len,
+            padding=False,
+        )
+        longest = max((len(e) for e in enc["input_ids"]), default=1)
+        width = min(pick_bucket(longest, buckets), max_len)
+        enc["input_ids"] = [e[:width] for e in enc["input_ids"]]
+        enc["attention_mask"] = [m[:width] for m in enc["attention_mask"]]
+        out = self.tok.pad(
+            enc, padding="max_length", max_length=width, return_tensors="np"
+        )
+        return TokenBatch(
+            out["input_ids"].astype(np.int32),
+            out["attention_mask"].astype(np.int32),
+        )

@@ -25,13 +25,12 @@ GET  /chat/login|logout, /chat/oidc/callback  (serve.auth)
 Port of ``outline_rag_tpu/serve/app.py`` onto this package's engine, index
 and local decoder. What differs from the JAX app:
 
-- ``device``: the index is created there (``"cuda"`` by default; tests pass
-  ``"cpu"``). There is no mesh: ``MESH_DATA_AXIS`` of 0 or 1 is one device,
-  a larger value raises ``NotImplementedError`` (ROADMAP.md Queue 1 #7).
-- Checkpoints: ``RERANKER_WEIGHTS_PATH`` and ``DECODER_WEIGHTS_PATH``
-  raise ``NotImplementedError`` (Queue 1 #3 and #8) instead of loading, as
-  ``ENCODER_WEIGHTS_PATH`` does in ``get_embedder``; none falls through to
-  another model or provider.
+- ``device``: the index, and the models of ``ENCODER_WEIGHTS_PATH``,
+  ``RERANKER_WEIGHTS_PATH`` and ``DECODER_WEIGHTS_PATH``, are created there
+  (``"cuda"`` by default; tests pass ``"cpu"``). There is no mesh:
+  ``MESH_DATA_AXIS`` of 0 or 1 is one device, a larger value raises
+  ``NotImplementedError`` (ROADMAP.md Queue 1 #7), as ``DECODER_TP`` above 1
+  does in ``LocalChatProvider``.
 - The snapshot restore loads onto the index's own device.
 - The warm-up builds the CUDA library and launches the first scans before
   the first user arrives (nothing is compiled per shape).
@@ -111,14 +110,30 @@ def build_app(
 
         meta = make_meta_store(settings)
     if embedder is None:
-        embedder = get_embedder(settings)
+        embedder = get_embedder(settings, device=device)
     if reranker is None and settings.reranker_weights_path:
-        # a configured cross-encoder that cannot load is a deployment
-        # error: never serve without the reranker it asked for
-        raise NotImplementedError(
-            "RERANKER_WEIGHTS_PATH is set, but loading an HF cross-encoder checkpoint "
-            "is not ported yet (ROADMAP.md Queue 1 #3, checkpoint loading)"
-        )
+        # the cross-encoder on the card (reference seam: remote /v1/rerank,
+        # app/llm_services.py:235-344)
+        from outline_rag_tpu_torch.engine.rerank import CrossEncoderReranker
+        from outline_rag_tpu_torch.models.convert import load_pretrained
+        from outline_rag_tpu_torch.models.reranker import Reranker
+        from outline_rag_tpu_torch.models.tokenizer import HFTokenizer
+
+        path = settings.reranker_weights_path
+        try:
+            model = load_pretrained(path, device)
+            if not isinstance(model, Reranker):
+                raise ValueError(f"{path} holds no classifier.* head")
+            reranker = CrossEncoderReranker(
+                model, HFTokenizer(path), max_tokens=settings.encoder_max_tokens,
+                int8=settings.encoder_int8,
+            )
+        except Exception as exc:
+            # a configured cross-encoder that cannot load is a deployment
+            # error: never serve without the reranker it asked for
+            raise RuntimeError(
+                f"RERANKER_WEIGHTS_PATH is set but the checkpoint failed to load from {path!r}"
+            ) from exc
     # a real encoder + device token cache enable the fused one-program
     # query path (engine/fused.py); the ingestor fills the cache below
     encoder_tokenizer = getattr(embedder, "tokenizer", None)
@@ -171,14 +186,44 @@ def build_app(
             return await batcher.retrieve(query)
     if provider is None:
         if settings.decoder_weights_path:
-            # An explicitly configured local decoder that cannot load is a
-            # deployment error: never serve with a different provider. A
-            # LocalChatProvider built from parameters in hand is passed in
-            # as ``provider``.
-            raise NotImplementedError(
-                "DECODER_WEIGHTS_PATH is set, but loading an HF decoder checkpoint and "
-                "its tokenizer is not ported yet (ROADMAP.md Queue 1 #8 and #3)"
-            )
+            # fully local generation: a Llama/Qwen-family decoder on the card
+            path = settings.decoder_weights_path
+            try:
+                from transformers import AutoTokenizer
+
+                from outline_rag_tpu_torch.models.convert import load_pretrained_decoder
+                from outline_rag_tpu_torch.serve.llm import LocalChatProvider
+
+                dec_cfg, dec_params = load_pretrained_decoder(path, device)
+                provider = LocalChatProvider(
+                    dec_params,
+                    dec_cfg,
+                    AutoTokenizer.from_pretrained(path),
+                    max_new_tokens=settings.decoder_max_new_tokens,
+                    batch_slots=settings.decoder_batch_slots,
+                    int8_weights=settings.decoder_int8,
+                    int4_weights=settings.decoder_int4,
+                    spec_k=settings.decoder_spec_k,
+                    spec_gram=settings.decoder_spec_gram,
+                    kv_pages=settings.decoder_kv_pages,
+                    page_size=settings.decoder_page_size,
+                    prefix_cache=settings.decoder_prefix_cache,
+                    kv_int8=settings.decoder_kv_int8,
+                    tp_devices=settings.decoder_tp,
+                    device=device,
+                )
+            except (ValueError, NotImplementedError):
+                # an invalid DECODER_* combination, or one not ported yet
+                # (tensor parallelism): the configuration's error as it is,
+                # not the checkpoint's
+                raise
+            except Exception as exc:
+                # a configured local decoder that cannot load is a deployment
+                # error (reference startup asserts exit, app/main.py:99-104):
+                # never serve with a different provider
+                raise RuntimeError(
+                    f"DECODER_WEIGHTS_PATH is set but the checkpoint failed to load from {path!r}"
+                ) from exc
         if provider is None and settings.llm_api_base:
             provider = OpenAICompatProvider(
                 settings.llm_api_base, settings.llm_api_key, bus=bus

@@ -41,6 +41,7 @@ COPIES = [
     "storage/pgwire.py",
     "storage/postgres.py",
     "models/hash_embedder.py",
+    "models/tokenizer.py",
     "sync/__init__.py",
     "serve/http.py",
     "serve/chat.py",

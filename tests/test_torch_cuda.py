@@ -1106,3 +1106,105 @@ def test_app_on_the_card_answers_an_ask_through_the_scan_kernel(cuda):
     text = "".join(e["choices"][0]["delta"].get("content", "") for e in events if isinstance(e, dict))
     line = [ln for ln in text.splitlines() if ln.startswith("[SourcesMap]:")][0]
     assert json.loads(line[len("[SourcesMap]:"):])["1"]["title"] == "Wolves"
+
+
+def _tiny_checkpoints(path):
+    """A tiny BGE-m3-layout encoder (``pytorch_model.bin`` and both sidecar
+    heads) and a tiny Llama decoder in two safetensors shards, written with
+    ``transformers``: (encoder dir, decoder dir)."""
+    import json
+
+    from safetensors.torch import save_file
+    from transformers import LlamaConfig, LlamaForCausalLM, XLMRobertaConfig, XLMRobertaModel
+
+    torch.manual_seed(0)
+    enc_dir, dec_dir = path / "encoder", path / "decoder"
+    enc_dir.mkdir()
+    dec_dir.mkdir()
+    cfg = XLMRobertaConfig(vocab_size=512, hidden_size=64, num_hidden_layers=2,
+                           num_attention_heads=4, intermediate_size=128,
+                           max_position_embeddings=130, pad_token_id=1, type_vocab_size=1)
+    enc = XLMRobertaModel(cfg, add_pooling_layer=False)
+    torch.save(enc.state_dict(), enc_dir / "pytorch_model.bin")
+    torch.save({"weight": torch.randn(1, 64) * 0.1, "bias": torch.zeros(1)},
+               enc_dir / "sparse_linear.pt")
+    torch.save({"weight": torch.randn(64, 64) * 0.1, "bias": torch.zeros(64)},
+               enc_dir / "colbert_linear.pt")
+    cfg.save_pretrained(str(enc_dir))
+    cfg = LlamaConfig(vocab_size=256, hidden_size=64, num_hidden_layers=2, num_attention_heads=4,
+                      num_key_value_heads=2, intermediate_size=96, max_position_embeddings=128)
+    sd = {k: v.contiguous() for k, v in LlamaForCausalLM(cfg).state_dict().items()}
+    keys = sorted(sd)
+    weight_map = {}
+    for n, part in enumerate((keys[: len(keys) // 2], keys[len(keys) // 2:])):
+        fname = f"model-0000{n + 1}-of-00002.safetensors"
+        save_file({k: sd[k] for k in part}, str(dec_dir / fname), metadata={"format": "pt"})
+        weight_map.update(dict.fromkeys(part, fname))
+    (dec_dir / "model.safetensors.index.json").write_text(json.dumps({"weight_map": weight_map}))
+    cfg.save_pretrained(str(dec_dir))
+    return enc_dir, dec_dir
+
+
+def test_checkpoints_load_onto_the_card(cuda, tmp_path):
+    """``load_pretrained`` / ``load_pretrained_decoder`` put the weights on the
+    card, where the forwards match the same checkpoints loaded on the CPU."""
+    import dataclasses
+
+    from outline_rag_tpu_torch.models import (
+        decoder_forward,
+        init_cache,
+        load_pretrained,
+        load_pretrained_decoder,
+        pooled_embeddings,
+    )
+
+    enc_dir, dec_dir = _tiny_checkpoints(tmp_path)
+    on_card = load_pretrained(str(enc_dir), cuda, dtype=torch.float32)
+    on_cpu = load_pretrained(str(enc_dir), "cpu", dtype=torch.float32)
+    assert on_card.word.device == cuda and on_card.colbert.weight.device == cuda
+    ids = torch.randint(3, 512, (4, 24), generator=torch.Generator().manual_seed(1))
+    mask = torch.ones_like(ids)
+    with torch.inference_mode():
+        got = pooled_embeddings(on_card, ids.to(cuda), mask.to(cuda)).cpu()
+        want = pooled_embeddings(on_cpu, ids, mask)
+    assert torch.allclose(got, want, atol=1e-5)
+    cfg, params = load_pretrained_decoder(str(dec_dir), cuda, dtype=torch.float32)
+    cfg_cpu, params_cpu = load_pretrained_decoder(str(dec_dir), "cpu", dtype=torch.float32)
+    assert params["layers"][0]["wq"].device == cuda and "lm_head" in params
+    cfg = dataclasses.replace(cfg, max_cache=32)
+    toks = torch.randint(0, 256, (2, 10), generator=torch.Generator().manual_seed(2),
+                         dtype=torch.int32)
+    zero = torch.zeros((2,), dtype=torch.int32)
+    with torch.inference_mode():
+        got, _ = decoder_forward(params, toks.to(cuda), init_cache(cfg, 2, cuda), zero.to(cuda), cfg)
+        want, _ = decoder_forward(params_cpu, toks, init_cache(cfg, 2, "cpu"), zero, cfg)
+    assert torch.allclose(got.cpu(), want, atol=1e-4)
+
+
+def test_int8_trunk_on_the_card_matches_its_cpu_forward(cuda, tmp_path):
+    """The w8a8 trunk (``torch._int_mm`` on the card, an int32 product on the
+    CPU: both exact) gives the CPU's embeddings, fused or not."""
+    from outline_rag_tpu_torch.models import (
+        Int8Linear,
+        fuse_qkv_,
+        load_pretrained,
+        pooled_embeddings,
+        quantize_encoder_,
+    )
+
+    enc_dir, _ = _tiny_checkpoints(tmp_path)
+    ids = torch.randint(3, 512, (40, 24), generator=torch.Generator().manual_seed(3))
+    mask = torch.ones_like(ids)
+    mask[5:, 20:] = 0
+    for fuse in (False, True):
+        models = {}
+        for dev in (cuda, torch.device("cpu")):
+            enc = load_pretrained(str(enc_dir), dev, dtype=torch.float32)
+            models[dev.type] = quantize_encoder_(fuse_qkv_(enc) if fuse else enc)
+        assert isinstance(models["cuda"].layers[0].mlp_in, Int8Linear)
+        for a, b in zip(models["cuda"].layers, models["cpu"].layers):
+            assert torch.equal(a.mlp_in.codes.cpu(), b.mlp_in.codes)
+        with torch.inference_mode():
+            got = pooled_embeddings(models["cuda"], ids.to(cuda), mask.to(cuda)).cpu()
+            want = pooled_embeddings(models["cpu"], ids, mask)
+        assert torch.allclose(got, want, atol=1e-5), (fuse, (got - want).abs().max())

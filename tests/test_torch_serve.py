@@ -397,15 +397,20 @@ def test_snapshot_config_mismatch_falls_through(tmp_path):
     asyncio.run(run())
 
 
-@pytest.mark.parametrize("env, what", [
-    ({"MESH_DATA_AXIS": "2"}, "Queue 1 #7"),
-    ({"RERANKER_WEIGHTS_PATH": "/nonexistent"}, "Queue 1 #3"),
-    ({"DECODER_WEIGHTS_PATH": "/nonexistent"}, "Queue 1 #8"),
-    ({"ENCODER_WEIGHTS_PATH": "/nonexistent"}, "Queue 1 #3"),
+@pytest.mark.parametrize("env, error, what", [
+    # not ported yet: a row-sharded index
+    ({"MESH_DATA_AXIS": "2"}, NotImplementedError, "Queue 1 #7"),
+    # a configured checkpoint that does not load fails fast, naming its path
+    ({"RERANKER_WEIGHTS_PATH": "/nonexistent"}, RuntimeError,
+     "RERANKER_WEIGHTS_PATH .* from '/nonexistent'"),
+    ({"DECODER_WEIGHTS_PATH": "/nonexistent"}, RuntimeError,
+     "DECODER_WEIGHTS_PATH .* from '/nonexistent'"),
+    ({"ENCODER_WEIGHTS_PATH": "/nonexistent"}, RuntimeError,
+     "ENCODER_WEIGHTS_PATH .* from '/nonexistent'"),
 ])
-def test_unported_settings_raise_instead_of_serving_something_else(env, what):
+def test_unported_settings_raise_instead_of_serving_something_else(env, error, what):
     settings = load_settings({**BASE_ENV, **env})
-    with pytest.raises(NotImplementedError, match=what):
+    with pytest.raises(error, match=what):
         build_app(settings, device="cpu", meta=SqliteMetaStore(":memory:"), start_workers=False)
 
 
