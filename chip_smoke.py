@@ -306,6 +306,27 @@ printing one JSON line; any failure raises and the exit code is non-zero:
            once over the socket (every answer has sources, every ask drawn from
            a new document cites one; ``topk_int8``, ``paged_attention`` and
            ``paged_kv_write`` launched), SIGTERM to exit 0.
+18. train   fine-tuning through ``models/train.py`` at the published widths
+           and depths in f32, seeded weights, 4 AdamW steps each on one seeded
+           batch: the contrastive step on bge-m3 (16 pairs, queries of up to
+           64 tokens, passages of up to 512, lr 1e-5, ``remat=True``; step 1's
+           loss and gradient norm also without remat, equal within 1e-5
+           relative), the cross-encoder step on bge-reranker-v2-m3 (8 queries
+           x groups of 8 pairs of up to 256 tokens, lr 1e-5) and the causal-LM
+           step on TinyLlama-1.1B, fused (4 sequences of 512 tokens, lr 3e-4).
+           Every loss finite and the last below the first; every gradient
+           finite and the attention projections' not all zero; no flash
+           launch (every sequence is under 2,048 tokens, and the flash route
+           refuses autograd: a forward through ``attn_impl="flash"`` under
+           grad must raise, and runs through the kernel under ``no_grad``);
+           TF32 off. At tiny width a step of each on the card is held to the
+           CPU's (``testing.card_step_errors``: loss within 1e-5 relative,
+           gradients as close to a float64 run as the CPU's, the update from
+           the same gradients within 1e-6). Printed: ms a step (CUDA
+           events, median of steps 2-4), tokens a second, peak memory, with
+           remat and without for the two encoders, and the model FLOPs a
+           step (6 x non-embedding parameters x tokens, plus attention) with
+           their share of the card's f32 peak.
 
 The last lines are the kernel summary (each kernel's time beside its bound:
 the larger of its bytes over 3.35 TB/s and its operations over the card's
@@ -318,6 +339,7 @@ from __future__ import annotations
 import argparse
 import asyncio
 import json
+import math
 import os
 import statistics
 import sys
@@ -3549,6 +3571,269 @@ def checkpoint_phase(torch, dev, seed: int) -> dict:
     return out
 
 
+# train: the three models at their published widths in f32, TRAIN_STEPS steps
+# each on one seeded batch; sequences stay under the 2,048 tokens at which
+# "auto" attention would take the flash kernel, which has no backward
+TRAIN_STEPS = 4
+TRAIN_PAIRS, TRAIN_Q_LEN, TRAIN_P_LEN = 16, 64, 512  # contrastive, bge-m3
+TRAIN_QUERIES, TRAIN_GROUP, TRAIN_PAIR_LEN = 8, 8, 256  # cross-encoder, bge-reranker-v2-m3
+TRAIN_SEQS, TRAIN_SEQ_LEN = 4, 512  # causal LM, TinyLlama-1.1B
+# the encoders at the JAX package's default lr (``make_optimizer``): at 1e-4
+# the seeded bge-m3 trunk's contrastive loss fell for two steps and returned
+# to ln 16 (pooled embeddings collapsed to one point) at the fourth
+TRAIN_LR = {"contrastive": 1e-5, "reranker": 1e-5, "lm": 3e-4}
+TRAIN_REL = 1e-5  # losses and gradient norms: remat against none, the card against the CPU
+
+
+def train_lengths(torch, gen, dev, n: int, hi: int, vocab: int):
+    """Seeded token ids and masks [n, hi]: CLS (0) first, a length drawn in
+    [hi / 4, hi], pad (1) after it."""
+    ids = torch.randint(3, vocab, (n, hi), generator=gen, device=dev)
+    lengths = torch.randint(hi // 4, hi + 1, (n,), generator=gen, device=dev)
+    mask = (torch.arange(hi, device=dev)[None, :] < lengths[:, None]).to(torch.int32)
+    ids = torch.where(mask.bool(), ids, torch.ones_like(ids))
+    ids[:, 0] = 0
+    return ids, mask
+
+
+def rel(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def check_grads(torch, grads: dict, attention: list[str]) -> dict:
+    """Every gradient finite; the attention projections' not all zero."""
+    finite = bool(torch.stack([torch.isfinite(g).all() for g in grads.values()]).all())
+    require(finite, "every trained parameter has a finite gradient")
+    zero = [n for n in attention if not bool(grads[n].ne(0).any())]
+    require(not zero, f"the attention projections get gradients: {zero[:4]} are all zero")
+    norm = torch.linalg.vector_norm(torch.stack([g.norm() for g in grads.values()]))
+    return {"leaves": len(grads), "attention_leaves": len(attention), "grad_norm": float(norm)}
+
+
+def model_flops(n_params: int, tokens: int, attention: float) -> float:
+    """6 x non-embedding parameters x tokens (forward and backward), plus
+    the attention products (QK^T and PV: 4 FLOPs a query-key pair and
+    hidden unit forward, three times that with the backward)."""
+    return 6.0 * n_params * tokens + 12.0 * attention
+
+
+def timed_steps(torch, step, state, batch, tokens: int, flops: float) -> dict:
+    """TRAIN_STEPS steps queued back to back, each between two CUDA events;
+    ``ms``: the median of steps 2 on, and the tokens (positions, padding
+    included), model TFLOP/s and share of the f32 peak it makes;
+    ``peak_gb``: the most memory allocated over the run; ``start_gb``: what
+    was allocated as it began."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start_gb = torch.cuda.memory_allocated() / 1e9  # weights and AdamW moments
+    events, losses = [], []
+    for _ in range(TRAIN_STEPS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, metrics = step(state, batch)
+        end.record()
+        events.append((start, end))
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    ms = [s.elapsed_time(e) for s, e in events]
+    losses = [float(x) for x in losses]
+    require(all(map(math.isfinite, losses)), f"finite losses: {losses}")
+    sec = statistics.median(ms[1:]) / 1e3
+    return {"losses": losses, "step_ms": ms, "ms": sec * 1e3, "tokens_per_s": tokens / sec,
+            "model_tflop_s": flops / sec / 1e12, "f32_peak_share": flops / sec / PEAK["f32"],
+            "start_gb": start_gb, "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def train_tiny_parity(torch, dev, seed: int) -> dict:
+    """A training step of each model at tiny width on the card against the
+    CPU from the same weights and batch (``testing.card_step_errors``):
+    losses within 1e-5 relative, gradients as close to a float64 run as the
+    CPU's, one AdamW update from the same gradients within 1e-6. A TF32
+    product or a route only the card takes would show here."""
+    import dataclasses
+
+    from outline_rag_tpu_torch.models import train as tt
+    from outline_rag_tpu_torch.models.convert import init_encoder, init_reranker
+    from outline_rag_tpu_torch.models.decoder import DecoderConfig, init_decoder
+    from outline_rag_tpu_torch.models.encoder import EncoderConfig
+    from outline_rag_tpu_torch.testing import card_step_errors
+
+    cpu = torch.device("cpu")
+    gen = torch.Generator().manual_seed(seed + 40)
+    ecfg, dcfg = EncoderConfig.tiny(), DecoderConfig.tiny()
+    q_ids, q_mask = train_lengths(torch, gen, cpu, 8, 16, ecfg.vocab_size)
+    p_ids, p_mask = train_lengths(torch, gen, cpu, 8, 32, ecfg.vocab_size)
+    pair_ids, pair_mask = train_lengths(torch, gen, cpu, 4 * 4, 24, ecfg.vocab_size)
+    toks = torch.randint(0, dcfg.vocab_size, (4, 32), generator=gen)
+
+    def on(m, *ts):
+        device = next(iter(tt.named_params(m).values())).device
+        return [t.to(device) for t in ts]
+
+    cases = {
+        "contrastive": (init_encoder(ecfg, gen, cpu), lambda m, dt: tt.contrastive_loss(
+            m, *on(m, q_ids, q_mask, p_ids, p_mask))),
+        "reranker": (init_reranker(ecfg, gen, cpu), lambda m, dt: tt.reranker_loss(
+            m, *on(m, pair_ids, pair_mask), 4)),
+        "lm": (init_decoder(dcfg, gen, cpu), lambda m, dt: tt.lm_loss(
+            m, *on(m, toks, torch.ones_like(toks)), dataclasses.replace(dcfg, dtype=dt))),
+    }
+    out = {}
+    for name, (params, loss_on) in cases.items():
+        out[name] = card_step_errors(params, loss_on, dev, TRAIN_LR["contrastive"])
+        require(out[name]["ok"], f"{name}: a tiny step on the card == the CPU: {out[name]}")
+    return out
+
+
+def flash_refuses_grad(torch, dev, seed: int) -> dict:
+    """The flash route under autograd raises (it has no backward), and runs
+    forward-only under no_grad, through the kernel."""
+    from outline_rag_tpu_torch.models.convert import init_encoder
+    from outline_rag_tpu_torch.models.encoder import EncoderConfig, pooled_embeddings
+    from outline_rag_tpu_torch.ops.attention import flash_attention
+
+    cfg = EncoderConfig(vocab_size=1024, hidden=128, layers=1, heads=2, intermediate=256,
+                        max_positions=258, dtype=torch.float32, attn_impl="flash")
+    gen = torch.Generator(device=dev).manual_seed(seed + 41)
+    enc = init_encoder(cfg, gen, dev)
+    ids, mask = train_lengths(torch, gen, dev, 2, 256, cfg.vocab_size)
+    message = None
+    try:
+        pooled_embeddings(enc, ids, mask)
+    except RuntimeError as exc:  # the check: this call must raise
+        message = str(exc)
+    require(message is not None and "no backward" in message, "flash under autograd raises")
+    before = flash_attention.launches
+    with torch.no_grad():
+        emb = pooled_embeddings(enc, ids, mask)
+    require(flash_attention.launches == before + 1 and bool(torch.isfinite(emb).all()),
+            "flash forward-only under no_grad, through the kernel")
+    return {"raised": message}
+
+
+def train_phase(torch, dev, seed: int) -> dict:
+    """Fine-tune the three models at their published widths in f32 on the
+    card (``models/train.py``): the contrastive step (bge-m3, remat), the
+    cross-encoder step (bge-reranker-v2-m3) and the causal-LM step
+    (TinyLlama-1.1B, fused), TRAIN_STEPS steps each on one seeded batch."""
+    from outline_rag_tpu_torch.models import train as tt
+    from outline_rag_tpu_torch.models.convert import init_encoder, init_reranker
+    from outline_rag_tpu_torch.models.decoder import DecoderConfig, fuse_decoder_params, init_decoder
+    from outline_rag_tpu_torch.models.encoder import EncoderConfig
+    from outline_rag_tpu_torch.ops.attention import flash_attention
+    from outline_rag_tpu_torch.tools.timing import card
+
+    t_phase = time.perf_counter()
+    require(not torch.backends.cuda.matmul.allow_tf32
+            and torch.get_float32_matmul_precision() == "highest", "true fp32 products (no TF32)")
+    out = {"card": card(), "steps": TRAIN_STEPS}
+    out["tiny_cuda_vs_cpu"] = train_tiny_parity(torch, dev, seed)
+    out["flash_under_grad"] = flash_refuses_grad(torch, dev, seed)
+    flash_before = flash_attention.launches
+    gen = torch.Generator(device=dev).manual_seed(seed + 42)
+
+    # the dual encoder: symmetric InfoNCE over 16 pairs, remat (step 1 also without)
+    ecfg = EncoderConfig.bge_m3(dtype=torch.float32)
+    enc = init_encoder(ecfg, gen, dev)
+    q_ids, q_mask = train_lengths(torch, gen, dev, TRAIN_PAIRS, TRAIN_Q_LEN, ecfg.vocab_size)
+    p_ids, p_mask = train_lengths(torch, gen, dev, TRAIN_PAIRS, TRAIN_P_LEN, ecfg.vocab_size)
+    batch = {"q_ids": q_ids, "q_mask": q_mask, "p_ids": p_ids, "p_mask": p_mask}
+    embeddings = {"word", "position", "token_type"}
+    runs = {}
+    for remat in (True, False):
+        loss, grads = tt.value_and_grad(lambda m, remat=remat: tt.contrastive_loss(
+            m, q_ids, q_mask, p_ids, p_mask, remat=remat), enc)
+        qkv = [f"layers.{i}.{w}.weight" for i in range(ecfg.layers) for w in "qkv"]
+        runs[remat] = {"loss": float(loss), **check_grads(torch, grads, qkv)}
+        del grads
+    require(rel(runs[False]["loss"], runs[True]["loss"]) <= TRAIN_REL
+            and rel(runs[False]["grad_norm"], runs[True]["grad_norm"]) <= TRAIN_REL,
+            f"step 1 with remat == without: {runs}")
+    opt = tt.make_optimizer(lr=TRAIN_LR["contrastive"])
+    state = tt.init_train_state(enc, opt)
+    n_params = sum(p.numel() for n, p in tt.named_params(enc).items() if n not in embeddings)
+    tokens = TRAIN_PAIRS * (TRAIN_Q_LEN + TRAIN_P_LEN)
+    flops = model_flops(n_params, tokens, ecfg.layers * ecfg.hidden * TRAIN_PAIRS
+                        * (TRAIN_Q_LEN ** 2 + TRAIN_P_LEN ** 2))
+    remat_run = timed_steps(torch, tt.make_train_step(ecfg, opt, remat=True), state, batch,
+                            tokens, flops)
+    plain_run = timed_steps(torch, tt.make_train_step(ecfg, opt, remat=False), state, batch,
+                            tokens, flops)
+    require(remat_run["losses"][-1] < remat_run["losses"][0], f"contrastive loss falls: {remat_run}")
+    out["contrastive"] = {
+        "params": sum(p.numel() for p in tt.named_params(enc).values()),
+        "non_embedding_params": n_params, "tokens_per_step": tokens, "model_flop_per_step": flops,
+        "step1_remat_vs_none": runs, "remat": remat_run, "no_remat": plain_run,
+    }
+    emit("train_contrastive", **out["contrastive"])
+    del enc, state, batch
+    torch.cuda.empty_cache()
+
+    # the cross-encoder: 8 queries x a group of 8 pairs of 256 tokens
+    rr = init_reranker(ecfg, gen, dev)
+    pair_ids, pair_mask = train_lengths(torch, gen, dev, TRAIN_QUERIES * TRAIN_GROUP,
+                                        TRAIN_PAIR_LEN, ecfg.vocab_size)
+    batch = {"pair_ids": pair_ids, "pair_mask": pair_mask}
+    _, grads = tt.value_and_grad(
+        lambda m: tt.reranker_loss(m, pair_ids, pair_mask, TRAIN_GROUP), rr)
+    grad_check = check_grads(torch, grads, [f"encoder.layers.{i}.{w}.weight"
+                                            for i in range(ecfg.layers) for w in "qkv"])
+    del grads
+    opt = tt.make_optimizer(lr=TRAIN_LR["reranker"])
+    state = tt.init_train_state(rr, opt)
+    n_params = sum(p.numel() for n, p in tt.named_params(rr).items()
+                   if n.removeprefix("encoder.") not in embeddings)
+    tokens = TRAIN_QUERIES * TRAIN_GROUP * TRAIN_PAIR_LEN
+    flops = model_flops(n_params, tokens, ecfg.layers * ecfg.hidden * TRAIN_QUERIES * TRAIN_GROUP
+                        * TRAIN_PAIR_LEN ** 2)
+    plain_run = timed_steps(torch, tt.make_reranker_train_step(ecfg, opt, TRAIN_GROUP), state,
+                            batch, tokens, flops)
+    remat_run = timed_steps(torch, tt.make_reranker_train_step(ecfg, opt, TRAIN_GROUP, remat=True),
+                            state, batch, tokens, flops)
+    require(plain_run["losses"][-1] < plain_run["losses"][0], f"reranker loss falls: {plain_run}")
+    out["reranker"] = {
+        "params": sum(p.numel() for p in tt.named_params(rr).values()),
+        "non_embedding_params": n_params, "tokens_per_step": tokens, "model_flop_per_step": flops,
+        "grads": grad_check, "no_remat": plain_run, "remat": remat_run,
+    }
+    emit("train_reranker", **out["reranker"])
+    del rr, state, batch
+    torch.cuda.empty_cache()
+
+    # the local decoder: next-token loss over 4 sequences of 512 tokens, fused
+    dcfg = DecoderConfig.tinyllama_1b(dtype=torch.float32)
+    params = fuse_decoder_params(init_decoder(dcfg, gen, dev))
+    toks = torch.randint(0, dcfg.vocab_size, (TRAIN_SEQS, TRAIN_SEQ_LEN), generator=gen, device=dev)
+    mask = torch.ones_like(toks, dtype=torch.int32)
+    mask[-1, TRAIN_SEQ_LEN * 3 // 4:] = 0  # one sequence ends early
+    batch = {"tokens": toks, "mask": mask}
+    opt = tt.make_optimizer(lr=TRAIN_LR["lm"])
+    state = tt.init_train_state(params, opt)
+    _, grads = tt.value_and_grad(lambda p: tt.lm_loss(p, toks, mask, dcfg), params)
+    grad_check = check_grads(torch, grads, [f"layers.{i}.wqkv" for i in range(dcfg.layers)])
+    del grads
+    n_params = sum(p.numel() for n, p in tt.named_params(params).items() if n != "embed")
+    tokens = TRAIN_SEQS * TRAIN_SEQ_LEN
+    flops = model_flops(n_params, tokens, dcfg.layers * dcfg.hidden * TRAIN_SEQS
+                        * TRAIN_SEQ_LEN * (TRAIN_SEQ_LEN + 1) / 2)
+    run = timed_steps(torch, tt.make_lm_train_step(dcfg, opt), state, batch, tokens, flops)
+    require(run["losses"][-1] < run["losses"][0], f"LM loss falls: {run}")
+    out["lm"] = {
+        "params": sum(p.numel() for p in tt.named_params(params).values()),
+        "non_embedding_params": n_params, "tokens_per_step": tokens, "model_flop_per_step": flops,
+        "grads": grad_check, "no_remat": run,
+    }
+    emit("train_lm", **out["lm"])
+    del params, state, batch
+    torch.cuda.empty_cache()
+
+    require(flash_attention.launches == flash_before, "the training steps launched no flash kernel")
+    out["seconds"] = time.perf_counter() - t_phase
+    emit("train", card=out["card"], seconds=out["seconds"], tiny_cuda_vs_cpu=out["tiny_cuda_vs_cpu"],
+         flash_under_grad=out["flash_under_grad"])
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3610,6 +3895,9 @@ def main() -> int:
     entry_phase()
     torch.cuda.empty_cache()
     ckpt = checkpoint_phase(torch, dev, args.seed)
+    torch.cuda.empty_cache()
+    train_phase(torch, dev, args.seed)
+    torch.cuda.empty_cache()
 
     # ms / plain_ms / bound_ms: topk_* at B = 32, K = 64 (topk_int8's B = 128
     # and K = 12 beside them, its shared headers under "headers"; topk_float in the

@@ -22,7 +22,9 @@ compute the same function. JAX stores dense weights as ``[in, out]`` for
 transposed. Values are cast to the config's dtype the way the JAX
 package's ``cast_params`` casts them (round to nearest even). A JAX
 ``EncoderConfig`` is translated field by field, ``attn_impl`` included
-(:func:`config_from_jax`).
+(:func:`config_from_jax`). :func:`encoder_to_jax` / :func:`reranker_to_jax`
+read a float trunk back into that layout, to hold trained weights to the
+JAX package's.
 
 The decoder's parameters stay a dictionary (``models/decoder.py``), so
 :func:`decoder_from_jax` only turns leaves into tensors: dense weights keep
@@ -132,6 +134,40 @@ def reranker_from_jax(
         _set_linear(rr.dense, c["dense_w"], c["dense_b"])
         _set_linear(rr.out, c["out_w"], c["out_b"])
     return rr.eval()
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    """A copy: an f32 CPU tensor's ``numpy()`` would share its memory."""
+    return np.array(t.detach().float().cpu())
+
+
+def _linear_np(lin: nn.Linear, w: str, b: str) -> dict:
+    return {w: np.ascontiguousarray(_np(lin.weight).T), b: _np(lin.bias)}
+
+
+def encoder_to_jax(enc: Encoder) -> dict:
+    """The encoder's trunk as the JAX package's parameters (numpy, f32,
+    per-layer list form, dense weights ``[in, out]``): the inverse of
+    :func:`encoder_from_jax` for an unfused float trunk, used to hold
+    trained weights to the JAX package's."""
+    layers = []
+    for layer in enc.layers:
+        attn = {**_linear_np(layer.q, "wq", "bq"), **_linear_np(layer.k, "wk", "bk"),
+                **_linear_np(layer.v, "wv", "bv"), **_linear_np(layer.o, "wo", "bo"),
+                "ln_scale": _np(layer.attn_ln.weight), "ln_bias": _np(layer.attn_ln.bias)}
+        mlp = {**_linear_np(layer.mlp_in, "wi", "bi"), **_linear_np(layer.mlp_out, "wo", "bo"),
+               "ln_scale": _np(layer.mlp_ln.weight), "ln_bias": _np(layer.mlp_ln.bias)}
+        layers.append({"attn": attn, "mlp": mlp})
+    embed = {"word": _np(enc.word), "position": _np(enc.position),
+             "token_type": _np(enc.token_type), "ln_scale": _np(enc.embed_ln.weight),
+             "ln_bias": _np(enc.embed_ln.bias)}
+    return {"embed": embed, "layers": layers}
+
+
+def reranker_to_jax(rr: Reranker) -> dict:
+    """:func:`encoder_to_jax` of the trunk with the ``classifier`` head."""
+    return {**encoder_to_jax(rr.encoder), "classifier": {
+        **_linear_np(rr.dense, "dense_w", "dense_b"), **_linear_np(rr.out, "out_w", "out_b")}}
 
 
 def fill_normal_(module: nn.Module, generator: torch.Generator, std: float = 0.02) -> None:

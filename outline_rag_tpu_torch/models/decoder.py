@@ -548,7 +548,11 @@ def decoder_forward(
     cache slots <= start + i; later slots are masked by position. With a
     :class:`PagedKV` the slots live in pooled pages addressed through the
     page table, written by ``paged_kv_write`` and read by
-    ``paged_attention``. Callers wrap this in ``torch.inference_mode()``.
+    ``paged_attention``. Serving callers wrap this in
+    ``torch.inference_mode()``. While autograd records, the ring's layers are
+    attended as copies (the cache is still written), so the ring route can
+    be differentiated (``models/train.py::lm_loss``); the paged route
+    cannot.
     """
     dt = cfg.dtype
     b, t = tokens.shape
@@ -593,12 +597,22 @@ def decoder_forward(
         # pass the end is shifted back to fit, as dynamic_update_slice does)
         rows = torch.arange(b, device=x.device)[:, None]
         cols = (positions - (positions[:, -1:] - (c - 1)).clamp_min(0)).long()  # [B, T]
+        grad = torch.is_grad_enabled()
         for li, layer in enumerate(params["layers"]):
             h = _rms_norm(x, layer["ln1"], cfg.norm_eps)
             q, k_new, v_new = _qkv(h, layer, rope, cfg)
-            k_ring[li][rows, :, cols] = k_new.to(dt)
-            v_ring[li][rows, :, cols] = v_new.to(dt)
-            x = x + _attn_out(q, (k_ring[li], v_ring[li]), mask_bias, layer, cfg)
+            k_layer, v_layer = k_ring[li], v_ring[li]
+            if grad:
+                # autograd keeps this layer's ring for the backward pass, and the
+                # next layer's write into the shared [L, ...] tensor would bump
+                # its version: attend over a copy, and give the cache the new
+                # entries without their graph
+                k_ring[li][rows, :, cols] = k_new.detach().to(dt)
+                v_ring[li][rows, :, cols] = v_new.detach().to(dt)
+                k_layer, v_layer = k_layer.clone(), v_layer.clone()
+            k_layer[rows, :, cols] = k_new.to(dt)
+            v_layer[rows, :, cols] = v_new.to(dt)
+            x = x + _attn_out(q, (k_layer, v_layer), mask_bias, layer, cfg)
             h2 = _rms_norm(x, layer["ln2"], cfg.norm_eps)
             x = x + _mlp(h2, layer, cfg)
     x = _rms_norm(x, params["final_norm"], cfg.norm_eps)

@@ -45,6 +45,7 @@ import os
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from outline_rag_tpu_torch.device import resolve_device
 from outline_rag_tpu_torch.ops.attention import flash_attention
@@ -241,7 +242,12 @@ class Encoder(nn.Module):
         self.sparse = zero_linear(cfg.hidden, 1, cfg, dev) if sparse else None
         self.colbert = zero_linear(cfg.hidden, colbert_dim, cfg, dev) if colbert_dim else None
 
-    def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
+    def forward(
+        self, input_ids: torch.Tensor, attention_mask: torch.Tensor, remat: bool = False
+    ) -> torch.Tensor:
+        """``remat=True`` recomputes each layer in the backward pass instead
+        of keeping its activations (the JAX package's ``jax.checkpoint`` per
+        layer): the same forward, less memory, one more forward of FLOPs."""
         mask = attention_mask.long()
         # RoBERTa position ids: cumulative count of non-pad tokens + pad_id
         positions = torch.cumsum(mask, dim=1) * mask + self.cfg.pad_id
@@ -250,7 +256,10 @@ class Encoder(nn.Module):
         # additive attention bias: 0 for real tokens, -1e9 for padding
         mask_bias = ((1.0 - mask.float()) * -1e9)[:, None, None, :]
         for layer in self.layers:
-            x = layer(x, mask_bias)
+            if remat:
+                x = checkpoint(layer, x, mask_bias, use_reentrant=False)
+            else:
+                x = layer(x, mask_bias)
         return x
 
 
@@ -310,10 +319,13 @@ def cls_pooled(hidden: torch.Tensor) -> torch.Tensor:
 
 
 def pooled_embeddings(
-    encoder: Encoder, input_ids: torch.Tensor, attention_mask: torch.Tensor
+    encoder: Encoder,
+    input_ids: torch.Tensor,
+    attention_mask: torch.Tensor,
+    remat: bool = False,
 ) -> torch.Tensor:
     """BGE-m3 dense embedding: CLS hidden state, L2-normalized, f32 [B, H]."""
-    return cls_pooled(encoder(input_ids, attention_mask))
+    return cls_pooled(encoder(input_ids, attention_mask, remat=remat))
 
 
 def _head(lin: nn.Linear, hidden: torch.Tensor) -> torch.Tensor:

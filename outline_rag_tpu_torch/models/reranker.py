@@ -25,8 +25,12 @@ class Reranker(nn.Module):
         self.dense = zero_linear(cfg.hidden, cfg.hidden, cfg, dev)
         self.out = zero_linear(cfg.hidden, 1, cfg, dev)
 
-    def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
-        """Relevance scores [B] (raw logits, monotonic in relevance)."""
-        cls = self.encoder(input_ids, attention_mask)[:, 0, :].float()
+    def forward(
+        self, input_ids: torch.Tensor, attention_mask: torch.Tensor, remat: bool = False
+    ) -> torch.Tensor:
+        """Relevance scores [B] (raw logits, monotonic in relevance).
+        ``remat`` recomputes the trunk's layers in the backward pass
+        (:meth:`Encoder.forward`)."""
+        cls = self.encoder(input_ids, attention_mask, remat=remat)[:, 0, :].float()
         h = torch.tanh(F.linear(cls, self.dense.weight.float(), self.dense.bias.float()))
         return F.linear(h, self.out.weight.float(), self.out.bias.float())[:, 0]

@@ -5,7 +5,8 @@ Port of ``outline_rag_tpu/ops/attention.py``:
 - :func:`flash_attention`       — on CUDA tensors it launches the
                                   hand-written kernel in
                                   ``csrc/flash_attention.cu`` (or raises);
-                                  on CPU tensors it runs the plain twin.
+                                  on CPU tensors it runs the plain twin;
+                                  forward only, on both.
 - :func:`flash_attention_plain` — the same function in plain PyTorch.
 
 Both take the encoder's ``[B, S, H, D]`` layout and a ``[B, S]`` f32 key
@@ -116,7 +117,17 @@ def flash_attention(
     [B, S, H, D] in the input dtype. On CUDA tensors this launches
     ``csrc/flash_attention.cu`` (bf16 or f32, D = 64) and counts the launch in
     ``flash_attention.launches``; on CPU tensors it runs
-    :func:`flash_attention_plain`."""
+    :func:`flash_attention_plain`.
+
+    It has no backward, on either device, as the JAX package's flash route
+    has none: while autograd records and q, k or v requires grad it raises
+    ``RuntimeError`` rather than return an output that gives the
+    projections no gradient."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        raise RuntimeError(
+            "flash_attention has no backward: differentiate through the encoder with "
+            'attn_impl="einsum", or call it under torch.no_grad() / torch.inference_mode()'
+        )
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, key_bias)
     if q.device.type != "cuda":

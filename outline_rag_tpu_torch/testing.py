@@ -4,6 +4,9 @@ the serving or ingest path imports this."""
 
 from __future__ import annotations
 
+import copy
+import math
+
 import torch
 
 from outline_rag_tpu_torch.ops.topk import NEG
@@ -191,3 +194,71 @@ def paged_order_case(dev, kv: str):
             else:
                 args[2][page] = value
     return tuple(args), float(torch.tensor(256.0 / 768.0).to(torch.bfloat16))
+
+
+# One training step on the card against the CPU. A seeded model's pooled
+# embeddings are nearly parallel (cosines above 0.9998 at tiny width), so a
+# contrastive gradient is a difference of nearly equal terms and two f32 runs
+# may disagree by ~0.5% (f32 against f64 on the CPU), whatever the device.
+# So the gradients are held to a float64 run on the CPU (whose pooling and
+# heads still cast to f32): the card's error within CARD_GRAD_FACTOR times
+# the CPU's own, or CARD_GRAD_FLOOR (TF32 products would be ~1e-3); and the
+# update, fed the CPU's gradients on both, within CARD_UPDATE_ATOL.
+CARD_GRAD_FACTOR, CARD_GRAD_FLOOR, CARD_UPDATE_ATOL = 4.0, 1e-5, 1e-6
+
+
+def _copy_to(params, dev, dtype):
+    """A detached copy of a model or of a decoder parameter dictionary on
+    ``dev``, its floats in ``dtype``."""
+    if isinstance(params, torch.nn.Module):
+        return copy.deepcopy(params).to(dev, dtype)
+    if isinstance(params, dict):
+        return {k: _copy_to(v, dev, dtype) for k, v in params.items()}
+    if isinstance(params, list):
+        return [_copy_to(v, dev, dtype) for v in params]
+    return params.detach().to(dev, dtype, copy=True)
+
+
+def card_step_errors(params, loss_on, dev, lr: float) -> dict:
+    """A training step's two halves on ``dev`` against the CPU, for a tiny
+    model or decoder dictionary ``params`` on the CPU (left as it is).
+    ``loss_on(copy, dtype)`` gives the loss of the batch for a copy of the
+    parameters computing in ``dtype``, on the copy's device. Returns the
+    losses and ``loss_rel_err``; ``grad_err_cpu`` / ``grad_err_card``, each
+    f32 run's gradient error norm relative to the float64 run's gradient
+    norm; ``update_max_abs_err``, one AdamW update at ``lr`` on both devices
+    from the CPU's gradients; and ``ok`` by the rule above."""
+    from outline_rag_tpu_torch.models import train as tt  # noqa: PLC0415
+
+    cpu, runs = torch.device("cpu"), {}
+    for label, device, dtype in (("cpu", cpu, torch.float32), ("card", dev, torch.float32),
+                                 ("f64", cpu, torch.float64)):
+        p = _copy_to(params, device, dtype)
+        for leaf in tt.named_params(p).values():
+            leaf.requires_grad_(True)
+        loss, grads = tt.value_and_grad(lambda m, dtype=dtype: loss_on(m, dtype), p)
+        runs[label] = (p, float(loss), grads)
+    ref = runs["f64"][2]
+    ref_norm = math.sqrt(sum(float(g.square().sum()) for g in ref.values()))
+
+    def grad_err(grads) -> float:
+        return math.sqrt(sum(float((g.double().cpu() - ref[n]).square().sum())
+                             for n, g in grads.items())) / ref_norm
+
+    opt, updated = tt.make_optimizer(lr=lr), {}
+    for label in ("cpu", "card"):
+        p = runs[label][0]
+        leaves = tt.named_params(p)
+        device = next(iter(leaves.values())).device
+        opt.update({n: g.to(device) for n, g in runs["cpu"][2].items()}, opt.init(p), p)
+        updated[label] = leaves
+    update_err = max(float((updated["card"][n].detach().cpu() - w.detach()).abs().max())
+                     for n, w in updated["cpu"].items())
+    out = {"loss_cpu": runs["cpu"][1], "loss_card": runs["card"][1],
+           "loss_rel_err": abs(runs["card"][1] - runs["cpu"][1]) / abs(runs["cpu"][1]),
+           "grad_err_cpu": grad_err(runs["cpu"][2]), "grad_err_card": grad_err(runs["card"][2]),
+           "update_max_abs_err": update_err}
+    out["ok"] = (out["loss_rel_err"] <= 1e-5 and update_err <= CARD_UPDATE_ATOL
+                 and out["grad_err_card"] <= max(CARD_GRAD_FACTOR * out["grad_err_cpu"],
+                                                 CARD_GRAD_FLOOR))
+    return out

@@ -30,6 +30,7 @@ COPIES = [
     "utils/hashing.py",
     "utils/logging.py",
     "utils/chunking.py",
+    "utils/texmath.py",
     "native/__init__.py",
     "native/chunker.cc",
     "native/httpparse.cc",

@@ -1208,3 +1208,86 @@ def test_int8_trunk_on_the_card_matches_its_cpu_forward(cuda, tmp_path):
             got = pooled_embeddings(models["cuda"], ids.to(cuda), mask.to(cuda)).cpu()
             want = pooled_embeddings(models["cpu"], ids, mask)
         assert torch.allclose(got, want, atol=1e-5), (fuse, (got - want).abs().max())
+
+
+def _tiny_train_case(name, gen):
+    """A tiny model on the CPU and its loss on a seeded batch, as
+    ``testing.card_step_errors`` takes them."""
+    import dataclasses
+
+    from outline_rag_tpu_torch.models import train as tt
+    from outline_rag_tpu_torch.models.convert import init_encoder, init_reranker
+    from outline_rag_tpu_torch.models.decoder import DecoderConfig, fuse_decoder_params, init_decoder
+    from outline_rag_tpu_torch.models.encoder import EncoderConfig
+
+    ecfg = EncoderConfig.tiny()
+    ids = torch.randint(3, ecfg.vocab_size, (16, 24), generator=gen)
+    mask = torch.ones_like(ids)
+    mask[1::3, 17:] = 0
+    ids[mask == 0] = 1
+
+    def on(m, *ts):
+        device = next(iter(tt.named_params(m).values())).device
+        return [t.to(device) for t in ts]
+
+    if name == "contrastive":
+        return init_encoder(ecfg, gen, "cpu"), lambda m, dt: tt.contrastive_loss(
+            m, *on(m, ids[:8], mask[:8], ids[8:], mask[8:]))
+    if name == "reranker":
+        return init_reranker(ecfg, gen, "cpu"), lambda m, dt: tt.reranker_loss(
+            m, *on(m, ids, mask), 4)
+    dcfg = DecoderConfig.tiny()
+    toks = torch.randint(0, dcfg.vocab_size, (4, 32), generator=gen)
+    return fuse_decoder_params(init_decoder(dcfg, gen, "cpu")), lambda m, dt: tt.lm_loss(
+        m, *on(m, toks, torch.ones_like(toks)), dataclasses.replace(dcfg, dtype=dt))
+
+
+@pytest.mark.parametrize("name", ["contrastive", "reranker", "lm"])
+def test_tiny_train_step_on_the_card_equals_the_cpu(cuda, name):
+    """Loss within 1e-5 relative, gradients as close to a float64 CPU run as
+    the CPU's own f32 run, and the AdamW update from the same gradients
+    within 1e-6 (``testing.card_step_errors``): a TF32 product or a route
+    only the card takes would show."""
+    from outline_rag_tpu_torch.testing import card_step_errors
+
+    params, loss_on = _tiny_train_case(name, torch.Generator().manual_seed(11))
+    errs = card_step_errors(params, loss_on, cuda, 1e-4)
+    assert errs["ok"], errs
+
+
+def test_flash_route_refuses_autograd_on_the_card(cuda):
+    from outline_rag_tpu_torch.models.convert import init_encoder
+    from outline_rag_tpu_torch.models.encoder import EncoderConfig, pooled_embeddings
+
+    cfg = EncoderConfig(vocab_size=512, hidden=128, layers=1, heads=2, intermediate=256,
+                        max_positions=130, dtype=torch.float32, attn_impl="flash")
+    enc = init_encoder(cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+    ids = torch.randint(3, 512, (2, 128), device=cuda)
+    mask = torch.ones_like(ids)
+    with pytest.raises(RuntimeError, match="no backward"):
+        pooled_embeddings(enc, ids, mask)
+    before = flash_attention.launches
+    with torch.no_grad():
+        assert torch.isfinite(pooled_embeddings(enc, ids, mask)).all()
+    assert flash_attention.launches == before + 1
+
+
+def test_encoder_attention_gets_gradients_on_the_card_below_2048(cuda):
+    """At S = 2047 "auto" takes einsum on the card: the q/k/v projections of
+    every layer get non-zero gradients, and no flash kernel runs."""
+    from outline_rag_tpu_torch.models.convert import init_encoder
+    from outline_rag_tpu_torch.models.encoder import EncoderConfig, pooled_embeddings
+
+    cfg = EncoderConfig(vocab_size=512, hidden=128, layers=2, heads=2, intermediate=256,
+                        max_positions=2050, dtype=torch.float32)
+    enc = init_encoder(cfg, torch.Generator(device=cuda).manual_seed(1), cuda)
+    ids = torch.randint(3, 512, (2, 2047), device=cuda)
+    mask = torch.ones_like(ids)
+    mask[1, 1500:] = 0
+    w = torch.randn((2, cfg.hidden), generator=torch.Generator(device=cuda).manual_seed(2), device=cuda)
+    before = flash_attention.launches
+    (pooled_embeddings(enc, ids, mask) * w).sum().backward()
+    assert flash_attention.launches == before
+    for layer in enc.layers:
+        for proj in (layer.q, layer.k, layer.v):
+            assert torch.isfinite(proj.weight.grad).all() and proj.weight.grad.ne(0).any()

@@ -403,10 +403,10 @@ def test_weights_off_launch_what_the_plain_path_launches(hybrid, monkeypatch):
     enc = hybrid["p_emb"].encoder
     real = type(enc).forward
 
-    def forward(self, i, m):
+    def forward(self, i, m, **kw):
         if self is enc:  # the reranker's trunk is an Encoder too
             calls.append(tuple(i.shape))
-        return real(self, i, m)
+        return real(self, i, m, **kw)
 
     monkeypatch.setattr(type(enc), "forward", forward)
     for name in ("sparse_weights_from_hidden", "colbert_vectors_from_hidden",
