@@ -35,6 +35,41 @@ printing one JSON line; any failure raises and the exit code is non-zero:
            over the f32 corpus (kept on the card) is at least 0.99; and
            ``fused_query``'s stages for that batch (encode, scan: quantize,
            ``topk_int8`` at K = 64 and the rescore, gather + rerank).
+4a. mesh   the ``parallel/`` slice on the card, on the slice's index
+           before ``lifecycle`` changes it. Retrieval: the 1,048,576-row
+           int8r index split over a mesh naming the card four times (four
+           blocks of 262,144 rows, q1 and q2): ``sharded_topk_int8`` with
+           and without the rescore against ``int8_topk`` at B = 32, K = 64;
+           ``sharded_topk`` and the 2 x 2 ``sharded_topk_2d`` over bf16 and
+           f32x2 copies of 262,144 rows against ``cosine_topk``;
+           ``fused_query_mesh`` against ``fused_query`` for the 64 queries
+           with the hybrid weights off and on (seeded sparse and ColBERT
+           heads, removed after): all bit-equal. The index saved and loaded
+           row-sharded, 64 concurrent asks through it (answers checked,
+           ``topk_int8`` launched), recall@12 >= 0.99 against the fp32
+           oracle. TP: TinyLlama-1.1B width at 8 layers over two entries:
+           ``paged_attention_sharded`` bit-equal to the unsharded kernel's
+           head slices (bf16 and int8 pools, B = 64); the f32 model (the
+           bf16 weights cast up, ring route) 2-way TP within JAX's atol 2e-4
+           + rtol 2e-4 of its unsharded forward over two 512-token prompts;
+           for bf16 weights on a bf16 and an int8 pool and for w8a8 weights,
+           the same prompts' logits against the unsharded forward (w8a8:
+           bit-equal; bf16: the difference printed beside JAX's bounds, and
+           the TP forward's relative RMS error against the f32 model within
+           1.5 times the unsharded bf16 forward's) and 8 greedy streams of
+           64 tokens through ``DecodeBatcher(mesh=...)``, equal to the
+           unsharded batcher's (w8a8: all of them), or parting only where
+           the f32 model's logits of the two chosen tokens lie within twice
+           the unsharded bf16 forward's own error there; the paged kernels
+           launched. Processes (``tools/dryrun_multichip.py`` rank groups, run
+           during the TP checks): two ``gloo`` ranks of
+           ``build_and_query_demo``, 262,144 rows each on the card, equal to
+           one process's scan of the union bit for bit; the data-parallel
+           contrastive step at bge-m3 width in two ``gloo`` ranks, loss within
+           rtol 1e-5 of one device's step on the same batch, and the gradient
+           it applied (AdamW's first moment) within 1e-5 relative L2 of one
+           device's gradient; an ``nccl`` world of one. Times print as n shards on one card beside the unsharded
+           call (the cost of the extra launches and the merge).
 4b. lifecycle  continues on the slice's index, service and models. Delta
            updates: whole seeded sources re-added under the same chunk ids
            (``replace=True``, 4,096 rows each) until an add finds no free row
@@ -2552,6 +2587,7 @@ def logits_kernels_vs_twins(torch, dev, decoder, params, cfg, kv_dtype, seed: in
     small pool at the model's full depth, with the kernels and with the
     plain twins patched into the decoder module; the error's norm over the
     logits' norm, the larger of the two forwards."""
+    import outline_rag_tpu_torch.ops.paged_attention as pa
     from outline_rag_tpu_torch.ops.int8_linear import int8_linear_plain
     from outline_rag_tpu_torch.ops.paged_attention import (
         paged_attention_plain,
@@ -2574,14 +2610,16 @@ def logits_kernels_vs_twins(torch, dev, decoder, params, cfg, kv_dtype, seed: in
         return a, b
 
     got = run()
-    kernels = (decoder.paged_attention, decoder.paged_kv_write, decoder.int8_linear)
-    decoder.paged_attention = paged_attention_plain
-    decoder.paged_kv_write = paged_kv_write_plain
+    # the decoder walks its pages through ops/paged_attention.py's sharded
+    # wrappers (one shard here), which call that module's kernels
+    kernels = (pa.paged_attention, pa.paged_kv_write, decoder.int8_linear)
+    pa.paged_attention = paged_attention_plain
+    pa.paged_kv_write = paged_kv_write_plain
     decoder.int8_linear = int8_linear_plain
     try:
         want = run()
     finally:
-        decoder.paged_attention, decoder.paged_kv_write, decoder.int8_linear = kernels
+        pa.paged_attention, pa.paged_kv_write, decoder.int8_linear = kernels
     rel = max(float((a - w).norm() / w.norm()) for a, w in zip(got, want))
     worst = max(float((a - w).abs().max()) for a, w in zip(got, want))
     require(all(bool(torch.isfinite(a).all()) and a.shape[-1] == cfg.vocab_size for a in got),
@@ -2596,6 +2634,7 @@ def int4_logits_check(torch, dev, decoder, params, cfg, seed: int) -> dict:
     patched into the decoder module (the paged kernels kept); with every
     twin patched in. The error's norm over the logits' norm."""
     import outline_rag_tpu_torch.ops.int4_linear as int4
+    import outline_rag_tpu_torch.ops.paged_attention as pa
     from outline_rag_tpu_torch.ops.paged_attention import (
         paged_attention_plain,
         paged_kv_write_plain,
@@ -2608,11 +2647,13 @@ def int4_logits_check(torch, dev, decoder, params, cfg, seed: int) -> dict:
     n = rows * (cfg.max_cache // PAGE)
 
     def run(patches: dict):
+        # patches: (module, name) -> twin; the paged kernels are patched in
+        # ops/paged_attention.py, whose sharded wrappers the decoder calls
         cache = decoder.init_paged_cache(cfg, rows, n + 1, PAGE, device=dev)
         cache.table[:] = (torch.arange(n, device=dev) * 7 % n + 1).reshape(rows, -1)
-        kept = {name: getattr(decoder, name) for name in patches}
-        for name, fn in patches.items():
-            setattr(decoder, name, fn)
+        kept = {key: getattr(*key) for key in patches}
+        for (module, name), fn in patches.items():
+            setattr(module, name, fn)
         try:
             with torch.inference_mode():
                 decoder.decoder_forward(
@@ -2621,15 +2662,15 @@ def int4_logits_check(torch, dev, decoder, params, cfg, seed: int) -> dict:
                     params, step, cache, torch.full((rows,), 8, dtype=torch.int32, device=dev), cfg)
             return out
         finally:
-            for name, fn in kept.items():
-                setattr(decoder, name, fn)
+            for (module, name), fn in kept.items():
+                setattr(module, name, fn)
 
-    int4_twins = {"_w4a8_matmul_as": int4._w4a8_matmul_as_plain,
-                  "_w4a16_matmul_as": int4._w4a16_matmul_as_plain}
+    int4_twins = {(decoder, "_w4a8_matmul_as"): int4._w4a8_matmul_as_plain,
+                  (decoder, "_w4a16_matmul_as"): int4._w4a16_matmul_as_plain}
     got = run({})
     want = run(int4_twins)
-    every = run({**int4_twins, "paged_attention": paged_attention_plain,
-                 "paged_kv_write": paged_kv_write_plain})
+    every = run({**int4_twins, (pa, "paged_attention"): paged_attention_plain,
+                 (pa, "paged_kv_write"): paged_kv_write_plain})
     require(bool(torch.isfinite(got).all()) and got.shape[-1] == cfg.vocab_size,
             "finite logits over the vocabulary")
     return {"logits_rel_rms_vs_int4_twins": float((got - want).norm() / want.norm()),
@@ -3834,6 +3875,501 @@ def train_phase(torch, dev, seed: int) -> dict:
     return out
 
 
+# --- mesh: the parallel/ slice on one card ------------------------------------
+
+# four mesh entries naming the card (four row blocks of the slice's index)
+MESH_N = 4
+MESH_FLOAT_ROWS = 262_144  # the float scans' bf16 and f32x2 copies
+# TP decoding: TinyLlama-1.1B width at this depth, 2-way over two entries
+TP_N, TP_LAYERS, TP_PROMPT, TP_CHATS, TP_NEW, TP_PAGES = 2, 8, 512, 8, 64, 129
+TP_ATOL = TP_RTOL = 2e-4  # tests/test_tp.py's logits bounds
+# bf16 TP logits against the f32 model: at most this many times the error the
+# unsharded bf16 forward has against the same f32 logits
+TP_BF16_VS_F32 = 1.5
+# processes: the rows of each rank's slice, and the data-parallel step
+RANK_ROWS, DP_PAIRS, DP_LEN = 262_144, 8, 128
+RANK_TIMEOUT_S = 600
+
+
+def mesh_retrieval(torch, dev, seed: int, handover: dict, mesh) -> dict:
+    """The slice's index row-sharded over the mesh: the sharded scans bit
+    for bit against the unsharded ones, ``fused_query_mesh`` against
+    ``fused_query``, and 64 concurrent asks through a sharded VectorIndex."""
+    import tempfile
+
+    import numpy as np
+
+    from outline_rag_tpu_torch.engine import RetrievalService, fused_query, fused_query_mesh
+    from outline_rag_tpu_torch.index import VectorIndex
+    from outline_rag_tpu_torch.models import init_colbert_head, init_sparse_head, pooled_embeddings
+    from outline_rag_tpu_torch.ops.quant import int8_topk, quantize_rows_int8
+    from outline_rag_tpu_torch.ops.topk import (
+        cosine_topk,
+        split_f32_bf16x2,
+        topk_float,
+        topk_int8,
+        topk_plain,
+    )
+    from outline_rag_tpu_torch.parallel import Mesh, RowShards, row_sharding
+    from outline_rag_tpu_torch.parallel import query as pq
+
+    index, encoder, reranker, tok = (handover[k] for k in ("index", "encoder", "reranker", "tok"))
+    queries, oracle = handover["queries"], handover["oracle"]
+    out = {}
+    tb = tok.batch(queries, TOKEN_WIDTH, buckets=(TOKEN_WIDTH,))
+    q_ids = torch.as_tensor(tb.input_ids, device=dev)
+    q_mask = torch.as_tensor(tb.attention_mask, device=dev)
+    with torch.inference_mode(), index.read_section():
+        state, row_ids = index.snapshot()
+        tokens = index.tokens.state
+        shards = {name: RowShards.split(x, mesh) for name, x in (
+            ("vectors", state.vectors), ("scales", state.scales), ("penalty", state.penalty),
+            ("residual", state.residual), ("ids", tokens.ids), ("mask", tokens.mask),
+            ("weights", tokens.weights))}
+        per = CAPACITY // MESH_N
+        require(all(b.shape[0] == per for name in ("vectors", "residual")
+                    for b in shards[name].blocks), "four blocks of 262,144 rows, q1 and q2")
+        q_emb = pooled_embeddings(encoder, q_ids[:MAX_BATCH], q_mask[:MAX_BATCH])
+        qq, qs = quantize_rows_int8(q_emb)
+
+        # the int8r scan: the kernel on each block, each block's rescore, the merge
+        scans = {}
+        for label, kw_s, kw_u in (
+            ("int8r_rescored", dict(rescore_queries=q_emb, rescore_residual=shards["residual"]),
+             dict(rescore_queries=q_emb, rescore_residual=state.residual)),
+            ("int8_scan", {}, {}),
+        ):
+            args_s = (qq, qs, shards["vectors"], shards["scales"], CANDIDATES, shards["penalty"])
+            args_u = (qq, qs, state.vectors, state.scales, CANDIDATES, state.penalty)
+            before = topk_int8.launches
+            sv, si = pq.sharded_topk_int8(*args_s, mesh=mesh, **kw_s)
+            launched = topk_int8.launches - before
+            uv, ui = int8_topk(*args_u, **kw_u)
+            require(torch.equal(si, ui) and torch.equal(sv, uv),
+                    f"sharded {label} scan bit-equal to the unsharded one")
+            scans[label] = {
+                "bit_equal": True, "kernel_launches": launched,
+                "ms_4_shards_one_card": cuda_ms(torch, lambda a=args_s, k=kw_s: pq.sharded_topk_int8(
+                    *a, mesh=mesh, **k), runs=5),
+                "ms_unsharded": cuda_ms(torch, lambda a=args_u, k=kw_u: int8_topk(*a, **k), runs=5),
+            }
+        out["int8"] = {"B": MAX_BATCH, "K": CANDIDATES, "rows": CAPACITY, **scans}
+
+        # the float scans over bf16 and f32x2 copies of the first 262,144 rows
+        corpus = oracle[:MESH_FLOAT_ROWS]
+        pen = state.penalty[:MESH_FLOAT_ROWS].contiguous()
+        mesh2 = Mesh([dev] * MESH_N, ("dcn", "ici"), (2, 2))
+        floats = {}
+        for mode, stored in (("bf16", corpus.to(torch.bfloat16)), ("f32x2", split_f32_bf16x2(corpus))):
+            before = topk_float.launches[mode]
+            sv, si = pq.sharded_topk(q_emb, stored, CANDIDATES, pen, mesh=mesh)
+            require(topk_float.launches[mode] - before == MESH_N, f"one {mode} launch a shard")
+            uv, ui = cosine_topk(q_emb, stored, CANDIDATES, pen)
+            require(torch.equal(si, ui) and torch.equal(sv, uv),
+                    f"sharded {mode} scan bit-equal to the unsharded one")
+            dv, di = pq.sharded_topk_2d(q_emb, stored, CANDIDATES, pen, mesh=mesh2)
+            require(torch.equal(di, ui) and torch.equal(dv, uv),
+                    f"2 x 2 {mode} merge bit-equal to the unsharded scan")
+            floats[mode] = {
+                "bit_equal": True, "two_level_bit_equal": True,
+                "ms_4_shards_one_card": cuda_ms(torch, lambda s=stored: pq.sharded_topk(
+                    q_emb, s, CANDIDATES, pen, mesh=mesh), runs=5),
+                "ms_unsharded": cuda_ms(torch, lambda s=stored: cosine_topk(
+                    q_emb, s, CANDIDATES, pen), runs=5),
+            }
+            del stored
+        out["float"] = {"rows": MESH_FLOAT_ROWS, "B": MAX_BATCH, "K": CANDIDATES, **floats}
+
+        # fused_query_mesh against fused_query for the 64 queries, the hybrid
+        # weights off and then on (seeded sparse and ColBERT heads for the
+        # second, taken off again after: the lifecycle phase serves without)
+        gen = torch.Generator(device=dev).manual_seed(seed + 31)
+        fused = {}
+        for label, weights in (("off", {}), ("on", dict(lex_weight=HYB_LEX,
+                                                         colbert_weight=HYB_COLBERT))):
+            if weights:
+                init_colbert_head(init_sparse_head(encoder, gen), gen)
+            try:
+                common = dict(top_k=TOP_K, rerank_k=RERANK_K, **weights)
+                got = fused_query_mesh(
+                    encoder, reranker, q_ids, q_mask, shards["vectors"], shards["scales"],
+                    shards["penalty"], shards["ids"], shards["mask"], shards["residual"],
+                    mesh=mesh, tok_weights=shards["weights"], **common)
+                want = fused_query(
+                    encoder, reranker, q_ids, q_mask, state.vectors, state.scales, state.penalty,
+                    tokens.ids, tokens.mask, state.residual, tok_weights=tokens.weights, **common)
+                require(all(torch.equal(a, b) for a, b in zip(got, want)),
+                        f"fused_query_mesh (hybrid {label}) gives fused_query's hits and scores")
+                fused[label] = {"bit_equal": True, "queries": len(queries)}
+            finally:
+                encoder.sparse = encoder.colbert = None
+        out["fused"] = fused
+        del shards, corpus, pen
+
+    # 64 concurrent asks through a VectorIndex loaded row-sharded from the
+    # slice index's snapshot
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        path = os.path.join(tmp, "index")
+        t0 = time.perf_counter()
+        index.save(path)
+        sharded = VectorIndex.load(path, sharding=row_sharding(mesh))
+        load_s = time.perf_counter() - t0
+    finally:
+        for name in os.listdir(tmp):
+            os.unlink(os.path.join(tmp, name))
+        os.rmdir(tmp)
+    sstate, srow_ids = sharded.snapshot()
+    require(sharded.mesh == mesh and sharded.size == index.size
+            and all(b.shape[0] == sharded.capacity // MESH_N for b in sstate.residual.blocks),
+            "the loaded index is row-sharded over the mesh, q2 plane included")
+    service = RetrievalService(sharded, handover["service"].embedder,
+                               handover["service"].reranker, top_k=TOP_K, rerank_k=RERANK_K)
+    require(service.fused, "the sharded service runs the fused path")
+    serve_burst(service, queries[:MAX_BATCH])  # warm-up
+    topk_int8.launches = 0
+    answers, wall_s = serve_burst(service, queries)
+    launches = topk_int8.launches
+    require(launches > 0, "the sharded asks launched the topk_int8 kernel")
+    check_answers(np, answers, handover["deleted"])
+    with torch.inference_mode():
+        _, _, _, idx, _ = fused_query_mesh(
+            encoder, reranker, q_ids[:MAX_BATCH], q_mask[:MAX_BATCH], sstate.vectors,
+            sstate.scales, sstate.penalty, sharded.tokens.state.ids, sharded.tokens.state.mask,
+            sstate.residual, mesh=mesh, top_k=TOP_K, rerank_k=RERANK_K)
+        _, oi = topk_plain(q_emb, oracle, TOP_K, state.penalty)
+    got = [{str(srow_ids[r]) for r in row} for row in idx.tolist()]
+    want = [{str(row_ids[r]) for r in row} for row in oi.tolist()]
+    recall = sum(len(a & b) for a, b in zip(got, want)) / (TOP_K * len(got))
+    require(recall >= RECALL_MIN, f"sharded recall@12 {recall} >= {RECALL_MIN}")
+    out["asks"] = {"save_and_sharded_load_s": load_s, "recall_at_12": recall,
+                   "topk_int8_launches": launches,
+                   "unsharded_p50_ms": handover["serve_p50_ms"],
+                   **{f"{key}_4_shards_one_card" if key.endswith("ms") else key: value
+                      for key, value in latency_fields(answers, wall_s).items()}}
+    del sharded, service, sstate
+    return out
+
+
+def ring_logits(torch, decoder, p, cfg, toks, mesh=None):
+    """The logits of ``toks`` prefilled in chunks of 256 on the ring route
+    (no kernel), the ring sharded on ``mesh`` for TP parameters."""
+    from outline_rag_tpu_torch.parallel.tp import shard_decoder_cache
+
+    cache = decoder.init_cache(cfg, toks.shape[0], toks.device)
+    if mesh is not None:
+        cache = shard_decoder_cache(cache, mesh)
+    out = []
+    with torch.inference_mode():
+        for start in range(0, toks.shape[1], 256):
+            pos = torch.full((toks.shape[0],), start, dtype=torch.int32, device=toks.device)
+            out.append(decoder.decoder_forward(p, toks[:, start:start + 256], cache, pos, cfg)[0])
+    return torch.cat(out, dim=1)
+
+
+def rel_rms(a, ref) -> float:
+    return float((a - ref).norm() / ref.norm())
+
+
+def tp_logits(torch, dev, decoder, params, tp_params, cfg, mesh, kv_int8: bool, toks,
+              ref32=None) -> dict:
+    """The prompts ``toks`` prefilled in chunks of 256 through a paged pool,
+    unsharded and 2-way TP: the logits' largest difference against JAX's
+    bounds and its relative RMS; with ``ref32`` (the f32 model's logits),
+    each forward's relative RMS error against it."""
+    pages = toks.shape[1] // PAGE
+    kv = "int8" if kv_int8 else None
+    pools = [decoder.init_paged_cache(cfg, 2, 1 + 2 * pages, PAGE, kv_dtype=kv, device=dev),
+             decoder.init_paged_cache(cfg, 2, 1 + 2 * pages, PAGE, kv_dtype=kv, mesh=mesh)]
+    logits = [[], []]
+    with torch.inference_mode():
+        for pool, p, out in zip(pools, (params, tp_params), logits):
+            pool.table[:, :pages] = torch.arange(1, 1 + 2 * pages, device=dev).reshape(2, pages)
+            for start in range(0, toks.shape[1], 256):
+                pos = torch.full((2,), start, dtype=torch.int32, device=dev)
+                lg, _ = decoder.decoder_forward(p, toks[:, start:start + 256], pool, pos, cfg)
+                out.append(lg)
+    ref, got = torch.cat(logits[0], dim=1), torch.cat(logits[1], dim=1)
+    diff = (got - ref).abs()
+    out = {"max_abs_err": float(diff.max()),
+           "within_tp_bounds": bool((diff <= TP_ATOL + TP_RTOL * ref.abs()).all()),
+           "rel_rms_err": rel_rms(got, ref),
+           "argmax_agree": float((got.argmax(-1) == ref.argmax(-1)).float().mean())}
+    if ref32 is not None:
+        out["unsharded_rel_rms_vs_f32"] = rel_rms(ref, ref32)
+        out["tp_rel_rms_vs_f32"] = rel_rms(got, ref32)
+        out["tp_over_unsharded_vs_f32"] = out["tp_rel_rms_vs_f32"] / out["unsharded_rel_rms_vs_f32"]
+    return out
+
+
+def tp_streams(torch, dev, decoder, params, tp_params, cfg, mesh, kv_int8: bool,
+               prompts, f32=None) -> dict:
+    """Greedy streams of TP_NEW tokens for the chats through
+    ``DecodeBatcher(mesh=...)`` and the unsharded batcher. Where a stream
+    parts from the unsharded one, the step is a near-tie in the model: at
+    that step (the prompt and the common prefix prefilled) the f32 model's
+    logits of the two tokens chosen lie within twice the largest error the
+    unsharded bf16 forward has against those f32 logits there, so that
+    forward itself cannot tell them apart. ``f32`` is the f32 model
+    ``(params, cfg)``; without it (w8a8 weights, whose TP logits are
+    bit-equal) every stream must be equal."""
+    from outline_rag_tpu_torch.ops.paged_attention import paged_attention, paged_kv_write
+    from outline_rag_tpu_torch.serve import DONE, DecodeBatcher
+
+    kv = "int8" if kv_int8 else None
+
+    def run(p, m):
+        b = DecodeBatcher(p, cfg, slots=TP_CHATS, chunk_tokens=DEC_CHUNK, eos_id=-1,
+                          kv_pages=TP_PAGES, page_size=PAGE, kv_int8=kv_int8, mesh=m, device=dev)
+        try:
+            qs = [b.submit(pr, 0.0, 1.0, TP_NEW) for pr in prompts]
+            streams = []
+            for q in qs:
+                toks = []
+                while True:
+                    item = q.get(timeout=600)
+                    if item is DONE:
+                        break
+                    if isinstance(item, Exception):
+                        raise item
+                    toks.extend(item)
+                streams.append(toks)
+            return streams
+        finally:
+            b.close()
+
+    def last_logits(p, m, seq):
+        pages = -(-len(seq) // PAGE)
+        pool = decoder.init_paged_cache(cfg, 1, 1 + pages, PAGE, kv_dtype=kv, device=dev, mesh=m)
+        pool.table[0, :pages] = torch.arange(1, 1 + pages, device=dev)
+        ids = torch.tensor([seq], dtype=torch.int32, device=dev)
+        with torch.inference_mode():
+            for start in range(0, len(seq), 256):
+                pos = torch.full((1,), start, dtype=torch.int32, device=dev)
+                lg, _ = decoder.decoder_forward(p, ids[:, start:start + 256], pool, pos, cfg)
+        return lg[0, -1]
+
+    want = run(params, None)
+    paged_attention.launches = paged_kv_write.launches = 0
+    got = run(tp_params, mesh)
+    launches = {"paged_attention": paged_attention.launches,
+                "paged_kv_write": paged_kv_write.launches}
+    require(all(n > 0 for n in launches.values()),
+            f"the TP streams launched the paged kernels: {launches}")
+    partings = []
+    for prompt, a, b in zip(prompts, got, want):
+        require(len(a) == len(b) == TP_NEW, "every stream ran its full length")
+        step = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if step is None:
+            continue
+        require(f32 is not None, f"a w8a8 TP stream parted at step {step}")
+        seq = prompt + b[:step]
+        ref = last_logits(params, None, seq)
+        tp = last_logits(tp_params, mesh, seq)
+        ids = torch.tensor([seq], dtype=torch.int32, device=dev)
+        ref32 = ring_logits(torch, decoder, *f32, ids)[0, -1]
+        err = float((ref - ref32).abs().max())
+        gap32 = abs(float(ref32[b[step]] - ref32[a[step]]))
+        top2 = ref.topk(2).values
+        partings.append({"step": step, "top2_gap": float(top2[0] - top2[1]),
+                         "f32_gap_of_the_two_tokens": gap32,
+                         "unsharded_max_abs_err_vs_f32_there": err,
+                         "max_abs_logit_diff_there": float((tp - ref).abs().max()),
+                         "argmax_differs_there": int(tp.argmax()) != int(ref.argmax())})
+        require(gap32 <= 2 * err, f"a parting stream is a near-tie: the two tokens' f32 gap "
+                f"{gap32} at step {step}, the unsharded bf16 forward's error there {err}")
+    return {"equal_streams": len(prompts) - len(partings), "chats": len(prompts),
+            "partings": partings, "launches": launches}
+
+
+def mesh_tp(torch, dev, seed: int) -> dict:
+    """TinyLlama-1.1B width (TP_LAYERS layers), 2-way TP over two entries of
+    the card: the sharded paged kernels against the unsharded kernel's head
+    slices, the f32 model's TP logits against its unsharded logits, then
+    logits and greedy streams against the unsharded decoder for bf16
+    weights on a bf16 pool and an int8 pool, and for w8a8 weights."""
+    import dataclasses
+
+    import numpy as np
+
+    import outline_rag_tpu_torch.models.decoder as decoder
+    from outline_rag_tpu_torch.ops.paged_attention import paged_attention, paged_attention_sharded
+    from outline_rag_tpu_torch.parallel.tp import model_mesh, shard_decoder_params
+
+    mesh = model_mesh(TP_N, [dev] * TP_N)
+    out = {"layers": TP_LAYERS, "tp": TP_N, "heads": DEC_HEADS, "kv_heads": DEC_KV_HEADS}
+    g = torch.Generator(device=dev).manual_seed(seed + 41)
+    kernels = {}
+    for kv in ("bf16", "int8"):
+        q, pk, pv, table, pos, *scales = paged_case(torch, dev, g, DEC_SLOTS, 1, kv)
+        ks, vs = scales if scales else (None, None)
+        whole = paged_attention(q, pk, pv, table, pos, ks, vs)
+        parts = paged_attention_sharded(q, pk, pv, table, pos, ks, vs, mesh=mesh)
+        require(torch.equal(torch.cat(parts, dim=2), whole),
+                f"paged_attention_sharded ({kv} pool) equals the head slices bit for bit")
+        kernels[kv] = {"bit_equal": True, "B": DEC_SLOTS,
+                       "ms_2_shards_one_card": cuda_ms(torch, lambda a=(q, pk, pv, table, pos, ks,
+                                                                          vs): paged_attention_sharded(
+                           *a, mesh=mesh)),
+                       "ms_unsharded": cuda_ms(torch, lambda a=(q, pk, pv, table, pos, ks, vs):
+                                               paged_attention(*a))}
+        del q, pk, pv, scales
+    out["paged_attention_sharded"] = kernels
+
+    cfg = dataclasses.replace(decoder.DecoderConfig.tinyllama_1b(), layers=TP_LAYERS)
+    params = decoder.fuse_decoder_params(
+        decoder.init_decoder(cfg, torch.Generator(device=dev).manual_seed(seed + 43), dev))
+    rng = np.random.default_rng(seed + 43)
+    prompts = [rng.integers(3, cfg.vocab_size, int(n)).tolist()
+               for n in rng.integers(64, TP_PROMPT + 1, TP_CHATS)]
+    toks = torch.randint(0, cfg.vocab_size, (2, TP_PROMPT),
+                         generator=torch.Generator(device=dev).manual_seed(seed + 47), device=dev)
+    # the f32 model (the bf16 weights cast up, the ring route): its 2-way TP
+    # logits held to JAX's bounds, and the reference of the bf16 checks
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    params32 = decoder.cast_decoder_params(params, torch.float32)
+    ref32 = ring_logits(torch, decoder, params32, cfg32, toks)
+    got32 = ring_logits(torch, decoder, shard_decoder_params(params32, mesh, cfg32), cfg32, toks,
+                        mesh)
+    diff = (got32 - ref32).abs()
+    out["f32"] = {"max_abs_err": float(diff.max()), "rel_rms_err": rel_rms(got32, ref32),
+                  "within_tp_bounds": bool((diff <= TP_ATOL + TP_RTOL * ref32.abs()).all())}
+    require(out["f32"]["within_tp_bounds"],
+            f"f32 TP logits within atol {TP_ATOL} + rtol {TP_RTOL} of the unsharded: {out['f32']}")
+    emit("mesh_tp", config="f32_ring", **out["f32"])
+    del got32, diff
+    read_mode = decoder._INT8_MODE
+    configs = {}
+    try:
+        for name, kv_int8, int8_weights in (("bf16", False, False), ("kv_int8", True, False),
+                                            ("w8a8_weights", False, True)):
+            p = params
+            if int8_weights:
+                # int8 weights under TP are served by w8a8 alone (the JAX
+                # package's rule); switched here as the CPU tests switch it
+                decoder._INT8_MODE = "w8a8"
+                p = decoder.quantize_decoder_params(params)
+            tp_p = shard_decoder_params(p, mesh, cfg)
+            logits = tp_logits(torch, dev, decoder, p, tp_p, cfg, mesh, kv_int8, toks,
+                               None if int8_weights else ref32)
+            streams = tp_streams(torch, dev, decoder, p, tp_p, cfg, mesh, kv_int8, prompts,
+                                 None if int8_weights else (params32, cfg32))
+            with torch.inference_mode():
+                step_ms = {}
+                for label, pp, m in (("unsharded", p, None), ("2_shards_one_card", tp_p, mesh)):
+                    pool = decoder.init_paged_cache(cfg, TP_CHATS, 1 + TP_CHATS * 4, PAGE,
+                                                    kv_dtype="int8" if kv_int8 else None,
+                                                    device=dev, mesh=m)
+                    pool.table[:, :4] = torch.arange(1, 1 + TP_CHATS * 4, device=dev).reshape(
+                        TP_CHATS, 4)
+                    tok = torch.ones((TP_CHATS, 1), dtype=torch.int32, device=dev)
+                    at = torch.full((TP_CHATS,), 300, dtype=torch.int32, device=dev)
+                    step_ms[f"decode_step_ms_{label}"] = cuda_ms(
+                        torch, lambda pp=pp, pool=pool: decoder.decoder_forward(
+                            pp, tok, pool, at, cfg), runs=5)
+            configs[name] = {"logits": logits, "streams": streams, **step_ms}
+            if name == "w8a8_weights":
+                require(logits["max_abs_err"] == 0.0, "w8a8 TP logits bit-equal to unsharded")
+            else:
+                # a bf16 forward rounds its activations between layers, so one
+                # rounding moved by the row-parallel sum's order moves bf16
+                # logits past JAX's 2e-4 (printed above, and met in f32): the
+                # TP forward is held to the f32 model at TP_BF16_VS_F32 times
+                # the error the unsharded bf16 forward has there
+                require(logits["tp_over_unsharded_vs_f32"] <= TP_BF16_VS_F32,
+                        f"{name} TP logits' error against the f32 model within "
+                        f"{TP_BF16_VS_F32}x the unsharded forward's: {logits}")
+            emit("mesh_tp", config=name, **configs[name])
+            del tp_p, p
+            decoder._INT8_MODE = read_mode
+    finally:
+        decoder._INT8_MODE = read_mode
+    out["configs"] = configs
+    del params32, ref32
+    return out
+
+
+def mesh_phase(torch, dev, seed: int, handover: dict) -> dict:
+    """The parallel/ slice: the slice's index row-sharded over four entries
+    of the card, 2-way TP decoding over two, and the multi-process index
+    build, data-parallel step and NCCL start as process groups."""
+    import numpy as np
+
+    from outline_rag_tpu_torch.models import train as tt
+    from outline_rag_tpu_torch.ops.topk import cosine_topk
+    from outline_rag_tpu_torch.parallel import data_mesh
+    from outline_rag_tpu_torch.tools import dryrun_multichip as ranks
+    from outline_rag_tpu_torch.tools.timing import card
+
+    t_phase = time.perf_counter()
+    mesh = data_mesh(devices=[dev] * MESH_N)
+    out = {"card": card(), "shards": MESH_N}
+    out["retrieval"] = mesh_retrieval(torch, dev, seed, handover, mesh)
+    emit("mesh_retrieval", **out["retrieval"])
+    torch.cuda.empty_cache()
+
+    # the process groups run while the TP checks do (their timings are
+    # taken above and inside mesh_tp before any group starts its work)
+    demo_args = dict(rows=RANK_ROWS, dim=DIM, queries=MAX_BATCH, k=CANDIDATES, seed=seed,
+                     device=str(dev))
+    dp_args = dict(cfg="bge_m3", batch=DP_PAIRS, seq=DP_LEN, seed=seed + 51, device=str(dev))
+    groups = {}
+    try:
+        groups["demo"] = ranks.start_ranks("demo", 2, "gloo", demo_args)
+        groups["dp"] = ranks.start_ranks("dp", 2, "gloo", dp_args)
+        groups["nccl"] = ranks.start_ranks("allreduce", 1, "nccl", dict(device=str(dev)))
+        out["tp"] = mesh_tp(torch, dev, seed)
+        t0 = time.perf_counter()
+        results = {name: group.wait(RANK_TIMEOUT_S) for name, group in groups.items()}
+        out["ranks_wait_s"] = time.perf_counter() - t0
+    finally:
+        for group in groups.values():
+            group.kill()
+
+    # two ranks' build and query against one process scanning the union
+    r0, r1 = results["demo"]
+    require(r0 == r1, "both ranks return the same global top-k")
+    union = np.concatenate([np.random.default_rng(seed + h).standard_normal(
+        (RANK_ROWS, DIM)).astype(np.float32) for h in range(2)])
+    union /= np.linalg.norm(union, axis=1, keepdims=True)
+    q = torch.as_tensor(ranks.demo_queries(MAX_BATCH, DIM, seed + 99), device=dev)
+    with torch.inference_mode():
+        uv, ui = cosine_topk(q, torch.as_tensor(union, device=dev), CANDIDATES)
+    require(ui.tolist() == r0["idx"] and uv.tolist() == r0["vals"],
+            "two gloo ranks' sharded query equals one process's scan of the union")
+    del union
+    # the data-parallel step against one device's step on the same global batch
+    cfg, state, opt, batch = ranks.contrastive_setup("bge_m3", DP_PAIRS, DP_LEN, seed + 51, dev)
+    _, single = tt.make_train_step(cfg, opt)(state, batch)
+    single_loss = float(single["loss"])
+    d0, d1 = results["dp"]
+    require(d0 == d1, "both ranks applied the same update")
+    dp_rel = abs(d0["loss"] - single_loss) / abs(single_loss)
+    require(dp_rel <= 1e-5, f"data-parallel loss within rtol 1e-5 of one device's: {dp_rel}")
+    # the gradient the step applied (AdamW's first moment) against one
+    # device's gradient of the global batch: counted once, not per rank
+    require(d0["grad_rel_err"] <= 1e-5,
+            f"data-parallel gradient within 1e-5 (relative L2) of one device's: {d0}")
+    del state, batch, opt
+    torch.cuda.empty_cache()
+    (nccl,) = results["nccl"]
+    require(nccl["backend"] == "nccl" and nccl["sum"] == [1.0] * 4, f"nccl world of 1: {nccl}")
+    out["processes"] = {
+        "demo": {"ranks": 2, "backend": "gloo", "rows_per_rank": RANK_ROWS, "dim": DIM,
+                 "B": MAX_BATCH, "K": CANDIDATES, "equals_union_scan": True},
+        "dp": {"ranks": 2, "backend": "gloo", "config": "bge-m3 f32", "pairs": DP_PAIRS,
+               "tokens": DP_LEN, "loss": d0["loss"], "single_device_loss": single_loss,
+               "loss_rel_err": dp_rel, "grad_rel_err": d0["grad_rel_err"],
+               **{k: d0[k] for k in ("grad_leaf_rel_err_max", "grad_leaf_worst",
+                                     "grad_null_leaves")}},
+        "nccl_world_1": nccl,
+    }
+    out["seconds"] = time.perf_counter() - t_phase
+    emit("mesh", card=out["card"], seconds=out["seconds"], ranks_wait_s=out["ranks_wait_s"],
+         processes=out["processes"])
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3869,6 +4405,8 @@ def main() -> int:
     kernel = kernel_phase(torch, dev, args.seed)
     torch.cuda.empty_cache()
     launches, handover = slice_phase(torch, dev, args.seed)
+    mesh = mesh_phase(torch, dev, args.seed, handover)
+    torch.cuda.empty_cache()
     life = lifecycle_phase(torch, dev, args.seed, handover)
     models = (handover["service"].embedder, handover["service"].reranker)
     slice_p50_ms = handover["serve_p50_ms"]
@@ -3916,8 +4454,13 @@ def main() -> int:
     # by one); for topk_int8 the yardstick of two calls, torch._int_mm then
     # torch.topk (null, with library_error, where _int_mm refuses the shape);
     # launches: the count over that kernel's main-path run; topk_int8's
-    # launches_lifecycle and launches_hybrid: its counts over the bursts of
-    # those phases; launches_http and launches_checkpoint (topk_int8,
+    # launches_lifecycle, launches_hybrid and launches_mesh: its counts over the
+    # bursts of those phases (the mesh phase's through the index sharded over
+    # four entries of the card); paged_attention's and paged_kv_write's
+    # launches_tp: their counts over the mesh phase's TP streams, by config;
+    # *_N_shards_one_card: the sharded call beside the unsharded one in this
+    # run, n shards on one card (the cost of the extra launches and the merge,
+    # not a scaling number); launches_http and launches_checkpoint (topk_int8,
     # paged_attention, paged_kv_write): the counts over the http phase's burst
     # of asks and over the checkpoint phase's asks to the entry point.
     print(json.dumps({"kernels": [{
@@ -3935,6 +4478,8 @@ def main() -> int:
                                         "library_error")
            if key in kernel},
         "launches_lifecycle": life["launches"],
+        "launches_mesh": mesh["retrieval"]["asks"]["topk_int8_launches"],
+        "mesh_4_shards_one_card": mesh["retrieval"]["int8"],
         "launches_hybrid": hybrid["topk_int8_launches"],
         "launches_http": web["launches"]["topk_int8"],
         "launches_checkpoint": ckpt["launches"]["topk_int8"],
@@ -3947,6 +4492,7 @@ def main() -> int:
         "ms": floats["f32x2"]["ms"], "plain_ms": floats["f32x2"]["plain_ms"],
         "bound_ms": floats["f32x2"]["bound_ms"], "bound_by": floats["f32x2"]["bound_by"],
         "library_ms": None, "modes": floats,
+        "mesh_4_shards_one_card": mesh["retrieval"]["float"],
     }, {
         "name": "flash_attention", "route": "cuda",
         "source": "outline_rag_tpu_torch/csrc/flash_attention.cu",
@@ -3972,6 +4518,9 @@ def main() -> int:
            for key in ("ms", "device_ms", "bound_ms", "bound_by")},
         "launches_http": web["launches"]["paged_attention"],
         "launches_checkpoint": ckpt["launches"]["paged_attention"],
+        "launches_tp": {name: c["streams"]["launches"]["paged_attention"]
+                        for name, c in mesh["tp"]["configs"].items()},
+        "tp_2_shards_one_card": mesh["tp"]["paged_attention_sharded"],
     }, {
         "name": "paged_kv_write", "route": "cuda",
         "source": "outline_rag_tpu_torch/csrc/paged_kv_write.cu",
@@ -3983,6 +4532,8 @@ def main() -> int:
         "library_ms": None, "device_ms": kv_write["bf16"]["device_ms"],
         "library_device_ms": None, "launches_http": web["launches"]["paged_kv_write"],
         "launches_checkpoint": ckpt["launches"]["paged_kv_write"],
+        "launches_tp": {name: c["streams"]["launches"]["paged_kv_write"]
+                        for name, c in mesh["tp"]["configs"].items()},
     }, {
         "name": "int8_linear", "route": "cuda",
         "source": "outline_rag_tpu_torch/csrc/int8_linear.cu",

@@ -1,5 +1,6 @@
 """Query engine: embedder (with the sparse and ColBERT heads' outputs),
-rerankers, the fused query and its hybrid terms, the retrieval service
+rerankers, the fused query (one device or a row-sharded mesh) and its
+hybrid terms, the retrieval service
 and the micro-batcher."""
 
 from outline_rag_tpu_torch.engine.batcher import QueryBatcher
@@ -10,6 +11,7 @@ from outline_rag_tpu_torch.engine.fused import (
     add_hybrid_terms,
     encode_queries,
     fused_query,
+    fused_query_mesh,
 )
 from outline_rag_tpu_torch.engine.rerank import CrossEncoderReranker, NoopReranker
 from outline_rag_tpu_torch.engine.service import RetrievalService, RetrievedChunk
@@ -26,5 +28,6 @@ __all__ = [
     "add_hybrid_terms",
     "encode_queries",
     "fused_query",
+    "fused_query_mesh",
     "get_embedder",
 ]

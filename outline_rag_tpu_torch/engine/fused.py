@@ -19,6 +19,13 @@ Port of ``outline_rag_tpu/engine/fused.py``. Stages:
 4. cross-encoder over the B*K (query, chunk) pairs;
 5. top ``rerank_k`` by cross-encoder score, dead candidates masked.
 
+:func:`fused_query_mesh` is the same query over a row-sharded index: the
+encoder and the reranker run once, on the mesh's first device, and stages
+2-3 run on each shard (``parallel/query.py::sharded_retrieve_tokens``), its
+scan and its candidates' token gather local, before one merge of the
+``[B, K]`` lists; stages 3b-5 are then those of :func:`fused_query`.
+:class:`FusedEngine` takes it when the index has a mesh.
+
 The terms change the retrieval scores reported beside the cross-encoder's,
 not which candidates are reranked. With both weights 0 (the default) the
 path launches what it launched without them. The terms are stock PyTorch
@@ -27,6 +34,8 @@ final rows and scores return to the host.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -138,17 +147,31 @@ def fused_query(
     rows = idx.long()
     cand_ids = tok_ids[rows]  # [B, K, Tc] (a new tensor: safe to edit)
     cand_mask = tok_mask[rows]
+    hybrid = lex_weight > 0.0 or colbert_weight > 0.0
+    cached = hybrid and tok_cvecs is not None
+    return _rescore_and_rerank(
+        encoder, reranker, q_hidden, q_ids, q_mask, vals, idx, cand_ids, cand_mask,
+        tok_weights[rows] if hybrid and tok_weights is not None else None,
+        tok_cvecs[rows] if cached else None,
+        tok_cscale[rows] if cached else None,
+        colbert_proj, rerank_k=rerank_k, eos_id=eos_id,
+        lex_weight=lex_weight, colbert_weight=colbert_weight,
+    )
 
+
+def _rescore_and_rerank(
+    encoder, reranker, q_hidden, q_ids, q_mask, vals, idx, cand_ids, cand_mask, cand_w,
+    cand_cvecs, cand_cscale, colbert_proj, *, rerank_k: int, eos_id: int,
+    lex_weight: float, colbert_weight: float,
+):
+    """Stages 3b-5 over the gathered candidates (``cand_ids`` is edited in
+    place): the outputs of :func:`fused_query`."""
     # 3b-3c. the hybrid terms, on the CLS-first rows (before slot 0 becomes
     # the pair separator)
     if lex_weight > 0.0 or colbert_weight > 0.0:
-        cached = tok_cvecs is not None
         vals = add_hybrid_terms(
-            vals, encoder, q_hidden, q_ids, q_mask, cand_ids, cand_mask,
-            tok_weights[rows] if tok_weights is not None else None,
-            tok_cvecs[rows] if cached else None,
-            tok_cscale[rows] if cached else None,
-            colbert_proj,
+            vals, encoder, q_hidden, q_ids, q_mask, cand_ids, cand_mask, cand_w,
+            cand_cvecs, cand_cscale, colbert_proj,
             lex_weight=lex_weight, colbert_weight=colbert_weight,
         )
 
@@ -176,6 +199,49 @@ def fused_query(
     r_rows = torch.gather(idx, 1, r_pos)
     retr_vals = torch.gather(vals, 1, r_pos)
     return r_rows, r_vals, retr_vals, idx, vals
+
+
+def fused_query_mesh(
+    encoder: Encoder,
+    reranker: Reranker,
+    q_ids: torch.Tensor,  # [B, Tq] int, on the mesh's first device
+    q_mask: torch.Tensor,
+    vectors,  # [N, D] (or [N, 2D] pairs), row-sharded over the mesh
+    scales,  # [N] f32, row-sharded
+    penalty,  # [N] f32, row-sharded
+    tok_ids,  # [N, Tc] int32, row-sharded
+    tok_mask,  # [N, Tc] int32, row-sharded
+    residual=None,  # [N, D] int8 (int8r q2 plane), row-sharded
+    *,
+    top_k: int,
+    rerank_k: int,
+    mesh,
+    eos_id: int = 2,
+    tok_weights=None,  # [N, Tc] f32, row-sharded
+    tok_cvecs=None,  # [N, Tc, r] int8, row-sharded
+    tok_cscale=None,  # [N, Tc] f32, row-sharded
+    colbert_proj: torch.Tensor | None = None,  # [Hc, r] f32
+    lex_weight: float = 0.0,
+    colbert_weight: float = 0.0,
+):
+    """:func:`fused_query` over a row-sharded index: the models run once,
+    retrieval runs on every shard with one merge of the ``[B, top_k]``
+    lists and their candidates' cached tokens (each shard's exact top-k and
+    the shard-major merge keep the candidates and their ties those of the
+    single-device query). ``top_k`` is at most ``N / mesh.size``. Same
+    outputs."""
+    from outline_rag_tpu_torch.parallel.query import sharded_retrieve_tokens  # noqa: PLC0415
+
+    q_hidden, q_emb = encode_queries(encoder, q_ids, q_mask)
+    vals, idx, cand_ids, cand_mask, cand_w, cand_cvecs, cand_cscale = sharded_retrieve_tokens(
+        q_emb, vectors, scales, penalty, tok_ids, tok_mask, tok_weights, top_k,
+        tok_cvecs=tok_cvecs, tok_cscale=tok_cscale, residual=residual, mesh=mesh,
+    )
+    return _rescore_and_rerank(
+        encoder, reranker, q_hidden, q_ids, q_mask, vals, idx, cand_ids, cand_mask, cand_w,
+        cand_cvecs, cand_cscale, colbert_proj, rerank_k=rerank_k, eos_id=eos_id,
+        lex_weight=lex_weight, colbert_weight=colbert_weight,
+    )
 
 
 class FusedEngine:
@@ -248,7 +314,9 @@ class FusedEngine:
             tokens = self.index.tokens
             proj = self._pin_projection()
             colbert = tokens.colbert if proj is not None else None
-            r_rows, r_vals, retr_vals, _, _ = fused_query(
+            mesh = self.index.mesh
+            run = fused_query if mesh is None else functools.partial(fused_query_mesh, mesh=mesh)
+            r_rows, r_vals, retr_vals, _, _ = run(
                 self.embedder.encoder,
                 self.reranker.model,
                 q_ids,
@@ -259,7 +327,7 @@ class FusedEngine:
                 tokens.state.ids,
                 tokens.state.mask,
                 state.residual if state.residual.shape[1] else None,
-                top_k=min(self.top_k, state.capacity),
+                top_k=min(self.top_k, state.capacity // (mesh.size if mesh else 1)),
                 rerank_k=min(self.rerank_k, self.top_k),
                 eos_id=getattr(tok, "eos_id", 2),  # HFTokenizer has none: XLM-R's </s>
                 tok_weights=tokens.state.weights,

@@ -13,6 +13,11 @@ Dtypes, as in the JAX package: ``float32`` and ``bfloat16`` rows;
 ``[capacity, 2 * dim]`` (``ops/topk.py::split_f32_bf16x2``: fp32-class
 scores, 4 bytes per dimension); ``int8`` codes, and ``int8r`` (int8 plus
 the q2 residual plane read by the rescore).
+
+Given a row sharding (``parallel/mesh.py``), every plane is a
+:class:`~outline_rag_tpu_torch.parallel.mesh.RowShards` of equal, contiguous
+row blocks over the mesh, the q2 plane too; the cursor, the row map and the
+generation stay global.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ import torch
 
 from outline_rag_tpu_torch.device import resolve_device
 from outline_rag_tpu_torch.ops.topk import NEG
+from outline_rag_tpu_torch.parallel.mesh import RowShards, RowSharding, fill_rows, row_pieces
 
 # index dtype -> (storage dtype, row width in units of dim)
 _STORAGE = {
@@ -39,6 +45,8 @@ DTYPES = tuple(_STORAGE)
 @dataclasses.dataclass
 class ShardState:
     """Tensors of one shard.
+
+    Each is a tensor, or a :class:`RowShards` under a row sharding.
 
     ``vectors``  [capacity, w]    rows: f32 or bf16 (w = dim), bf16 pairs
                                   (f32x2, w = 2 dim), or int8 codes (the
@@ -61,19 +69,30 @@ class ShardState:
         return self.vectors.shape[0]
 
 def init_state(
-    capacity: int, dim: int, dtype: str, device: str | torch.device
+    capacity: int, dim: int, dtype: str, device: str | torch.device,
+    sharding: RowSharding | None = None,
 ) -> ShardState:
+    """Zeroed planes on ``device``, or row-sharded over ``sharding.mesh``
+    (``capacity`` must divide by its size)."""
     if dtype not in DTYPES:
         raise ValueError(f"index dtype {dtype!r}: use one of {DTYPES}")
-    dev = resolve_device(device)
     storage, width = _STORAGE[dtype]
+    if sharding is not None:
+        mesh = sharding.mesh
+
+        def full(shape, fill, dt):
+            return RowShards.full(shape, fill, dt, mesh)
+    else:
+        dev = resolve_device(device)
+
+        def full(shape, fill, dt):
+            return torch.full(shape, fill, dtype=dt, device=dev)
+
     return ShardState(
-        vectors=torch.zeros((capacity, width * dim), dtype=storage, device=dev),
-        scales=torch.ones((capacity,), dtype=torch.float32, device=dev),
-        penalty=torch.full((capacity,), NEG, dtype=torch.float32, device=dev),
-        residual=torch.zeros(
-            (capacity, dim if dtype == "int8r" else 0), dtype=torch.int8, device=dev
-        ),
+        vectors=full((capacity, width * dim), 0, storage),
+        scales=full((capacity,), 1.0, torch.float32),
+        penalty=full((capacity,), NEG, torch.float32),
+        residual=full((capacity, dim if dtype == "int8r" else 0), 0, torch.int8),
     )
 
 
@@ -84,9 +103,10 @@ class DeviceShard:
     row."""
 
     def __init__(
-        self, capacity: int, dim: int, dtype: str, device: str | torch.device
+        self, capacity: int, dim: int, dtype: str, device: str | torch.device,
+        sharding: RowSharding | None = None,
     ):
-        self.state = init_state(capacity, dim, dtype, device)
+        self.state = init_state(capacity, dim, dtype, device, sharding)
         self.device = self.state.vectors.device
         self.row_ids: np.ndarray = np.full(capacity, "", dtype=object)
         self.cursor = 0  # next free row
@@ -118,12 +138,17 @@ class DeviceShard:
             raise ValueError("int8r shard append requires the residual plane")
         # the rows are contiguous: slice copies cast in place and take rows
         # from the host without a staging copy on the device
-        at = slice(self.cursor, self.cursor + n)
-        self.state.vectors[at].copy_(rows)
-        self.state.scales[at].copy_(scales)
-        self.state.penalty[at] = 0.0
+        planes = [(self.state.vectors, rows), (self.state.scales, scales),
+                  (self.state.penalty, None)]
         if self.state.residual.shape[1]:
-            self.state.residual[at].copy_(residual)
+            planes.append((self.state.residual, residual))
+        for plane, src in planes:
+            for blk, lo, hi, off in row_pieces(plane, self.cursor, self.cursor + n):
+                at = off - self.cursor
+                if src is None:
+                    blk[lo:hi] = 0.0  # the penalty: live
+                else:
+                    blk[lo:hi].copy_(src[at:at + hi - lo])
         assigned = np.arange(self.cursor, self.cursor + n)
         self.row_ids[self.cursor : self.cursor + n] = chunk_ids
         self.cursor += n
@@ -135,7 +160,7 @@ class DeviceShard:
         rows = np.asarray(rows, np.int64)
         if rows.size == 0:
             return
-        self.state.penalty.index_fill_(0, torch.as_tensor(rows, device=self.device), NEG)
+        fill_rows(self.state.penalty, rows, NEG)
         self.row_ids[rows] = ""
         self.live -= rows.size
         self.generation += 1

@@ -15,12 +15,16 @@ Port of ``outline_rag_tpu/index/store.py``:
   int8 scan and the exact fp32 rescore of the top ``rescore_m``
   candidates, for the float modes ``cosine_topk``; then it translates
   device rows back to chunk ids.
+- ``sharding=row_sharding(mesh)`` row-shards every plane over a device
+  mesh (``parallel/mesh.py``): queries then run each shard's scan and the
+  merge of ``parallel/query.py``, with ``k`` at most ``capacity /
+  mesh.size``. Growth, compaction, snapshots and ``adopt`` keep the equal,
+  contiguous blocks.
 - ``save`` / ``load`` / ``adopt``: a snapshot is ``<path>.npz`` plus
   ``<path>.meta.json`` with the JAX package's keys, paired by a save tag;
   either package loads the other's.
 
-Not ported: capacity pre-warming (the port compiles nothing per capacity)
-and mesh sharding.
+Not ported: capacity pre-warming (the port compiles nothing per capacity).
 
 Concurrency: one writer, many concurrent readers. Mutations write the
 shard's tensors in place, so readers enter a read section (``_RWLock``)
@@ -50,6 +54,7 @@ from outline_rag_tpu_torch.ops.quant import (
     quantize_rows_int8_residual,
 )
 from outline_rag_tpu_torch.ops.topk import NEG, cosine_topk, split_f32_bf16x2
+from outline_rag_tpu_torch.parallel.mesh import RowSharding, host_rows
 
 INT8_DTYPES = ("int8", "int8r")
 
@@ -144,18 +149,32 @@ class VectorIndex:
         capacity: int = 1 << 17,
         dtype: str = "float32",
         *,
-        device: str | torch.device,
+        device: str | torch.device | None = None,
+        sharding: RowSharding | None = None,
         token_width: int | None = None,
         token_pad_id: int = 1,
         colbert_rank: int = 0,
         rescore_m: int = 64,
     ):
+        """``device``: where the planes live; or ``sharding`` (a
+        :class:`~outline_rag_tpu_torch.parallel.mesh.RowSharding`), whose
+        mesh's first device is the index's device (queries, host copies). A
+        mesh of one device is that device, unsharded."""
         self.dim = dim
         self.dtype = dtype
         # int8 modes: the scan's top ``rescore_m`` candidates are rescored
         # exactly in f32 before the final k (0 turns the rescore off)
         self.rescore_m = rescore_m if dtype in INT8_DTYPES else 0
-        self._shard = DeviceShard(capacity, dim, dtype, device)
+        if sharding is not None:
+            if device is not None and torch.device(device) != sharding.mesh.devices[0]:
+                raise ValueError(f"device {device} is not the mesh's first, {sharding.mesh}")
+            device = sharding.mesh.devices[0]
+            if sharding.mesh.size == 1:
+                sharding = None
+        elif device is None:
+            raise ValueError("VectorIndex needs a device or a row sharding")
+        self._sharding = sharding
+        self._shard = DeviceShard(capacity, dim, dtype, device, sharding)
         self.device = self._shard.device
         self.token_width = token_width
         self.token_pad_id = token_pad_id
@@ -174,8 +193,15 @@ class VectorIndex:
             return None
         return TokenCache(
             capacity, self.token_width, self.token_pad_id, device=self.device,
-            colbert_rank=self.colbert_rank,
+            colbert_rank=self.colbert_rank, sharding=self._sharding,
         )
+
+    @property
+    def mesh(self):
+        """The device mesh when the index is row-sharded (over more than one
+        device: queries then run each shard's scan and the merge), else
+        None."""
+        return self._sharding.mesh if self._sharding is not None else None
 
     def read_section(self):
         """Context manager for external readers (FusedEngine): snapshot,
@@ -226,15 +252,22 @@ class VectorIndex:
         return need
 
     def _growth_would_fit(self, cap: int) -> bool:
-        """Whether the index at ``cap`` fits the card: the rebuild frees the
-        old planes before it allocates the new ones, so the new index must
-        fit in what is free, what the caching allocator holds unused, and
-        the old index's own bytes. Nothing to check on the CPU."""
-        if self.device.type != "cuda":
-            return True
-        free, _ = torch.cuda.mem_get_info(self.device)
-        unused = torch.cuda.memory_reserved(self.device) - torch.cuda.memory_allocated(self.device)
-        return self._index_bytes(cap) <= free + unused + self._index_bytes(self._shard.capacity)
+        """Whether the index at ``cap`` fits each card it lives on: the
+        rebuild frees the old planes before it allocates the new ones, so
+        the new index's share of a card (its blocks there) must fit in what
+        is free, what the caching allocator holds unused, and the old
+        index's own share. Nothing to check on the CPU."""
+        devices = self._sharding.mesh.devices if self._sharding is not None else (self.device,)
+        for dev in set(devices):
+            if dev.type != "cuda":
+                continue
+            share = devices.count(dev) / len(devices)
+            free, _ = torch.cuda.mem_get_info(dev)
+            unused = torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(dev)
+            old = self._index_bytes(self._shard.capacity)
+            if self._index_bytes(cap) * share > free + unused + old * share:
+                return False
+        return True
 
     # ------------------------------------------------------------------
     # mutation
@@ -353,8 +386,8 @@ class VectorIndex:
         live = np.nonzero(state.penalty.cpu().numpy() > NEG / 2)[0]
         pick = torch.from_numpy(live)
 
-        def host(plane: torch.Tensor) -> torch.Tensor:
-            return plane.cpu()[pick]
+        def host(plane) -> torch.Tensor:
+            return host_rows(plane, 0, plane.shape[0])[pick]
 
         vecs, scales, res = host(state.vectors), host(state.scales), host(state.residual)
         ids = list(row_ids[live])
@@ -373,7 +406,7 @@ class VectorIndex:
             self.tokens.state = self.tokens.colbert = None  # type: ignore[assignment]
 
         def rebuild(at_cap: int) -> None:
-            self._shard = DeviceShard(at_cap, self.dim, self.dtype, self.device)
+            self._shard = DeviceShard(at_cap, self.dim, self.dtype, self.device, self._sharding)
             # generation stays monotonic across rebuilds: change detectors
             # must never see a rebuilt shard walk numbers again
             self._shard.generation = old_gen + 1
@@ -419,20 +452,35 @@ class VectorIndex:
         """Top-k chunk ids + cosine scores per query. ``queries`` [B, dim].
         In the int8 modes the scan's top ``rescore_m`` candidates are
         rescored exactly in f32 (from q1, plus q2 in ``int8r``) before the
-        final k; the float modes score through ``cosine_topk``."""
+        final k; the float modes score through ``cosine_topk``. A row-sharded
+        index runs each shard's scan and the merge (``parallel/query.py``)."""
         q = normalize_rows(torch.as_tensor(queries, device=self.device).reshape(-1, self.dim))
         with self._rw.read():
             state, row_ids = self._shard.snapshot()
-            k_eff = min(k, state.capacity)
+            mesh = self.mesh
+            k_eff = min(k, state.capacity // (mesh.size if mesh else 1))
             if self.dtype in INT8_DTYPES:
                 qq, qs = quantize_rows_int8(q)
                 rescore = self.rescore_m > 0
-                vals, idx = int8_topk(
-                    qq, qs, state.vectors, state.scales, k_eff, state.penalty,
+                kw = dict(
                     rescore_queries=q if rescore else None,
                     rescore_m=self.rescore_m,
                     rescore_residual=state.residual if self.dtype == "int8r" and rescore else None,
                 )
+                if mesh is not None:
+                    from outline_rag_tpu_torch.parallel import query as pq
+
+                    vals, idx = pq.sharded_topk_int8(
+                        qq, qs, state.vectors, state.scales, k_eff, state.penalty, mesh=mesh, **kw
+                    )
+                else:
+                    vals, idx = int8_topk(
+                        qq, qs, state.vectors, state.scales, k_eff, state.penalty, **kw
+                    )
+            elif mesh is not None:
+                from outline_rag_tpu_torch.parallel import query as pq
+
+                vals, idx = pq.sharded_topk(q, state.vectors, k_eff, state.penalty, mesh=mesh)
             else:
                 vals, idx = cosine_topk(q, state.vectors, k_eff, state.penalty)
             vals = vals.cpu().numpy()
@@ -465,8 +513,8 @@ class VectorIndex:
             state, row_ids = self._shard.snapshot()
             n = self._shard.cursor
 
-            def fetch(x: torch.Tensor) -> np.ndarray:
-                x = x[:n].cpu()  # bf16 widens on the host, not in device memory
+            def fetch(x) -> np.ndarray:
+                x = host_rows(x, 0, n)  # bf16 widens on the host, not in device memory
                 return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
 
             arrays = {
@@ -521,14 +569,16 @@ class VectorIndex:
         """Take over ``other``'s contents (shard, token cache, id maps,
         ColBERT projection) under the write lock: the restore path for an
         index that services already hold. ``other`` must match the
-        index's dim, dtype, token width, ColBERT rank and device. The
-        generation moves past this index's own."""
-        mine = (self.dim, self.dtype, self.token_width, self.colbert_rank, self.device)
-        theirs = (other.dim, other.dtype, other.token_width, other.colbert_rank, other.device)
+        index's dim, dtype, token width, ColBERT rank, device and row
+        sharding. The generation moves past this index's own."""
+        mine = (self.dim, self.dtype, self.token_width, self.colbert_rank, self.device,
+                self._sharding)
+        theirs = (other.dim, other.dtype, other.token_width, other.colbert_rank, other.device,
+                  other._sharding)
         if theirs != mine:
             raise ValueError(
                 "snapshot config mismatch: snapshot (dim, dtype, token_width, colbert_rank, "
-                f"device) = {theirs} vs index {mine}"
+                f"device, sharding) = {theirs} vs index {mine}"
             )
         with self._rw.write():
             # the served index's generation never walks back
@@ -540,11 +590,15 @@ class VectorIndex:
             self.colbert_proj = other.colbert_proj
 
     @classmethod
-    def load(cls, path: str, *, device: str | torch.device) -> "VectorIndex":
+    def load(
+        cls, path: str, *, device: str | torch.device | None = None,
+        sharding: RowSharding | None = None,
+    ) -> "VectorIndex":
         """An index from a snapshot written by either package: the live rows
-        only, in their saved order, and ``by_source`` restricted to them.
-        Refuses an npz and a meta.json of two different saves, and ColBERT
-        codes without their projection matrix."""
+        only, in their saved order, and ``by_source`` restricted to them, on
+        ``device`` or row-sharded by ``sharding``. Refuses an npz and a
+        meta.json of two different saves, and ColBERT codes without their
+        projection matrix."""
         npz_path, meta_path = _snapshot_paths(path)
         with open(meta_path) as f:
             meta = json.load(f)
@@ -564,6 +618,7 @@ class VectorIndex:
             raise ValueError(_NO_PROJ.format(path=path))
         index = cls(
             dim=meta["dim"], capacity=meta["capacity"], dtype=meta["dtype"], device=device,
+            sharding=sharding,
             token_width=meta.get("token_width"), token_pad_id=meta.get("token_pad_id", 1),
             colbert_rank=rank,
         )

@@ -7,6 +7,9 @@ feeds the cross-encoder without a host round trip. With ``colbert_rank``
 the cache also holds each token's projected ColBERT vector as int8 codes
 and a scale, so the late-interaction term gathers candidates' vectors by
 row instead of re-encoding them.
+
+Under a row sharding every plane is row-sharded like the index's shard
+(``parallel/mesh.py``), so a shard gathers its candidates' tokens locally.
 """
 
 from __future__ import annotations
@@ -17,13 +20,14 @@ import numpy as np
 import torch
 
 from outline_rag_tpu_torch.device import resolve_device
+from outline_rag_tpu_torch.parallel.mesh import RowShards, RowSharding, row_pieces
 
 
 @dataclasses.dataclass
 class TokenCacheState:
-    ids: torch.Tensor  # [capacity, width] int32
-    mask: torch.Tensor  # [capacity, width] int32
-    weights: torch.Tensor  # [capacity, width] f32 lexical weights (0 = none)
+    ids: torch.Tensor | RowShards  # [capacity, width] int32
+    mask: torch.Tensor | RowShards  # [capacity, width] int32
+    weights: torch.Tensor | RowShards  # [capacity, width] f32 lexical weights (0 = none)
 
 
 @dataclasses.dataclass
@@ -31,22 +35,26 @@ class ColbertCacheState:
     """Projected per-token ColBERT vectors (``models/encoder.py::
     colbert_cache_codes``); a zero scale contributes nothing to MaxSim."""
 
-    codes: torch.Tensor  # [capacity, width, rank] int8
-    scales: torch.Tensor  # [capacity, width] f32
+    codes: torch.Tensor | RowShards  # [capacity, width, rank] int8
+    scales: torch.Tensor | RowShards  # [capacity, width] f32
 
 
-def _put(plane: torch.Tensor, start: int, n: int, x, fill) -> None:
-    """Rows [start : start+n) of ``plane`` ([cap, width, *tail]) set from
-    ``x`` ([n, w, *...] array or tensor, any device), clipped or padded
-    with ``fill`` to the plane's width and trailing widths, in place."""
-    dst = plane[start : start + n]
-    if x is None:
-        dst.fill_(fill)
-        return
-    x = torch.as_tensor(x)
-    w = min(x.shape[1], plane.shape[1])
-    dst[:, w:] = fill
-    dst[:, :w].copy_(x[(slice(None), slice(0, w), *(slice(0, t) for t in plane.shape[2:]))])
+def _put(plane, start: int, n: int, x, fill) -> None:
+    """Rows [start : start+n) of ``plane`` ([cap, width, *tail], a tensor or
+    row blocks) set from ``x`` ([n, w, *...] array or tensor, any device),
+    clipped or padded with ``fill`` to the plane's width and trailing
+    widths, in place."""
+    if x is not None:
+        x = torch.as_tensor(x)
+        w = min(x.shape[1], plane.shape[1])
+        x = x[(slice(None), slice(0, w), *(slice(0, t) for t in plane.shape[2:]))]
+    for blk, lo, hi, off in row_pieces(plane, start, start + n):
+        dst = blk[lo:hi]
+        if x is None:
+            dst.fill_(fill)
+            continue
+        dst[:, w:] = fill
+        dst[:, :w].copy_(x[off - start:off - start + hi - lo])
 
 
 class TokenCache:
@@ -58,22 +66,32 @@ class TokenCache:
         *,
         device: str | torch.device,
         colbert_rank: int = 0,
+        sharding: RowSharding | None = None,
     ):
         self.width = width
         self.pad_id = pad_id
         self.colbert_rank = colbert_rank
-        self.device = resolve_device(device)
+        if sharding is not None:
+            mesh = sharding.mesh
+            self.device = mesh.devices[0]
+
+            def full(shape, fill, dt):
+                return RowShards.full(shape, fill, dt, mesh)
+        else:
+            self.device = resolve_device(device)
+
+            def full(shape, fill, dt):
+                return torch.full(shape, fill, dtype=dt, device=self.device)
+
         self.state = TokenCacheState(
-            ids=torch.full((capacity, width), pad_id, dtype=torch.int32, device=self.device),
-            mask=torch.zeros((capacity, width), dtype=torch.int32, device=self.device),
-            weights=torch.zeros((capacity, width), dtype=torch.float32, device=self.device),
+            ids=full((capacity, width), pad_id, torch.int32),
+            mask=full((capacity, width), 0, torch.int32),
+            weights=full((capacity, width), 0.0, torch.float32),
         )
         self.colbert = (
             ColbertCacheState(
-                codes=torch.zeros(
-                    (capacity, width, colbert_rank), dtype=torch.int8, device=self.device
-                ),
-                scales=torch.zeros((capacity, width), dtype=torch.float32, device=self.device),
+                codes=full((capacity, width, colbert_rank), 0, torch.int8),
+                scales=full((capacity, width), 0.0, torch.float32),
             )
             if colbert_rank
             else None

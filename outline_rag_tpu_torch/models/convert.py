@@ -287,25 +287,44 @@ def decoder_from_jax(
     return cast_decoder_params(out, cfg.dtype)
 
 
-def paged_kv_from_jax(cache_np, device: str | torch.device) -> PagedKV:
+def paged_kv_from_jax(cache_np, device: str | torch.device | None = None, mesh=None) -> PagedKV:
     """A JAX ``PagedKV`` whose leaves are numpy arrays (read by attribute)
     as the port's: pools ``[L, P, KvH, Dh, page]`` (position minor) become
     ``[L, P, KvH, page, Dh]``; the table and the int8 pool's scales
-    ``[L, P, KvH, page]`` keep their layout. A tensor-parallel pool is not
-    ported yet."""
-    if getattr(cache_np, "mesh", None) is not None:
-        raise NotImplementedError("tensor-parallel KV pools are not ported yet: a later slice")
+    ``[L, P, KvH, page]`` keep their layout. A tensor-parallel pool (its
+    ``mesh`` set) needs the port's TP ``mesh`` of the same size: its pools
+    are split on KvH over that mesh's devices, the table kept on the
+    first."""
+    jax_mesh = getattr(cache_np, "mesh", None)
+    if (jax_mesh is None) != (mesh is None):
+        raise ValueError(
+            "a tensor-parallel pool converts onto a TP mesh, and only such a pool does: "
+            f"the pool's mesh is {jax_mesh}, the one given {mesh}"
+        )
+    if mesh is not None:
+        if jax_mesh.size != mesh.size:
+            raise ValueError(f"a pool over {jax_mesh.size} devices onto a {mesh.size}-device mesh")
+        device = mesh.devices[0]
+    elif device is None:
+        raise ValueError("paged_kv_from_jax needs a device or a TP mesh")
+
+    def shards(x):
+        if mesh is None:
+            return x
+        return [c.to(d).contiguous() for c, d in
+                zip(torch.split(x, x.shape[2] // mesh.size, dim=2), mesh.devices)]
 
     def pool(x):
-        return _leaf(x, device).permute(0, 1, 2, 4, 3).contiguous()
+        return shards(_leaf(x, device).permute(0, 1, 2, 4, 3).contiguous())
 
     quant = cache_np.k_scale is not None
     return PagedKV(
         k=pool(cache_np.k),
         v=pool(cache_np.v),
         table=_leaf(cache_np.table, device).to(torch.int32),
-        k_scale=_leaf(cache_np.k_scale, device) if quant else None,
-        v_scale=_leaf(cache_np.v_scale, device) if quant else None,
+        k_scale=shards(_leaf(cache_np.k_scale, device)) if quant else None,
+        v_scale=shards(_leaf(cache_np.v_scale, device)) if quant else None,
+        mesh=mesh,
     )
 
 

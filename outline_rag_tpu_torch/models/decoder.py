@@ -31,7 +31,14 @@ the slot. The numbers differ from ``jax.random``'s; greedy decoding
 
 Prompt-lookup speculative decoding (:func:`propose_ngram`,
 :func:`generate_chunk_spec`) rests on that contract: it emits the tokens the
-plain loop would. Not ported yet: tensor-parallel pools.
+plain loop would.
+
+Tensor parallelism (``parallel/tp.py``): parameters laid out by
+``shard_decoder_params`` carry their mesh, and :func:`decoder_forward` then
+runs the column-parallel projections and the attention of each device's
+heads on that device, and sums each row-parallel ``wo`` and ``wd`` product
+over the shards on the first device, in shard order. The KV ring or the
+pool must be sharded on the same mesh.
 """
 
 from __future__ import annotations
@@ -49,13 +56,18 @@ from outline_rag_tpu_torch.ops.int4_linear import (
     int4_kernel_eligible,
     quantize_int4_weight,
     unpack_int4,
+    w4a16_matmul,
 )
 from outline_rag_tpu_torch.ops.int8_linear import (
+    _int_matmul,
     int8_linear,
     quantize_linear_weight,
     w8a8_matmul,
 )
-from outline_rag_tpu_torch.ops.paged_attention import paged_attention, paged_kv_write
+from outline_rag_tpu_torch.ops.paged_attention import (
+    paged_attention_sharded,
+    paged_kv_write_sharded,
+)
 
 Params = dict[str, Any]
 
@@ -304,14 +316,20 @@ _INT4_MODE = os.environ.get("DECODER_INT4_MODE", "w4a8")
 INT4_KERNEL_MAX_M = 32
 
 
-def _mm_int4(x: torch.Tensor, q4: torch.Tensor, s4: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+def _mm_int4(
+    x: torch.Tensor, q4: torch.Tensor, s4: torch.Tensor, dt: torch.dtype,
+    out: torch.dtype | None = None,
+) -> torch.Tensor:
     """``x @ dequant(q4, s4)`` for int4 weights, by the JAX package's rule:
     a kernel for up to ``INT4_KERNEL_MAX_M`` rows on the card when the mode
     and the shape allow it; else up to 256 rows one f32 product a scale
     group on the unpacked codes, the scales applied to the ``[G, M, N]``
     partial sums; above that one full dequantization to ``dt`` and a plain
     product. A CPU tensor takes the grouped product, as the JAX package
-    does off the TPU."""
+    does off the TPU. The result is ``out`` (``dt`` by default); an f32
+    ``out`` keeps the f32 sum unrounded, the operands rounded as for
+    ``dt``."""
+    out = dt if out is None else out
     n, kp = q4.shape
     k = kp * 2
     g = s4.shape[-1]
@@ -327,20 +345,21 @@ def _mm_int4(x: torch.Tensor, q4: torch.Tensor, s4: torch.Tensor, dt: torch.dtyp
     ):
         # the shape rule is no fallback: a launch that fails raises
         if _INT4_MODE == "w4a8":
-            # two launches: the row quantizer, and the product writing dt
-            return _w4a8_matmul_as(x2, q4, s4, dt).reshape(*lead, n)
-        # one launch, its epilogue writing dt
-        return _w4a16_matmul_as(x2, q4, s4, dt).reshape(*lead, n)
+            # two launches: the row quantizer, and the product writing out
+            return _w4a8_matmul_as(x2, q4, s4, out).reshape(*lead, n)
+        # one launch, its epilogue writing out
+        y = _w4a16_matmul_as(x2, q4, s4, dt) if out == dt else w4a16_matmul(x2, q4, s4, dt)
+        return y.reshape(*lead, n)
     if m <= 256:
         # operands rounded to the model dtype, products and sums in f32
         # (int4 codes are exact in either)
         lhs = x2.to(dt).to(torch.float32).reshape(m, g, gsz).permute(1, 0, 2)  # [G, M, gsz]
         rhs = unpack_int4(q4).to(torch.float32).reshape(n, g, gsz).permute(1, 2, 0)  # [G, gsz, N]
         raw = torch.bmm(lhs, rhs)  # [G, M, N] partial sums, one a scale group
-        out = (raw * s4.T[:, None, :]).sum(dim=0)
-        return out.reshape(*lead, n).to(dt)
+        y = (raw * s4.T[:, None, :]).sum(dim=0)
+        return y.reshape(*lead, n).to(out)
     wd = (unpack_int4(q4).reshape(n, g, gsz).to(dt) * s4.to(dt)[:, :, None]).reshape(n, k)
-    return x @ wd.T
+    return x @ wd.T if out == dt else x.to(out) @ wd.to(out).T
 
 
 def _mm(x: torch.Tensor, w, dt: torch.dtype) -> torch.Tensor:
@@ -423,10 +442,11 @@ def _qkv(h, layer, rope, cfg: DecoderConfig):
     return q, k, v.reshape(b, t, cfg.kv_heads, cfg.hd)
 
 
-def _attn_out(q, cache_kv, mask_bias, layer, cfg: DecoderConfig):
+def _attn_ctx(q, cache_kv, mask_bias, cfg: DecoderConfig):
     """GQA attention of q [B,T,H,Dh] against one layer of the KV ring
-    ([B, KvH, C, Dh] each), then the output projection. Logits and softmax
-    are f32; the probabilities are cast to the model dtype before ``p.v``."""
+    ([B, KvH, C, Dh] each): the context [B, T, H*Dh] before the output
+    projection. Logits and softmax are f32; the probabilities are cast to
+    the model dtype before ``p.v``."""
     dt = q.dtype
     hd, nh, nkv = cfg.hd, cfg.heads, cfg.kv_heads
     b, t = q.shape[0], q.shape[1]
@@ -436,11 +456,12 @@ def _attn_out(q, cache_kv, mask_bias, layer, cfg: DecoderConfig):
     logits = logits / math.sqrt(hd) + mask_bias[:, :, None, None, :]
     probs = torch.softmax(logits, dim=-1).to(dt)
     ctx = torch.einsum("btngc,bncd->btngd", probs, v_cache)
-    return _mm(ctx.reshape(b, t, nh * hd), layer["wo"], dt)
+    return ctx.reshape(b, t, nh * hd)
 
 
-def _mlp(h, layer, cfg: DecoderConfig):
-    """SwiGLU MLP; a fused ``wgu`` runs gate and up as one matmul."""
+def _gate_up(h, layer, cfg: DecoderConfig):
+    """``silu(gate) * up`` of the SwiGLU MLP; a fused ``wgu`` runs gate and
+    up as one matmul."""
     dt = h.dtype
     if "wgu" in layer:
         gu = _mm(h, layer["wgu"], dt)
@@ -448,7 +469,52 @@ def _mlp(h, layer, cfg: DecoderConfig):
     else:
         gate = _mm(h, layer["wg"], dt)
         up = _mm(h, layer["wu"], dt)
-    return _mm(torch.nn.functional.silu(gate) * up, layer["wd"], dt)
+    return torch.nn.functional.silu(gate) * up
+
+
+def _row_parallel(xs: list, ws: list, dt: torch.dtype) -> torch.Tensor:
+    """``cat(xs, -1) @ cat(ws, K)`` for a row-parallel projection, shard r's
+    slice of the contraction ``xs[r] @ ws[r]`` computed on its device, and
+    the partial products summed on the first device in shard order (JAX's
+    ``psum``). One shard is :func:`_mm`. Dense and int4 partials are
+    computed with an f32 result (the operands rounded to ``dt`` as
+    :func:`_mm` rounds them), summed in f32 and rounded once to ``dt``.
+    w8a8 quantizes every row with its global absolute maximum (the largest
+    of the shards') and sums the exact int32 partials, which gives the
+    unsharded product bit for bit. A weight kept whole on the first shard
+    (``ws[1:]`` None, ``parallel/tp.py``) takes the activations gathered
+    there."""
+    if len(ws) == 1:
+        return _mm(xs[0], ws[0], dt)
+    first = xs[0].device
+    if ws[-1] is None:
+        return _mm(torch.cat([x.to(first) for x in xs], dim=-1), ws[0], dt)
+    if isinstance(ws[0], dict) and "q" in ws[0]:
+        if _INT8_MODE != "w8a8":
+            raise ValueError(
+                "int8 weights under tensor parallelism are served by DECODER_INT8_MODE=w8a8 only"
+            )
+        lead = xs[0].shape[:-1]
+        m = math.prod(lead)
+        x2s = [x.reshape(m, x.shape[-1]).float() for x in xs]
+        amax = torch.stack([x.abs().amax(dim=1).to(first) for x in x2s]).amax(dim=0)
+        xs_scale = (amax[:, None] / 127.0).clamp_min(1e-12)
+        raw = None
+        for x2, w in zip(x2s, ws):
+            xq = torch.round(x2 / xs_scale.to(x2.device)).clamp(-127, 127).to(torch.int8)
+            part = _int_matmul(xq, w["q"]).to(first)
+            raw = part if raw is None else raw + part
+        s = ws[0]["s"].to(first)
+        out = raw.to(torch.float32) * xs_scale * s[None, :].to(torch.float32)
+        return out.reshape(*lead, s.shape[0]).to(dt)
+    acc = None
+    for x, w in zip(xs, ws):
+        if isinstance(w, dict):
+            part = _mm_int4(x, w["q4"], w["s4"], dt, out=torch.float32)
+        else:
+            part = x.float() @ w.to(dt).float()
+        acc = part.to(first) if acc is None else acc + part.to(first)
+    return acc.to(dt)
 
 
 def init_cache(
@@ -479,17 +545,24 @@ class PagedKV:
     ``kv_dtype="int8"`` stores the pool quantized (symmetric per-token
     per-head int8; ``k_scale`` / ``v_scale``: ``[L, P, KvH, page]`` f32),
     dequantized inside the attention kernel.
+
+    ``mesh`` marks a tensor-parallel pool (``parallel/tp.py``): ``k``, ``v``
+    and the scales are then lists, one ``[L, P, KvH/n, ...]`` tensor a
+    device of the mesh; the table is replicated host-written state, kept
+    once on the mesh's first device.
     """
 
-    k: torch.Tensor
-    v: torch.Tensor
+    k: torch.Tensor | list
+    v: torch.Tensor | list
     table: torch.Tensor
-    k_scale: torch.Tensor | None = None
-    v_scale: torch.Tensor | None = None
+    k_scale: torch.Tensor | list | None = None
+    v_scale: torch.Tensor | list | None = None
+    mesh: Any = None  # a TP mesh: k, v and the scales are per-device lists split on KvH
 
     @property
     def page(self) -> int:
-        return self.k.shape[3]
+        k = self.k[0] if self.mesh is not None else self.k
+        return k.shape[3]
 
 
 def init_paged_cache(
@@ -499,6 +572,7 @@ def init_paged_cache(
     page_size: int = 128,
     kv_dtype: str | None = None,  # "int8" -> quantized pool
     device: str | torch.device = "cuda",
+    mesh=None,  # TP mesh: pools split on KvH over its devices
 ) -> PagedKV:
     if cfg.max_cache % page_size:
         # a remainder would shrink per-row capacity below max_cache while
@@ -506,21 +580,27 @@ def init_paged_cache(
         raise ValueError(f"max_cache={cfg.max_cache} not divisible by page_size={page_size}")
     if kv_dtype not in (None, "int8"):
         raise ValueError(f"unsupported kv_dtype {kv_dtype!r} (use 'int8' or None)")
+    if mesh is not None and cfg.kv_heads % mesh.size:
+        raise ValueError(f"kv_heads={cfg.kv_heads} not divisible by TP mesh size {mesh.size}")
     maxp = cfg.max_cache // page_size
-    shape = (cfg.layers, pages, cfg.kv_heads, page_size, cfg.hd)
-    table = torch.zeros((batch, maxp), dtype=torch.int32, device=device)
-    if kv_dtype == "int8":
-        return PagedKV(
-            k=torch.zeros(shape, dtype=torch.int8, device=device),
-            v=torch.zeros(shape, dtype=torch.int8, device=device),
-            table=table,
-            k_scale=torch.zeros(shape[:-1], dtype=torch.float32, device=device),
-            v_scale=torch.zeros(shape[:-1], dtype=torch.float32, device=device),
-        )
+    n = 1 if mesh is None else mesh.size
+    shape = (cfg.layers, pages, cfg.kv_heads // n, page_size, cfg.hd)
+    devices = [device] if mesh is None else list(mesh.devices)
+    table = torch.zeros((batch, maxp), dtype=torch.int32, device=devices[0])
+    quant = kv_dtype == "int8"
+
+    def pool(shp, dt):
+        made = [torch.zeros(shp, dtype=dt, device=d) for d in devices]
+        return made if mesh is not None else made[0]
+
+    kv_dt = torch.int8 if quant else cfg.dtype
     return PagedKV(
-        k=torch.zeros(shape, dtype=cfg.dtype, device=device),
-        v=torch.zeros(shape, dtype=cfg.dtype, device=device),
+        k=pool(shape, kv_dt),
+        v=pool(shape, kv_dt),
         table=table,
+        k_scale=pool(shape[:-1], torch.float32) if quant else None,
+        v_scale=pool(shape[:-1], torch.float32) if quant else None,
+        mesh=mesh,
     )
 
 
@@ -553,68 +633,105 @@ def decoder_forward(
     attended as copies (the cache is still written), so the ring route can
     be differentiated (``models/train.py::lm_loss``); the paged route
     cannot.
+
+    Parameters laid out over a TP mesh by ``parallel/tp.py::
+    shard_decoder_params`` run the same layers shard by shard: each device
+    its q/k/v, its heads' attention over its KV shard and its slice of the
+    gate/up product, and the ``wo`` / ``wd`` partial products summed on the
+    first device (:func:`_row_parallel`). The embedding, the norms and the
+    head run once, on the first device. The cache is then the ring sharded
+    by ``shard_decoder_cache`` or a :class:`PagedKV` of the same mesh.
+    Unsharded parameters are the one-shard case.
     """
+    from outline_rag_tpu_torch.parallel.mesh import Mesh  # noqa: PLC0415
+    from outline_rag_tpu_torch.parallel.tp import MODEL_AXIS, local_config  # noqa: PLC0415
+
+    mesh = params.get("mesh")
     dt = cfg.dtype
     b, t = tokens.shape
-    x = params["embed"][tokens.long()].to(dt)
-    start_pos = start_pos.to(torch.int32)
-    positions = start_pos[:, None] + torch.arange(t, dtype=torch.int32, device=x.device)[None, :]
-    rope = _rope_tables(positions, cfg.hd // 2, cfg.rope_theta)
-
-    if isinstance(cache, PagedKV):
-        quant = cache.k_scale is not None
-        for li, layer in enumerate(params["layers"]):
-            h = _rms_norm(x, layer["ln1"], cfg.norm_eps)
-            q, k_new, v_new = _qkv(h, layer, rope, cfg)
-            k_pool, v_pool = cache.k[li], cache.v[li]
-            if quant:
-                ks_pool, vs_pool = cache.k_scale[li], cache.v_scale[li]
-                k_q, k_s = _quantize_kv(k_new)
-                v_q, v_s = _quantize_kv(v_new)
-                paged_kv_write(
-                    k_pool, v_pool, cache.table, start_pos, k_q, v_q,
-                    ks_pool, vs_pool, k_s, v_s,
-                )
-            else:
-                ks_pool = vs_pool = None
-                paged_kv_write(
-                    k_pool, v_pool, cache.table, start_pos, k_new.to(dt), v_new.to(dt)
-                )
-            ctx = paged_attention(
-                q.contiguous(), k_pool, v_pool, cache.table, start_pos, ks_pool, vs_pool
-            )
-            x = x + _mm(ctx.reshape(b, t, -1), layer["wo"], dt)
-            h2 = _rms_norm(x, layer["ln2"], cfg.norm_eps)
-            x = x + _mlp(h2, layer, cfg)
+    first = params["embed"].device
+    if mesh is None:
+        lcfg, shards_of = cfg, lambda layer: [layer]
     else:
+        lcfg, shards_of = local_config(cfg, mesh.size), lambda layer: layer["shards"]
+    # the mesh the paged walk runs over: one device for unsharded parameters
+    walk = mesh if mesh is not None else Mesh([first], (MODEL_AXIS,))
+    per_device = (lambda x: x) if mesh is not None else (lambda x: [x])
+    x = params["embed"][tokens.long().to(first)].to(dt)
+    start_pos = start_pos.to(first, torch.int32)
+    positions = start_pos[:, None] + torch.arange(t, dtype=torch.int32, device=first)[None, :]
+    rope = _rope_tables(positions, cfg.hd // 2, cfg.rope_theta)
+    ropes = [tuple(r.to(d) for r in rope) for d in walk.devices]
+
+    paged = isinstance(cache, PagedKV)
+    if paged:
+        if cache.mesh != mesh:
+            raise ValueError(f"the pool is laid out over {cache.mesh}, the parameters over {mesh}")
+        quant = cache.k_scale is not None
+        pools = [None if p is None else per_device(p)
+                 for p in (cache.k, cache.v, cache.k_scale, cache.v_scale)]
+    else:
+        k_ring, v_ring = (per_device(r) for r in cache)
+        if mesh is not None and not (isinstance(cache[0], list) and len(k_ring) == mesh.size):
+            raise ValueError(
+                "a tensor-parallel forward needs the KV ring sharded on its mesh "
+                "(parallel/tp.py::shard_decoder_cache)"
+            )
         c = cfg.max_cache
         # attention bias [B, T, C]: slot j visible to token i iff j <= pos_i
-        slot = torch.arange(c, dtype=torch.int32, device=x.device)
+        slot = torch.arange(c, dtype=torch.int32, device=first)
         mask = slot[None, None, :] <= positions[:, :, None]
         mask_bias = torch.where(mask, 0.0, -1e9).to(torch.float32)
-        k_ring, v_ring = cache
         # the T new entries land at start_pos per row (a write that would
         # pass the end is shifted back to fit, as dynamic_update_slice does)
-        rows = torch.arange(b, device=x.device)[:, None]
+        rows = torch.arange(b, device=first)[:, None]
         cols = (positions - (positions[:, -1:] - (c - 1)).clamp_min(0)).long()  # [B, T]
+        at = [(mask_bias.to(d), rows.to(d), cols.to(d)) for d in walk.devices]
         grad = torch.is_grad_enabled()
-        for li, layer in enumerate(params["layers"]):
-            h = _rms_norm(x, layer["ln1"], cfg.norm_eps)
-            q, k_new, v_new = _qkv(h, layer, rope, cfg)
-            k_layer, v_layer = k_ring[li], v_ring[li]
-            if grad:
-                # autograd keeps this layer's ring for the backward pass, and the
-                # next layer's write into the shared [L, ...] tensor would bump
-                # its version: attend over a copy, and give the cache the new
-                # entries without their graph
-                k_ring[li][rows, :, cols] = k_new.detach().to(dt)
-                v_ring[li][rows, :, cols] = v_new.detach().to(dt)
-                k_layer, v_layer = k_layer.clone(), v_layer.clone()
-            k_layer[rows, :, cols] = k_new.to(dt)
-            v_layer[rows, :, cols] = v_new.to(dt)
-            x = x + _attn_out(q, (k_layer, v_layer), mask_bias, layer, cfg)
-            h2 = _rms_norm(x, layer["ln2"], cfg.norm_eps)
-            x = x + _mlp(h2, layer, cfg)
+    for li, layer in enumerate(params["layers"]):
+        shards = shards_of(layer)
+        h = _rms_norm(x, layer["ln1"], cfg.norm_eps)
+        qkv = [_qkv(h.to(d), lr, ropes[r], lcfg) for r, (d, lr) in enumerate(zip(walk.devices, shards))]
+        if paged:
+            k_pool, v_pool, ks_pool, vs_pool = (
+                None if p is None else [one[li] for one in p] for p in pools)
+            if quant:
+                kq = [_quantize_kv(k) for _, k, _ in qkv]
+                vq = [_quantize_kv(v) for _, _, v in qkv]
+                paged_kv_write_sharded(
+                    k_pool, v_pool, cache.table, start_pos, [a for a, _ in kq], [a for a, _ in vq],
+                    ks_pool, vs_pool, [s for _, s in kq], [s for _, s in vq], mesh=walk,
+                )
+            else:
+                paged_kv_write_sharded(
+                    k_pool, v_pool, cache.table, start_pos, [k.to(dt) for _, k, _ in qkv],
+                    [v.to(dt) for _, _, v in qkv], mesh=walk,
+                )
+            ctxs = paged_attention_sharded(
+                [q.contiguous() for q, _, _ in qkv], k_pool, v_pool, cache.table, start_pos,
+                ks_pool, vs_pool, mesh=walk,
+            )
+            ctxs = [ctx.reshape(b, t, -1) for ctx in ctxs]
+        else:
+            ctxs = []
+            for r, (q, k_new, v_new) in enumerate(qkv):
+                bias, rr, cc = at[r]
+                k_layer, v_layer = k_ring[r][li], v_ring[r][li]
+                if grad:
+                    # autograd keeps this layer's ring for the backward pass, and
+                    # the next layer's write into the shared [L, ...] tensor would
+                    # bump its version: attend over a copy, and give the cache the
+                    # new entries without their graph
+                    k_layer[rr, :, cc] = k_new.detach().to(dt)
+                    v_layer[rr, :, cc] = v_new.detach().to(dt)
+                    k_layer, v_layer = k_layer.clone(), v_layer.clone()
+                k_layer[rr, :, cc] = k_new.to(dt)
+                v_layer[rr, :, cc] = v_new.to(dt)
+                ctxs.append(_attn_ctx(q, (k_layer, v_layer), bias, lcfg))
+        x = x + _row_parallel(ctxs, [lr["wo"] for lr in shards], dt)
+        h2 = _rms_norm(x, layer["ln2"], cfg.norm_eps)
+        acts = [_gate_up(h2.to(d), lr, lcfg) for d, lr in zip(walk.devices, shards)]
+        x = x + _row_parallel(acts, [lr["wd"] for lr in shards], dt)
     x = _rms_norm(x, params["final_norm"], cfg.norm_eps)
     head = params.get("lm_head")
     if head is None:

@@ -1,4 +1,5 @@
-"""Fine-tuning of the three models on one device.
+"""Fine-tuning of the three models on one device, and of the dual encoder
+data-parallel over processes.
 
 Port of ``outline_rag_tpu/models/train.py``: in-batch-negatives InfoNCE for
 the dual encoder (the BGE-family recipe), group cross-entropy for the
@@ -23,6 +24,11 @@ classifier's matrices; biases and norm scales never do. That is the JAX
 package's name-and-rank mask on its per-layer parameter list. On its
 stacked decoder tree the JAX mask also decays the RMSNorm scales ``ln1`` and
 ``ln2`` (``[L, H]``, no ``ln_`` or ``b`` prefix); the port does not.
+
+:func:`make_dp_train_step` is the contrastive step data-parallel over the
+processes of ``torch.distributed``: each process encodes its slice of the
+global batch and the loss is the single-device step's over the whole batch
+(see its docstring).
 
 Attention through the flash kernel has no backward (``ops/attention.py``),
 so a model trained here runs its attention as einsum: ``"auto"`` takes it
@@ -211,6 +217,12 @@ def contrastive_loss(
     recomputes each encoder layer in the backward pass."""
     q_emb = pooled_embeddings(encoder, q_ids, q_mask, remat=remat)  # [B, H] f32
     p_emb = pooled_embeddings(encoder, p_ids, p_mask, remat=remat)
+    return info_nce(q_emb, p_emb, temperature)
+
+
+def info_nce(q_emb: torch.Tensor, p_emb: torch.Tensor, temperature: float) -> torch.Tensor:
+    """Symmetric InfoNCE of paired [B, H] embeddings, row i's positive the
+    other side's row i."""
     logits = (q_emb @ p_emb.T) / temperature  # [B, B]
     labels = torch.arange(logits.shape[0], device=logits.device)
     loss_qp = F.cross_entropy(logits, labels, reduction="none")
@@ -301,3 +313,74 @@ def make_lm_train_step(cfg, optimizer: AdamW):
     """(state, batch) -> (state, metrics) causal-LM step for the local
     decoder. ``batch`` = dict(tokens [B, S], mask [B, S])."""
     return _step(optimizer, lambda params, batch: lm_loss(params, batch["tokens"], batch["mask"], cfg))
+
+
+class _GatherRows(torch.autograd.Function):
+    """All-gather of every process's rows in process order, differentiable:
+    the backward hands each process the gradient of its own rows only.
+    Every process computes the same loss from the gathered rows, so the
+    gradients of its rows are the whole loss's; the parameter gradients are
+    then summed over the processes, which counts the one loss once."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor) -> torch.Tensor:
+        from outline_rag_tpu_torch.parallel.multihost import all_gather_tensor  # noqa: PLC0415
+
+        ctx.rows, ctx.rank = x.shape[0], torch.distributed.get_rank()
+        return torch.cat(all_gather_tensor(x), dim=0)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor) -> torch.Tensor:
+        return grad[ctx.rank * ctx.rows:(ctx.rank + 1) * ctx.rows]
+
+
+def _sum_over_processes_(grads: dict[str, torch.Tensor], bucket: int = 1 << 26) -> None:
+    """Each gradient summed over the processes, in place: flattened into
+    buckets of up to ``bucket`` elements, one all-reduce a bucket."""
+    from outline_rag_tpu_torch.parallel.multihost import all_reduce_sum_  # noqa: PLC0415
+
+    names = list(grads)
+    while names:
+        take, size = [], 0
+        while names and (not take or size + grads[names[0]].numel() <= bucket):
+            take.append(names.pop(0))
+            size += grads[take[-1]].numel()
+        flat = all_reduce_sum_(torch.cat([grads[n].reshape(-1) for n in take]))
+        for n, part in zip(take, torch.split(flat, [grads[n].numel() for n in take])):
+            grads[n] = part.view_as(grads[n])
+
+
+def make_dp_train_step(
+    cfg: EncoderConfig, optimizer: AdamW, temperature: float = 0.05, remat: bool = False
+):
+    """(state, local batch) -> (state, metrics): the dual-encoder step
+    data-parallel over the processes of ``torch.distributed`` (initialized
+    by the caller, e.g. ``parallel/multihost.py::init_multihost``). Each
+    process holds the same parameters and its equal slice of the global
+    batch, in process order.
+
+    The step computes the single-device step's function on the global
+    batch. Its in-batch negatives span the whole batch: the pooled
+    embeddings are all-gathered (differentiably) and every process takes
+    the InfoNCE of the gathered ``[B, H]`` pair, so ``loss`` is the global
+    batch's. A DDP that averaged each process's local InfoNCE would compute
+    another function. The parameter gradients are summed over the processes
+    (:class:`_GatherRows` says why that counts the loss once), and every
+    process applies the same update."""
+
+    def loss_of(encoder, batch):
+        _check_config(encoder, cfg)
+        q = _GatherRows.apply(pooled_embeddings(encoder, batch["q_ids"], batch["q_mask"],
+                                                remat=remat))
+        p = _GatherRows.apply(pooled_embeddings(encoder, batch["p_ids"], batch["p_mask"],
+                                                remat=remat))
+        return info_nce(q, p, temperature)
+
+    def step(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
+        loss, grads = value_and_grad(lambda p: loss_of(p, batch), state.params)
+        _sum_over_processes_(grads)
+        optimizer.update(grads, state.opt_state, state.params)
+        state.step += 1
+        return state, {"loss": loss}
+
+    return step

@@ -15,6 +15,11 @@ a row's capacity land there, and its content is garbage by contract.
                                   pages, in place: ``csrc/paged_kv_write.cu``
                                   on CUDA tensors, the plain twin on CPU.
 - :func:`paged_kv_write_plain`  — the same scatter in plain PyTorch.
+- :func:`paged_attention_sharded` / :func:`paged_kv_write_sharded` — the
+                                  tensor-parallel forms: each device of a
+                                  TP mesh runs the kernel on its own KV
+                                  heads and query-head group, with no
+                                  communication.
 
 **Pool layout.** One layer's pool is ``[P, KvH, page, Dh]``: a token's
 ``Dh`` values are contiguous (128-byte rows in bf16 at ``Dh = 64``), which
@@ -307,3 +312,74 @@ def paged_kv_write(
 
 
 paged_kv_write.launches = 0
+
+
+def _per_shard(x, mesh, dim: int) -> list:
+    """``x`` as one tensor a shard: a list as it is, a tensor split on
+    ``dim`` into the mesh's equal blocks, each moved to its device."""
+    if isinstance(x, (list, tuple)):
+        if len(x) != mesh.size:
+            raise ValueError(f"{len(x)} shards for a {mesh.size}-device mesh")
+        return list(x)
+    if x.shape[dim] % mesh.size:
+        raise ValueError(f"a dimension of {x.shape[dim]} does not split over {mesh.size} devices")
+    return [c.to(d).contiguous() for c, d in
+            zip(torch.split(x, x.shape[dim] // mesh.size, dim=dim), mesh.devices)]
+
+
+def paged_attention_sharded(
+    q,  # [B, T, H, Dh], or one [B, T, H/n, Dh] a shard
+    pool_k,  # [P, KvH, page, Dh], or one [P, KvH/n, page, Dh] a shard
+    pool_v,
+    table: torch.Tensor,  # [B, MAXP] int32, replicated
+    pos: torch.Tensor,  # [B] int32, replicated
+    k_scale=None,  # [P, KvH, page] f32, or one a shard (int8 pools)
+    v_scale=None,
+    *,
+    mesh,
+) -> list[torch.Tensor]:
+    """Tensor-parallel page walk: :func:`paged_attention` on every device
+    of ``mesh`` over its local KV heads and its group of query heads
+    (shard r holds heads ``[r*H/n, (r+1)*H/n)`` and KV heads ``[r*KvH/n,
+    ...)``, so GQA groups never straddle shards). No communication: the
+    row-parallel ``wo`` that follows sums the shards. Returns each shard's
+    ``[B, T, H/n, Dh]`` on its device; on CUDA each is a launch of the
+    kernel, and a shard shape the kernel refuses raises."""
+    quant = k_scale is not None
+    qs = _per_shard(q, mesh, 2)
+    ks, vs = _per_shard(pool_k, mesh, 1), _per_shard(pool_v, mesh, 1)
+    kss = _per_shard(k_scale, mesh, 1) if quant else [None] * mesh.size
+    vss = _per_shard(v_scale, mesh, 1) if quant else [None] * mesh.size
+    return [
+        paged_attention(qr, kr, vr, table.to(dev), pos.to(dev), ksr, vsr)
+        for dev, qr, kr, vr, ksr, vsr in zip(mesh.devices, qs, ks, vs, kss, vss)
+    ]
+
+
+def paged_kv_write_sharded(
+    pool_k: list,  # one [P, KvH/n, page, Dh] a shard, written in place
+    pool_v: list,
+    table: torch.Tensor,  # [B, MAXP] int32, replicated
+    pos: torch.Tensor,  # [B] int32, replicated
+    k_new,  # [B, T, KvH, Dh], or one [B, T, KvH/n, Dh] a shard
+    v_new,
+    k_scale: list | None = None,  # one [P, KvH/n, page] f32 a shard (int8 pools)
+    v_scale: list | None = None,
+    ks_new=None,  # [B, T, KvH] f32, or one a shard
+    vs_new=None,
+    *,
+    mesh,
+) -> None:
+    """Tensor-parallel page write: :func:`paged_kv_write` on every device of
+    ``mesh``, each into its own pools from its KV heads' new entries, in
+    place (on CUDA, a launch of the kernel a shard)."""
+    quant = k_scale is not None
+    kn, vn = _per_shard(k_new, mesh, 2), _per_shard(v_new, mesh, 2)
+    none = [None] * mesh.size
+    ksn = _per_shard(ks_new, mesh, 2) if quant else none
+    vsn = _per_shard(vs_new, mesh, 2) if quant else none
+    for r, dev in enumerate(mesh.devices):
+        paged_kv_write(
+            pool_k[r], pool_v[r], table.to(dev), pos.to(dev), kn[r], vn[r],
+            k_scale[r] if quant else None, v_scale[r] if quant else None, ksn[r], vsn[r],
+        )

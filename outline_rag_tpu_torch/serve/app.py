@@ -27,11 +27,15 @@ and local decoder. What differs from the JAX app:
 
 - ``device``: the index, and the models of ``ENCODER_WEIGHTS_PATH``,
   ``RERANKER_WEIGHTS_PATH`` and ``DECODER_WEIGHTS_PATH``, are created there
-  (``"cuda"`` by default; tests pass ``"cpu"``). There is no mesh:
-  ``MESH_DATA_AXIS`` of 0 or 1 is one device, a larger value raises
-  ``NotImplementedError`` (ROADMAP.md Queue 1 #7), as ``DECODER_TP`` above 1
-  does in ``LocalChatProvider``.
-- The snapshot restore loads onto the index's own device.
+  (``"cuda"`` by default; tests pass ``"cpu"``).
+- ``devices``: the devices a mesh may take, in order (by default the
+  visible devices of ``device``'s kind: every CUDA device, or the one
+  CPU). As in the JAX app, ``MESH_DATA_AXIS`` (0: all of them) row-shards
+  the index over the first ``ndev`` when ``ndev > 1`` and
+  ``SHARD_CAPACITY`` divides by it; more than there are raises
+  ``ValueError``. ``DECODER_TP`` takes its tensor-parallel mesh from the
+  same list. The mesh's first device is ``device``'s place for the models.
+- The snapshot restore loads onto the index's own device or mesh.
 - The warm-up builds the CUDA library and launches the first scans before
   the first user arrives (nothing is compiled per shape).
 """
@@ -44,6 +48,7 @@ import re
 import time
 
 from outline_rag_tpu_torch.config import Settings
+from outline_rag_tpu_torch.device import resolve_device
 from outline_rag_tpu_torch.engine.embedder import get_embedder
 from outline_rag_tpu_torch.engine.service import RetrievalService
 from outline_rag_tpu_torch.index import VectorIndex
@@ -87,6 +92,7 @@ def build_app(
     settings: Settings,
     *,
     device: str = "cuda",
+    devices=None,
     provider=None,
     embedder=None,
     reranker=None,
@@ -137,18 +143,35 @@ def build_app(
     # a real encoder + device token cache enable the fused one-program
     # query path (engine/fused.py); the ingestor fills the cache below
     encoder_tokenizer = getattr(embedder, "tokenizer", None)
+    if devices is None:
+        from outline_rag_tpu_torch.parallel.mesh import visible_devices
+
+        devices = visible_devices(device)
     if index is None:
-        # one device: a row-sharded index over several cards is not ported
-        if settings.mesh_data_axis > 1:
-            raise NotImplementedError(
-                f"MESH_DATA_AXIS={settings.mesh_data_axis}: a row-sharded index over "
-                "several devices is not ported yet (ROADMAP.md Queue 1 #7, parallel/)"
+        # Row-shard the index over the device mesh when more than one
+        # device is asked for (MESH_DATA_AXIS=0 -> all of them, N -> the
+        # first N, 1 -> one device). Queries then run each shard's scan and
+        # one merge of the [B, K] lists (parallel/query.py).
+        sharding = None
+        ndev = settings.mesh_data_axis or len(devices)
+        if ndev > len(devices):
+            raise ValueError(
+                f"MESH_DATA_AXIS={ndev} asks for more devices than the {len(devices)} visible"
             )
+        if ndev > 1 and settings.shard_capacity % ndev == 0:
+            from outline_rag_tpu_torch.parallel.mesh import data_mesh, row_sharding
+
+            sharding = row_sharding(data_mesh(ndev, devices))
+            if sharding.mesh.devices[0] != resolve_device(device):
+                raise ValueError(
+                    f"the mesh starts at {sharding.mesh.devices[0]}, the models live on {device}"
+                )
         index = VectorIndex(
             dim=getattr(embedder, "dim", settings.vector_dim),
             capacity=settings.shard_capacity,
             dtype=settings.index_dtype,
-            device=device,
+            device=None if sharding is not None else device,
+            sharding=sharding,
             token_width=(
                 settings.token_width if encoder_tokenizer is not None else None
             ),
@@ -210,12 +233,13 @@ def build_app(
                     prefix_cache=settings.decoder_prefix_cache,
                     kv_int8=settings.decoder_kv_int8,
                     tp_devices=settings.decoder_tp,
+                    devices=devices,
                     device=device,
                 )
-            except (ValueError, NotImplementedError):
-                # an invalid DECODER_* combination, or one not ported yet
-                # (tensor parallelism): the configuration's error as it is,
-                # not the checkpoint's
+            except ValueError:
+                # an invalid DECODER_* combination (a DECODER_TP the heads or
+                # the visible devices cannot take): the configuration's error
+                # as it is, not the checkpoint's
                 raise
             except Exception as exc:
                 # a configured local decoder that cannot load is a deployment
@@ -287,7 +311,8 @@ def build_app(
         if index.size == 0 and os.path.exists(snapshot_path + ".npz"):
             try:
                 loaded = await _aio.to_thread(
-                    VectorIndex.load, snapshot_path, device=index.device
+                    VectorIndex.load, snapshot_path, device=index.device,
+                    sharding=index._sharding,
                 )
                 index.adopt(loaded)
                 log.info(

@@ -43,7 +43,11 @@ of ``models/decoder.py::generate_chunk_spec`` that advances a row by 1 to
 streams are those of ``spec_k = 0``. Rows diverge freely: positions, cursors
 and counts are per row.
 
-Not ported yet: tensor-parallel meshes raise ``NotImplementedError``.
+Tensor parallelism (``mesh=``, ``parallel/tp.py``): the parameters are laid
+out over the mesh by ``shard_decoder_params``; the ring or the pool shards
+on KvH over the same devices and the page tables replicate (one copy, on
+the mesh's first device). The chunk, paged and speculative modes run as
+they do on one device.
 """
 
 from __future__ import annotations
@@ -102,13 +106,17 @@ class DecodeBatcher:
         prefix_cache: bool = True,  # paged mode: share full prompt pages
         prefill_chunk: int = 256,  # paged-prefill width (tokens)
         kv_int8: bool = False,  # paged mode: int8 pool (half the KV bytes)
-        mesh=None,  # tensor parallelism: not ported yet
+        mesh=None,  # TP mesh (parallel/tp.py): pools shard on KvH, tables replicate
         device: str | torch.device = "cuda",
     ):
         if mesh is not None:
-            raise NotImplementedError(
-                "tensor-parallel decoding (mesh) is not ported yet: it comes with a later slice"
-            )
+            if params.get("mesh") != mesh:
+                raise ValueError(
+                    "DecodeBatcher(mesh=...) takes parameters laid out over that mesh "
+                    "(parallel/tp.py::shard_decoder_params)"
+                )
+            device = mesh.devices[0]  # where the host-side state and the head live
+        self.mesh = mesh
         self.device = resolve_device(device)
         if params["embed"].device != self.device:
             raise ValueError(
@@ -150,7 +158,7 @@ class DecodeBatcher:
         if self.kv_pages > 0:
             self.cache = init_paged_cache(
                 cfg, slots, self.kv_pages, page_size,
-                kv_dtype="int8" if self.kv_int8 else None, device=self.device,
+                kv_dtype="int8" if self.kv_int8 else None, device=self.device, mesh=mesh,
             )
             self._maxp = cfg.max_cache // page_size
             if self.kv_pages < self._maxp + 1:
@@ -171,7 +179,7 @@ class DecodeBatcher:
             self._pfc = max(page_size, min(int(prefill_chunk), cfg.max_cache))
         else:
             self.prefix_cache = False
-            self.cache = init_cache(cfg, slots, self.device)
+            self.cache = self._ring(slots)
         self.tok = np.zeros((slots,), np.int32)
         self.pos = np.zeros((slots,), np.int32)
         self.temp = np.zeros((slots,), np.float32)
@@ -206,9 +214,18 @@ class DecodeBatcher:
 
     # -- device programs (worker thread, under inference_mode) --------------
 
+    def _ring(self, batch: int):
+        """A zeroed KV ring of ``batch`` rows, sharded on KvH under TP."""
+        ring = init_cache(self.cfg, batch, self.device)
+        if self.mesh is None:
+            return ring
+        from outline_rag_tpu_torch.parallel.tp import shard_decoder_cache  # noqa: PLC0415
+
+        return shard_decoder_cache(ring, self.mesh)
+
     def _prefill(self, toks: torch.Tensor):
         """Ring mode: one prompt row through a fresh 1-row ring."""
-        row_cache = init_cache(self.cfg, 1, self.device)
+        row_cache = self._ring(1)
         start = torch.zeros((1,), dtype=torch.int32, device=self.device)
         return decoder_forward(self.params, toks, row_cache, start, self.cfg)
 
@@ -218,7 +235,9 @@ class DecodeBatcher:
         (``start`` lies past their span). The pools are the batcher's own,
         updated in place."""
         cache = self.cache
-        row_view = PagedKV(cache.k, cache.v, row_table[None], cache.k_scale, cache.v_scale)
+        row_view = PagedKV(
+            cache.k, cache.v, row_table[None], cache.k_scale, cache.v_scale, cache.mesh
+        )
         pos = torch.full((1,), start, dtype=torch.int32, device=self.device)
         logits, _ = decoder_forward(self.params, toks, row_view, pos, self.cfg)
         return logits
@@ -427,8 +446,12 @@ class DecodeBatcher:
             self._retire(req)
             req.out.put(DONE)
             return True
-        self.cache[0][:, row] = row_cache[0][:, 0]
-        self.cache[1][:, row] = row_cache[1][:, 0]
+        for dst, src in zip(self.cache, row_cache):
+            if self.mesh is None:
+                dst[:, row] = src[:, 0]
+            else:  # one KvH shard a device
+                for d, s in zip(dst, src):
+                    d[:, row] = s[:, 0]
         self._set_row_state(req, row, first_id)
         return True
 

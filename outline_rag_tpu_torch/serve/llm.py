@@ -17,7 +17,10 @@ share a :class:`~outline_rag_tpu_torch.serve.decode_batcher.DecodeBatcher`.
 ``spec_k > 0`` turns on prompt-lookup speculative decoding, in the batcher
 or, single-stream, in :meth:`LocalChatProvider._generate_spec`.
 
-Not ported yet: ``tp_devices > 1`` raises ``NotImplementedError``.
+``tp_devices > 1`` serves the decoder Megatron-style over the first
+``tp_devices`` of ``devices`` (``parallel/tp.py``), with the JAX package's
+refusals: heads or KV heads not divisible by ``tp_devices``, int8 weights
+in any mode but w8a8, and prequantized trees raise ``ValueError``.
 """
 
 from __future__ import annotations
@@ -255,21 +258,37 @@ class LocalChatProvider:
         page_size: int = 128,
         prefix_cache: bool = True,  # paged mode: share repeated prompt prefixes
         kv_int8: bool = False,  # paged mode: int8 KV pool
-        tp_devices: int = 0,  # tensor parallelism: not ported yet
+        tp_devices: int = 0,  # >1 -> Megatron TP over the first tp_devices of devices
         prequantized: bool = False,  # params already cast, fused and quantized
         device: str | torch.device = "cuda",
+        devices=None,  # the devices a TP mesh takes (default: the visible ones of device's kind)
     ):
         if int8_weights and int4_weights:
             raise ValueError(
                 "int8_weights and int4_weights are mutually exclusive "
                 "(pick one weight quantization)"
             )
-        if tp_devices and int(tp_devices) > 1:
-            raise NotImplementedError(
-                "tensor-parallel decoding (tp_devices > 1) is not ported yet: "
-                "it comes with a later slice"
-            )
         self.cfg = cfg
+        self.mesh = None
+        if tp_devices and int(tp_devices) > 1:
+            from outline_rag_tpu_torch.models import decoder as decoder_mod  # noqa: PLC0415
+            from outline_rag_tpu_torch.parallel.mesh import visible_devices  # noqa: PLC0415
+            from outline_rag_tpu_torch.parallel.tp import check_tp_config, model_mesh  # noqa: PLC0415
+
+            check_tp_config(cfg, int(tp_devices))
+            if int8_weights and decoder_mod._INT8_MODE != "w8a8":
+                raise ValueError(
+                    "DECODER_TP with DECODER_INT8 requires DECODER_INT8_MODE=w8a8 (the w8a16 "
+                    "kernel is a single-device route)"
+                )
+            if prequantized:
+                raise ValueError(
+                    "prequantized trees are not laid out for DECODER_TP: quantize under TP instead"
+                )
+            self.mesh = model_mesh(
+                int(tp_devices), devices if devices is not None else visible_devices(device)
+            )
+            device = self.mesh.devices[0]
         self.device = resolve_device(device)
         params = _to_device(params, self.device)
         if prequantized:
@@ -285,6 +304,10 @@ class LocalChatProvider:
                 self.params = quantize_decoder_params(self.params)
             elif int4_weights:
                 self.params = quantize_decoder_params_int4(self.params)
+        if self.mesh is not None:
+            from outline_rag_tpu_torch.parallel.tp import shard_decoder_params  # noqa: PLC0415
+
+            self.params = shard_decoder_params(self.params, self.mesh, cfg)
         self.tokenizer = tokenizer
         self.eos_id = eos_id if eos_id is not None else getattr(tokenizer, "eos_token_id", 2)
         self.chunk_tokens = chunk_tokens
@@ -314,12 +337,24 @@ class LocalChatProvider:
                 page_size=int(page_size),
                 prefix_cache=bool(prefix_cache),
                 kv_int8=bool(kv_int8),
+                mesh=self.mesh,
                 device=self.device,
             )
+
+    def _init_cache(self):
+        """A fresh one-row KV ring, sharded on KvH under TP."""
+        ring = init_cache(self.cfg, 1, self.device)
+        if self.mesh is None:
+            return ring
+        from outline_rag_tpu_torch.parallel.tp import shard_decoder_cache  # noqa: PLC0415
+
+        return shard_decoder_cache(ring, self.mesh)
 
     def stats(self) -> dict:
         """Decode-path operational stats."""
         out = {"model": self.model_name}
+        if self.mesh is not None:
+            out["tp"] = self.mesh.size
         if self._batcher is not None:
             out.update(self._batcher.stats())
         else:
@@ -383,7 +418,7 @@ class LocalChatProvider:
         max_new = min(max_new, self.cfg.max_cache - t - 1)
         bucket = next((b for b in self.prompt_buckets if b >= t), self.prompt_buckets[-1])
         padded = torch.tensor([ids + [0] * (bucket - t)], dtype=torch.int32, device=dev)
-        cache = init_cache(self.cfg, 1, dev)
+        cache = self._init_cache()
         logits, cache = decoder_forward(
             self.params, padded, cache, torch.zeros((1,), dtype=torch.int32, device=dev), self.cfg
         )

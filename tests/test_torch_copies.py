@@ -176,3 +176,24 @@ def test_the_path_guard_sees_a_path_into_the_jax_package():
         assert not any(_names_jax_path(s) for s in _literal_strings(code)), code
     assert _names_jax_path(ASSET_COMMENTS.sub("", 'fetch("/outline_rag_tpu/x.js") // y'))
     assert not _names_jax_path(ASSET_COMMENTS.sub("", "/* in outline_rag_tpu/utils */ x = 1"))
+
+
+def _function_body(path: Path, name: str) -> list[str]:
+    """The statements of function ``name`` in ``path`` (docstring left
+    out), each as ``ast.dump`` gives it."""
+    tree = ast.parse(path.read_text())
+    fn = next(n for n in ast.walk(tree) if isinstance(n, ast.FunctionDef) and n.name == name)
+    body = [s for s in fn.body
+            if not (isinstance(s, ast.Expr) and isinstance(s.value, ast.Constant))]
+    return [ast.dump(s) for s in body]
+
+
+def test_host_slice_arithmetic_is_the_jax_packages():
+    """``parallel/multihost.py``'s slice arithmetic is copied: the JAX
+    ``host_slice`` reads the process index and count from ``jax`` and
+    computes the rest; the port's ``_host_slice`` takes them as arguments
+    and computes the rest with the same statements."""
+    jax_body = _function_body(JAX / "parallel" / "multihost.py", "host_slice")
+    port_body = _function_body(PORT / "parallel" / "multihost.py", "_host_slice")
+    assert "process_index" in jax_body[0]  # h, nh = jax.process_index(), jax.process_count()
+    assert port_body == jax_body[1:]

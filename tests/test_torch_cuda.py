@@ -642,6 +642,7 @@ def test_decoder_forward_kernels_against_twins(cuda, kv_dtype, monkeypatch):
     """One paged forward with the kernels and the same forward with the
     plain twins patched in: bf16 logits within 2e-2 of logits of order 1."""
     import outline_rag_tpu_torch.models.decoder as dec
+    import outline_rag_tpu_torch.ops.paged_attention as pa
     from outline_rag_tpu_torch.ops.paged_attention import (
         paged_attention, paged_attention_plain, paged_kv_write, paged_kv_write_plain)
 
@@ -659,8 +660,10 @@ def test_decoder_forward_kernels_against_twins(cuda, kv_dtype, monkeypatch):
     a0, w0 = paged_attention.launches, paged_kv_write.launches
     got = run()
     assert (paged_attention.launches - a0, paged_kv_write.launches - w0) == (2, 2)
-    monkeypatch.setattr(dec, "paged_attention", paged_attention_plain)
-    monkeypatch.setattr(dec, "paged_kv_write", paged_kv_write_plain)
+    # the decoder walks its pages through the sharded wrappers (one shard),
+    # which call ops/paged_attention.py's kernels
+    monkeypatch.setattr(pa, "paged_attention", paged_attention_plain)
+    monkeypatch.setattr(pa, "paged_kv_write", paged_kv_write_plain)
     want = run()
     assert float((got - want).abs().max()) <= 2e-2 * max(1.0, float(want.abs().max()))
 
@@ -1291,3 +1294,93 @@ def test_encoder_attention_gets_gradients_on_the_card_below_2048(cuda):
     for layer in enc.layers:
         for proj in (layer.q, layer.k, layer.v):
             assert torch.isfinite(proj.weight.grad).all() and proj.weight.grad.ne(0).any()
+
+
+# ----------------------------------------------------------------------
+# the sharded paths: a mesh that names the card several times
+# ----------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", ["int8r", "fp32", "bf16", "f32x2"])
+def test_sharded_scans_equal_the_unsharded_scan(cuda, dtype):
+    """Each shard's kernel over its quarter of the rows, then the merge:
+    rows and values bit-equal to one launch over all of them, ties (copies
+    of one row in every shard) and tombstones included. The int8r scan with
+    the rescore at K = 12 of M = 64 candidates (the serving shape); at K = M
+    each shard rescores its own 64, a superset of the unsharded scan's, so
+    the tail of the merged list may hold rows the unsharded rescore never
+    saw, never with a lower value."""
+    from outline_rag_tpu_torch.ops.quant import int8_topk, quantize_rows_int8_residual
+    from outline_rag_tpu_torch.ops.topk import cosine_topk
+    from outline_rag_tpu_torch.parallel import data_mesh
+    from outline_rag_tpu_torch.parallel import query as pq
+
+    mesh = data_mesh(devices=[cuda] * 4)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    n, d, b, k = 65536, 1024, 32, 64
+    x = torch.randn((n, d), generator=g, device=cuda)
+    x = x / x.norm(dim=1, keepdim=True)
+    dups = [7, 20000, 40000, 60000]
+    x[dups] = x[7].clone()
+    q = torch.randn((b, d), generator=g, device=cuda)
+    q = q / q.norm(dim=1, keepdim=True)
+    q[0] = x[7]
+    pen = torch.where(torch.rand(n, generator=g, device=cuda) < 0.05, NEG, 0.0)
+    pen[dups] = 0.0
+    before = (topk_int8.launches, dict(topk_float.launches))
+    if dtype == "int8r":
+        codes, scales, res = quantize_rows_int8_residual(x)
+        from outline_rag_tpu_torch.ops.quant import quantize_rows_int8
+
+        qq, qs = quantize_rows_int8(q)
+        kw = dict(rescore_queries=q, rescore_m=64, rescore_residual=res)
+        sv, si = pq.sharded_topk_int8(qq, qs, codes, scales, 12, pen, mesh=mesh, **kw)
+        uv, ui = int8_topk(qq, qs, codes, scales, 12, pen, **kw)
+        assert topk_int8.launches == before[0] + 5
+        wide_s, _ = pq.sharded_topk_int8(qq, qs, codes, scales, k, pen, mesh=mesh, **kw)
+        wide_u, _ = int8_topk(qq, qs, codes, scales, k, pen, **kw)
+        assert (wide_s >= wide_u).all() and torch.equal(wide_s[:, :12], uv)
+    else:
+        corpus = {"fp32": x, "bf16": x.to(torch.bfloat16), "f32x2": split_f32_bf16x2(x)}[dtype]
+        sv, si = pq.sharded_topk(q, corpus, k, pen, mesh=mesh)
+        uv, ui = cosine_topk(q, corpus, k, pen)
+        assert sum(topk_float.launches.values()) == sum(before[1].values()) + 5
+    assert torch.equal(si, ui) and torch.equal(sv, uv)
+    assert si[0, :4].tolist() == dups
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_paged_attention_sharded_equals_the_head_slices(cuda, kv):
+    """TinyLlama's 32 heads over 4 KV heads at TP = 2: each shard's launch
+    over its two KV heads gives the unsharded launch's head slice, bit for
+    bit; the sharded page write fills each shard's pool as the unsharded
+    write fills the whole one."""
+    from outline_rag_tpu_torch.ops.paged_attention import (
+        paged_attention,
+        paged_attention_sharded,
+        paged_kv_write,
+        paged_kv_write_sharded,
+    )
+    from outline_rag_tpu_torch.parallel.tp import model_mesh
+
+    mesh = model_mesh(2, [cuda, cuda])
+    g = torch.Generator(device=cuda).manual_seed(4)
+    q, pk, pv, table, pos, *scales = paged_attention_case(cuda, g, 8, 1, kv, pages=300)
+    ks, vs = scales if scales else (None, None)
+    whole = paged_attention(q, pk, pv, table, pos, ks, vs)
+    parts = paged_attention_sharded(q, pk, pv, table, pos, ks, vs, mesh=mesh)
+    assert torch.equal(torch.cat(parts, dim=2), whole)
+
+    b, t, kvh, dh = 8, 1, pk.shape[1], pk.shape[3]
+    k_new = torch.randn((b, t, kvh, dh), generator=g, device=cuda).to(pk.dtype)
+    v_new = torch.randn((b, t, kvh, dh), generator=g, device=cuda).to(pk.dtype)
+    new_scales = ([torch.rand((b, t, kvh), generator=g, device=cuda) for _ in range(2)]
+                  if ks is not None else [None, None])
+    shards = [None if x is None else [c.contiguous() for c in torch.split(x, kvh // 2, dim=1)]
+              for x in (pk, pv, ks, vs)]
+    paged_kv_write(pk, pv, table, pos, k_new, v_new, ks, vs, *new_scales)
+    paged_kv_write_sharded(*shards[:2], table, pos, k_new, v_new, *shards[2:], *new_scales,
+                           mesh=mesh)
+    for whole_pool, pieces in zip((pk, pv, ks, vs), shards):
+        if pieces is not None:
+            assert torch.equal(torch.cat(pieces, dim=1), whole_pool)

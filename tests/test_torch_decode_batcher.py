@@ -420,10 +420,31 @@ def test_kv_int8_requires_paged_pool(setup):
         make(setup, slots=2, kv_int8=True)
 
 
-@pytest.mark.parametrize("kw", [{"mesh": object()}], ids=["mesh"])
+@pytest.mark.parametrize("kw", [{"mesh": "tp2"}], ids=["mesh"])
 def test_unported_options_raise(setup, kw):
-    with pytest.raises(NotImplementedError, match="later slice"):
-        make(setup, slots=2, **kw)
+    """``mesh=`` is served: a 2-way TP batcher over two CPU entries gives the
+    unsharded batcher's greedy tokens (ring mode); parameters not laid out
+    over the mesh, and a mesh larger than the devices given, raise
+    ``ValueError``."""
+    from outline_rag_tpu_torch.parallel.tp import model_mesh, shard_decoder_params
+
+    cfg, params = setup[:2]
+    mesh = model_mesh(2, ["cpu", "cpu"])
+    with pytest.raises(ValueError, match="laid out over that mesh"):
+        make(setup, slots=2, mesh=mesh)
+    with pytest.raises(ValueError, match="only 1 device"):
+        model_mesh(2, ["cpu"])
+    prompts = PROMPTS[:2]
+    plain = make(setup, slots=2, chunk_tokens=4)
+    tp = DecodeBatcher(shard_decoder_params(params, mesh, cfg), cfg, slots=2, chunk_tokens=4,
+                       eos_id=0, device="cpu", mesh=mesh)
+    try:
+        want = [collect(q) for q in [plain.submit(p, 0.0, 1.0, 8) for p in prompts]]
+        got = [collect(q) for q in [tp.submit(p, 0.0, 1.0, 8) for p in prompts]]
+    finally:
+        plain.close()
+        tp.close()
+    assert got == want
 
 
 # ----------------------------------------------------------------------

@@ -1,7 +1,7 @@
 """The port's ``LocalChatProvider`` (tiny f32 decoder, CPU): streaming deltas,
 termination, greedy parity with the JAX package's provider, the batched
 route, early close, int4 weights, single-stream and batched speculative
-decoding, and the option that is not ported yet. With a tiny
+decoding, and tensor parallelism over two CPU entries. With a tiny
 random decoder the text is gibberish; these tests pin the plumbing. Every
 wait has a time limit of its own."""
 
@@ -221,8 +221,17 @@ def test_prequantized_params_are_taken_as_they_are(setup):
 
 @pytest.mark.parametrize("kw", [{"tp_devices": 2}], ids=["tp_devices"])
 def test_unported_options_raise(setup, kw):
-    with pytest.raises(NotImplementedError, match="later slice"):
+    """``tp_devices=2`` is served over two CPU entries: its greedy answer is
+    the unsharded provider's. More devices than given, or a head count that
+    does not divide, raise ``ValueError``."""
+    plain = provider(setup, chunk_tokens=4, max_new_tokens=8)
+    tp = provider(setup, chunk_tokens=4, max_new_tokens=8, devices=["cpu", "cpu"], **kw)
+    assert tp.stats()["tp"] == 2
+    assert run(stream_text(tp, "hello tp")) == run(stream_text(plain, "hello tp"))
+    with pytest.raises(ValueError, match="only 1 device"):
         provider(setup, **kw)
+    with pytest.raises(ValueError, match="divisible"):
+        provider(setup, tp_devices=3, devices=["cpu"] * 3)
 
 
 # ----------------------------------------------------------------------

@@ -398,8 +398,8 @@ def test_snapshot_config_mismatch_falls_through(tmp_path):
 
 
 @pytest.mark.parametrize("env, error, what", [
-    # not ported yet: a row-sharded index
-    ({"MESH_DATA_AXIS": "2"}, NotImplementedError, "Queue 1 #7"),
+    # a row-sharded index over more devices than are visible (one CPU)
+    ({"MESH_DATA_AXIS": "2"}, ValueError, "MESH_DATA_AXIS=2 asks for more devices"),
     # a configured checkpoint that does not load fails fast, naming its path
     ({"RERANKER_WEIGHTS_PATH": "/nonexistent"}, RuntimeError,
      "RERANKER_WEIGHTS_PATH .* from '/nonexistent'"),
@@ -412,6 +412,17 @@ def test_unported_settings_raise_instead_of_serving_something_else(env, error, w
     settings = load_settings({**BASE_ENV, **env})
     with pytest.raises(error, match=what):
         build_app(settings, device="cpu", meta=SqliteMetaStore(":memory:"), start_workers=False)
+
+
+def test_mesh_axis_of_two_shards_the_index():
+    """MESH_DATA_AXIS=2 is served: over two CPU entries the index is
+    row-sharded, the snapshot restore keeps the mesh."""
+    settings = load_settings({**BASE_ENV, "MESH_DATA_AXIS": "2"})
+    app = build_app(settings, device="cpu", devices=["cpu", "cpu"],
+                    meta=SqliteMetaStore(":memory:"), start_workers=False)
+    index = app.state["index"]
+    assert index.mesh is not None and index.mesh.size == 2
+    assert index.device == torch.device("cpu")
 
 
 def test_mesh_axis_of_one_is_one_device():
