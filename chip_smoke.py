@@ -362,6 +362,33 @@ printing one JSON line; any failure raises and the exit code is non-zero:
            remat and without for the two encoders, and the model FLOPs a
            step (6 x non-embedding parameters x tokens, plus attention) with
            their share of the card's f32 peak.
+19. hostmem the int8r host-residual tier at the JAX package's 10M-row rung
+           and bge-m3's width: 10,000,000 seeded unit rows of 1,024, drawn on
+           the card in 40 segments of 250,000 (a generator each, so the oracle
+           draws them again) and quantized to int8r. q1, the scales and a 1%
+           tombstone penalty stay on the card (10 GB); q2 goes (a) into a
+           second 10 GB tensor on the card and (b) through
+           ``make_host_append`` (the ``host_scatter_rows`` kernel) into a
+           10 GB page-locked plane made by ``to_pinned_host``, which must be
+           byte-equal to (a). MemTotal of the host is printed. At B = 32 and
+           128, K = 12, ``rescore_m`` = 64: ``int8_topk`` with the pinned q2
+           (its rows gathered by ``host_gather_rows``) bit-equal to
+           ``int8_topk`` with the q2 on the card; the host tier
+           (``int8_topk_candidates`` on the card, ``host_residual_topk`` on
+           the pinned plane's numpy view) within 1e-6 and on the same rows
+           wherever no neighbour is as close; recall@12 >= 0.99 against an
+           exact fp32 top-12 (each segment drawn again, TF32 off, merged
+           stably). Each kernel byte-equal to its twin, with indices out of
+           range (a zero row; a dropped write). Times: the PCIe rates of a
+           256 MiB pinned ``copy_`` each way, the gather at B = 32, M = 64
+           (2 MiB) against its bound (those bytes over PCIe Gen5 x16, 64 GB/s;
+           also over the copy's H2D rate), its
+           twin and ``plane[idx.cpu()].to(card)``, over a ring of index sets
+           (128 MiB of rows, past the L2); the gather on a 1,250,000-row
+           prefix of the plane and on all of it at the same bytes (the
+           plane-size ratio); the append of a 250,000-row segment and of
+           4,096 rows; queries a second at B = 32 with q2 on the card, q2
+           pinned and the host tier.
 
 The last lines are the kernel summary (each kernel's time beside its bound:
 the larger of its bytes over 3.35 TB/s and its operations over the card's
@@ -4370,6 +4397,257 @@ def mesh_phase(torch, dev, seed: int, handover: dict) -> dict:
     return out
 
 
+# --- hostmem: the int8r host-residual tier at 10M rows ------------------------
+
+# the JAX package's 10M-row rung at bge-m3's width, built in segments that are
+# drawn again for the oracle; the prefix of the plane-size ratio (1/8 of it)
+HOST_ROWS, HOST_SEG, HOST_PREFIX = 10_000_000, 250_000, 1_250_000
+HOST_M, HOST_B = 64, (32, 128)  # rescore_m; query batches
+HOST_COPY_BYTES = 256 << 20  # the pinned copy_ that gives the PCIe rates
+HOST_RING = 64  # index sets the timed gathers walk (128 MiB of rows: past the L2)
+HOST_BLOCK = 4096  # rows of one append timed alone (an ingest block)
+# the card's host link, published: PCIe Gen5 x16, bytes/s each way (a 256 MiB
+# pinned copy_ reads less, and the append's writes beat that copy's rate)
+PCIE_RATE = 64e9
+
+
+def host_segment(torch, dev, seed: int, s: int):
+    """Segment ``s`` of the seeded corpus: unit rows (f32, on the card) from a
+    generator of its own, so the oracle draws the same rows again."""
+    g = torch.Generator(device=dev).manual_seed(seed * 1_000_003 + 500 + s)
+    rows = min(HOST_SEG, HOST_ROWS - s * HOST_SEG)
+    return torch.nn.functional.normalize(torch.randn((rows, DIM), generator=g, device=dev), dim=1)
+
+
+def host_oracle(torch, dev, seed: int, queries, penalty):
+    """The exact fp32 top-``TOP_K`` over every segment drawn again: each
+    segment's scores (TF32 off) with the penalty, sorted stably, merged with
+    the running list, lower rows first among ties."""
+    best_v = torch.full((queries.shape[0], TOP_K), -math.inf, device=dev)
+    best_i = torch.zeros((queries.shape[0], TOP_K), dtype=torch.long, device=dev)
+    for s in range(-(-HOST_ROWS // HOST_SEG)):
+        lo = s * HOST_SEG
+        x = host_segment(torch, dev, seed, s)
+        scores = queries @ x.T + penalty[lo:lo + x.shape[0]][None, :]
+        v, i = torch.sort(scores, dim=1, descending=True, stable=True)
+        cat_v = torch.cat([best_v, v[:, :TOP_K]], dim=1)
+        cat_i = torch.cat([best_i, i[:, :TOP_K] + lo], dim=1)
+        order = torch.sort(cat_v, dim=1, descending=True, stable=True).indices[:, :TOP_K]
+        best_v, best_i = torch.gather(cat_v, 1, order), torch.gather(cat_i, 1, order)
+        del x, scores, v, i
+    return best_v, best_i
+
+
+def recall_at_k(got, want) -> float:
+    """Mean share of each query's reference rows found in its list."""
+    hits = [len(set(a) & set(b)) / len(b) for a, b in zip(got.tolist(), want.tolist())]
+    return sum(hits) / len(hits)
+
+
+def mem_total() -> str:
+    with open("/proc/meminfo") as f:
+        return next(line for line in f if line.startswith("MemTotal")).split(":", 1)[1].strip()
+
+
+def hostmem_phase(torch, dev, seed: int) -> dict:
+    """The int8r index at the JAX package's 10M-row rung with its q2 plane in
+    page-locked host memory (``ops/hostmem.py``), its rows gathered by the
+    card over PCIe (``host_gather_rows``)."""
+    import itertools
+
+    import numpy as np
+
+    from outline_rag_tpu_torch.ops.hostmem import (
+        gather_rows_plain,
+        host_gather_rows,
+        host_scatter_rows,
+        make_host_append,
+        scatter_rows_plain,
+        to_pinned_host,
+    )
+    from outline_rag_tpu_torch.ops.hostres import host_residual_topk
+    from outline_rag_tpu_torch.ops.quant import (
+        int8_topk,
+        int8_topk_candidates,
+        quantize_rows_int8,
+        quantize_rows_int8_residual,
+    )
+    from outline_rag_tpu_torch.ops.topk import NEG
+    from outline_rag_tpu_torch.testing import tie_aware_mismatches
+    from outline_rag_tpu_torch.tools.timing import card
+
+    t_phase = time.perf_counter()
+    n, segs = HOST_ROWS, -(-HOST_ROWS // HOST_SEG)
+    out = {"card": card(), "rows": n, "dim": DIM, "segment_rows": HOST_SEG, "segments": segs,
+           "mem_total": mem_total(), "k": TOP_K, "rescore_m": HOST_M}
+    emit("hostmem_start", **out)
+    pin = None if dev.type == "cuda" else "cpu"  # the card's placement, or a CPU rehearsal's
+    host_gather_rows.launches = host_scatter_rows.launches = 0
+
+    # build: q1, the scales and the penalty on the card; q2 on the card (a)
+    # and, through the append, in a page-locked plane (b)
+    t0 = time.perf_counter()
+    plane = to_pinned_host(np.zeros((n, DIM), np.int8), pin)
+    out["pin_s"] = time.perf_counter() - t0
+    require(plane.is_pinned() or pin == "cpu", "the q2 plane is page-locked")
+    emit("hostmem_pinned", pin_s=out["pin_s"], bytes=plane.numel())
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)  # device_gb: this phase's own peak
+    q1 = torch.empty((n, DIM), dtype=torch.int8, device=dev)
+    q2 = torch.empty_like(q1)
+    scale = torch.empty(n, device=dev)
+    append = make_host_append()
+    t0 = time.perf_counter()
+    for s in range(segs):
+        lo = s * HOST_SEG
+        a, sc, r = quantize_rows_int8_residual(host_segment(torch, dev, seed, s))
+        hi = lo + a.shape[0]
+        q1[lo:hi], scale[lo:hi], q2[lo:hi] = a, sc, r
+        append(plane, r, torch.arange(lo, hi, device=dev, dtype=torch.int32))
+        del a, sc, r
+    torch.cuda.synchronize()
+    out["build_s"] = time.perf_counter() - t0
+    equal = all(torch.equal(plane[lo:lo + HOST_SEG].to(dev), q2[lo:lo + HOST_SEG])
+                for lo in range(0, n, HOST_SEG))
+    require(equal, "the pinned q2 plane is byte-equal to the q2 plane on the card")
+    g = torch.Generator(device=dev).manual_seed(seed + 31)
+    penalty = torch.where(torch.rand(n, generator=g, device=dev) < 0.01, NEG, 0.0).float()
+    queries = torch.nn.functional.normalize(
+        torch.randn((max(HOST_B), DIM), generator=g, device=dev), dim=1)
+    qq, qs = quantize_rows_int8(queries)
+    out.update(pinned_equal_device=equal, live_rows=int((penalty == 0).sum()),
+               device_gb=torch.cuda.max_memory_allocated(dev) / 1e9 if dev.type == "cuda" else None)
+    emit("hostmem_build", pin_s=out["pin_s"], build_s=out["build_s"],
+         pinned_equal_device=equal, device_gb=out["device_gb"])
+
+    def host_tier(b):
+        sc, ci, cs = int8_topk_candidates(qq[:b], qs[:b], q1, scale, HOST_M, queries[:b], penalty)
+        return host_residual_topk(sc.cpu().numpy(), ci.cpu().numpy(), cs.cpu().numpy(),
+                                  queries[:b].cpu().numpy(), plane.numpy(), TOP_K)
+
+    def ranked(b, residual):
+        return int8_topk(qq[:b], qs[:b], q1, scale, TOP_K, penalty, rescore_queries=queries[:b],
+                         rescore_m=HOST_M, rescore_residual=residual)
+
+    # the checks: pinned q2 == device q2 bit for bit; the host tier; recall
+    t0 = time.perf_counter()
+    _, oracle_i = host_oracle(torch, dev, seed, queries, penalty)
+    out["oracle_s"] = time.perf_counter() - t0
+    checks = {}
+    for b in HOST_B:
+        dv, di = ranked(b, q2)
+        hv, hi = ranked(b, plane)
+        torch.cuda.synchronize()
+        bit_equal = bool(torch.equal(hi, di) and torch.equal(hv, dv))
+        require(bit_equal, f"B={b}: int8_topk with pinned q2 bit-equal to device q2")
+        tv, ti = host_tier(b)
+        tier_bad = tie_aware_mismatches(torch.from_numpy(tv), torch.from_numpy(ti), dv.cpu(),
+                                        di.cpu(), VALUE_TOL)
+        tier_err = float(np.abs(tv - dv.cpu().numpy()).max())
+        require(tier_bad == 0 and tier_err <= VALUE_TOL,
+                f"B={b}: the host tier's rows equal the device rescore's (values within "
+                f"{VALUE_TOL}, rows where no neighbour is as close): {tier_bad} slots, {tier_err}")
+        recall = recall_at_k(hi.cpu(), oracle_i[:b].cpu())
+        require(recall >= RECALL_MIN, f"B={b}: recall@{TOP_K} {recall} >= {RECALL_MIN}")
+        checks[b] = {"bit_equal": bit_equal, "host_tier_idx_equal": bool(np.array_equal(ti, di.cpu().numpy())),
+                     "host_tier_mismatches": tier_bad, "host_tier_max_abs_err": tier_err,
+                     f"recall_at_{TOP_K}": recall}
+        emit("hostmem_check", B=b, **checks[b])
+    out["checks"] = checks
+    launches = {"host_gather_rows": host_gather_rows.launches,
+                "host_scatter_rows": host_scatter_rows.launches}
+    require(launches["host_gather_rows"] > 0 and launches["host_scatter_rows"] > 0,
+            f"the phase ran both host kernels: {launches}")
+    out["launches"] = launches
+
+    # each kernel against its twin, out-of-range indices included
+    idx = torch.randint(0, n, (32, HOST_M), generator=g, device=dev, dtype=torch.int32)
+    idx[0, :4] = torch.tensor([-1, n, n + 12345, -(2**31)], device=dev, dtype=torch.int32)
+    idx[1, :2] = torch.tensor([0, n - 1], device=dev, dtype=torch.int32)
+    got, want = host_gather_rows(plane, idx), gather_rows_plain(q2, idx)
+    gather_equal = bool(torch.equal(got, want))
+    gather_err = float((got.int() - want.int()).abs().max())
+    require(gather_equal and not got[0, :4].any(),
+            "host_gather_rows byte-equal to its twin, zero rows for indices out of range")
+    small = to_pinned_host(torch.randint(-127, 128, (65_536, DIM), generator=g, device=dev,
+                                         dtype=torch.int8), pin)
+    small_on_card = small.to(dev)
+    rows = torch.randint(-127, 128, (HOST_BLOCK, DIM), generator=g, device=dev, dtype=torch.int8)
+    at = torch.randperm(65_535, generator=g, device=dev)[:HOST_BLOCK].to(torch.int32)
+    at[:3] = torch.tensor([-1, 65_536, 70_000], device=dev, dtype=torch.int32)
+    at[3] = 65_535
+    host_scatter_rows(small, rows, at)
+    torch.cuda.synchronize()
+    written, want = small.to(dev), scatter_rows_plain(small_on_card, rows, at)
+    scatter_equal = bool(torch.equal(written, want))
+    scatter_err = float((written.int() - want.int()).abs().max())
+    require(scatter_equal, "host_scatter_rows byte-equal to its twin, rows out of range dropped")
+    del small, small_on_card
+    out["kernels_vs_twins"] = {"gather_equal": gather_equal, "gather_max_abs_err": gather_err,
+                               "scatter_equal": scatter_equal, "scatter_max_abs_err": scatter_err}
+
+    # times: the PCIe rates of a pinned copy_, each kernel, its twin, the yardstick
+    src = torch.empty(HOST_COPY_BYTES, dtype=torch.uint8, pin_memory=pin is None)
+    dst = torch.empty(HOST_COPY_BYTES, dtype=torch.uint8, device=dev)
+    h2d_ms = cuda_ms(torch, lambda: dst.copy_(src, non_blocking=True))
+    d2h_ms = cuda_ms(torch, lambda: src.copy_(dst, non_blocking=True))
+    del src, dst
+    rates = {"h2d_gbs": HOST_COPY_BYTES / h2d_ms / 1e6, "d2h_gbs": HOST_COPY_BYTES / d2h_ms / 1e6,
+             "h2d_ms": h2d_ms, "d2h_ms": d2h_ms, "copy_bytes": HOST_COPY_BYTES}
+    gathered = 32 * HOST_M * DIM
+
+    def ring_of(rows_max):
+        return itertools.cycle([torch.randint(0, rows_max, (32, HOST_M), generator=g, device=dev,
+                                              dtype=torch.int32) for _ in range(HOST_RING)])
+
+    whole, part = ring_of(n), ring_of(HOST_PREFIX)
+    prefix = plane[:HOST_PREFIX]
+    gather = both_ms(torch, lambda: host_gather_rows(plane, next(whole)))
+    prefix_ms = cuda_ms_many(torch, lambda: host_gather_rows(prefix, next(part)))["device_ms"]
+    whole_ms = cuda_ms_many(torch, lambda: host_gather_rows(plane, next(whole)))["device_ms"]
+    idx_cpu = idx.clamp(0, n - 1).cpu()
+    gather.update(
+        shape={"B": 32, "M": HOST_M, "D": DIM, "bytes": gathered},
+        plain_ms=cuda_ms(torch, lambda: gather_rows_plain(plane, idx_cpu)),
+        plain_on_card_device_ms=cuda_ms_many(torch, lambda: gather_rows_plain(q2, next(whole)))["device_ms"],
+        library_ms=cuda_ms(torch, lambda: plane[next(whole).cpu().long()].to(dev, non_blocking=True)),
+        bound_ms=1e3 * gathered / PCIE_RATE, bound_by="bytes",
+        copy_bound_ms=1e3 * gathered / (rates["h2d_gbs"] * 1e9),
+        prefix_rows=HOST_PREFIX, prefix_device_ms=prefix_ms, whole_device_ms=whole_ms,
+        plane_size_ratio=whole_ms / prefix_ms, gbs=gathered / gather["device_ms"] / 1e6)
+    seg_rows, seg_idx = q2[:HOST_SEG], torch.arange(HOST_SEG, device=dev, dtype=torch.int32)
+    seg_rows_cpu, seg_idx_cpu = seg_rows.cpu(), seg_idx.cpu()
+    blocks = itertools.cycle([(q2[lo:lo + HOST_BLOCK], torch.arange(
+        lo, lo + HOST_BLOCK, device=dev, dtype=torch.int32)) for lo in range(0, 64 * HOST_BLOCK, HOST_BLOCK)])
+    block = both_ms(torch, lambda: host_scatter_rows(plane, *next(blocks)))
+    scatter = {  # each write puts back the bytes the plane holds
+        "shape": {"rows": HOST_SEG, "D": DIM, "bytes": HOST_SEG * DIM},
+        "ms": cuda_ms(torch, lambda: host_scatter_rows(plane, seg_rows, seg_idx)),
+        "plain_ms": cuda_ms(torch, lambda: scatter_rows_plain(plane, seg_rows_cpu, seg_idx_cpu), runs=3),
+        # the timed rows are one run, so one pinned copy_ of the slice writes the same
+        "library_ms": cuda_ms(torch, lambda: plane[:HOST_SEG].copy_(seg_rows, non_blocking=True)),
+        "bound_ms": 1e3 * HOST_SEG * DIM / PCIE_RATE, "bound_by": "bytes",
+        "copy_bound_ms": 1e3 * HOST_SEG * DIM / (rates["d2h_gbs"] * 1e9),
+        "block": {"rows": HOST_BLOCK, **block, "bound_ms": 1e3 * HOST_BLOCK * DIM / PCIE_RATE}}
+    scatter["gbs"] = HOST_SEG * DIM / scatter["ms"] / 1e6
+    require(all(torch.equal(plane[lo:lo + HOST_SEG].to(dev), q2[lo:lo + HOST_SEG])
+                for lo in range(0, n, HOST_SEG)), "the timed appends left the plane as it was")
+
+    # queries a second through the three routes, B = 32
+    qps = {}
+    for route, fn in (("device_q2", lambda: ranked(32, q2)), ("pinned_q2", lambda: ranked(32, plane)),
+                      ("host_tier", lambda: host_tier(32))):
+        ms = cuda_ms(torch, fn)
+        qps[route] = {"ms": ms, "qps": 32e3 / ms}
+    qps["pinned_over_device"] = qps["pinned_q2"]["ms"] / qps["device_q2"]["ms"]
+    out.update(rates=rates, gather=gather, scatter=scatter, qps_b32=qps)
+    del plane, q1, q2, scale
+    out["seconds"] = time.perf_counter() - t_phase
+    emit("hostmem", card=out["card"], seconds=out["seconds"], launches=launches, rates=rates,
+         gather=gather, scatter=scatter, qps_b32=qps, oracle_s=out["oracle_s"])
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4436,6 +4714,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_phase(torch, dev, args.seed)
     torch.cuda.empty_cache()
+    host = hostmem_phase(torch, dev, args.seed)
+    torch.cuda.empty_cache()
 
     # ms / plain_ms / bound_ms: topk_* at B = 32, K = 64 (topk_int8's B = 128
     # and K = 12 beside them, its shared headers under "headers"; topk_float in the
@@ -4463,6 +4743,15 @@ def main() -> int:
     # not a scaling number); launches_http and launches_checkpoint (topk_int8,
     # paged_attention, paged_kv_write): the counts over the http phase's burst
     # of asks and over the checkpoint phase's asks to the entry point.
+    # host_gather_rows at B = 32, M = 64 over the 10M-row q2 plane in host
+    # memory, host_scatter_rows at a 250,000-row segment of its build (and an
+    # ingest block of 4,096 rows): bound_ms is their bytes over the published
+    # PCIe Gen5 x16 rate (64 GB/s each way), copy_bound_ms over the rate a 256 MiB
+    # pinned copy_ showed in this run; library_ms of the gather is
+    # plane[idx.cpu()].to(card), a CPU gather and a copy, and of the scatter
+    # the pinned copy_ of the same rows into the plane's slice (the timed
+    # indices are one run of rows); launches over the hostmem phase's build
+    # and queries.
     print(json.dumps({"kernels": [{
         "name": "topk_int8", "route": "cuda",
         "source": "outline_rag_tpu_torch/csrc/topk_int8.cu",
@@ -4600,6 +4889,27 @@ def main() -> int:
         "bound_ms": floats["f32x2"]["floor"]["bound_ms"],
         "bound_by": floats["f32x2"]["floor"]["bound_by"], "library_ms": None,
         "modes": {mode: m["floor"] for mode, m in floats.items()},
+    }, {
+        "name": "host_gather_rows", "route": "cuda",
+        "source": "outline_rag_tpu_torch/csrc/hostmem.cu",
+        "replaces": "outline_rag_tpu/ops/hostmem.py:72",
+        "launches": host["launches"]["host_gather_rows"],
+        "max_abs_err": host["kernels_vs_twins"]["gather_max_abs_err"],
+        **{key: host["gather"][key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms", "copy_bound_ms",
+            "plain_on_card_device_ms", "prefix_device_ms", "whole_device_ms", "plane_size_ratio",
+            "gbs", "shape")},
+        "h2d_gbs": host["rates"]["h2d_gbs"],
+    }, {
+        "name": "host_scatter_rows", "route": "cuda",
+        "source": "outline_rag_tpu_torch/csrc/hostmem.cu",
+        "replaces": "outline_rag_tpu/ops/hostmem.py:101",
+        "launches": host["launches"]["host_scatter_rows"],
+        "max_abs_err": host["kernels_vs_twins"]["scatter_max_abs_err"],
+        **{key: host["scatter"][key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "copy_bound_ms", "gbs",
+            "shape", "block")},
+        "d2h_gbs": host["rates"]["d2h_gbs"],
     }]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

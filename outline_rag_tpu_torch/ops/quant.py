@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from outline_rag_tpu_torch.ops.hostmem import gather_rows
 from outline_rag_tpu_torch.ops.topk import NEG, topk_int8
 
 
@@ -64,7 +65,7 @@ def _rescore_exact(
     corpus: torch.Tensor,  # [N, D] int8 (the q1 plane)
     c_scale: torch.Tensor,  # [N] f32
     penalty: torch.Tensor | None,  # [N] f32
-    residual: torch.Tensor | None,  # [N, D] int8 (the q2 plane)
+    residual: torch.Tensor | None,  # [N, D] int8 (the q2 plane), device or host
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The exact f32 scores of the scan's candidates, shared by the device
     rescore and the host tier: ``(scores [B, M], rows [B, M] ascending,
@@ -73,6 +74,9 @@ def _rescore_exact(
     Candidates are put in ascending row order first, so a stable sort of
     the scores keeps the lowest-row-wins tie rule. Rows dequantize from q1
     (plus q2 when ``residual`` is given) and score with the penalty added.
+    The q2 rows come through ``ops/hostmem.py::gather_rows``: a q2 plane in
+    page-locked host memory is read by row over PCIe and ranks bit for bit
+    as the same plane on the card.
     A candidate the scan marked dead (value <= NEG/2, the ``(NEG, 0)``
     slots of an index with fewer live rows than M) scores NEG whatever its
     row: the JAX package rescored those slots as row 0 and could return
@@ -83,7 +87,7 @@ def _rescore_exact(
     taken_scale = c_scale[idx_c]  # [B, M]
     rows = corpus[idx_c].float() * taken_scale[..., None]
     if residual is not None:
-        rows = rows + residual[idx_c].float() * (taken_scale[..., None] / 254.0)
+        rows = rows + gather_rows(residual, idx_c).float() * (taken_scale[..., None] / 254.0)
     scores = rescore_fp32(queries.float(), rows)
     if penalty is not None:
         scores = scores + penalty[idx_c]
@@ -141,13 +145,14 @@ def int8_topk(
     penalty: torch.Tensor | None = None,
     rescore_queries: torch.Tensor | None = None,  # [B, D] f32
     rescore_m: int = 64,
-    rescore_residual: torch.Tensor | None = None,  # [N, D] int8
+    rescore_residual: torch.Tensor | None = None,  # [N, D] int8, device or host
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Quantized top-K through the int8 scan (:func:`topk_int8`).
 
     With ``rescore_queries`` the scan keeps ``max(k, rescore_m)``
     candidates, which :func:`rescore_candidates` re-ranks exactly in fp32
-    (from q1, or q1 + q2 with ``rescore_residual``)."""
+    (from q1, or q1 + q2 with ``rescore_residual``, which may lie on the
+    card or in page-locked host memory, ``ops/hostmem.py::to_pinned_host``)."""
     n = corpus.shape[0]
     if rescore_queries is None:
         return topk_int8(q_queries, q_scale, corpus, c_scale, min(k, n), penalty)

@@ -5,15 +5,16 @@
 
 Run it on a machine with one CUDA card and ``nvcc`` (all kernels, or those
 named among ``paged_attention``, ``int8_linear``, ``int4``,
-``flash_attention``, ``topk_float``, ``topk_int8``). It copies
+``flash_attention``, ``topk_float``, ``topk_int8``, ``hostmem``). It copies
 ``csrc/flash_attention.cu``, ``csrc/paged_attention.cu``,
-``csrc/int8_linear.cu``, ``csrc/int4_linear.cu``, ``csrc/topk_float.cu`` and
-``csrc/topk_int8.cu`` (with their headers) into a temporary
+``csrc/int8_linear.cu``, ``csrc/int4_linear.cu``, ``csrc/topk_float.cu``,
+``csrc/topk_int8.cu`` (with their headers) and ``csrc/hostmem.cu`` into a temporary
 directory, applies one fault at a time to the copy (a skipped key tile, a
 missing rescale, an unswizzled tile, a horizon off by one, a dropped scale,
 splits folded out of order, a ring slot read before it landed, swapped
 nibbles, a missing sign extension, a group combined out of order, a dropped
-k-step or compensation term, a missing penalty, scales in another order, ...),
+k-step or compensation term, a missing penalty, scales in another order, a
+host row offset cut to 32 bits, a dropped row tail, ...),
 builds each mutant into a library of its own, runs it through the package's
 wrapper at the model's shapes, and prints whether the comparison
 ``chip_smoke.py`` and the card tests use would have passed it. The sources
@@ -39,6 +40,7 @@ from pathlib import Path
 import torch
 
 import outline_rag_tpu_torch.ops.attention as attention_module
+import outline_rag_tpu_torch.ops.hostmem as hostmem_module
 import outline_rag_tpu_torch.ops.int4_linear as int4_linear_module
 import outline_rag_tpu_torch.ops.int8_linear as int8_linear_module
 import outline_rag_tpu_torch.ops.paged_attention as paged_module
@@ -795,9 +797,72 @@ def topk_int8_mutants(tmp: Path, dev, g) -> int:
     return unexpected
 
 
+_GATHER_ROW = "const char* src = i >= 0 && i < N ? plane + i * row_bytes : nullptr;"
+HOSTMEM_MUTANTS = {
+    "as_is": ("", ""),
+    # a row offset that wraps at 4 GiB reads another row of a larger plane
+    "row_offset_in_32_bits": (_GATHER_ROW, _GATHER_ROW.replace(
+        "plane + i * row_bytes", "plane + (unsigned)(i * row_bytes)")),
+    "tail_dropped": ("for (long long i = words * 16 + lane; i < bytes; i += 32)",
+                     "for (long long i = bytes + lane; i < bytes; i += 32)"),
+    "out_of_range_reads_row_0": (_GATHER_ROW, _GATHER_ROW.replace(": nullptr;", ": plane;")),
+    "unroll_step_skips_words": ("for (long long w0 = 0; w0 < words; w0 += 32 * UNROLL) {",
+                                "for (long long w0 = 0; w0 < words; w0 += 32 * UNROLL + 32) {"),
+}
+# the plane of the 32-bit mutant: rows past 4 GiB, and never past 8 GiB, so a
+# wrapped offset still lands inside the plane (a read outside it would fault)
+HOSTMEM_BIG_ROWS, HOSTMEM_BIG_D = 4_400_000, 1024
+
+
+def hostmem_mutants(tmp: Path, dev, g) -> int:
+    """Every host-gather mutant through ``host_gather_rows``, held byte-equal
+    to ``gather_rows_plain`` as ``chip_smoke.py`` and the card tests hold it,
+    out-of-range indices included (a zero row). Cases, each at B = 32, M =
+    64: a page-locked int8 plane of 4,400,000 x 1024 (4.5 GB: rows past
+    4 GiB), a 4,096 x 100 int8 plane (rows not 16-byte aligned, and a tail
+    of 4 bytes past 6 words) and a 4,096 x 1024 f32 plane (4 KB rows: more
+    words than one unrolled step of a warp). Before each launch the block the
+    output will take is filled with a pattern, so a row the kernel leaves
+    unwritten cannot hold the last run's answer. Every mutant must fail."""
+    m = hostmem_module
+    cases = []
+    for n, d, dtype in [(HOSTMEM_BIG_ROWS, HOSTMEM_BIG_D, torch.int8), (4096, 100, torch.int8),
+                        (4096, 1024, torch.float32)]:
+        plane = torch.empty((n, d), dtype=dtype, pin_memory=True)
+        for s in range(0, n, 1 << 19):  # filled on the card, a slab at a time
+            e = min(n, s + (1 << 19))
+            plane[s:e].copy_(torch.randint(-127, 128, (e - s, d), generator=g, device=dev).to(dtype))
+        idx = torch.randint(0, n, (32, 64), generator=g, device=dev, dtype=torch.int32)
+        idx[0, :4] = torch.tensor([-1, n, n + 12345, -(2**31)], device=dev, dtype=torch.int32)
+        idx[1, :4] = torch.tensor([0, n - 1, n - 2, 1], device=dev, dtype=torch.int32)
+        cases.append((plane, idx, m.gather_rows_plain(plane, idx.cpu())))
+    real = m._launcher("gather")
+    unexpected = 0
+    for name, (old, new) in HOSTMEM_MUTANTS.items():
+        fn = build_mutant(tmp, _build.CSRC_DIR / "hostmem.cu", f"hostmem_{name}", old, new,
+                          "host_gather_rows_launch")
+        fn.argtypes, fn.restype = real.argtypes, real.restype
+        m._launch_fns["gather"] = fn
+        caught = False
+        for plane, idx, plain in cases:
+            # the freed block the wrapper's output takes next holds no earlier result
+            torch.empty((*idx.shape, plane.shape[1]), dtype=plane.dtype,
+                        device=dev).view(torch.uint8).fill_(0xA5)
+            out = m.host_gather_rows(plane, idx).cpu()
+            ok = bool(torch.equal(out, plain))
+            caught |= not ok
+            print(f"hostmem         {name:26s} N={plane.shape[0]:7d} D={plane.shape[1]:4d} "
+                  f"{str(plane.dtype)[6:]:8s} passes={ok} rows_that_differ="
+                  f"{int((out != plain).flatten(2).any(2).sum())}", flush=True)
+        unexpected += caught != (name != "as_is")
+    m._launch_fns["gather"] = real
+    return unexpected
+
+
 KERNELS = {"paged_attention": paged_mutants, "int8_linear": linear_mutants,
            "int4": int4_mutants, "flash_attention": flash_mutants,
-           "topk_float": topk_mutants, "topk_int8": topk_int8_mutants}
+           "topk_float": topk_mutants, "topk_int8": topk_int8_mutants,
+           "hostmem": hostmem_mutants}
 
 
 def main(argv: list[str]) -> int:

@@ -17,6 +17,8 @@ eight CPU devices)."""
 
 import asyncio
 import json
+import shutil
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -227,3 +229,37 @@ def test_carried_encoder_and_reranker_fused_app_matches_jax(tiny_models):
     rows = retrieval.retrieve_batch(ASKS)
     _gaps_ok([[c.rerank_score for c in row] for row in rows])
     _assert_same(want, got)
+
+
+@pytest.mark.parametrize("name", ["script.min.js", "style.min.css"])
+def test_minified_bundle_is_served_as_the_jax_app_serves_it(name, tmp_path):
+    """Both apps serve their whole static directory: the port's answers the
+    minified bundle with 200 and the bytes the JAX app answers with. The JAX
+    package's bundle is a git-ignored output of ``tools/build_assets.py``;
+    where it was not built, the JAX app's static mount is pointed at a copy
+    of its static directory with the bundle built from its sources."""
+    from tests.test_torch_copies import JAX, built_bundle
+
+    static = JAX / "serve" / "static"
+    japp = jax_build_app(jax_load_settings(ENV), provider=JaxFake(), meta=JaxStore(":memory:"),
+                         outline_transport=_wiki().transport(), start_workers=False,
+                         embedder=JaxHashEmbedder(dim=128))
+    papp = build_app(load_settings(ENV), device="cpu", provider=FakeChatProvider(),
+                     meta=SqliteMetaStore(":memory:"), outline_transport=_wiki().transport(),
+                     start_workers=False, embedder=HashEmbedder(dim=128))
+    if not (static / name).exists():
+        served = tmp_path / "static"
+        shutil.copytree(static, served)
+        built_bundle(served)
+        japp.static_mounts = [(prefix, str(served) if Path(d) == static else d)
+                              for prefix, d in japp.static_mounts]
+
+    async def fetch(client, app):
+        response = await client.get(f"/chat/static/{name}")
+        await app.shutdown()
+        return response
+
+    want = asyncio.run(fetch(JaxClient(japp), japp))
+    got = asyncio.run(fetch(TestClient(papp), papp))
+    assert want.status == 200 and got.status == 200
+    assert got.body == want.body and len(got.body) > 1000

@@ -3,7 +3,11 @@ modules (ROADMAP.md's ground rules): this file holds each copy to its
 original, so the two packages cannot drift apart unseen.
 
 - A copied module's text equals the JAX module's once ``outline_rag_tpu``
-  is renamed ``outline_rag_tpu_torch``; a static asset is byte-equal.
+  is renamed ``outline_rag_tpu_torch``; a static asset is byte-equal. The
+  minified bundle (``script.min.js``, ``style.min.css``) is a git-ignored
+  build output of ``tools/build_assets.py`` in the JAX package and a
+  committed file in the port: the port's is byte-equal to a build from the
+  JAX sources, and to the JAX package's own file where one was built.
 - An adapted copy differs only by the lines listed for it here.
 - No file of the port, and not ``chip_smoke.py``, names a path into the
   JAX package's directory (a file read from there would tie the port to
@@ -14,8 +18,12 @@ original, so the two packages cannot drift apart unseen.
   sources read no files."""
 
 import ast
+import contextlib
 import difflib
+import importlib.util
+import io
 import re
+import shutil
 from pathlib import Path
 
 import pytest
@@ -47,7 +55,25 @@ COPIES = [
     "serve/http.py",
     "serve/chat.py",
 ]
-STATIC = ["index.html", "app.js", "tex.js", "style.css", "favicon.svg"]
+STATIC = ["index.html", "app.js", "tex.js", "style.css", "favicon.svg", "script.min.js",
+          "style.min.css"]
+MINIFIED = ("script.min.js", "style.min.css")
+
+
+def built_bundle(directory: Path) -> dict[str, bytes]:
+    """The JAX package's minified bundle as ``tools/build_assets.py`` builds
+    it from the JAX sources, built in ``directory`` (the tool's module is
+    loaded afresh and pointed there: nothing is written into the package)."""
+    spec = importlib.util.spec_from_file_location("build_assets_copy",
+                                                  ROOT / "tools" / "build_assets.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    for name in (*tool.JS_BUNDLE, "style.css"):
+        shutil.copy(JAX / "serve" / "static" / name, directory / name)
+    tool.STATIC = str(directory)
+    with contextlib.redirect_stdout(io.StringIO()):
+        tool.main()
+    return {name: (directory / name).read_bytes() for name in MINIFIED}
 
 # adapted copies: (lines only the JAX module has, lines only the port's has),
 # stripped, blank lines left out
@@ -111,9 +137,13 @@ def _renamed(rel: str) -> str:
 @pytest.mark.parametrize(
     "rel", COPIES + sorted(ADAPTED) + [f"serve/static/{name}" for name in STATIC]
 )
-def test_copy_matches_the_jax_module(rel):
+def test_copy_matches_the_jax_module(rel, tmp_path):
+    name = rel.removeprefix("serve/static/")
+    if name in MINIFIED:
+        assert (PORT / rel).read_bytes() == built_bundle(tmp_path)[name]
     if rel.startswith("serve/static/"):
-        assert (PORT / rel).read_bytes() == (JAX / rel).read_bytes()
+        if name not in MINIFIED or (JAX / rel).exists():
+            assert (PORT / rel).read_bytes() == (JAX / rel).read_bytes()
         return
     port = (PORT / rel).read_text()
     if rel not in ADAPTED:

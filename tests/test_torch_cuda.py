@@ -48,7 +48,7 @@ def test_kernel_library_builds(cuda):
                  "paged_attention_launch", "paged_kv_write_launch", "int8_linear_launch",
                  "int4_quant_rows_launch", "int4_w4a8_launch", "int4_w4a16_launch",
                  "int4_stream_floor_launch",
-                 "topk_floor_launch"):
+                 "topk_floor_launch", "host_gather_rows_launch", "host_scatter_rows_launch"):
         assert getattr(lib, name) is not None
 
 
@@ -1384,3 +1384,109 @@ def test_paged_attention_sharded_equals_the_head_slices(cuda, kv):
     for whole_pool, pieces in zip((pk, pv, ks, vs), shards):
         if pieces is not None:
             assert torch.equal(torch.cat(pieces, dim=1), whole_pool)
+
+
+def _host_plane(dev, g, n, d, dtype):
+    """A page-locked [n, d] plane of seeded values, and its copy on the card."""
+    from outline_rag_tpu_torch.ops.hostmem import to_pinned_host
+
+    on_card = torch.randint(-127, 128, (n, d), generator=g, device=dev).to(dtype)
+    plane = to_pinned_host(on_card)
+    assert plane.is_pinned() and plane.device.type == "cpu"
+    return plane, on_card
+
+
+@pytest.mark.parametrize("n,d,dtype", [(100_003, 1024, torch.int8), (4096, 100, torch.int8),
+                                       (4096, 16, torch.int8), (2048, 1024, torch.float32),
+                                       (3000, 37, torch.bfloat16)])
+def test_host_gather_rows_kernel_byte_equal_to_its_twin(cuda, n, d, dtype):
+    """The kernel reads rows of a page-locked plane over PCIe: byte-equal to
+    the twin on the plane's copy on the card and on the plane itself, a
+    row of zeros for every index out of range (rows of a D that is no
+    multiple of 16 bytes go by bytes)."""
+    from outline_rag_tpu_torch.ops.hostmem import gather_rows, gather_rows_plain, host_gather_rows
+
+    g = torch.Generator(device=cuda).manual_seed(n + d)
+    plane, on_card = _host_plane(cuda, g, n, d, dtype)
+    idx = torch.randint(0, n, (32, 64), generator=g, device=cuda, dtype=torch.int32)
+    idx[0, :5] = torch.tensor([-1, n, n + 99, -(2**31), 2**31 - 1], device=cuda, dtype=torch.int32)
+    idx[1, :2] = torch.tensor([0, n - 1], device=cuda, dtype=torch.int32)
+    before = host_gather_rows.launches
+    got = gather_rows(plane, idx)
+    torch.cuda.synchronize()
+    assert host_gather_rows.launches == before + 1
+    assert got.device == idx.device and got.shape == (32, 64, d) and got.dtype == dtype
+    assert torch.equal(got, gather_rows_plain(on_card, idx))
+    assert torch.equal(got.cpu(), gather_rows_plain(plane, idx.cpu()))
+    assert not got[0, :5].view(torch.uint8).any()
+
+
+@pytest.mark.parametrize("n,d,dtype", [(100_003, 1024, torch.int8), (4096, 100, torch.int8),
+                                       (2048, 1024, torch.float32)])
+def test_host_scatter_rows_kernel_byte_equal_to_its_twin(cuda, n, d, dtype):
+    """The append writes rows through the plane's mapping, in place, and drops
+    the rows whose index is out of range: byte-equal to the twin's write on
+    the plane's copy on the card."""
+    from outline_rag_tpu_torch.ops.hostmem import host_scatter_rows, make_host_append, scatter_rows_plain
+
+    g = torch.Generator(device=cuda).manual_seed(n + d + 1)
+    plane, on_card = _host_plane(cuda, g, n, d, dtype)
+    rows = torch.randint(-127, 128, (600, d), generator=g, device=cuda).to(dtype)
+    idx = torch.randperm(n - 1, generator=g, device=cuda)[:600].to(torch.int32)
+    idx[[0, 7, 300]] = torch.tensor([-1, n, n + 5], device=cuda, dtype=torch.int32)
+    idx[1] = n - 1
+    before = host_scatter_rows.launches
+    out = make_host_append()(plane, rows, idx)
+    torch.cuda.synchronize()
+    assert out is plane and host_scatter_rows.launches == before + 1
+    assert torch.equal(plane.to(cuda), scatter_rows_plain(on_card, rows, idx))
+
+
+def test_int8_topk_pinned_residual_bit_equal_to_device_residual(cuda):
+    """The int8r rescore with q2 in page-locked host memory ranks bit for bit
+    as with q2 on the card: the same bytes, read from another place."""
+    from outline_rag_tpu_torch.ops.hostmem import host_gather_rows, to_pinned_host
+    from outline_rag_tpu_torch.ops.quant import int8_topk, quantize_rows_int8, quantize_rows_int8_residual
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.nn.functional.normalize(torch.randn((200_000, 1024), generator=g, device=cuda), dim=1)
+    q = torch.nn.functional.normalize(torch.randn((33, 1024), generator=g, device=cuda), dim=1)
+    q1, scale, q2 = quantize_rows_int8_residual(x)
+    qq, qs = quantize_rows_int8(q)
+    penalty = torch.where(torch.rand(200_000, generator=g, device=cuda) < 0.01, NEG, 0.0)
+    host = to_pinned_host(q2)
+    before = host_gather_rows.launches
+    for k in (12, 64):
+        args = (qq, qs, q1, scale, k, penalty)
+        dv, di = int8_topk(*args, rescore_queries=q, rescore_residual=q2)
+        hv, hi = int8_topk(*args, rescore_queries=q, rescore_residual=host)
+        assert torch.equal(hi, di) and torch.equal(hv, dv)
+    assert host_gather_rows.launches == before + 2
+
+
+def test_gather_rows_of_a_plane_on_the_card_is_plain_indexing(cuda):
+    """A plane on the card is indexed as it lies, ``plane[idx]`` as the
+    rescore always did, and launches no host kernel."""
+    from outline_rag_tpu_torch.ops.hostmem import gather_rows, host_gather_rows
+
+    g = torch.Generator(device=cuda).manual_seed(17)
+    plane = torch.randint(-127, 128, (5000, 1024), generator=g, device=cuda).to(torch.int8)
+    idx = torch.randint(0, 5000, (32, 64), generator=g, device=cuda, dtype=torch.int32)
+    before = host_gather_rows.launches
+    assert torch.equal(gather_rows(plane, idx), plane[idx])
+    assert host_gather_rows.launches == before
+
+
+def test_pageable_host_plane_with_card_indices_raises(cuda):
+    """No silent copy of a whole plane to the card: a pageable CPU plane with
+    indices or rows on the card is refused, naming the placement to use."""
+    from outline_rag_tpu_torch.ops.hostmem import gather_rows, make_host_append
+
+    plane = torch.zeros((64, 16), dtype=torch.int8)
+    assert not plane.is_pinned()
+    with pytest.raises(ValueError, match="to_pinned_host"):
+        gather_rows(plane, torch.zeros((2, 3), dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError, match="to_pinned_host"):
+        make_host_append()(plane, torch.zeros((1, 16), dtype=torch.int8, device=cuda), [0])
+    with pytest.raises(ValueError, match="one device"):
+        gather_rows(plane.to(cuda), torch.zeros((2, 3), dtype=torch.int32))
