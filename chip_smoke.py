@@ -192,10 +192,20 @@ printing one JSON line; any failure raises and the exit code is non-zero:
            and beside other rows. Timed (``ms``, ``device_ms``, bound) at
            the three shapes the decoder launches: B = 64, T = 1 (the twin
            too); B = 8, T = 4 (a speculative window); B = 1, T = 256 from 512.
-9. kernel_kv_write  ``paged_kv_write`` against ``paged_kv_write_plain``:
-           every page but the scratch page 0 byte-equal, bf16 and int8, T = 1
-           at B = 64, T = 256 at B = 1 straddling pages, and a chunk whose
-           tail passes the row's capacity (it must land in page 0).
+9. kernel_kv_write  ``paged_kv_write`` (the JAX signature: entries already
+           rotated and quantized) against ``paged_kv_write_plain``: every page
+           but the scratch page 0 byte-equal, bf16 and int8, T = 1 at B = 64,
+           a speculative window (B = 8, T = 4), T = 256 at B = 1 straddling
+           pages, and a chunk whose tail passes the row's capacity (it must
+           land in page 0). Then the decoder's entry, ``paged_kv_write_rope``
+           (rotate q and k, quantize k and v for an int8 pool, write: one
+           launch), against ``paged_kv_write_rope_plain`` at TinyLlama-1.1B's
+           heads on the same four shapes, q, k and v as views of a fused qkv
+           product or as tensors of their own: the rotated q bit-equal, every
+           page but page 0 byte-equal, the scale bits equal (a v head with .5
+           ties at scale 1 and one with a maximum of 3.25 in every case).
+           Timed (``ms``, ``device_ms``, bound, the twin) at B = 64, T = 1 and
+           at B = 1, T = 256.
 10. kernel_int8_linear  ``int8_linear`` against ``int8_linear_plain`` at the
            decoder's projections, (M, K, N) = (64, 2048, 2560),
            (64, 2048, 2048), (64, 2048, 11264), (64, 5632, 2048),
@@ -216,14 +226,18 @@ printing one JSON line; any failure raises and the exit code is non-zero:
            (asyncio), 48 of 600-1,500 tokens sharing a 512-token system
            prefix and 16 of 200-500 tokens without it, every third one
            sampled (temperature 0.8, top_p 0.9), the rest greedy. Every
-           stream ends and yields text; ``paged_attention`` and
-           ``paged_kv_write`` launch 22 times a forward; prefix hits > 0; a
+           stream ends and yields text; ``paged_attention`` and the page
+           write (``paged_kv_write_rope``, counted in
+           ``paged_kv_write.launches``) launch 22 times a forward; prefix
+           hits > 0; a
            repeat of one greedy chat after the burst (warm prefix pages, other
            neighbours) equals its first answer, and a prompt submitted twice
            to the batcher gives the same tokens cold and warm; every page
            returns to the free list or the prefix cache. One prefill and one
            decode forward with the kernels against the same forwards with
-           the plain twins patched in: the error's norm within 3e-2 of the
+           the page write's twin alone patched in (``paged_kv_write_rope_plain``:
+           the logits bit-equal, on the bf16 and the int8 pool) and with
+           every plain twin patched in: the error's norm within 3e-2 of the
            logits' (22 bf16 layers). The burst's wall time, tokens a second
            and time to first token come from that burst as served; a second
            burst of new chats, read for nothing end to end, has the worker's
@@ -2265,8 +2279,28 @@ def kernel_paged_phase(torch, dev, seed: int) -> dict:
     return out
 
 
+def kv_prologue_bound(b: int, t: int, kv: str) -> dict:
+    """What one launch of ``paged_kv_write_rope`` must move at the decoder's
+    shape in bf16: q read and written, k and v read, their pool rows (and an
+    int8 pool's scales) written, the cos and sin tables, the page table and
+    the positions read once; its operations: six f32 flops a rotated pair,
+    three a quantized element."""
+    rows, pool = b * t, 1 if kv == "int8" else 2
+    moved = rows * (2 * DEC_HEADS * DEC_HD * 2 + 2 * DEC_KV_HEADS * DEC_HD * (2 + pool)
+                    + (2 * DEC_KV_HEADS * 4 if kv == "int8" else 0) + 2 * DEC_HD // 2 * 4)
+    ops = rows * ((DEC_HEADS + DEC_KV_HEADS) * DEC_HD // 2 * 6
+                  + (2 * DEC_KV_HEADS * DEC_HD * 3 if kv == "int8" else 0))
+    return bound(moved + b * (MAXP + 1) * 4, ops, "f32")
+
+
 def kernel_kv_write_phase(torch, dev, seed: int) -> dict:
-    from outline_rag_tpu_torch.ops.paged_attention import paged_kv_write, paged_kv_write_plain
+    from outline_rag_tpu_torch.ops.paged_attention import (
+        paged_kv_write,
+        paged_kv_write_plain,
+        paged_kv_write_rope,
+        paged_kv_write_rope_plain,
+    )
+    from outline_rag_tpu_torch.testing import kv_prologue_case, kv_prologue_mismatches
 
     g = torch.Generator(device=dev).manual_seed(seed + 7)
     out = {}
@@ -2277,6 +2311,7 @@ def kernel_kv_write_phase(torch, dev, seed: int) -> dict:
         def draw(*sh):
             return torch.randint(-127, 128, sh, generator=g, device=dev).to(dt)
 
+        # the JAX package's signature (entries already rotated and quantized):
         # (B, T, start): decode at 64 rows; a prefill chunk straddling pages; a
         # chunk whose tail passes the row's capacity (2,048) by 100 tokens
         for b, t, start in ((DEC_SLOTS, 1, None), (8, 4, None), (1, 256, 100),
@@ -2299,8 +2334,8 @@ def kernel_kv_write_phase(torch, dev, seed: int) -> dict:
             equal = all(torch.equal(a[1:], w[1:]) for a, w in zip(got, want))
             written = int((pools[0][1:] != untouched[0][1:]).any(dim=-1).sum())
             in_range = int(((pos.long()[:, None] + torch.arange(t, device=dev)) < MAXP * PAGE).sum())
-            row = {"pool": kv, "B": b, "T": t, "start": start, "equal_but_page0": equal,
-                   "max_abs_err": 0.0 if equal else 1.0,
+            row = {"entry": "paged_kv_write", "pool": kv, "B": b, "T": t, "start": start,
+                   "equal_but_page0": equal, "max_abs_err": 0.0 if equal else 1.0,
                    "rows_written": written, "rows_in_range": in_range * DEC_KV_HEADS}
             require(equal, f"every page but page 0 byte-equal to the twin's: {row}")
             # a new row can equal the old one by chance (1 in 255^64): allow none
@@ -2315,6 +2350,46 @@ def kernel_kv_write_phase(torch, dev, seed: int) -> dict:
                            **bound(moved + b * (MAXP + 1) * 4, 0, "bf16"))
                 out[kv] = row
             emit("kernel_kv_write", **row)
+        del pools, new, want, untouched, got, args
+        # the decoder's entry: q and k rotated, k and v quantized for an int8
+        # pool and written, in one launch; q, k and v as views of a fused qkv
+        # product or as tensors of their own
+        rope, rope_err = {}, 0.0
+        for b, t, start, fused in ((DEC_SLOTS, 1, None, True), (8, 4, None, False),
+                                   (1, 256, 100, True), (2, 256, MAXP * PAGE - 156, False)):
+            case = kv_prologue_case(
+                dev, g, b, t, "int8" if kv == "int8" else "model", torch.bfloat16,
+                heads=DEC_HEADS, kv_heads=DEC_KV_HEADS, hd=DEC_HD, page=PAGE, maxp=MAXP,
+                pages=KV_PAGES, start=start, fused=fused)
+            inputs = case[2:9]
+            want = [x.clone() for x in case[:2] + case[9:]]
+            want_q = paged_kv_write_rope_plain(*want[:2], *inputs, *want[2:])
+            pools = [x.clone() for x in case[:2] + case[9:]]
+            q_rot = paged_kv_write_rope(*pools[:2], *inputs, *pools[2:])
+            torch.cuda.synchronize()
+            differs = kv_prologue_mismatches(q_rot, pools, want_q, want)
+            row = {"entry": "paged_kv_write_rope", "pool": kv, "B": b, "T": t, "start": start,
+                   "fused_qkv": fused, "differs": differs,
+                   "max_abs_err": float((q_rot.float() - want_q.float()).abs().max())}
+            require(not differs, f"the prologue bit-equal to its twin: the rotated q, every page "
+                                 f"but page 0, the scale bits: {row}")
+            rope_err = max(rope_err, row["max_abs_err"])
+            if t in (1, 256) and start != MAXP * PAGE - 156:
+                # the twin is the eager prologue the kernel replaced: its
+                # device time is what the card no longer spends
+                def twin():
+                    return paged_kv_write_rope_plain(*want[:2], *inputs, *want[2:])
+
+                row.update(**both_ms(torch, lambda: paged_kv_write_rope(*pools[:2], *inputs,
+                                                                        *pools[2:])),
+                           plain_ms=cuda_ms(torch, twin),
+                           plain_device_ms=cuda_ms_many(torch, twin)["device_ms"],
+                           **kv_prologue_bound(b, t, kv))
+                rope["decode" if t == 1 else "chunk"] = row
+            emit("kernel_kv_write", **row)
+        out[kv]["rope"] = rope
+        out[kv]["rope_max_abs_err"] = rope_err
+        del case, inputs, want, pools, q_rot
         torch.cuda.empty_cache()
     return out
 
@@ -2611,48 +2686,57 @@ def stream_burst(provider, chats: list[tuple[list[dict], float]]):
 
 def logits_kernels_vs_twins(torch, dev, decoder, params, cfg, kv_dtype, seed: int) -> dict:
     """One prefill (4 rows x 64 tokens) and one decode forward through a
-    small pool at the model's full depth, with the kernels and with the
-    plain twins patched into the decoder module; the error's norm over the
-    logits' norm, the larger of the two forwards."""
+    small pool at the model's full depth three ways: with the kernels; with
+    the page write's plain twin alone patched in (the prologue is bit-equal
+    to it, so the logits must be too); with every plain twin patched in (the
+    error's norm over the logits' norm, the larger of the two forwards)."""
     import outline_rag_tpu_torch.ops.paged_attention as pa
     from outline_rag_tpu_torch.ops.int8_linear import int8_linear_plain
     from outline_rag_tpu_torch.ops.paged_attention import (
         paged_attention_plain,
-        paged_kv_write_plain,
+        paged_kv_write_rope_plain,
     )
 
     g = torch.Generator(device=dev).manual_seed(seed)
     toks = torch.randint(3, cfg.vocab_size, (4, 64), generator=g, device=dev)
     step = torch.randint(3, cfg.vocab_size, (4, 1), generator=g, device=dev)
 
-    def run():
+    def run(patches: dict):
+        # patches: (module, name) -> twin; the decoder walks its pages through
+        # ops/paged_attention.py's sharded wrappers (one shard here), which
+        # call that module's kernels
         n = 4 * (cfg.max_cache // PAGE)  # every row's pages, scattered (7 and n are coprime)
         cache = decoder.init_paged_cache(cfg, 4, n + 1, PAGE, kv_dtype=kv_dtype, device=dev)
         cache.table[:] = (torch.arange(n, device=dev) * 7 % n + 1).reshape(4, -1)
-        with torch.inference_mode():
-            a, _ = decoder.decoder_forward(
-                params, toks, cache, torch.zeros(4, dtype=torch.int32, device=dev), cfg)
-            b, _ = decoder.decoder_forward(
-                params, step, cache, torch.full((4,), 64, dtype=torch.int32, device=dev), cfg)
-        return a, b
+        kept = {key: getattr(*key) for key in patches}
+        for (module, name), fn in patches.items():
+            setattr(module, name, fn)
+        try:
+            with torch.inference_mode():
+                a, _ = decoder.decoder_forward(
+                    params, toks, cache, torch.zeros(4, dtype=torch.int32, device=dev), cfg)
+                b, _ = decoder.decoder_forward(
+                    params, step, cache, torch.full((4,), 64, dtype=torch.int32, device=dev), cfg)
+            return a, b
+        finally:
+            for (module, name), fn in kept.items():
+                setattr(module, name, fn)
 
-    got = run()
-    # the decoder walks its pages through ops/paged_attention.py's sharded
-    # wrappers (one shard here), which call that module's kernels
-    kernels = (pa.paged_attention, pa.paged_kv_write, decoder.int8_linear)
-    pa.paged_attention = paged_attention_plain
-    pa.paged_kv_write = paged_kv_write_plain
-    decoder.int8_linear = int8_linear_plain
-    try:
-        want = run()
-    finally:
-        pa.paged_attention, pa.paged_kv_write, decoder.int8_linear = kernels
+    prologue_twin = {(pa, "paged_kv_write_rope"): paged_kv_write_rope_plain}
+    got = run({})
+    prologue = run(prologue_twin)
+    want = run({**prologue_twin, (pa, "paged_attention"): paged_attention_plain,
+                (decoder, "int8_linear"): int8_linear_plain})
     rel = max(float((a - w).norm() / w.norm()) for a, w in zip(got, want))
     worst = max(float((a - w).abs().max()) for a, w in zip(got, want))
     require(all(bool(torch.isfinite(a).all()) and a.shape[-1] == cfg.vocab_size for a in got),
             "finite logits over the vocabulary")
+    bit_equal = all(torch.equal(a, w) for a, w in zip(got, prologue))
+    require(bit_equal, f"the prefill and decode logits with the page-write kernel are bit-equal "
+                       f"to those with its twin ({kv_dtype or cfg.dtype} pool)")
     return {"logits_rel_rms_vs_twins": rel, "logits_max_abs_err_vs_twins": worst,
-            "logits_max_abs": float(want[0].abs().max())}
+            "logits_max_abs": float(want[0].abs().max()),
+            "logits_bit_equal_vs_prologue_twin": bit_equal}
 
 
 def int4_logits_check(torch, dev, decoder, params, cfg, seed: int) -> dict:
@@ -2664,7 +2748,7 @@ def int4_logits_check(torch, dev, decoder, params, cfg, seed: int) -> dict:
     import outline_rag_tpu_torch.ops.paged_attention as pa
     from outline_rag_tpu_torch.ops.paged_attention import (
         paged_attention_plain,
-        paged_kv_write_plain,
+        paged_kv_write_rope_plain,
     )
 
     rows = 32
@@ -2697,7 +2781,7 @@ def int4_logits_check(torch, dev, decoder, params, cfg, seed: int) -> dict:
     got = run({})
     want = run(int4_twins)
     every = run({**int4_twins, (pa, "paged_attention"): paged_attention_plain,
-                 (pa, "paged_kv_write"): paged_kv_write_plain})
+                 (pa, "paged_kv_write_rope"): paged_kv_write_rope_plain})
     require(bool(torch.isfinite(got).all()) and got.shape[-1] == cfg.vocab_size,
             "finite logits over the vocabulary")
     return {"logits_rel_rms_vs_int4_twins": float((got - want).norm() / want.norm()),
@@ -4720,8 +4804,11 @@ def main() -> int:
     # ms / plain_ms / bound_ms: topk_* at B = 32, K = 64 (topk_int8's B = 128
     # and K = 12 beside them, its shared headers under "headers"; topk_float in the
     # f32x2 mode the path runs; every mode under "modes"); flash_attention at
-    # S = 8192; paged_attention and paged_kv_write at B = 64, T = 1 on a bf16
-    # pool; int8_linear at the gate/up projection, M = 64; w4a8_matmul (the
+    # S = 8192; paged_attention at B = 64, T = 1 on a bf16 pool; paged_kv_write
+    # as the decoder launches it (paged_kv_write_rope: rotate, write) at B = 64,
+    # T = 1 on a bf16 pool, with the B = 1, T = 256 chunk (chunk_*), the int8
+    # pool (int8_pool) and the JAX signature's entries already rotated
+    # (unrotated) beside it; int8_linear at the gate/up projection, M = 64; w4a8_matmul (the
     # row quantizer and the product, as the decoder runs a projection),
     # quantize_rows, w4a16_matmul (bf16) and int4_stream_floor at the gate/up
     # projection, M = 32 (launches: the int4_weights and int4_kernel bursts,
@@ -4813,13 +4900,25 @@ def main() -> int:
     }, {
         "name": "paged_kv_write", "route": "cuda",
         "source": "outline_rag_tpu_torch/csrc/paged_kv_write.cu",
-        "replaces": "outline_rag_tpu/ops/paged_attention.py:892",
+        "replaces": "outline_rag_tpu/ops/paged_attention.py:892 and the rotation and "
+                    "quantization around it, outline_rag_tpu/models/decoder.py:570-571, 742-749",
         "launches": chat["bf16"]["paged_kv_write_launches"],
-        "max_abs_err": max(w["max_abs_err"] for w in kv_write.values()),
-        "ms": kv_write["bf16"]["ms"], "plain_ms": kv_write["bf16"]["plain_ms"],
-        "bound_ms": kv_write["bf16"]["bound_ms"], "bound_by": kv_write["bf16"]["bound_by"],
-        "library_ms": None, "device_ms": kv_write["bf16"]["device_ms"],
-        "library_device_ms": None, "launches_http": web["launches"]["paged_kv_write"],
+        "max_abs_err": max(max(w["max_abs_err"], w["rope_max_abs_err"])
+                           for w in kv_write.values()),
+        **{key: kv_write["bf16"]["rope"]["decode"][key]
+           for key in ("ms", "plain_ms", "bound_ms", "bound_by", "device_ms", "plain_device_ms")},
+        "library_ms": None, "library_device_ms": None,
+        **{f"chunk_{key}": kv_write["bf16"]["rope"]["chunk"][key]
+           for key in ("ms", "plain_ms", "bound_ms", "bound_by", "device_ms", "plain_device_ms")},
+        "int8_pool": {f"{label}_{key}" if label == "chunk" else key:
+                      kv_write["int8"]["rope"][label][key]
+                      for label in ("decode", "chunk")
+                      for key in ("ms", "plain_ms", "bound_ms", "bound_by", "device_ms",
+                                  "plain_device_ms")},
+        "unrotated": {kv: {key: kv_write[kv][key] for key in
+                           ("ms", "plain_ms", "bound_ms", "bound_by", "device_ms")}
+                      for kv in ("bf16", "int8")},
+        "launches_http": web["launches"]["paged_kv_write"],
         "launches_checkpoint": ckpt["launches"]["paged_kv_write"],
         "launches_tp": {name: c["streams"]["launches"]["paged_kv_write"]
                         for name, c in mesh["tp"]["configs"].items()},

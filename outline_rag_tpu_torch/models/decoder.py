@@ -65,8 +65,9 @@ from outline_rag_tpu_torch.ops.int8_linear import (
     w8a8_matmul,
 )
 from outline_rag_tpu_torch.ops.paged_attention import (
+    _rope,
     paged_attention_sharded,
-    paged_kv_write_sharded,
+    paged_kv_write_rope_sharded,
 )
 
 Params = dict[str, Any]
@@ -408,19 +409,14 @@ def _rope_tables(positions: torch.Tensor, half: int, theta: float):
     return torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
 
 
-def _rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
-    """Half-split rotary embedding (HF llama ``rotate_half`` convention),
-    computed in f32. x: [B, T, H, Dh]; cos, sin from :func:`_rope_tables`."""
-    half = x.shape[-1] // 2
-    x1, x2 = x[..., :half].float(), x[..., half:].float()
-    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
-
-
 def _qkv(h, layer, rope, cfg: DecoderConfig):
     """Q/K/V projections for T new tokens from the ln1-normed input:
-    (q [B,T,H,Dh] rotated, k [B,T,KvH,Dh] rotated, v [B,T,KvH,Dh]). A fused
-    ``wqkv`` runs the three as one matmul. ``rope`` is the forward's
-    (cos, sin) pair."""
+    (q [B,T,H,Dh], k [B,T,KvH,Dh], v [B,T,KvH,Dh]). A fused ``wqkv`` runs
+    the three as one matmul, and q, k and v are then views of its product.
+    ``rope`` is the forward's (cos, sin) pair, which rotates q and k (the
+    ring route); ``None`` leaves them unrotated for the paged route, whose
+    page write rotates them (``ops/paged_attention.py::
+    paged_kv_write_rope``)."""
     dt = h.dtype
     b, t, _ = h.shape
     nq, nkv = cfg.heads * cfg.hd, cfg.kv_heads * cfg.hd
@@ -437,8 +433,10 @@ def _qkv(h, layer, rope, cfg: DecoderConfig):
             q = q + layer["bq"].to(dt)
             k = k + layer["bk"].to(dt)
             v = v + layer["bv"].to(dt)
-    q = _rope(q.reshape(b, t, cfg.heads, cfg.hd), *rope)
-    k = _rope(k.reshape(b, t, cfg.kv_heads, cfg.hd), *rope)
+    q = q.reshape(b, t, cfg.heads, cfg.hd)
+    k = k.reshape(b, t, cfg.kv_heads, cfg.hd)
+    if rope is not None:
+        q, k = _rope(q, *rope), _rope(k, *rope)
     return q, k, v.reshape(b, t, cfg.kv_heads, cfg.hd)
 
 
@@ -604,15 +602,6 @@ def init_paged_cache(
     )
 
 
-def _quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Symmetric per-token per-head int8: x [B, T, KvH, Dh] ->
-    (q int8 same shape, scale f32 [B, T, KvH])."""
-    x32 = x.float()
-    s = x32.abs().amax(dim=-1, keepdim=True) / 127.0 + 1e-12
-    q = torch.round(x32 / s).clamp(-127, 127)
-    return q.to(torch.int8), s[..., 0]
-
-
 def decoder_forward(
     params: Params,
     tokens: torch.Tensor,  # [B, T] integers — new tokens
@@ -627,8 +616,8 @@ def decoder_forward(
     and the object returned is the one passed in. Token i attends to all
     cache slots <= start + i; later slots are masked by position. With a
     :class:`PagedKV` the slots live in pooled pages addressed through the
-    page table, written by ``paged_kv_write`` and read by
-    ``paged_attention``. Serving callers wrap this in
+    page table, written by ``paged_kv_write_rope`` (which also rotates q and
+    k) and read by ``paged_attention``. Serving callers wrap this in
     ``torch.inference_mode()``. While autograd records, the ring's layers are
     attended as copies (the cache is still written), so the ring route can
     be differentiated (``models/train.py::lm_loss``); the paged route
@@ -667,7 +656,6 @@ def decoder_forward(
     if paged:
         if cache.mesh != mesh:
             raise ValueError(f"the pool is laid out over {cache.mesh}, the parameters over {mesh}")
-        quant = cache.k_scale is not None
         pools = [None if p is None else per_device(p)
                  for p in (cache.k, cache.v, cache.k_scale, cache.v_scale)]
     else:
@@ -691,25 +679,20 @@ def decoder_forward(
     for li, layer in enumerate(params["layers"]):
         shards = shards_of(layer)
         h = _rms_norm(x, layer["ln1"], cfg.norm_eps)
-        qkv = [_qkv(h.to(d), lr, ropes[r], lcfg) for r, (d, lr) in enumerate(zip(walk.devices, shards))]
+        qkv = [_qkv(h.to(d), lr, None if paged else ropes[r], lcfg)
+               for r, (d, lr) in enumerate(zip(walk.devices, shards))]
         if paged:
             k_pool, v_pool, ks_pool, vs_pool = (
                 None if p is None else [one[li] for one in p] for p in pools)
-            if quant:
-                kq = [_quantize_kv(k) for _, k, _ in qkv]
-                vq = [_quantize_kv(v) for _, _, v in qkv]
-                paged_kv_write_sharded(
-                    k_pool, v_pool, cache.table, start_pos, [a for a, _ in kq], [a for a, _ in vq],
-                    ks_pool, vs_pool, [s for _, s in kq], [s for _, s in vq], mesh=walk,
-                )
-            else:
-                paged_kv_write_sharded(
-                    k_pool, v_pool, cache.table, start_pos, [k.to(dt) for _, k, _ in qkv],
-                    [v.to(dt) for _, _, v in qkv], mesh=walk,
-                )
+            # one launch a shard: q and k rotated, k and v quantized for an
+            # int8 pool and written to their pages; the rotated q comes back
+            q_new, k_new, v_new = (list(x) for x in zip(*qkv))
+            qs = paged_kv_write_rope_sharded(
+                k_pool, v_pool, cache.table, start_pos, q_new, k_new, v_new,
+                [c for c, _ in ropes], [s for _, s in ropes], ks_pool, vs_pool, mesh=walk,
+            )
             ctxs = paged_attention_sharded(
-                [q.contiguous() for q, _, _ in qkv], k_pool, v_pool, cache.table, start_pos,
-                ks_pool, vs_pool, mesh=walk,
+                qs, k_pool, v_pool, cache.table, start_pos, ks_pool, vs_pool, mesh=walk,
             )
             ctxs = [ctx.reshape(b, t, -1) for ctx in ctxs]
         else:

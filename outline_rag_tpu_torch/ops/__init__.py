@@ -45,6 +45,8 @@ from outline_rag_tpu_torch.ops.paged_attention import (
     paged_attention_plain,
     paged_kv_write,
     paged_kv_write_plain,
+    paged_kv_write_rope,
+    paged_kv_write_rope_plain,
 )
 from outline_rag_tpu_torch.ops.quant import (
     dequantize_rows_int8,
@@ -95,6 +97,8 @@ __all__ = [
     "paged_attention_plain",
     "paged_kv_write",
     "paged_kv_write_plain",
+    "paged_kv_write_rope",
+    "paged_kv_write_rope_plain",
     "quantize_int4_weight",
     "quantize_linear_weight",
     "quantize_rows_int8",

@@ -11,14 +11,23 @@ a row's capacity land there, and its content is garbage by contract.
                                   ``csrc/paged_attention.cu`` (or raises);
                                   on CPU tensors it runs the plain twin.
 - :func:`paged_attention_plain` — the same function in plain PyTorch.
-- :func:`paged_kv_write`        — the scatter of new K/V rows into their
-                                  pages, in place: ``csrc/paged_kv_write.cu``
-                                  on CUDA tensors, the plain twin on CPU.
-- :func:`paged_kv_write_plain`  — the same scatter in plain PyTorch.
-- :func:`paged_attention_sharded` / :func:`paged_kv_write_sharded` — the
-                                  tensor-parallel forms: each device of a
-                                  TP mesh runs the kernel on its own KV
-                                  heads and query-head group, with no
+- :func:`paged_kv_write_rope`   — the paged layer's attention prologue in
+                                  one launch: rotate q and k, quantize k and
+                                  v for an int8 pool and scatter the new
+                                  rows into their pages, in place
+                                  (``csrc/paged_kv_write.cu`` on CUDA
+                                  tensors, the plain twin on CPU); returns
+                                  the rotated q.
+- :func:`paged_kv_write_rope_plain` — the same: ``_rope``, ``_quantize_kv``
+                                  and :func:`paged_kv_write_plain`.
+- :func:`paged_kv_write`        — the JAX package's signature: entries
+                                  already rotated (and quantized), the same
+                                  kernel without its rotation.
+- :func:`paged_kv_write_plain`  — the scatter in plain PyTorch.
+- :func:`paged_attention_sharded` / :func:`paged_kv_write_sharded` /
+  :func:`paged_kv_write_rope_sharded` — the tensor-parallel forms: each
+                                  device of a TP mesh runs the kernel on its
+                                  own KV heads and query-head group, with no
                                   communication.
 
 **Pool layout.** One layer's pool is ``[P, KvH, page, Dh]``: a token's
@@ -106,6 +115,26 @@ def paged_attention_plain(
     return ctx.reshape(b, t, h, dh).to(q.dtype)
 
 
+def _rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """Half-split rotary embedding (HF llama ``rotate_half`` convention),
+    computed in f32 and rounded to x's dtype. x: [B, T, H, Dh]; cos, sin:
+    f32 [B, T, 1, Dh/2] (``models/decoder.py::_rope_tables``)."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def _quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-token per-head int8: x [B, T, KvH, Dh] ->
+    (q int8 same shape, scale f32 [B, T, KvH]). On CUDA tensors ATen
+    computes ``amax / 127.0`` as ``amax * f32(1/127)``; on CPU tensors it
+    divides."""
+    x32 = x.float()
+    s = x32.abs().amax(dim=-1, keepdim=True) / 127.0 + 1e-12
+    q = torch.round(x32 / s).clamp(-127, 127)
+    return q.to(torch.int8), s[..., 0]
+
+
 def paged_kv_write_plain(
     pool_k, pool_v, table, pos, k_new, v_new,
     k_scale=None, v_scale=None, ks_new=None, vs_new=None,
@@ -130,6 +159,22 @@ def paged_kv_write_plain(
     return pool_k, pool_v, k_scale, v_scale
 
 
+def paged_kv_write_rope_plain(
+    pool_k, pool_v, table, pos, q, k, v, cos, sin, k_scale=None, v_scale=None,
+) -> torch.Tensor:
+    """The prologue in plain PyTorch (same arguments and return as
+    :func:`paged_kv_write_rope`): rotate q and k, quantize the rotated k
+    (rounded to its dtype) and v for an int8 pool, write them with
+    :func:`paged_kv_write_plain`; returns the rotated q."""
+    q_rot, k_rot = _rope(q, cos, sin), _rope(k, cos, sin)
+    if k_scale is None:
+        paged_kv_write_plain(pool_k, pool_v, table, pos, k_rot, v)
+    else:
+        (kq, ks), (vq, vs) = _quantize_kv(k_rot), _quantize_kv(v)
+        paged_kv_write_plain(pool_k, pool_v, table, pos, kq, vq, k_scale, v_scale, ks, vs)
+    return q_rot
+
+
 _launch_fns: dict[str, object] = {}
 
 
@@ -143,18 +188,32 @@ def _launcher(name: str):
         attn.argtypes = [p] * 8 + [i32] * 9 + [ctypes.c_float, p]
         attn.restype = ctypes.c_int
         write = lib.paged_kv_write_launch
-        write.argtypes = [p] * 10 + [i32] * 6 + [p]
+        write.argtypes = [p] * 14 + [ctypes.c_longlong] * 3 + [i32] * 10 + [p]
         write.restype = ctypes.c_int
         _launch_fns.update(attention=attn, write=write)
     return _launch_fns[name]
 
 
-def _check_on(dev, **tensors):
+def _check_on(dev, contiguous: bool = True, **tensors):
     for name, t in tensors.items():
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, want {dev}")
-        if not t.is_contiguous():
+        if contiguous and not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+
+def _token_rows(x: torch.Tensor) -> tuple[torch.Tensor, int]:
+    """``x`` [B, T, N, Dh] as the page-write kernel reads it, and the
+    elements from one token row (b, t) to the next: each row's ``N * Dh``
+    values contiguous, the rows one stride apart, 16-byte aligned. A view of
+    a fused qkv product already is one (no copy); anything else is copied."""
+    b, t, n, dh = x.shape
+    if x.stride(3) == 1 and (x.stride(2) == dh or n == 1):
+        rs = x.stride(0) if t == 1 else x.stride(1)
+        if ((t == 1 or b == 1 or x.stride(0) == t * x.stride(1))
+                and rs * x.element_size() % 16 == 0 and x.data_ptr() % 16 == 0):
+            return x, rs
+    return x.clone(memory_format=torch.contiguous_format), n * dh
 
 
 def _check_pool(pool_k, pool_v, k_scale, v_scale, table, pos, batch):
@@ -257,10 +316,10 @@ def paged_kv_write(
     quantized. The pools are the caller's tensors, modified and returned:
     ``(pool_k, pool_v)`` or ``(pool_k, pool_v, k_scale, v_scale)``.
 
-    On CUDA tensors this launches ``csrc/paged_kv_write.cu`` (a row of
-    ``Dh`` values must be a multiple of 16 bytes) and counts the launch in
-    ``paged_kv_write.launches``; on CPU tensors it runs
-    :func:`paged_kv_write_plain`."""
+    On CUDA tensors this launches ``csrc/paged_kv_write.cu`` without its
+    rotation (bf16, f32 or int8 entries; ``Dh`` values a multiple of 32
+    bytes) and counts the launch in ``paged_kv_write.launches``; on CPU
+    tensors it runs :func:`paged_kv_write_plain`."""
     if k_new.dim() != 4 or v_new.shape != k_new.shape:
         raise ValueError("k_new and v_new must be [B, T, KvH, Dh]")
     b, t, nkv, ndh = k_new.shape
@@ -281,37 +340,115 @@ def paged_kv_write(
         )
     if pool_k.device.type != "cuda":
         raise ValueError(f"paged_kv_write runs on cpu or cuda tensors, not {pool_k.device}")
-    row_bytes = dh * pool_k.element_size()
-    if row_bytes % 16 or b > 65535:
+    if pool_k.dtype not in _KINDS or dh * pool_k.element_size() % 32 or b > 65535:
         raise ValueError(
-            f"paged_kv_write kernel takes rows of a multiple of 16 bytes and B <= 65535; "
-            f"got {row_bytes} bytes, B={b}"
+            f"paged_kv_write kernel takes bf16, f32 or int8 rows of a multiple of 32 bytes and "
+            f"B <= 65535; got {pool_k.dtype}, Dh={dh}, B={b}"
         )
-    k_new, v_new = k_new.contiguous(), v_new.contiguous()
     scales = {}
     if quant:
-        ks_new, vs_new = ks_new.contiguous(), vs_new.contiguous()
-        scales = {"k_scale": k_scale, "v_scale": v_scale, "ks_new": ks_new, "vs_new": vs_new}
-    _check_on(pool_k.device, pool_k=pool_k, pool_v=pool_v, table=table, pos=pos,
-              k_new=k_new, v_new=v_new, **scales)
-    launch = _launcher("write")
-    with torch.cuda.device(pool_k.device):
-        rc = launch(
-            pool_k.data_ptr(), pool_v.data_ptr(), table.data_ptr(), pos.data_ptr(),
-            k_new.data_ptr(), v_new.data_ptr(),
-            *(sc.data_ptr() if quant else None for sc in (k_scale, v_scale, ks_new, vs_new)),
-            b, t, kvh, row_bytes, page, maxp,
-            torch.cuda.current_stream(pool_k.device).cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"paged_kv_write kernel launch failed with CUDA error {rc}")
-    paged_kv_write.launches += 1
+        scales = {"ks_new": ks_new.contiguous(), "vs_new": vs_new.contiguous()}
+    _launch_write(pool_k, pool_v, table, pos, None, k_new, v_new, None, None,
+                  k_scale, v_scale, **scales)
     if quant:
         return pool_k, pool_v, k_scale, v_scale
     return pool_k, pool_v
 
 
 paged_kv_write.launches = 0
+
+
+def _launch_write(pool_k, pool_v, table, pos, q, k, v, cos, sin, k_scale, v_scale,
+                  ks_new=None, vs_new=None) -> torch.Tensor | None:
+    """One launch of ``csrc/paged_kv_write.cu`` on checked CUDA tensors: it
+    rotates q and k when ``q`` is given (and returns the rotated q), and
+    quantizes bf16 / f32 entries into an int8 pool. Counts the launch in
+    ``paged_kv_write.launches``."""
+    dev = pool_k.device
+    tables = {"cos": cos, "sin": sin} if q is not None else {}
+    scales = {} if k_scale is None else {"k_scale": k_scale, "v_scale": v_scale}
+    if ks_new is not None:
+        scales.update(ks_new=ks_new, vs_new=vs_new)
+    _check_on(dev, pool_k=pool_k, pool_v=pool_v, table=table, pos=pos, **tables, **scales)
+    _check_on(dev, False, k=k, v=v, **({} if q is None else {"q": q}))
+    (k, k_row), (v, v_row) = _token_rows(k), _token_rows(v)
+    b, t, kvh, dh = k.shape
+    h, q_row, q_out = 0, 0, None
+    if q is not None:
+        q, q_row = _token_rows(q)
+        h = q.shape[2]
+        q_out = torch.empty((b, t, h, dh), dtype=q.dtype, device=dev)
+
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+
+    launch = _launcher("write")
+    with torch.cuda.device(dev):
+        rc = launch(
+            pool_k.data_ptr(), pool_v.data_ptr(), table.data_ptr(), pos.data_ptr(),
+            ptr(q), k.data_ptr(), v.data_ptr(), ptr(q_out), ptr(cos), ptr(sin),
+            ptr(k_scale), ptr(v_scale), ptr(ks_new), ptr(vs_new), q_row, k_row, v_row,
+            b, t, h, kvh, dh, pool_k.shape[2], table.shape[1],
+            _KINDS[k.dtype], _KINDS[pool_k.dtype], int(q is not None),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"paged_kv_write kernel launch failed with CUDA error {rc}")
+    paged_kv_write.launches += 1
+    return q_out
+
+
+def paged_kv_write_rope(
+    pool_k: torch.Tensor,  # [P, KvH, page, Dh]
+    pool_v: torch.Tensor,
+    table: torch.Tensor,  # [B, MAXP] int32
+    pos: torch.Tensor,  # [B] int32 — absolute position of token 0
+    q: torch.Tensor,  # [B, T, H, Dh] unrotated, in the model dtype
+    k: torch.Tensor,  # [B, T, KvH, Dh] unrotated
+    v: torch.Tensor,  # [B, T, KvH, Dh]
+    cos: torch.Tensor,  # [B, T, 1, Dh/2] f32 (models/decoder.py::_rope_tables)
+    sin: torch.Tensor,
+    k_scale: torch.Tensor | None = None,  # [P, KvH, page] f32 (int8 pools)
+    v_scale: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """The paged layer's attention prologue: rotate q and k, write k and v
+    into the page pool **in place** as :func:`paged_kv_write` does (an int8
+    pool gets ``_quantize_kv`` of the rotated k, rounded to its dtype, and
+    of v), and return the rotated q ``[B, T, H, Dh]``, ready for
+    :func:`paged_attention`. q, k and v may be views of a fused qkv product
+    (each token row contiguous, the rows one stride apart): they are read
+    where they lie.
+
+    On CUDA tensors this is one launch of ``csrc/paged_kv_write.cu`` (bf16
+    or f32 q, k and v; ``Dh`` 64 or 128), counted in
+    ``paged_kv_write.launches``; on CPU tensors it runs
+    :func:`paged_kv_write_rope_plain`."""
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError("q must be [B, T, H, Dh], k and v [B, T, KvH, Dh]")
+    b, t, h, dh = q.shape
+    p_, kvh, page, pdh, maxp = _check_pool(pool_k, pool_v, k_scale, v_scale, table, pos, b)
+    if tuple(k.shape) != (b, t, kvh, dh) or pdh != dh or h % kvh:
+        raise ValueError(
+            f"q {tuple(q.shape)}, k {tuple(k.shape)} do not fit a pool {tuple(pool_k.shape)}")
+    if k.dtype != q.dtype or v.dtype != q.dtype or pool_k.dtype not in (q.dtype, torch.int8):
+        raise ValueError(
+            f"q, k and v must share a dtype that the pool ({pool_k.dtype}) has unless it is "
+            f"int8; got {q.dtype}, {k.dtype}, {v.dtype}")
+    for name, tab in (("cos", cos), ("sin", sin)):
+        if tuple(tab.shape) != (b, t, 1, dh // 2) or tab.dtype != torch.float32:
+            raise ValueError(f"{name} must be f32 {(b, t, 1, dh // 2)}, got "
+                             f"{tab.dtype} {tuple(tab.shape)}")
+    if q.device.type == "cpu":
+        return paged_kv_write_rope_plain(
+            pool_k, pool_v, table, pos, q, k, v, cos, sin, k_scale, v_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_kv_write_rope runs on cpu or cuda tensors, not {q.device}")
+    if q.dtype not in (torch.bfloat16, torch.float32) or dh not in KERNEL_HEAD_DIMS or b > 65535:
+        raise ValueError(
+            f"paged_kv_write_rope kernel takes bf16 or f32 with Dh in {KERNEL_HEAD_DIMS} and "
+            f"B <= 65535; got {q.dtype}, Dh={dh}, B={b}")
+    return _launch_write(pool_k, pool_v, table, pos, q, k, v, cos.contiguous(),
+                         sin.contiguous(), k_scale, v_scale)
 
 
 def _per_shard(x, mesh, dim: int) -> list:
@@ -383,3 +520,37 @@ def paged_kv_write_sharded(
             pool_k[r], pool_v[r], table.to(dev), pos.to(dev), kn[r], vn[r],
             k_scale[r] if quant else None, v_scale[r] if quant else None, ksn[r], vsn[r],
         )
+
+
+def paged_kv_write_rope_sharded(
+    pool_k: list,  # one [P, KvH/n, page, Dh] a shard, written in place
+    pool_v: list,
+    table: torch.Tensor,  # [B, MAXP] int32, replicated
+    pos: torch.Tensor,  # [B] int32, replicated
+    q,  # [B, T, H, Dh], or one [B, T, H/n, Dh] a shard
+    k,  # [B, T, KvH, Dh], or one [B, T, KvH/n, Dh] a shard
+    v,
+    cos,  # [B, T, 1, Dh/2] f32, replicated, or one a shard
+    sin,
+    k_scale: list | None = None,  # one [P, KvH/n, page] f32 a shard (int8 pools)
+    v_scale: list | None = None,
+    *,
+    mesh,
+) -> list[torch.Tensor]:
+    """Tensor-parallel prologue: :func:`paged_kv_write_rope` on every device
+    of ``mesh`` over its query heads and its KV heads, with its own copy of
+    the rotary tables, writing its own pools in place (on CUDA, a launch of
+    the kernel a shard). Returns each shard's rotated q on its device."""
+    quant = k_scale is not None
+    qs, ks, vs = (_per_shard(x, mesh, 2) for x in (q, k, v))
+
+    def tables(x):  # one replicated tensor, or one a shard
+        return [x.to(d) for d in mesh.devices] if torch.is_tensor(x) else _per_shard(x, mesh, 0)
+
+    coss, sins = tables(cos), tables(sin)
+    return [
+        paged_kv_write_rope(
+            pool_k[r], pool_v[r], table.to(dev), pos.to(dev), qs[r], ks[r], vs[r], coss[r],
+            sins[r], k_scale[r] if quant else None, v_scale[r] if quant else None)
+        for r, dev in enumerate(mesh.devices)
+    ]

@@ -207,6 +207,73 @@ def paged_order_case(dev, kv: str):
 CARD_GRAD_FACTOR, CARD_GRAD_FLOOR, CARD_UPDATE_ATOL = 4.0, 1e-5, 1e-6
 
 
+def kv_prologue_case(
+    dev, g: torch.Generator, b: int, t: int, kv: str, dtype=torch.bfloat16, *, heads: int = 32,
+    kv_heads: int = 4, hd: int = 64, page: int = 128, maxp: int = 16, pages: int | None = None,
+    start: int | None = None, fused: bool = False, theta: float = 10000.0,
+):
+    """Seeded arguments of ``paged_kv_write_rope`` (TinyLlama-1.1B's shape by
+    default): q, k and v of ``dtype`` from one draw ~ N(0, 4) of a fused
+    ``[B, T, (H + 2 KvH) Dh]`` product, as views of it (``fused=True``, no
+    copy) or as contiguous tensors; a pool of ``dtype`` (``kv="model"``) or
+    int8 with f32 scales (``kv="int8"``) holding seeded garbage; distinct
+    scattered page ids (``pages`` defaults to ``b * maxp + 1``); ``pos``
+    ``start`` for every row, or drawn so the chunk fits; and the forward's
+    rotary tables (``models/decoder.py::_rope_tables``). Token 0 of row 0
+    carries two v heads that break a careless quantizer: head 0 starts with
+    ``QUANTIZER_TIES`` (a maximum of 127, so the scale is 1, and values at .5
+    ties) and head 1 has a maximum of 3.25, where ``f32(3.25 / 127)`` is not
+    ``f32(3.25 * f32(1 / 127))``. Returns ``(pool_k, pool_v, table, pos, q,
+    k, v, cos, sin)`` and, for an int8 pool, ``(k_scale, v_scale)``."""
+    from outline_rag_tpu_torch.models.decoder import _rope_tables  # noqa: PLC0415
+
+    nq, nkv = heads * hd, kv_heads * hd
+    qkv = torch.randn((b, t, nq + 2 * nkv), generator=g, device=dev) * 2
+    v_head = qkv[..., nq + nkv:].view(b, t, kv_heads, hd)
+    v_head[0, 0, 0] = v_head[0, 0, 0].clamp(-100, 100)
+    v_head[0, 0, 0, : len(QUANTIZER_TIES)] = torch.tensor(QUANTIZER_TIES, device=dev)
+    v_head[0, 0, 1] = v_head[0, 0, 1].clamp(-3, 3)
+    v_head[0, 0, 1, 0] = 3.25
+    qkv = qkv.to(dtype)
+    q, k, v = (x.reshape(b, t, -1, hd) for x in qkv.split([nq, nkv, nkv], dim=-1))
+    if not fused:
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    pages = pages or b * maxp + 1
+    shape = (pages, kv_heads, page, hd)
+    if kv == "int8":
+        pools = [torch.randint(-127, 128, shape, generator=g, device=dev, dtype=torch.int8)
+                 for _ in range(2)]
+        scales = [torch.rand(shape[:3], generator=g, device=dev) for _ in range(2)]
+    else:
+        pools = [torch.randn(shape, generator=g, device=dev).to(dtype) for _ in range(2)]
+        scales = []
+    table = (torch.randperm(pages - 1, generator=g, device=dev)[: b * maxp] + 1).reshape(b, maxp)
+    if start is None:
+        pos = torch.randint(0, maxp * page - t, (b,), generator=g, device=dev)
+    else:
+        pos = torch.full((b,), start, device=dev)
+    pos = pos.to(torch.int32)
+    positions = pos[:, None] + torch.arange(t, dtype=torch.int32, device=dev)[None, :]
+    cos, sin = _rope_tables(positions, hd // 2, theta)
+    return (*pools, table.to(torch.int32), pos, q, k, v, cos, sin, *scales)
+
+
+def _bits(x: torch.Tensor) -> torch.Tensor:
+    return x.view({1: torch.int8, 2: torch.int16, 4: torch.int32}[x.element_size()])
+
+
+def kv_prologue_mismatches(q_rot, pools, want_q, want_pools) -> list[str]:
+    """What differs, bit for bit, between the kernel's rotated q and the
+    pools it wrote (``pool_k``, ``pool_v`` and, for an int8 pool,
+    ``k_scale``, ``v_scale``) and the twin's: a list of names, empty when
+    all agree. Page 0, the scratch page, is garbage by contract and is not
+    compared."""
+    bad = [] if torch.equal(_bits(q_rot), _bits(want_q)) else ["q_rot"]
+    names = ("pool_k", "pool_v", "k_scale", "v_scale")
+    return bad + [name for name, got, want in zip(names, pools, want_pools)
+                  if not torch.equal(_bits(got[1:]), _bits(want[1:]))]
+
+
 def _copy_to(params, dev, dtype):
     """A detached copy of a model or of a decoder parameter dictionary on
     ``dev``, its floats in ``dtype``."""

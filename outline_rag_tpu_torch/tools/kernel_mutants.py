@@ -5,16 +5,19 @@
 
 Run it on a machine with one CUDA card and ``nvcc`` (all kernels, or those
 named among ``paged_attention``, ``int8_linear``, ``int4``,
-``flash_attention``, ``topk_float``, ``topk_int8``, ``hostmem``). It copies
+``flash_attention``, ``topk_float``, ``topk_int8``, ``hostmem``,
+``paged_kv_write``). It copies
 ``csrc/flash_attention.cu``, ``csrc/paged_attention.cu``,
 ``csrc/int8_linear.cu``, ``csrc/int4_linear.cu``, ``csrc/topk_float.cu``,
-``csrc/topk_int8.cu`` (with their headers) and ``csrc/hostmem.cu`` into a temporary
+``csrc/topk_int8.cu`` (with their headers), ``csrc/hostmem.cu`` and
+``csrc/paged_kv_write.cu`` into a temporary
 directory, applies one fault at a time to the copy (a skipped key tile, a
 missing rescale, an unswizzled tile, a horizon off by one, a dropped scale,
 splits folded out of order, a ring slot read before it landed, swapped
 nibbles, a missing sign extension, a group combined out of order, a dropped
 k-step or compensation term, a missing penalty, scales in another order, a
-host row offset cut to 32 bits, a dropped row tail, ...),
+host row offset cut to 32 bits, a dropped row tail, a rotation contracted
+into FMAs, ``roundf`` for ``rintf``, a dropped page-0 redirect, ...),
 builds each mutant into a library of its own, runs it through the package's
 wrapper at the model's shapes, and prints whether the comparison
 ``chip_smoke.py`` and the card tests use would have passed it. The sources
@@ -48,6 +51,8 @@ import outline_rag_tpu_torch.ops.topk as topk_module
 from outline_rag_tpu_torch.ops import _build
 from outline_rag_tpu_torch.testing import (
     flash_errors,
+    kv_prologue_case,
+    kv_prologue_mismatches,
     paged_attention_case,
     paged_order_case,
     quantizer_rows,
@@ -859,10 +864,81 @@ def hostmem_mutants(tmp: Path, dev, g) -> int:
     return unexpected
 
 
+_ROTATE = ("          x[e] = __fsub_rn(__fmul_rn(x1, cv), __fmul_rn(x2, sv));\n"
+           "          x[VEC + e] = __fadd_rn(__fmul_rn(x2, cv), __fmul_rn(x1, sv));")
+_REDIRECT = "const int pg = pi < a.maxp ? a.table[(long long)b * a.maxp + pi] : 0;"
+# each a list of (old, new, occurrences) edits of csrc/paged_kv_write.cu
+KV_WRITE_MUTANTS = {
+    "as_is": [],
+    "rotation_contracted_into_fma": [(_ROTATE, "          x[e] = x1 * cv - x2 * sv;\n"
+                                               "          x[VEC + e] = x2 * cv + x1 * sv;", 1)],
+    "rotate_half_sign_swapped": [(_ROTATE, _ROTATE.replace("__fsub_rn", "SUB")
+                                  .replace("__fadd_rn", "__fsub_rn").replace("SUB", "__fadd_rn"), 1)],
+    # the f32 rotation of k quantized instead of k rounded to the model's dtype
+    "f32_k_quantized": [("          x[e] = Elem<T>::load(lo[e]);\n"
+                         "          x[VEC + e] = Elem<T>::load(hi[e]);\n", "", 1)],
+    "roundf_for_rintf": [("rintf(__fdiv_rn(", "roundf(__fdiv_rn(", 2)],
+    # the twin multiplies by f32(1/127), as ATen does on CUDA tensors
+    "reciprocal_replaced_by_division": [("__fmul_rn(m, 1.0f / 127.0f)", "__fdiv_rn(m, 127.0f)", 1)],
+    "scale_not_written": [("          if (e0 == 0) (is_k ? a.k_scale : a.v_scale)[dst] = sc;\n",
+                           "", 1)],
+    "page0_redirect_dropped": [(_REDIRECT, "const int pg = a.table[(long long)b * a.maxp + "
+                                           "min(pi, (long long)a.maxp - 1)];", 1)],
+}
+# (B, T, start, pool, model dtype, Dh, fused): a decode step, a speculative
+# window, a prefill chunk straddling pages, a chunk whose tail passes the
+# row's capacity (it must land in page 0), on bf16 and int8 pools, an f32
+# model and Dh = 128, at TinyLlama-1.1B's heads
+KV_WRITE_CASES = [
+    (64, 1, None, "model", torch.bfloat16, 64, True), (64, 1, None, "int8", torch.bfloat16, 64, True),
+    (8, 4, None, "model", torch.bfloat16, 64, False), (8, 4, None, "int8", torch.bfloat16, 64, False),
+    (1, 256, 100, "model", torch.bfloat16, 64, True), (1, 256, 100, "int8", torch.bfloat16, 64, True),
+    (2, 256, 16 * 128 - 156, "model", torch.bfloat16, 64, False),
+    (2, 256, 16 * 128 - 156, "int8", torch.bfloat16, 64, False),
+    (64, 1, None, "model", torch.float32, 64, True), (8, 4, None, "int8", torch.float32, 64, False),
+    (8, 4, None, "int8", torch.bfloat16, 128, True),
+]
+
+
+def kv_write_mutants(tmp: Path, dev, g) -> int:
+    """Every page-write mutant through ``paged_kv_write_rope`` at each of
+    ``KV_WRITE_CASES``, held to ``paged_kv_write_rope_plain`` as
+    ``chip_smoke.py`` and the card tests hold it: the rotated q bit-equal,
+    every page but page 0 byte-equal, the scale bits equal. Every mutant but
+    ``as_is`` must fail in at least one case."""
+    m = paged_module
+    cases = []
+    for b, t, start, kv, dtype, hd, fused in KV_WRITE_CASES:
+        args = kv_prologue_case(dev, g, b, t, kv, dtype, hd=hd, start=start, fused=fused)
+        want_pools = [x.clone() for x in args[:2] + args[9:]]
+        want_q = m.paged_kv_write_rope_plain(*want_pools[:2], *args[2:9], *want_pools[2:])
+        cases.append((args, want_q, want_pools))
+    m._launcher("write")  # bind the real library first, then swap one entry
+    real = m._launch_fns["write"]
+    unexpected = 0
+    for name, edits in KV_WRITE_MUTANTS.items():
+        fn = build_mutant(tmp, _build.CSRC_DIR / "paged_kv_write.cu", f"kv_write_{name}", edits,
+                          symbol="paged_kv_write_launch")
+        fn.argtypes, fn.restype = real.argtypes, real.restype
+        m._launch_fns["write"] = fn
+        caught = False
+        for (b, t, start, kv, dtype, hd, fused), (args, want_q, want_pools) in zip(KV_WRITE_CASES, cases):
+            pools = [x.clone() for x in args[:2] + args[9:]]
+            q_rot = m.paged_kv_write_rope(*pools[:2], *args[2:9], *pools[2:])
+            torch.cuda.synchronize()
+            bad = kv_prologue_mismatches(q_rot, pools, want_q, want_pools)
+            caught |= bool(bad)
+            print(f"paged_kv_write  {name:32s} B={b:2d} T={t:3d} {kv:5s} {str(dtype)[6:]:8s} "
+                  f"Dh={hd:3d} fused={fused!s:5s} passes={not bad} differs={bad}", flush=True)
+        unexpected += caught != (name != "as_is")
+    m._launch_fns["write"] = real
+    return unexpected
+
+
 KERNELS = {"paged_attention": paged_mutants, "int8_linear": linear_mutants,
            "int4": int4_mutants, "flash_attention": flash_mutants,
            "topk_float": topk_mutants, "topk_int8": topk_int8_mutants,
-           "hostmem": hostmem_mutants}
+           "hostmem": hostmem_mutants, "paged_kv_write": kv_write_mutants}
 
 
 def main(argv: list[str]) -> int:

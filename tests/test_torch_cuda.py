@@ -553,6 +553,74 @@ def test_paged_kv_write_kernel_matches_plain(cuda, kv, b, t, start):
         assert torch.equal(g_[1:], w_[1:])
 
 
+def test_scalar_division_by_a_python_float_is_a_reciprocal_product(cuda):
+    """``_quantize_kv``'s ``amax / 127.0`` on a CUDA tensor is ATen's product
+    by ``f32(1 / 127)``, which the page-write kernel mirrors; a division by a
+    tensor of 127s is IEEE division, and the two differ at 3.25."""
+    a = torch.rand(1 << 16, generator=torch.Generator(device=cuda).manual_seed(0),
+                   device=cuda) * 200
+    a[0] = 3.25
+    recip = torch.tensor(1.0, device=cuda) / torch.tensor(127.0, device=cuda)
+    assert torch.equal(a / 127.0, a * recip)
+    assert not torch.equal(a / 127.0, a / torch.full_like(a, 127.0))
+
+
+# (B, T, start): a decode step, a speculative window, a prefill chunk
+# straddling pages, a chunk whose last 100 tokens pass the capacity of 2,048
+PROLOGUE_SHAPES = [(64, 1, None), (8, 4, None), (1, 256, 100), (2, 256, 16 * 128 - 156)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kv", ["model", "int8"])
+@pytest.mark.parametrize("b,t,start", PROLOGUE_SHAPES)
+@pytest.mark.parametrize("hd,fused", [(64, True), (64, False), (128, True)])
+def test_paged_kv_write_rope_kernel_matches_twin(cuda, dtype, kv, b, t, start, hd, fused):
+    """At TinyLlama-1.1B's heads (H 32, KvH 4): the rotated q bit-equal to
+    the twin's, every page but page 0 byte-equal, the scale bits equal; one
+    launch, counted in ``paged_kv_write.launches``."""
+    from outline_rag_tpu_torch.ops.paged_attention import (
+        paged_kv_write,
+        paged_kv_write_rope,
+        paged_kv_write_rope_plain,
+    )
+    from outline_rag_tpu_torch.testing import kv_prologue_case, kv_prologue_mismatches
+
+    g = torch.Generator(device=cuda).manual_seed(b * t + hd)
+    args = kv_prologue_case(cuda, g, b, t, kv, dtype, hd=hd, start=start, fused=fused)
+    want = [x.clone() for x in args[:2] + args[9:]]
+    want_q = paged_kv_write_rope_plain(*want[:2], *args[2:9], *want[2:])
+    before = paged_kv_write.launches
+    q_rot = paged_kv_write_rope(*args)
+    torch.cuda.synchronize()
+    assert paged_kv_write.launches == before + 1
+    assert not kv_prologue_mismatches(q_rot, args[:2] + args[9:], want_q, want)
+
+
+@pytest.mark.parametrize("kv", ["model", "int8"])
+def test_paged_kv_write_rope_sharded_equals_the_head_slices(cuda, kv):
+    """TP = 2: each shard's launch over its heads gives the unsharded
+    launch's head slice of the rotated q and its KV heads' pools, bit for
+    bit."""
+    from outline_rag_tpu_torch.ops.paged_attention import (
+        paged_kv_write_rope,
+        paged_kv_write_rope_sharded,
+    )
+    from outline_rag_tpu_torch.parallel.tp import model_mesh
+    from outline_rag_tpu_torch.testing import kv_prologue_case
+
+    g = torch.Generator(device=cuda).manual_seed(6)
+    args = kv_prologue_case(cuda, g, 8, 4, kv, fused=True)
+    whole = [x.clone() for x in args[:2] + args[9:]]
+    q_rot = paged_kv_write_rope(*whole[:2], *args[2:9], *whole[2:])
+    split = [[c.contiguous() for c in x.clone().split(2, dim=1)] for x in args[:2] + args[9:]]
+    parts = paged_kv_write_rope_sharded(*split[:2], *args[2:9], *(split[2:] or [None, None]),
+                                        mesh=model_mesh(2, [cuda, cuda]))
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat(parts, dim=2), q_rot)
+    for pieces, full in zip(split, whole):
+        assert torch.equal(torch.cat(pieces, dim=1)[1:], full[1:])
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("m,k,n", [(8, 2048, 2560), (64, 2048, 11264), (64, 5632, 2048),
                                    (256, 2048, 32000), (24, 2064, 40), (64, 2048, 2048)])
@@ -640,11 +708,12 @@ def _small_decoder(dev, dtype=torch.bfloat16):
 @pytest.mark.parametrize("kv_dtype", [None, "int8"])
 def test_decoder_forward_kernels_against_twins(cuda, kv_dtype, monkeypatch):
     """One paged forward with the kernels and the same forward with the
-    plain twins patched in: bf16 logits within 2e-2 of logits of order 1."""
+    plain twins patched in: bf16 logits within 2e-2 of logits of order 1;
+    with the page write's twin alone, bit-equal."""
     import outline_rag_tpu_torch.models.decoder as dec
     import outline_rag_tpu_torch.ops.paged_attention as pa
     from outline_rag_tpu_torch.ops.paged_attention import (
-        paged_attention, paged_attention_plain, paged_kv_write, paged_kv_write_plain)
+        paged_attention, paged_attention_plain, paged_kv_write, paged_kv_write_rope_plain)
 
     cfg, params = _small_decoder(cuda)
     toks = torch.randint(1, 512, (2, 40), generator=torch.Generator(device=cuda).manual_seed(1),
@@ -661,9 +730,12 @@ def test_decoder_forward_kernels_against_twins(cuda, kv_dtype, monkeypatch):
     got = run()
     assert (paged_attention.launches - a0, paged_kv_write.launches - w0) == (2, 2)
     # the decoder walks its pages through the sharded wrappers (one shard),
-    # which call ops/paged_attention.py's kernels
+    # which call ops/paged_attention.py's kernels; its page write is the
+    # prologue that also rotates q and k
+    monkeypatch.setattr(pa, "paged_kv_write_rope", paged_kv_write_rope_plain)
+    prologue_twin = run()
+    assert torch.equal(got, prologue_twin)  # the prologue is bit-equal to its twin
     monkeypatch.setattr(pa, "paged_attention", paged_attention_plain)
-    monkeypatch.setattr(pa, "paged_kv_write", paged_kv_write_plain)
     want = run()
     assert float((got - want).abs().max()) <= 2e-2 * max(1.0, float(want.abs().max()))
 
