@@ -31,6 +31,14 @@ not which candidates are reranked. With both weights 0 (the default) the
 path launches what it launched without them. The terms are stock PyTorch
 ops (einsums, a max, a masked mean), true fp32 while TF32 is off. Only the
 final rows and scores return to the host.
+
+Spans (``utils/profiling.py``), one of each a batch: ``fused.tokenize`` (the
+tokenizer and the copy to the device), ``fused.encode`` (stage 1),
+``fused.scan`` (stage 2 and the token gather of stage 3; on a mesh, the
+shards' retrieval and its merge), ``fused.rerank`` (stages 3b-5) and
+``fused.fetch`` (the copies to the host and the row ids). They time the
+host: a device stage's span is the time its kernels took to launch, and the
+fetch's holds the wait for them.
 """
 
 from __future__ import annotations
@@ -51,6 +59,7 @@ from outline_rag_tpu_torch.models.encoder import (
 from outline_rag_tpu_torch.models.reranker import Reranker
 from outline_rag_tpu_torch.ops.quant import int8_topk, quantize_rows_int8
 from outline_rag_tpu_torch.ops.topk import NEG, cosine_topk
+from outline_rag_tpu_torch.utils.profiling import metrics
 
 Q_WIDTH = 64  # query tokens: the default width every query is run at
 
@@ -130,23 +139,25 @@ def fused_query(
     scores), retr_vals (their retrieval scores, terms included), idx
     [B, top_k], vals [B, top_k])``; dead slots carry values <= NEG/2."""
     # 1. encode queries
-    q_hidden, q_emb = encode_queries(encoder, q_ids, q_mask)
+    with metrics.span("fused.encode"):
+        q_hidden, q_emb = encode_queries(encoder, q_ids, q_mask)
 
-    # 2. retrieval top_k
-    if vectors.dtype == torch.int8:
-        # int8 scan for candidates + exact f32 rescore
-        qq, qs = quantize_rows_int8(q_emb)
-        vals, idx = int8_topk(
-            qq, qs, vectors, scales, top_k, penalty, rescore_queries=q_emb,
-            rescore_residual=residual,
-        )
-    else:
-        vals, idx = cosine_topk(q_emb, vectors, top_k, penalty)
+    with metrics.span("fused.scan"):
+        # 2. retrieval top_k
+        if vectors.dtype == torch.int8:
+            # int8 scan for candidates + exact f32 rescore
+            qq, qs = quantize_rows_int8(q_emb)
+            vals, idx = int8_topk(
+                qq, qs, vectors, scales, top_k, penalty, rescore_queries=q_emb,
+                rescore_residual=residual,
+            )
+        else:
+            vals, idx = cosine_topk(q_emb, vectors, top_k, penalty)
 
-    # 3. gather the candidates' chunk tokens on the device
-    rows = idx.long()
-    cand_ids = tok_ids[rows]  # [B, K, Tc] (a new tensor: safe to edit)
-    cand_mask = tok_mask[rows]
+        # 3. gather the candidates' chunk tokens on the device
+        rows = idx.long()
+        cand_ids = tok_ids[rows]  # [B, K, Tc] (a new tensor: safe to edit)
+        cand_mask = tok_mask[rows]
     hybrid = lex_weight > 0.0 or colbert_weight > 0.0
     cached = hybrid and tok_cvecs is not None
     return _rescore_and_rerank(
@@ -166,39 +177,40 @@ def _rescore_and_rerank(
 ):
     """Stages 3b-5 over the gathered candidates (``cand_ids`` is edited in
     place): the outputs of :func:`fused_query`."""
-    # 3b-3c. the hybrid terms, on the CLS-first rows (before slot 0 becomes
-    # the pair separator)
-    if lex_weight > 0.0 or colbert_weight > 0.0:
-        vals = add_hybrid_terms(
-            vals, encoder, q_hidden, q_ids, q_mask, cand_ids, cand_mask, cand_w,
-            cand_cvecs, cand_cscale, colbert_proj,
-            lex_weight=lex_weight, colbert_weight=colbert_weight,
-        )
+    with metrics.span("fused.rerank"):
+        # 3b-3c. the hybrid terms, on the CLS-first rows (before slot 0 becomes
+        # the pair separator)
+        if lex_weight > 0.0 or colbert_weight > 0.0:
+            vals = add_hybrid_terms(
+                vals, encoder, q_hidden, q_ids, q_mask, cand_ids, cand_mask, cand_w,
+                cand_cvecs, cand_cscale, colbert_proj,
+                lex_weight=lex_weight, colbert_weight=colbert_weight,
+            )
 
-    # chunk rows are stored CLS-first; slot 0 becomes the pair separator
-    # (the EOS EOS p EOS layout of XLM-R second segments)
-    cand_ids[:, :, 0] = eos_id
+        # chunk rows are stored CLS-first; slot 0 becomes the pair separator
+        # (the EOS EOS p EOS layout of XLM-R second segments)
+        cand_ids[:, :, 0] = eos_id
 
-    # 4. cross-encode (query ++ chunk) pairs: the full query row, padding
-    # included, then the chunk row (padding sits mid-sequence and the
-    # cumsum positions skip it, as in the JAX package)
-    b, tq = q_ids.shape
-    k, tc = idx.shape[1], cand_ids.shape[2]
-    pair_ids = torch.cat(
-        [q_ids[:, None, :].expand(b, k, tq).to(cand_ids.dtype), cand_ids], dim=2
-    ).reshape(b * k, tq + tc)
-    pair_mask = torch.cat(
-        [q_mask[:, None, :].expand(b, k, tq).to(cand_mask.dtype), cand_mask], dim=2
-    ).reshape(b * k, tq + tc)
-    rr_scores = reranker(pair_ids, pair_mask).reshape(b, k)
+        # 4. cross-encode (query ++ chunk) pairs: the full query row, padding
+        # included, then the chunk row (padding sits mid-sequence and the
+        # cumsum positions skip it, as in the JAX package)
+        b, tq = q_ids.shape
+        k, tc = idx.shape[1], cand_ids.shape[2]
+        pair_ids = torch.cat(
+            [q_ids[:, None, :].expand(b, k, tq).to(cand_ids.dtype), cand_ids], dim=2
+        ).reshape(b * k, tq + tc)
+        pair_mask = torch.cat(
+            [q_mask[:, None, :].expand(b, k, tq).to(cand_mask.dtype), cand_mask], dim=2
+        ).reshape(b * k, tq + tc)
+        rr_scores = reranker(pair_ids, pair_mask).reshape(b, k)
 
-    # 5. final top rerank_k by cross-encoder score; dead candidates masked
-    rr_scores = rr_scores.masked_fill(vals <= NEG / 2, NEG)
-    r_sorted, r_pos = torch.sort(rr_scores, dim=1, descending=True, stable=True)
-    r_vals, r_pos = r_sorted[:, :rerank_k], r_pos[:, :rerank_k]
-    r_rows = torch.gather(idx, 1, r_pos)
-    retr_vals = torch.gather(vals, 1, r_pos)
-    return r_rows, r_vals, retr_vals, idx, vals
+        # 5. final top rerank_k by cross-encoder score; dead candidates masked
+        rr_scores = rr_scores.masked_fill(vals <= NEG / 2, NEG)
+        r_sorted, r_pos = torch.sort(rr_scores, dim=1, descending=True, stable=True)
+        r_vals, r_pos = r_sorted[:, :rerank_k], r_pos[:, :rerank_k]
+        r_rows = torch.gather(idx, 1, r_pos)
+        retr_vals = torch.gather(vals, 1, r_pos)
+        return r_rows, r_vals, retr_vals, idx, vals
 
 
 def fused_query_mesh(
@@ -232,11 +244,15 @@ def fused_query_mesh(
     outputs."""
     from outline_rag_tpu_torch.parallel.query import sharded_retrieve_tokens  # noqa: PLC0415
 
-    q_hidden, q_emb = encode_queries(encoder, q_ids, q_mask)
-    vals, idx, cand_ids, cand_mask, cand_w, cand_cvecs, cand_cscale = sharded_retrieve_tokens(
-        q_emb, vectors, scales, penalty, tok_ids, tok_mask, tok_weights, top_k,
-        tok_cvecs=tok_cvecs, tok_cscale=tok_cscale, residual=residual, mesh=mesh,
-    )
+    with metrics.span("fused.encode"):
+        q_hidden, q_emb = encode_queries(encoder, q_ids, q_mask)
+    with metrics.span("fused.scan"):
+        vals, idx, cand_ids, cand_mask, cand_w, cand_cvecs, cand_cscale = (
+            sharded_retrieve_tokens(
+                q_emb, vectors, scales, penalty, tok_ids, tok_mask, tok_weights, top_k,
+                tok_cvecs=tok_cvecs, tok_cscale=tok_cscale, residual=residual, mesh=mesh,
+            )
+        )
     return _rescore_and_rerank(
         encoder, reranker, q_hidden, q_ids, q_mask, vals, idx, cand_ids, cand_mask, cand_w,
         cand_cvecs, cand_cscale, colbert_proj, rerank_k=rerank_k, eos_id=eos_id,
@@ -303,10 +319,11 @@ class FusedEngine:
         if not texts:
             return []
         tok = self.embedder.tokenizer
-        tb = tok.batch(texts, self.q_width, buckets=(self.q_width,))
-        dev = self.index.device
-        q_ids = torch.as_tensor(tb.input_ids, device=dev)
-        q_mask = torch.as_tensor(tb.attention_mask, device=dev)
+        with metrics.span("fused.tokenize"):
+            tb = tok.batch(texts, self.q_width, buckets=(self.q_width,))
+            dev = self.index.device
+            q_ids = torch.as_tensor(tb.input_ids, device=dev)
+            q_mask = torch.as_tensor(tb.attention_mask, device=dev)
         with self.index.read_section():
             # snapshot, run, fetch and translate inside the read section:
             # mutations write the shard in place once readers drain
@@ -337,14 +354,15 @@ class FusedEngine:
                 lex_weight=self.lex_weight,
                 colbert_weight=self.colbert_weight,
             )
-            r_rows = r_rows.cpu().numpy()
-            r_vals = r_vals.cpu().numpy()
-            retr_vals = retr_vals.cpu().numpy()
-            return [
-                [
-                    (str(row_ids[r]), float(rv), float(dv))
-                    for r, rv, dv in zip(rows, rvals, dvals)
-                    if rv > NEG / 2
+            with metrics.span("fused.fetch"):
+                r_rows = r_rows.cpu().numpy()
+                r_vals = r_vals.cpu().numpy()
+                retr_vals = retr_vals.cpu().numpy()
+                return [
+                    [
+                        (str(row_ids[r]), float(rv), float(dv))
+                        for r, rv, dv in zip(rows, rvals, dvals)
+                        if rv > NEG / 2
+                    ]
+                    for rows, rvals, dvals in zip(r_rows, r_vals, retr_vals)
                 ]
-                for rows, rvals, dvals in zip(r_rows, r_vals, retr_vals)
-            ]

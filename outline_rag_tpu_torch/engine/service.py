@@ -9,9 +9,10 @@ Port of ``outline_rag_tpu/engine/service.py``. Two paths behind one
   without a cross-encoder or a token cache.
 
 An error on the fused path propagates: there is no retry and no downgrade
-to the staged path. Each batch is timed into the process's stage metrics
-(``utils/profiling.py``) under the JAX package's names: ``retrieve.fused``
-or ``retrieve.staged``, and the staged path's ``retrieve.embed`` and
+to the staged path. Each batch is a span of the process's metrics
+(``utils/profiling.py``) under the JAX package's stage names:
+``retrieve.fused`` (the fused engine's stage spans are its children) or
+``retrieve.staged``, and the staged path's ``retrieve.embed`` and
 ``retrieve.index``.
 """
 

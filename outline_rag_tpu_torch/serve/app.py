@@ -66,6 +66,7 @@ from outline_rag_tpu_torch.sync.refresh import (
     refresh_status,
 )
 from outline_rag_tpu_torch.utils.hashing import new_id, verify_webhook_signature
+from outline_rag_tpu_torch.utils.profiling import request
 
 log = logging.getLogger(__name__)
 
@@ -74,6 +75,25 @@ UUID_RE = re.compile(
 )
 
 _INDEX_HTML_CACHE: dict[str, str] = {}
+
+
+class _InRequest:
+    """An SSE body whose frames are each produced under the request id
+    ``rid``: the provider's stream, started by the first frame, carries it
+    to the decode batcher."""
+
+    def __init__(self, rid: int, frames):
+        self.rid, self.frames = rid, frames
+
+    def __aiter__(self):
+        return self
+
+    async def __anext__(self) -> bytes:
+        with request(self.rid):
+            return await self.frames.__anext__()
+
+    async def aclose(self) -> None:
+        await self.frames.aclose()
 
 
 def _index_html(settings: Settings) -> str:
@@ -626,16 +646,19 @@ def build_app(
         meta.add_message(conv_id, "user", question)
         await bus.delete(f"messages:{conv_id}")
 
-        gen = await pipeline.run(
-            user,
-            conv_id,
-            question,
-            model_spec,
-            history,
-            temperature=body.get("temperature"),
-            top_p=body.get("top_p"),
-        )
-        return Response.streaming(gen)
+        # one request id for the turn's spans: its retrieval here, its
+        # generation when the response's first frame starts the stream
+        with request() as rid:
+            gen = await pipeline.run(
+                user,
+                conv_id,
+                question,
+                model_spec,
+                history,
+                temperature=body.get("temperature"),
+                top_p=body.get("top_p"),
+            )
+        return Response.streaming(_InRequest(rid, gen))
 
     # -- upload -----------------------------------------------------------
 

@@ -48,6 +48,18 @@ out over the mesh by ``shard_decoder_params``; the ring or the pool shards
 on KvH over the same devices and the page tables replicate (one copy, on
 the mesh's first device). The chunk, paged and speculative modes run as
 they do on one device.
+
+Spans (``utils/profiling.py``). A request's: ``decode.queue`` from
+``submit`` until its admission is staged (held and backpressured time
+included; ``prompt_tokens``), ``decode.admit`` from staging to its first
+token sampled (``chunks``, ``shared_pages``) and ``decode.prefill`` around
+each paged prefill chunk (``start``; ``tokens``, the prompt's, padding left
+out; its parent the ``decode.admit``), each with the request's id. The worker's passes are tiled
+by ``decode.stage`` (admissions and their prefill chunks), ``decode.idle``
+(the wait for work), ``decode.launch`` (the state's upload and the chunk's
+launch; ``rows`` live, ``steps``), ``decode.fetch`` (the chunk's tokens to
+the host) and ``decode.emit`` (the host state, each row's tokens, finishes
+and cancels), so no time of the loop lies outside a span.
 """
 
 from __future__ import annotations
@@ -58,6 +70,7 @@ import itertools
 import logging
 import queue
 import threading
+import time
 from typing import Any
 
 import numpy as np
@@ -75,6 +88,7 @@ from outline_rag_tpu_torch.models.decoder import (
     make_key,
     sample_token,
 )
+from outline_rag_tpu_torch.utils.profiling import current_request, metrics, new_request_id
 
 DONE = object()  # sentinel on request queues
 
@@ -88,6 +102,8 @@ class _Request:
     out: "queue.Queue[Any]"
     seed: int
     token: int = 0  # cancellation handle (see DecodeBatcher.cancel)
+    rid: int | None = None  # request id of its spans
+    submitted: float = 0.0  # perf_counter at submit()
 
 
 class DecodeBatcher:
@@ -284,9 +300,14 @@ class DecodeBatcher:
         top_p: float,
         max_new: int,
         seed: int = 0,
+        rid: int | None = None,
     ) -> "queue.Queue[Any]":
         """Enqueue a request; returns a queue yielding lists of token ids
-        and finally the DONE sentinel."""
+        and finally the DONE sentinel. ``rid`` is the request id of its
+        spans (by default the caller's, else a new one)."""
+        submitted = time.perf_counter()
+        if rid is None:
+            rid = current_request() or new_request_id()
         if self.dead is not None:
             raise RuntimeError("decode batcher worker is dead") from self.dead
         if self._stop:
@@ -302,7 +323,8 @@ class DecodeBatcher:
         out.cancel_token = tok  # handle for cancel(out)
         self._live.add(tok)
         self.pending.put(
-            _Request(prompt_ids, float(temperature), float(top_p), max_new, out, seed, token=tok)
+            _Request(prompt_ids, float(temperature), float(top_p), max_new, out, seed, token=tok,
+                     rid=rid, submitted=submitted)
         )
         self._wake.set()
         if self.dead is not None:  # worker died between the check and the put
@@ -439,9 +461,12 @@ class DecodeBatcher:
         if self.kv_pages > 0:
             return self._start_admission(req, row)
         t = len(req.prompt_ids)
+        staged = self._dequeued(req)
         bucket = next((b for b in self.prompt_buckets if b >= t), self.prompt_buckets[-1])
         logits, row_cache = self._prefill(self._tokens(req.prompt_ids + [0] * (bucket - t)))
         first_id = self._sample_first(req, logits, t - 1)
+        metrics.add("decode.admit", staged, time.perf_counter(), rid=req.rid, chunks=1,
+                    shared_pages=0)
         if first_id == self.eos_id or req.max_new < 1:
             self._retire(req)
             req.out.put(DONE)
@@ -454,6 +479,13 @@ class DecodeBatcher:
                     d[:, row] = s[:, 0]
         self._set_row_state(req, row, first_id)
         return True
+
+    def _dequeued(self, req: _Request) -> float:
+        """Close the request's ``decode.queue`` span; returns its end."""
+        now = time.perf_counter()
+        metrics.add("decode.queue", req.submitted, now, rid=req.rid,
+                    prompt_tokens=len(req.prompt_ids))
+        return now
 
     # -- paged-pool bookkeeping (worker thread only) -----------------------
 
@@ -548,9 +580,15 @@ class DecodeBatcher:
         self._adm = {
             "req": req, "row": row, "pages": pages, "hashes": hashes,
             "table": torch.from_numpy(row_table).to(self.device), "t": t,
-            "c0": len(shared) * s,
+            "c0": len(shared) * s, "staged": self._dequeued(req),
+            "span": metrics.new_span_id(), "chunks": 0, "shared": len(shared),
         }
         return True
+
+    def _admitted(self, adm: dict) -> None:
+        """Close the staged admission's ``decode.admit`` span."""
+        metrics.add("decode.admit", adm["staged"], time.perf_counter(), rid=adm["req"].rid,
+                    sid=adm["span"], chunks=adm["chunks"], shared_pages=adm["shared"])
 
     def _advance_admission(self) -> None:
         """One prefill chunk of the staged admission; finalizes (first
@@ -563,18 +601,23 @@ class DecodeBatcher:
             self._retire(req)
             self._release_pages(adm["pages"])
             self._adm = None
+            self._admitted(adm)
             req.out.put(DONE)
             return
         pfc = self._pfc
         try:
             chunk = req.prompt_ids[c0:c0 + pfc]
-            logits = self._prefill_paged(
-                adm["table"], self._tokens(chunk + [0] * (pfc - len(chunk))), c0
-            )
+            with metrics.span("decode.prefill", rid=req.rid, parent=adm["span"], start=c0,
+                              tokens=len(chunk)):
+                logits = self._prefill_paged(
+                    adm["table"], self._tokens(chunk + [0] * (pfc - len(chunk))), c0
+                )
             adm["c0"] = c0 + pfc
+            adm["chunks"] += 1
             if adm["c0"] < t:
                 return  # more chunks to go; let decode steps interleave
             first_id = self._sample_first(req, logits, (t - 1) - c0)
+            self._admitted(adm)
         except Exception:
             # keep the pool accounting coherent (refs dropped, fresh pages
             # freed) before the caller's fail-fast policy runs
@@ -624,6 +667,7 @@ class DecodeBatcher:
                 except queue.Empty:
                     break
             if req.token in self._cancelled:
+                self._dequeued(req)
                 self._retire(req)
                 req.out.put(DONE)
                 continue
@@ -644,101 +688,115 @@ class DecodeBatcher:
 
     def _loop(self) -> None:
         while not self._stop:
-            self._stage_admissions()
-            if self._cancelled:
-                # cancel() raced a completion: drop tokens no longer live
-                self._cancelled &= self._live
-            # Advance the staged paged admission. At full load: one prefill
-            # chunk per decode chunk (fairness for the active streams).
-            # With idle slots: up to min(8, idle) chunks, staging follow-up
-            # admissions as each completes, so a burst of arrivals ramps to
-            # full concurrency instead of one admission per decode chunk
-            # while every step pays full-slot-count compute.
-            idle = sum(1 for r in self.active if r is None)
-            budget = min(8, max(1, idle))
-            while budget > 0 and self._adm is not None:
-                adm_req = self._adm["req"]
-                try:
-                    self._advance_admission()
-                except Exception as e:
-                    # a failed paged prefill may have died half way through
-                    # in-place pool updates: fail the whole batcher rather
-                    # than decode from a corrupt pool
-                    self._retire(adm_req)
-                    adm_req.out.put(e)
-                    adm_req.out.put(DONE)
-                    self._die(e)
+            with metrics.span("decode.stage"):
+                if not self._schedule():
                     return
-                budget -= 1
-                if self._adm is None:
-                    self._stage_admissions()
-
             if self._adm is None and not any(r is not None for r in self.active):
-                self._wake.wait(timeout=0.1)
-                self._wake.clear()
+                with metrics.span("decode.idle"):
+                    self._wake.wait(timeout=0.1)
+                    self._wake.clear()
                 continue
             if not any(r is not None for r in self.active):
                 continue  # only the staged admission is in flight
 
             try:
                 active_mask = np.asarray([r is not None for r in self.active], bool)
-                dev = self.device
-                state = (
-                    torch.from_numpy(self.tok).to(dev),
-                    torch.from_numpy(self.pos).to(dev),
-                    torch.from_numpy(self.seed).to(dev),
-                    torch.from_numpy(self.temp).to(dev),
-                    torch.from_numpy(self.tp).to(dev),
-                    torch.from_numpy(active_mask).to(dev),
-                )
-                counts = None
-                if self.tok_buf is not None:
-                    toks, cnt, tok_dev, pos_dev = self._step_spec(*state)
-                    # one fetch a chunk: [slots, chunk * (spec_k + 1) + 3]
-                    fetched = torch.cat(
-                        [toks, cnt[:, None], tok_dev[:, None], pos_dev[:, None]], dim=1
-                    ).cpu().numpy()
-                    toks_np, counts = fetched[:, :-3], fetched[:, -3]
-                    self.spec_emitted += int(counts[active_mask].sum())
-                    self.spec_steps += int(active_mask.sum()) * self.chunk_tokens
-                else:
-                    toks, tok_dev, pos_dev = self._step_chunk(*state)
-                    # one fetch a chunk: [slots, chunk + 2]
-                    fetched = torch.cat(
-                        [toks, tok_dev[:, None], pos_dev[:, None]], dim=1
-                    ).cpu().numpy()
-                    toks_np = fetched[:, :-2]
-                self.tok = fetched[:, -2].astype(np.int32)
-                self.pos = fetched[:, -1].astype(np.int32)
-                for row, req in enumerate(self.active):
-                    if req is None:
-                        continue
-                    if req.token in self._cancelled:
-                        self._finish(row)  # reclaims slot and pages; DONE
-                        continue
-                    ids = toks_np[row].tolist()
-                    if counts is not None:
-                        ids = ids[: int(counts[row])]
-                        if not ids:  # a row the capacity guard froze: end the stream
-                            self._finish(row)
-                            continue
-                    stop = self.eos_id in ids
-                    if stop:
-                        ids = ids[: ids.index(self.eos_id)]
-                    room = req.max_new - self.produced[row]
-                    if len(ids) >= room:
-                        ids = ids[:room]
-                        stop = True
-                    self.produced[row] += len(ids)
-                    if ids:
-                        req.out.put(ids)
-                    if stop:
-                        self._finish(row)
+                with metrics.span("decode.launch", rows=int(active_mask.sum()),
+                                  steps=self.chunk_tokens):
+                    dev = self.device
+                    state = (
+                        torch.from_numpy(self.tok).to(dev),
+                        torch.from_numpy(self.pos).to(dev),
+                        torch.from_numpy(self.seed).to(dev),
+                        torch.from_numpy(self.temp).to(dev),
+                        torch.from_numpy(self.tp).to(dev),
+                        torch.from_numpy(active_mask).to(dev),
+                    )
+                    if self.tok_buf is not None:
+                        toks, cnt, tok_dev, pos_dev = self._step_spec(*state)
+                        # one fetch a chunk: [slots, chunk * (spec_k + 1) + 3]
+                        parts = [toks, cnt[:, None], tok_dev[:, None], pos_dev[:, None]]
+                    else:
+                        toks, tok_dev, pos_dev = self._step_chunk(*state)
+                        # one fetch a chunk: [slots, chunk + 2]
+                        parts = [toks, tok_dev[:, None], pos_dev[:, None]]
+                with metrics.span("decode.fetch"):
+                    fetched = torch.cat(parts, dim=1).cpu().numpy()
+                with metrics.span("decode.emit"):
+                    self._emit(fetched, active_mask)
             except Exception as e:  # device/runtime failure: fail every
                 self._die(e)  # waiter, mark dead so submit() fails fast
                 return
         # normal stop: the worker owns the final drain (see _drain_done)
         self._drain_done()
+
+    def _schedule(self) -> bool:
+        """Stage admissions and advance the staged one; False when a failed
+        prefill killed the batcher."""
+        self._stage_admissions()
+        if self._cancelled:
+            # cancel() raced a completion: drop tokens no longer live
+            self._cancelled &= self._live
+        # Advance the staged paged admission. At full load: one prefill
+        # chunk per decode chunk (fairness for the active streams).
+        # With idle slots: up to min(8, idle) chunks, staging follow-up
+        # admissions as each completes, so a burst of arrivals ramps to
+        # full concurrency instead of one admission per decode chunk
+        # while every step pays full-slot-count compute.
+        idle = sum(1 for r in self.active if r is None)
+        budget = min(8, max(1, idle))
+        while budget > 0 and self._adm is not None:
+            adm_req = self._adm["req"]
+            try:
+                self._advance_admission()
+            except Exception as e:
+                # a failed paged prefill may have died half way through
+                # in-place pool updates: fail the whole batcher rather
+                # than decode from a corrupt pool
+                self._retire(adm_req)
+                adm_req.out.put(e)
+                adm_req.out.put(DONE)
+                self._die(e)
+                return False
+            budget -= 1
+            if self._adm is None:
+                self._stage_admissions()
+        return True
+
+    def _emit(self, fetched: np.ndarray, active_mask: np.ndarray) -> None:
+        """Hand each live row its chunk's tokens; finish and cancel rows."""
+        if self.tok_buf is not None:
+            toks_np, counts = fetched[:, :-3], fetched[:, -3]
+            self.spec_emitted += int(counts[active_mask].sum())
+            self.spec_steps += int(active_mask.sum()) * self.chunk_tokens
+        else:
+            toks_np, counts = fetched[:, :-2], None
+        self.tok = fetched[:, -2].astype(np.int32)
+        self.pos = fetched[:, -1].astype(np.int32)
+        for row, req in enumerate(self.active):
+            if req is None:
+                continue
+            if req.token in self._cancelled:
+                self._finish(row)  # reclaims slot and pages; DONE
+                continue
+            ids = toks_np[row].tolist()
+            if counts is not None:
+                ids = ids[: int(counts[row])]
+                if not ids:  # a row the capacity guard froze: end the stream
+                    self._finish(row)
+                    continue
+            stop = self.eos_id in ids
+            if stop:
+                ids = ids[: ids.index(self.eos_id)]
+            room = req.max_new - self.produced[row]
+            if len(ids) >= room:
+                ids = ids[:room]
+                stop = True
+            self.produced[row] += len(ids)
+            if ids:
+                req.out.put(ids)
+            if stop:
+                self._finish(row)
 
     def _waiting(self) -> list[_Request]:
         """Take every staged, held, active and pending request off the

@@ -51,6 +51,7 @@ from outline_rag_tpu_torch.models.decoder import (
     sample_token,
 )
 from outline_rag_tpu_torch.serve.decode_batcher import DONE, DecodeBatcher
+from outline_rag_tpu_torch.utils.profiling import current_request, new_request_id
 
 
 log = logging.getLogger(__name__)
@@ -551,14 +552,16 @@ class LocalChatProvider:
                 yield piece
             inflight = None if stop else nxt
 
-    def _batched_blocking(self, messages, temperature, top_p, max_new):
-        """Text-piece generator over the continuous batcher."""
+    def _batched_blocking(self, messages, temperature, top_p, max_new, rid=None):
+        """Text-piece generator over the continuous batcher; ``rid`` is the
+        request id of the batcher's spans."""
         ids = self._encode_prompt(self._render(messages))
         out_q = self._batcher.submit(
             ids,
             float(temperature or 0.0),
             float(top_p if top_p is not None else 1.0),
             max_new,
+            rid=rid,
         )
         out_ids: list[int] = []
         flush = self._flusher(out_ids)
@@ -590,9 +593,9 @@ class LocalChatProvider:
                 # the slot instead of decoding for nobody
                 self._batcher.cancel(out_q)
 
-    def _pieces(self, messages, temperature, top_p, max_new):
+    def _pieces(self, messages, temperature, top_p, max_new, rid=None):
         if self._batcher is not None:
-            return self._batched_blocking(messages, temperature, top_p, max_new)
+            return self._batched_blocking(messages, temperature, top_p, max_new, rid)
         return self._generate_blocking(messages, temperature, top_p, max_new)
 
     async def complete(
@@ -611,9 +614,11 @@ class LocalChatProvider:
                 }
             ]
 
+        rid = current_request() or new_request_id()
+
         def run():
             return "".join(
-                self._pieces(messages, temperature, top_p, max_tokens or self.max_new_tokens)
+                self._pieces(messages, temperature, top_p, max_tokens or self.max_new_tokens, rid)
             )
 
         return await asyncio.to_thread(run)
@@ -622,7 +627,10 @@ class LocalChatProvider:
         """Yields ``{"content": str, "thinking": None, "model": str}`` deltas
         until generation ends. One feeding thread per stream hands pieces to
         the event loop, so any number of streams run at once; closing the
-        stream early stops the thread and cancels the batcher's row."""
+        stream early stops the thread and cancels the batcher's row. The
+        caller's request id (else a new one) goes to the batcher with the
+        prompt: the feeding thread does not inherit it."""
+        rid = current_request() or new_request_id()
         loop = asyncio.get_running_loop()
         pieces: asyncio.Queue = asyncio.Queue()
         end = object()
@@ -636,7 +644,7 @@ class LocalChatProvider:
 
         def feed():
             try:
-                gen = self._pieces(messages, temperature, top_p, self.max_new_tokens)
+                gen = self._pieces(messages, temperature, top_p, self.max_new_tokens, rid)
                 for piece in gen:
                     if stop.is_set():
                         gen.close()  # fires the cancel path of the generator

@@ -108,25 +108,6 @@ ADAPTED = {
         ['hc = inner.params["colbert"]["w"].shape[1]'],
         ["hc = inner.encoder.colbert.out_features"],
     ),
-    # trace() captures through torch.profiler instead of jax.profiler
-    "utils/profiling.py": (
-        ["- :func:`trace` — context-manager wrapper over ``jax.profiler.trace`` for",
-         "on-demand XLA trace capture (set ORT_TRACE_DIR or pass a path);",
-         '"""Capture a jax profiler trace into ``path`` (or ORT_TRACE_DIR).',
-         "import jax",
-         "with jax.profiler.trace(target):"],
-        ["- :func:`trace` — context-manager wrapper over ``torch.profiler`` for",
-         "on-demand trace capture (set ORT_TRACE_DIR or pass a path);",
-         '"""Capture a torch profiler trace (host and, where there is one, CUDA',
-         "activity) into ``path`` (or ORT_TRACE_DIR) as a Chrome trace file.",
-         "import torch",
-         "activities = [torch.profiler.ProfilerActivity.CPU]",
-         "if torch.cuda.is_available():",
-         "activities.append(torch.profiler.ProfilerActivity.CUDA)",
-         "os.makedirs(target, exist_ok=True)",
-         "with torch.profiler.profile(activities=activities) as prof:",
-         'prof.export_chrome_trace(os.path.join(target, f"trace_{os.getpid()}_{time.time_ns()}.json"))'],
-    ),
 }
 
 
