@@ -20,7 +20,8 @@ Asks (``check_asks``), over a sample of the asks answered in the window:
   another chunk than the reference's.
 
 Chats (``check_chats``), over a sample of greedy chats answered in the
-window with the longest among them, the reference run once over each prompt
+window with the longest among them, the reference of the configuration's
+architecture (``portbench/arch/<model_type>.py``) run once over each prompt
 and its served tokens:
 
 - ``token_gap`` / ``token_gap_mean``: the largest / mean amount by which the
@@ -40,7 +41,7 @@ import statistics
 import torch
 
 from portbench import weights
-from portbench.reference import qwen2, scan, xlmr
+from portbench.reference import scan, xlmr
 from portbench.words import WordTokenizer, render
 
 
@@ -141,14 +142,14 @@ def check_chats(run, chats: list[dict], control: dict | None = None) -> list[dic
     tok = WordTokenizer(cfg["vocab_size"], cfg["serving"]["eos_token_id"])
     gaps: dict[str, list] = {"": [], "control_": []}
     with torch.inference_mode():
-        sd = weights.draw(weights.qwen2_layout(cfg), dev, dtype, run.seed, "decoder")
+        sd = weights.draw(run.arch.layout(cfg), dev, dtype, run.seed, "decoder")
         for c in chats:
             prompt = tok.encode(render(c["messages"]))
             served = tok.encode(c["text"])
             if not served:
                 continue
             ids = torch.tensor(prompt + served, device=dev)
-            lg = qwen2.logits(sd, cfg, ids)
+            lg = run.arch.logits(sd, cfg, ids)
             at = torch.arange(len(prompt) - 1, len(prompt) + len(served) - 1, device=dev)
             rows = lg[at]
             top = rows.max(dim=-1).values

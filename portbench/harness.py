@@ -18,6 +18,16 @@ control.py``).
 
 A metric module provides ``read(run) -> float | None``; None leaves the metric
 out of the line.
+
+A decoder configuration names its architecture by the published config's
+``model_type``, and ``portbench/arch/<model_type>.py`` provides ``layout(cfg)``
+(the state dict's leaves, in the order the seeded draw cuts them),
+``build(cfg, sd, device, dtype) -> (params, model_cfg)`` (the port's loader;
+it may consume ``sd``), ``logits(sd, cfg, ids)`` (the plain reference, as a
+rule imported from ``reference/<model_type>.py``), the control as
+``quantize(params) -> qparams`` (once a run) and ``lower(qparams, model_cfg,
+ids) -> logits``, and ``token_flops(cfg, context)``. Each takes plain values,
+not the harness's objects.
 """
 
 from __future__ import annotations
@@ -98,6 +108,10 @@ class Bench:
     def reader(self, metric: str):
         return load_module(self.parts / "metrics" / f"{metric}.py")
 
+    def arch(self, config: dict):
+        """The decoder architecture the configuration's ``model_type`` names."""
+        return load_module(self.parts / "arch" / f"{config['model_type']}.py")
+
 
 class Run:
     """One run: what the generator drives and what the metric readers read.
@@ -115,6 +129,8 @@ class Run:
         self.config = bench.config(self.cell["config"])
         self.mix = bench.mix(self.cell["traffic"])
         self.gen = bench.generator(self.mix)
+        # found before any weight is drawn
+        self.arch = bench.arch(self.config) if "decoder" in self.gen.needs(self.mix) else None
         self.records: list[dict] = []
         self.setup_s = self.w0 = self.w1 = None
         self.drain_s = 90.0  # the longest wait for answers past the window's close
@@ -206,6 +222,11 @@ def forbidden_modules() -> list[str]:
     return sorted({m for m in sys.modules if m.split(".")[0] in FORBIDDEN})
 
 
+def build_stack(run: Run) -> Stack:
+    """The parts ``run``'s traffic needs, built from its seed on its device."""
+    return Stack(run.config, run.gen.needs(run.mix), run.seed, run.device, run.trace, run.arch)
+
+
 def execute(bench: Bench, workload: str, seed: int, seconds: float, trace: bool,
             device: str = "cuda", t0: float | None = None, control: bool = False) -> dict:
     """One run of ``workload``; returns the result line as a dict (its
@@ -221,7 +242,7 @@ def execute(bench: Bench, workload: str, seed: int, seconds: float, trace: bool,
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
         torch.cuda.reset_peak_memory_stats(dev)
-    stack = Stack(run.config, run.gen.needs(run.mix), run.seed, dev, run.trace)
+    stack = build_stack(run)
     run.rec = stack.rec
     run.warm_profiler()
     asyncio.run(_drive(run, stack))

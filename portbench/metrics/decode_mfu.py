@@ -1,7 +1,7 @@
 """Model FLOPs of the decode chunks started in the window over their wall
-time, as a share of the card's bf16 peak: each live row's tokens through the
-weights and the tied head (2 x parameters) and attention over its cached
-positions (``roofline.qwen2_token_flops``)."""
+time, as a share of the card's bf16 peak: each live row's tokens at their
+cached positions, counted by the architecture's ``token_flops``
+(``portbench/arch/<model_type>.py``)."""
 
 from portbench import roofline
 from portbench.window import spans
@@ -11,7 +11,7 @@ def read(run):
     chunks = spans(run, "decode_chunk")
     if not chunks:
         return None
-    flops = sum(roofline.qwen2_token_flops(run.config, pos + s)
+    flops = sum(run.arch.token_flops(run.config, pos + s)
                 for _, _, f in chunks for pos in f["lengths"] for s in range(f["steps"]))
     wall = sum(t1 - t0 for t0, t1, _ in chunks)
     return 100.0 * flops / wall / roofline.PEAK_BF16

@@ -42,18 +42,6 @@ def int8_scan_bytes(batch: int, rows: int, dim: int, k: int) -> float:
     return rows * dim + 8.0 * rows + batch * (dim + 4) + 8.0 * batch * k
 
 
-def qwen2_token_flops(cfg: dict, context: int) -> float:
-    """Model FLOPs of one token through a Qwen2 decoder at position
-    ``context``: 2 x the non-embedding weights and the head, and attention
-    over ``context + 1`` cached positions (q.k and p.v, 2 x 2 x Dh a head a
-    position a layer)."""
-    h, f, n = cfg["hidden_size"], cfg["intermediate_size"], cfg["num_hidden_layers"]
-    heads, kv = cfg["num_attention_heads"], cfg["num_key_value_heads"]
-    hd = h // heads
-    proj = h * (heads + 2 * kv) * hd + heads * hd * h + 3 * h * f
-    return 2.0 * (n * proj + cfg["vocab_size"] * h) + 4.0 * n * heads * hd * (context + 1)
-
-
 def paged_attention_cost(cfg: dict, lengths, t: int, kv_bytes: int = 2) -> tuple[float, float]:
     """``(bytes, flops)`` of one layer's paged attention over rows whose
     ``t`` new tokens end at the given cached ``lengths`` (the positions

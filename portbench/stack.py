@@ -154,30 +154,17 @@ class Decoder:
     """The local chat decoder: ``LocalChatProvider`` with its continuous
     batcher over a paged pool."""
 
-    def __init__(self, cfg: dict, seed: int, device, rec: Recorder, trace: bool):
-        from outline_rag_tpu_torch.models.convert import decoder_params_from_state_dict
-        from outline_rag_tpu_torch.models.decoder import DecoderConfig
+    def __init__(self, cfg: dict, arch, seed: int, device, rec: Recorder, trace: bool):
         from outline_rag_tpu_torch.serve.llm import LocalChatProvider
 
         self.cfg, self.device, self.rec = cfg, device, rec
         s = cfg["serving"]
         dtype = DTYPES[cfg["serve_dtype"]]
-        self.dcfg = DecoderConfig(
-            vocab_size=cfg["vocab_size"], hidden=cfg["hidden_size"],
-            layers=cfg["num_hidden_layers"], heads=cfg["num_attention_heads"],
-            kv_heads=cfg["num_key_value_heads"], intermediate=cfg["intermediate_size"],
-            head_dim=cfg["hidden_size"] // cfg["num_attention_heads"],
-            rope_theta=float(cfg["rope_theta"]), norm_eps=cfg["rms_norm_eps"], attn_bias=True,
-            tie_embeddings=cfg["tie_word_embeddings"],
-            max_cache=cfg["max_position_embeddings"], dtype=dtype,
-        )
-        sd = weights.draw(weights.qwen2_layout(cfg), device, dtype, seed, "decoder")
-        sd["model.embed_tokens.weight"] = sd["model.embed_tokens.weight"].clone()
-        params = decoder_params_from_state_dict(sd, self.dcfg, device, dtype)
-        del sd
+        params, self.model_cfg = arch.build(
+            cfg, weights.draw(arch.layout(cfg), device, dtype, seed, "decoder"), device, dtype)
         self.tokenizer = CountingTokenizer(cfg["vocab_size"], s["eos_token_id"])
         self.provider = LocalChatProvider(
-            params, self.dcfg, self.tokenizer, eos_id=s["eos_token_id"],
+            params, self.model_cfg, self.tokenizer, eos_id=s["eos_token_id"],
             chunk_tokens=s["chunk_tokens"], max_new_tokens=s["max_new_tokens"],
             batch_slots=s["batch_slots"], kv_pages=s["kv_pages"], page_size=s["page_size"],
             prefix_cache=s["prefix_cache"], kv_int8=s["kv_int8"], device=device,
@@ -251,13 +238,15 @@ class CountingTokenizer(WordTokenizer):
 class Stack:
     """What a cell runs: the parts its traffic needs."""
 
-    def __init__(self, config: dict, needs, seed: int, device, trace: bool):
+    def __init__(self, config: dict, needs, seed: int, device, trace: bool, arch):
+        """``arch``: the decoder's architecture module (``portbench/arch/``),
+        None without a decoder."""
         self.rec = Recorder()
         self.retrieval = self.decoder = None
         if "retrieval" in needs:
             self.retrieval = Retrieval(config["retrieval_stack"], seed, device, self.rec, trace)
         if "decoder" in needs:
-            self.decoder = Decoder(config, seed, device, self.rec, trace)
+            self.decoder = Decoder(config, arch, seed, device, self.rec, trace)
 
     def close(self) -> None:
         for part in (self.retrieval, self.decoder):

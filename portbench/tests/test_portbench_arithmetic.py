@@ -76,7 +76,7 @@ def test_qwen2_token_flops_by_hand():
     hd = 4
     proj = 8 * (2 * 4 + 2 * 4) + 2 * 4 * 8 + 3 * 8 * 16
     want = 2 * (3 * proj + 100 * 8) + 4 * 3 * 2 * hd * 11
-    assert roofline.qwen2_token_flops(cfg, 10) == want
+    assert load_module(REPO / "portbench" / "arch" / "qwen2.py").token_flops(cfg, 10) == want
 
 
 def test_scan_and_paged_bytes_by_hand():

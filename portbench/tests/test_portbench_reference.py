@@ -5,11 +5,12 @@ import types
 
 import torch
 
-from portbench import weights
+from portbench import harness, weights
 from portbench.reference import qwen2, scan, xlmr
-from portbench.tests.tiny import QWEN, RETRIEVAL
+from portbench.tests.tiny import QWEN, REPO, RETRIEVAL
 
 CPU = torch.device("cpu")
+BENCH = harness.Bench(REPO)
 
 
 def _port_encoder(cfg, classifier: bool, seed: int):
@@ -69,20 +70,34 @@ def test_exact_scan_is_a_stable_topk_over_blocks():
 
 
 def test_qwen2_logits_match_the_port_decoder():
-    from outline_rag_tpu_torch.models.convert import decoder_params_from_state_dict
-    from outline_rag_tpu_torch.models.decoder import DecoderConfig, decoder_forward, init_cache
+    from outline_rag_tpu_torch.models.decoder import decoder_forward, init_cache
 
     cfg = QWEN
-    dcfg = DecoderConfig(vocab_size=cfg["vocab_size"], hidden=cfg["hidden_size"],
-                         layers=cfg["num_hidden_layers"], heads=cfg["num_attention_heads"],
-                         kv_heads=cfg["num_key_value_heads"],
-                         intermediate=cfg["intermediate_size"], head_dim=16,
-                         rope_theta=cfg["rope_theta"], norm_eps=cfg["rms_norm_eps"],
-                         attn_bias=True, tie_embeddings=True, max_cache=64, dtype=torch.float32)
-    sd = weights.draw(weights.qwen2_layout(cfg), CPU, torch.float32, 5, "decoder")
-    params = decoder_params_from_state_dict(sd, dcfg, CPU, torch.float32)
+    arch = BENCH.arch(cfg)
+    params, dcfg = arch.build(cfg, weights.draw(arch.layout(cfg), CPU, torch.float32, 5,
+                                                "decoder"), CPU, torch.float32)
+    sd = weights.draw(arch.layout(cfg), CPU, torch.float32, 5, "decoder")
     ids = torch.randint(0, cfg["vocab_size"], (40,), generator=torch.Generator().manual_seed(1))
     with torch.no_grad():
         got, _ = decoder_forward(params, ids[None], init_cache(dcfg, 1, CPU),
                                  torch.zeros(1, dtype=torch.int32), dcfg)
-    assert torch.allclose(got[0], qwen2.logits(sd, cfg, ids, block=16), atol=1e-4)
+    assert dcfg.hd == 16 and dcfg.attn_bias and dcfg.tie_embeddings
+    want = qwen2.logits(sd, cfg, ids, block=16)  # the head in three blocks of positions
+    assert torch.allclose(got[0], want, atol=1e-4)
+    assert torch.allclose(arch.logits(sd, cfg, ids), want, atol=1e-5)
+
+
+def test_qwen2_layout_of_the_published_config():
+    """The leaves the seeded draw cuts, in its order: the embedding and the
+    final norm, then 12 a layer, and no separate head (it is tied)."""
+    cfg = BENCH.config("qwen2.5-1.5b.local-rag")
+    leaves = BENCH.arch(cfg).layout(cfg)
+    assert len(leaves) == 2 + 28 * 12 == 338
+    assert leaves[0] == ("model.embed_tokens.weight", (151936, 1536), False)
+    assert leaves[1] == ("model.norm.weight", (1536,), True)
+    assert leaves[2] == ("model.layers.0.input_layernorm.weight", (1536,), True)
+    assert leaves[4:6] == [("model.layers.0.self_attn.q_proj.weight", (1536, 1536), False),
+                           ("model.layers.0.self_attn.q_proj.bias", (1536,), False)]
+    assert leaves[6] == ("model.layers.0.self_attn.k_proj.weight", (256, 1536), False)
+    assert leaves[-1] == ("model.layers.27.mlp.down_proj.weight", (1536, 8960), False)
+    assert not any(name == "lm_head.weight" for name, _, _ in leaves)

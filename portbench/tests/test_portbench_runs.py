@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from portbench import harness
-from portbench.tests.tiny import REPO, make_root
+from portbench.tests.tiny import CELLS, QWEN, REPO, make_root
 
 KEYS = ["correct", "attempted", "failed", "metrics", "device", "checks"]
 
@@ -60,6 +60,92 @@ def test_a_metric_and_a_mix_dropped_in_are_found_by_name(tmp_path):
     (root / "BENCHMARK.json").write_text(json.dumps(spec))
     res = harness.execute(harness.Bench(root), "tiny.ask-slow", 7, 2.0, False, device="cpu")
     assert res["metrics"]["asks_answered"]["value"] == res["attempted"] > 0
+
+
+TOY_ARCH = """\
+from pathlib import Path
+
+from portbench.harness import load_module
+
+_qwen2 = load_module(Path(__file__).with_name("qwen2.py"))
+_calls = Path(__file__).with_name("toy.calls")
+
+
+def _wrap(name):
+    def call(*args, **kwargs):
+        with open(_calls, "a") as f:
+            f.write(name + "\\n")
+        return getattr(_qwen2, name)(*args, **kwargs)
+
+    return call
+
+
+layout, build, logits, quantize, lower, token_flops = (
+    _wrap(n) for n in ("layout", "build", "logits", "quantize", "lower", "token_flops"))
+"""
+
+
+def _add_decoder_cell(root, model_type: str, like: str) -> str:
+    """A configuration naming ``model_type`` and a cell of it under the
+    traffic of the tiny cell ``like``, in every metric list that has it."""
+    (root / "portbench" / "configs" / f"tiny-{model_type}.json").write_text(
+        json.dumps(dict(QWEN, model_type=model_type)))
+    spec = json.loads((root / "BENCHMARK.json").read_text())
+    spec["configs"].append({"name": f"tiny-{model_type}", "source": "tiny",
+                            "file": f"portbench/configs/tiny-{model_type}.json", "reduced": [],
+                            "why": "CPU"})
+    cell = f"tiny.{model_type}"
+    spec["workloads"].append({"name": cell, "config": f"tiny-{model_type}",
+                              "traffic": CELLS[like][1], "chips": 1, "why": "CPU"})
+    for m in spec["end_to_end"] + spec["per_layer"]:
+        if like in m.get("workloads", []):
+            m["workloads"].append(cell)
+    (root / "BENCHMARK.json").write_text(json.dumps(spec))
+    return cell
+
+
+def test_an_architecture_dropped_in_is_found_by_name(tmp_path):
+    """A decoder architecture is a file ``arch/<model_type>.py``: one that
+    wraps Qwen2's parts serves, is checked, is controlled and is counted
+    through each of them, and the run is correct."""
+    root = make_root(tmp_path)
+    (root / "portbench" / "arch" / "toy.py").write_text(TOY_ARCH)
+    cell = _add_decoder_cell(root, "toy", "tiny.general")
+    res = harness.execute(harness.Bench(root), cell, 17, 2.0, True, device="cpu", control=True)
+    assert res["correct"] and res["attempted"] > 0, res["checks"]
+    assert "decode_mfu" in res["metrics"] and res["control"]
+    called = set((root / "portbench" / "arch" / "toy.calls").read_text().split())
+    assert called == {"layout", "build", "logits", "quantize", "lower", "token_flops"}
+    calls = (root / "portbench" / "arch" / "toy.calls").read_text().split()
+    assert calls.count("quantize") == 1 and calls.count("lower") >= 2  # quantized once a run
+
+
+def test_an_unknown_architecture_is_named_before_any_weight_is_drawn(tmp_path, monkeypatch):
+    from portbench import weights
+
+    root = make_root(tmp_path)
+    cell = _add_decoder_cell(root, "nosuch", "tiny.rag")
+
+    def drawn(*args, **kwargs):
+        raise AssertionError("a weight was drawn")
+
+    monkeypatch.setattr(weights, "draw", drawn)
+    with pytest.raises(FileNotFoundError, match=r"arch/nosuch\.py"):
+        harness.execute(harness.Bench(root), cell, 3, 1.0, False, device="cpu")
+
+
+def test_the_sweep_builds_its_cell_and_reads_each_rate(bench, monkeypatch):
+    """``sweep.py`` on the tiny ask cell: the stack built once through
+    ``harness.build_stack``, a line a rate, the second rate without the
+    warm-up."""
+    monkeypatch.setattr(sys, "path", list(sys.path))  # the script sets sys.path[0]
+    sweep = harness.load_module(bench.root / "portbench" / "sweep.py")
+    lines = list(sweep.sweep(bench, "tiny.ask", 2**31 + 9, 2.0, [10.0, 20.0],
+                             torch.device("cpu")))
+    assert [ln["rate"] for ln in lines] == [10.0, 20.0]
+    for ln in lines:
+        assert ln["due"] > 0 and ln["answered"] > 0 and ln["p95_ms"] >= ln["p50_ms"] > 0, ln
+        assert isinstance(ln["sustained"], bool)
 
 
 def _broken_answer(monkeypatch):

@@ -22,7 +22,8 @@ RETRIEVAL = {
     "correct": {"limits": {"dense_mean": 1e-5}},
 }
 QWEN = {
-    "retrieval_config": "tiny-retrieval", "hidden_size": 64, "intermediate_size": 128,
+    "retrieval_config": "tiny-retrieval", "model_type": "qwen2", "hidden_size": 64,
+    "intermediate_size": 128,
     "num_hidden_layers": 2, "num_attention_heads": 4, "num_key_value_heads": 2,
     "max_position_embeddings": 512, "rms_norm_eps": 1e-06, "rope_theta": 1000000.0,
     "tie_word_embeddings": True, "vocab_size": 512, "serve_dtype": "float32",

@@ -197,31 +197,24 @@ def check(run, control=None) -> list[dict]:
 
 def controlled(run, stack) -> dict:
     """The configuration's lower precision on the sampled chats: the
-    port's int8 weights (``DECODER_INT8``) in a forward over each prompt
-    with its served tokens, and the first token it puts at each position;
-    with retrieval, the sampled questions through the w8a8 trunks."""
+    architecture's ``quantize``d weights, made once, in its ``lower`` over
+    each prompt with its served tokens, and the first token it puts at each
+    position; with retrieval, the sampled questions through the w8a8
+    trunks."""
     import torch
 
-    from outline_rag_tpu_torch.models.decoder import (
-        decoder_forward,
-        init_cache,
-        quantize_decoder_params,
-    )
     from outline_rag_tpu_torch.serve.llm import LocalChatProvider
 
     dec = stack.decoder
-    params = quantize_decoder_params(dec.provider.params)
+    qparams = run.arch.quantize(dec.provider.params)
     tok = dec.tokenizer
     out = {"tokens": {}}
     with torch.inference_mode():
         for r in sample_chats(run):
             ids = tok.encode(LocalChatProvider._render(dec.provider, r["messages"]))
             ids += tok.encode(r["text"])
-            x = torch.tensor([ids], dtype=torch.int32, device=run.device)
-            logits, _ = decoder_forward(params, x, init_cache(dec.dcfg, 1, run.device),
-                                        torch.zeros((1,), dtype=torch.int32,
-                                                    device=run.device), dec.dcfg)
-            out["tokens"][r["i"]] = logits[0].argmax(-1).tolist()
+            x = torch.tensor(ids, dtype=torch.int32, device=run.device)
+            out["tokens"][r["i"]] = run.arch.lower(qparams, dec.model_cfg, x).argmax(-1).tolist()
     if run.mix["retrieve"]:
         from outline_rag_tpu_torch.models.encoder import quantize_encoder_
 

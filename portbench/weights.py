@@ -55,29 +55,6 @@ def xlmr_layout(cfg: dict, classifier: bool) -> list[tuple[str, tuple, bool]]:
     return out
 
 
-def qwen2_layout(cfg: dict) -> list[tuple[str, tuple, bool]]:
-    """``(name, shape, is_norm_scale)`` of a Qwen2ForCausalLM with a tied head."""
-    h, f = cfg["hidden_size"], cfg["intermediate_size"]
-    hd = h // cfg["num_attention_heads"]
-    nq, nkv = cfg["num_attention_heads"] * hd, cfg["num_key_value_heads"] * hd
-    out = [("model.embed_tokens.weight", (cfg["vocab_size"], h), False),
-           ("model.norm.weight", (h,), True)]
-    for i in range(cfg["num_hidden_layers"]):
-        p = f"model.layers.{i}."
-        out += [(p + "input_layernorm.weight", (h,), True),
-                (p + "post_attention_layernorm.weight", (h,), True)]
-        for name, shape in (("self_attn.q_proj", (nq, h)), ("self_attn.k_proj", (nkv, h)),
-                            ("self_attn.v_proj", (nkv, h))):
-            out += [(p + name + ".weight", shape, False), (p + name + ".bias", shape[:1], False)]
-        out += [(p + "self_attn.o_proj.weight", (h, nq), False),
-                (p + "mlp.gate_proj.weight", (f, h), False),
-                (p + "mlp.up_proj.weight", (f, h), False),
-                (p + "mlp.down_proj.weight", (h, f), False)]
-    if not cfg["tie_word_embeddings"]:
-        out.append(("lm_head.weight", (cfg["vocab_size"], h), False))
-    return out
-
-
 def draw(layout, device, dtype: torch.dtype, seed: int, label: str) -> dict[str, torch.Tensor]:
     """A state dict of views into one ``dtype`` buffer drawn at once: every
     leaf ~ N(0, STD), norm scales then moved to 1 + N(0, STD) in one more
