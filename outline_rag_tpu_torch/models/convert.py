@@ -46,7 +46,10 @@ from torch import nn
 
 from outline_rag_tpu_torch.models.decoder import (
     DecoderConfig,
+    MLAConfig,
+    MoEConfig,
     PagedKV,
+    YarnRope,
     cast_decoder_params,
 )
 from outline_rag_tpu_torch.models.encoder import Encoder, EncoderConfig, zero_linear
@@ -495,6 +498,10 @@ def _rope_theta(hf_config) -> float:
 
 
 def decoder_config_from_hf(hf_config, dtype: torch.dtype = torch.bfloat16) -> DecoderConfig:
+    """The port's config of a Llama / Qwen2-family or DeepSeek-V2
+    (``model_type`` "deepseek_v2") HF config, read by attribute."""
+    if getattr(hf_config, "model_type", "") == "deepseek_v2":
+        return _deepseek_v2_config(hf_config, dtype)
     return DecoderConfig(
         vocab_size=hf_config.vocab_size,
         hidden=hf_config.hidden_size,
@@ -514,13 +521,138 @@ def decoder_config_from_hf(hf_config, dtype: torch.dtype = torch.bfloat16) -> De
     )
 
 
+def _deepseek_v2_config(c, dtype: torch.dtype) -> DecoderConfig:
+    """DeepSeek-V2 as DeepSeek-V2-Lite publishes it: latent attention
+    without a q LoRA, YaRN rope, a softmax router with greedy top-k whose
+    weights are neither renormalised nor scaled, and experts in every layer
+    from ``first_k_dense_replace``. Any other variant raises a
+    ``ValueError`` naming the option."""
+    scaling = getattr(c, "rope_scaling", None) or {}
+    refused = {
+        "q_lora_rank": getattr(c, "q_lora_rank", None) is not None,
+        "attention_bias": bool(getattr(c, "attention_bias", False)),
+        "tie_word_embeddings": bool(getattr(c, "tie_word_embeddings", False)),
+        "hidden_act": getattr(c, "hidden_act", "silu") != "silu",
+        "rope_scaling": scaling.get("type", scaling.get("rope_type")) != "yarn",
+        "n_routed_experts": not getattr(c, "n_routed_experts", None),
+        "n_shared_experts": not getattr(c, "n_shared_experts", None),
+        "topk_method": getattr(c, "topk_method", "greedy") != "greedy",
+        "scoring_func": getattr(c, "scoring_func", "softmax") != "softmax",
+        "norm_topk_prob": bool(getattr(c, "norm_topk_prob", False)),
+        "routed_scaling_factor": float(getattr(c, "routed_scaling_factor", 1.0)) != 1.0,
+        "moe_layer_freq": getattr(c, "moe_layer_freq", 1) != 1,
+    }
+    for name, bad in refused.items():
+        if bad:
+            raise ValueError(
+                f"DeepSeek-V2 with {name}={getattr(c, name, None)!r} is not supported")
+    yarn = YarnRope(
+        factor=float(scaling["factor"]),
+        original_max=int(scaling["original_max_position_embeddings"]),
+        beta_fast=float(scaling.get("beta_fast", 32)),
+        beta_slow=float(scaling.get("beta_slow", 1)),
+        mscale=float(scaling.get("mscale", 1)),
+        mscale_all_dim=float(scaling.get("mscale_all_dim", 0)),
+    )
+    return DecoderConfig(
+        vocab_size=c.vocab_size, hidden=c.hidden_size, layers=c.num_hidden_layers,
+        heads=c.num_attention_heads,
+        kv_heads=getattr(c, "num_key_value_heads", c.num_attention_heads),
+        intermediate=c.intermediate_size, rope_theta=_rope_theta(c), norm_eps=c.rms_norm_eps,
+        dtype=dtype,
+        mla=MLAConfig(yarn=yarn, kv_lora_rank=int(c.kv_lora_rank),
+                      qk_nope_dim=int(c.qk_nope_head_dim), qk_rope_dim=int(c.qk_rope_head_dim),
+                      v_head_dim=int(c.v_head_dim)),
+        moe=MoEConfig(experts=int(c.n_routed_experts), top_k=int(c.num_experts_per_tok),
+                      intermediate=int(c.moe_intermediate_size),
+                      first_dense=int(c.first_k_dense_replace)),
+    )
+
+
+def stacked(tensors: list[torch.Tensor]) -> torch.Tensor:
+    """``torch.stack(tensors)``, as a view when they lie one after another
+    in one storage (a draw cut in that order, a safetensors shard), else as
+    a copy."""
+    first = tensors[0]
+    n = first.numel()
+    step = n * first.element_size()
+    if all(t.is_contiguous() and t.shape == first.shape and t.dtype == first.dtype
+           and t.device == first.device
+           and t.untyped_storage().data_ptr() == first.untyped_storage().data_ptr()
+           and t.data_ptr() == first.data_ptr() + i * step for i, t in enumerate(tensors)):
+        return first.as_strided((len(tensors), *first.shape), (n, *first.stride()))
+    return torch.stack(tensors)
+
+
+def deepseek_v2_params_from_state_dict(
+    sd: dict, cfg: DecoderConfig, device: str | torch.device, dtype: torch.dtype = torch.float32,
+) -> dict:
+    """A published ``DeepseekV2ForCausalLM`` state dict as the port's
+    parameters, consuming ``sd`` (each entry is popped as it is taken).
+    Weights already on ``device`` in ``dtype`` are taken as views, not
+    copied: dense projections as the transposes ``[in, out]`` the decoder
+    multiplies by, each layer's experts stacked (:func:`stacked`) in the
+    published ``[out, in]`` layout, gate and up of an expert one after the
+    other (``experts_gu`` ``[E, 2F, hidden]``, ``experts_down`` ``[E, hidden,
+    F]``), ``kv_b_proj`` split by head into ``w_uk`` and ``w_uv`` ``[heads,
+    128, kv_lora_rank]``. The shared experts' gate and up are concatenated
+    (``shared_gu``); norm scales, the router and the rope frequencies are
+    f32."""
+    from outline_rag_tpu_torch.models.mla import rope_frequencies  # noqa: PLC0415
+
+    mla, moe = cfg.mla, cfg.moe
+
+    def get(name, to=dtype):
+        x = sd.pop(name)
+        x = x.detach() if isinstance(x, torch.Tensor) else _t(x)
+        return x.to(device=device, dtype=to)
+
+    p = {"embed": get("model.embed_tokens.weight"), "final_norm": get("model.norm.weight",
+                                                                    torch.float32),
+         "lm_head": get("lm_head.weight").T, "rope_freq": rope_frequencies(cfg, device),
+         "layers": []}
+    for i in range(cfg.layers):
+        pre = f"model.layers.{i}."
+        kv_b = get(pre + "self_attn.kv_b_proj.weight").view(
+            cfg.heads, mla.qk_nope_dim + mla.v_head_dim, mla.kv_lora_rank)
+        layer = {
+            "ln1": get(pre + "input_layernorm.weight", torch.float32),
+            "ln2": get(pre + "post_attention_layernorm.weight", torch.float32),
+            "wq": get(pre + "self_attn.q_proj.weight").T,
+            "wkv_a": get(pre + "self_attn.kv_a_proj_with_mqa.weight").T,
+            "kv_norm": get(pre + "self_attn.kv_a_layernorm.weight", torch.float32),
+            "w_uk": kv_b[:, : mla.qk_nope_dim], "w_uv": kv_b[:, mla.qk_nope_dim :],
+            "wo": get(pre + "self_attn.o_proj.weight").T,
+        }
+        if i < moe.first_dense:
+            for ours, theirs in (("wg", "gate_proj"), ("wu", "up_proj"), ("wd", "down_proj")):
+                layer[ours] = get(f"{pre}mlp.{theirs}.weight").T
+        else:
+            ex = pre + "mlp.experts."
+            gate_up = stacked([get(f"{ex}{e}.{w}.weight") for e in range(moe.experts)
+                               for w in ("gate_proj", "up_proj")])
+            layer["router"] = get(pre + "mlp.gate.weight", torch.float32)
+            layer["experts_gu"] = gate_up.view(moe.experts, 2 * moe.intermediate, cfg.hidden)
+            layer["experts_down"] = stacked([get(f"{ex}{e}.down_proj.weight")
+                                             for e in range(moe.experts)])
+            sh = pre + "mlp.shared_experts."
+            layer["shared_gu"] = torch.cat([get(sh + "gate_proj.weight").T,
+                                            get(sh + "up_proj.weight").T], dim=-1)
+            layer["shared_down"] = get(sh + "down_proj.weight").T
+        p["layers"].append(layer)
+    return p
+
+
 def load_pretrained_decoder(
     path: str, device: str | torch.device, dtype: torch.dtype = torch.bfloat16
 ) -> tuple[DecoderConfig, dict]:
     """``(cfg, params)`` of a local Llama / Qwen2-family checkpoint on
     ``device``: GQA head counts, Qwen2's q/k/v biases, a tied or untied
-    ``lm_head``, ``head_dim`` and ``rope_theta`` where the config has them."""
+    ``lm_head``, ``head_dim`` and ``rope_theta`` where the config has them;
+    or of a DeepSeek-V2 checkpoint (:func:`deepseek_v2_params_from_state_dict`)."""
     from transformers import AutoConfig  # noqa: PLC0415
 
     cfg = decoder_config_from_hf(AutoConfig.from_pretrained(path), dtype)
-    return cfg, decoder_params_from_state_dict(_load_state_dict(path), cfg, device, dtype)
+    load = deepseek_v2_params_from_state_dict if cfg.mla is not None else (
+        decoder_params_from_state_dict)
+    return cfg, load(_load_state_dict(path), cfg, device, dtype)

@@ -17,7 +17,14 @@ Two caches:
 - the KV ring, a tuple ``(k, v)`` of ``[L, B, KvH, C, Dh]``;
 - :class:`PagedKV`, a shared pool of pages ``[L, P, KvH, page, Dh]`` with a
   page table (``ops/paged_attention.py`` documents the layout, which
-  differs from the JAX package's position-minor one).
+  differs from the JAX package's position-minor one), or for latent
+  attention a pool of latent entries ``[L, P, page, kv_lora_rank + rope]``.
+
+A config with :class:`MLAConfig` and :class:`MoEConfig` (DeepSeek-V2) runs
+multi-head latent attention over the latent pool (``models/mla.py``) and,
+past its leading dense layers, routed experts with shared experts
+(``models/moe.py``); it serves on the paged pool only, on one device, in
+the model dtype (:func:`check_latent_options` names what it refuses).
 
 :func:`decoder_forward` **updates the cache it is given in place** and
 returns it; there is no donation to arrange and no copy to avoid.
@@ -74,6 +81,55 @@ Params = dict[str, Any]
 
 
 @dataclasses.dataclass(frozen=True)
+class YarnRope:
+    """YaRN's rotary scaling as DeepSeek-V2 publishes it (``rope_scaling``
+    of ``type`` "yarn"): frequencies kept below the correction range,
+    divided by ``factor`` above it, a linear ramp between;
+    ``models/mla.py::rope_frequencies`` computes them."""
+
+    factor: float
+    original_max: int  # original_max_position_embeddings
+    beta_fast: float
+    beta_slow: float
+    mscale: float
+    mscale_all_dim: float
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    """Multi-head latent attention without a q LoRA (DeepSeek-V2), its rope
+    dims rotated with YaRN: each token caches one entry of ``kv_lora_rank``
+    normed latent values and ``qk_rope_dim`` rotated key values shared by
+    every head."""
+
+    yarn: YarnRope
+    kv_lora_rank: int
+    qk_nope_dim: int
+    qk_rope_dim: int
+    v_head_dim: int
+
+    @property
+    def entry(self) -> int:
+        """Width of a token's entry in the latent pool."""
+        return self.kv_lora_rank + self.qk_rope_dim
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    """Routed experts with shared experts (DeepSeek-V2's ``DeepseekV2MoE``
+    with greedy top-k over a softmax router, the top-k weights neither
+    renormalised nor scaled): layers ``first_dense`` and above replace the
+    dense MLP by ``experts`` SwiGLU experts of width ``intermediate``,
+    ``top_k`` a token, plus the shared experts as one SwiGLU (its width is
+    its weights')."""
+
+    experts: int
+    top_k: int
+    intermediate: int
+    first_dense: int
+
+
+@dataclasses.dataclass(frozen=True)
 class DecoderConfig:
     vocab_size: int = 32000
     hidden: int = 2048
@@ -88,10 +144,17 @@ class DecoderConfig:
     tie_embeddings: bool = False
     max_cache: int = 2048  # KV capacity per sequence
     dtype: torch.dtype = torch.bfloat16
+    mla: MLAConfig | None = None  # DeepSeek-V2: latent attention in every layer,
+    moe: MoEConfig | None = None  # and routed experts past the leading dense layers
 
     @property
     def hd(self) -> int:
         return self.head_dim or self.hidden // self.heads
+
+    @property
+    def moe_layers(self) -> int:
+        """Layers with routed experts."""
+        return self.layers - self.moe.first_dense
 
     @classmethod
     def tiny(cls, dtype: torch.dtype = torch.float32) -> "DecoderConfig":
@@ -114,7 +177,9 @@ class DecoderConfig:
 # init / conversion helpers
 # ---------------------------------------------------------------------------
 
-_NORM_NAMES = ("ln1", "ln2", "final_norm")
+# kept in f32 by cast_decoder_params: norm scales, the router and the
+# latent model's rotary frequencies
+_F32_NAMES = ("ln1", "ln2", "final_norm", "kv_norm", "router", "rope_freq")
 _INT8_WEIGHT_NAMES = ("wq", "wk", "wv", "wo", "wg", "wu", "wd", "wqkv", "wgu")
 
 
@@ -166,7 +231,7 @@ def cast_decoder_params(params: Params, dtype: torch.dtype) -> Params:
     already quantized ``{"q", "s"}`` / ``{"q4", "s4"}`` leaves as they are."""
 
     def cast(name, x):
-        if isinstance(x, dict) or name in _NORM_NAMES or name.startswith("b"):
+        if isinstance(x, dict) or name in _F32_NAMES or name.startswith("b"):
             return x
         return x.to(dtype)
 
@@ -179,13 +244,18 @@ def fuse_decoder_params(params: Params) -> Params:
     """Concatenate each layer's QKV (and gate/up) along the output axis, so
     a layer runs 4 matmuls instead of 7. Columns of a matrix product are
     independent, so the fused results are the unfused ones; fuse before
-    quantizing (per-output-channel scales survive the same way)."""
+    quantizing (per-output-channel scales survive the same way). A latent
+    attention layer has no QKV and an expert layer no dense gate/up: they
+    stay as they are."""
     out = dict(params)
     layers = []
     for layer in params["layers"]:
         layer = dict(layer)
-        layer["wqkv"] = torch.cat([layer.pop("wq"), layer.pop("wk"), layer.pop("wv")], dim=-1)
-        layer["wgu"] = torch.cat([layer.pop("wg"), layer.pop("wu")], dim=-1)
+        if "wk" in layer:
+            layer["wqkv"] = torch.cat([layer.pop("wq"), layer.pop("wk"), layer.pop("wv")],
+                                      dim=-1)
+        if "wg" in layer:
+            layer["wgu"] = torch.cat([layer.pop("wg"), layer.pop("wu")], dim=-1)
         if "bq" in layer:
             layer["bqkv"] = torch.cat([layer.pop("bq"), layer.pop("bk"), layer.pop("bv")], dim=-1)
         layers.append(layer)
@@ -548,19 +618,38 @@ class PagedKV:
     and the scales are then lists, one ``[L, P, KvH/n, ...]`` tensor a
     device of the mesh; the table is replicated host-written state, kept
     once on the mesh's first device.
+
+    A latent attention model (``cfg.mla``) has ``latent`` ``[L, P, page,
+    kv_lora_rank + qk_rope_dim]`` in the model dtype instead of ``k`` and
+    ``v`` (None). Its forward gathers the first ``span`` table columns of
+    every row (all of them when None): the caller that knows its rows'
+    lengths sets it to cover every position the forward reads or writes.
     """
 
-    k: torch.Tensor | list
-    v: torch.Tensor | list
+    k: torch.Tensor | list | None
+    v: torch.Tensor | list | None
     table: torch.Tensor
     k_scale: torch.Tensor | list | None = None
     v_scale: torch.Tensor | list | None = None
     mesh: Any = None  # a TP mesh: k, v and the scales are per-device lists split on KvH
+    latent: torch.Tensor | None = None  # [L, P, page, entry]: latent attention's pool
+    span: int | None = None  # table columns a latent forward reads
 
     @property
     def page(self) -> int:
+        if self.latent is not None:
+            return self.latent.shape[2]
         k = self.k[0] if self.mesh is not None else self.k
         return k.shape[3]
+
+    @property
+    def bytes_per_token(self) -> int:
+        """Device bytes the pool holds for one token of one row (every
+        layer, shard and scale)."""
+        pools = [self.latent, self.k, self.v, self.k_scale, self.v_scale]
+        tensors = [t for p in pools if p is not None for t in (p if isinstance(p, list) else [p])]
+        slots = tensors[0].shape[1] * self.page  # P pages of `page` tokens
+        return sum(t.numel() * t.element_size() for t in tensors) // slots
 
 
 def init_paged_cache(
@@ -578,9 +667,17 @@ def init_paged_cache(
         raise ValueError(f"max_cache={cfg.max_cache} not divisible by page_size={page_size}")
     if kv_dtype not in (None, "int8"):
         raise ValueError(f"unsupported kv_dtype {kv_dtype!r} (use 'int8' or None)")
+    maxp = cfg.max_cache // page_size
+    if cfg.mla is not None:
+        check_latent_options(cfg, kv_int8=kv_dtype is not None, mesh=mesh)
+        return PagedKV(
+            k=None, v=None,
+            table=torch.zeros((batch, maxp), dtype=torch.int32, device=device),
+            latent=torch.zeros((cfg.layers, pages, page_size, cfg.mla.entry), dtype=cfg.dtype,
+                               device=device),
+        )
     if mesh is not None and cfg.kv_heads % mesh.size:
         raise ValueError(f"kv_heads={cfg.kv_heads} not divisible by TP mesh size {mesh.size}")
-    maxp = cfg.max_cache // page_size
     n = 1 if mesh is None else mesh.size
     shape = (cfg.layers, pages, cfg.kv_heads // n, page_size, cfg.hd)
     devices = [device] if mesh is None else list(mesh.devices)
@@ -602,12 +699,37 @@ def init_paged_cache(
     )
 
 
+def check_latent_options(cfg: DecoderConfig, *, paged: bool = True, **options) -> None:
+    """Refuse what a DeepSeek-V2 model (``cfg.mla`` and ``cfg.moe``) cannot
+    serve: each option given a true value (``kv_int8``, ``int8_weights``,
+    ``int4_weights``, ``spec_k``, ``mesh``, ``tp_devices``, ...) raises a
+    ``ValueError`` that names it, and so does a forward without the paged
+    pool (``paged`` false). A Llama/Qwen config passes."""
+    if cfg.mla is None and cfg.moe is None:
+        return
+    if cfg.mla is None or cfg.moe is None:
+        raise ValueError("latent attention and routed experts are served together (DeepSeek-V2)")
+    for name, value in options.items():
+        if value:
+            raise ValueError(
+                f"{name}={value!r} is not supported for a latent attention / expert decoder "
+                "(DeepSeek-V2): it serves bf16 or f32 weights over the paged latent pool, "
+                "on one device, without speculation"
+            )
+    if not paged:
+        raise ValueError(
+            "a latent attention / expert decoder (DeepSeek-V2) runs on the paged latent pool "
+            "only: give the batcher kv_pages > 0 (and the provider batch_slots > 1)"
+        )
+
+
 def decoder_forward(
     params: Params,
     tokens: torch.Tensor,  # [B, T] integers — new tokens
     cache,  # KV ring tuple [L, B, KvH, C, Dh] or PagedKV
     start_pos: torch.Tensor,  # [B] int32 — absolute position of tokens[:, 0]
     cfg: DecoderConfig,
+    route: torch.Tensor | None = None,  # expert models: int64 [cfg.moe_layers, experts] zeros
 ):
     """Run T tokens (prefill T > 1, decode T = 1) against the cache.
 
@@ -631,7 +753,16 @@ def decoder_forward(
     head run once, on the first device. The cache is then the ring sharded
     by ``shard_decoder_cache`` or a :class:`PagedKV` of the same mesh.
     Unsharded parameters are the one-shard case.
+
+    A latent attention config (``cfg.mla``, DeepSeek-V2) takes
+    :func:`_latent_forward` over the pool's ``latent`` entries: each layer's
+    attention from ``models/mla.py``, its MLP dense below
+    ``cfg.moe.first_dense`` and from ``models/moe.py`` above, which leaves
+    each expert layer's per-expert pair counts in its row of ``route`` (a
+    buffer of the forward's own when None).
     """
+    if cfg.mla is not None:
+        return _latent_forward(params, tokens, cache, start_pos, cfg, route)
     from outline_rag_tpu_torch.parallel.mesh import Mesh  # noqa: PLC0415
     from outline_rag_tpu_torch.parallel.tp import MODEL_AXIS, local_config  # noqa: PLC0415
 
@@ -720,6 +851,33 @@ def decoder_forward(
     if head is None:
         head = params["embed"].T
     return _mm(x, head, dt).float(), cache
+
+
+def _latent_forward(params: Params, tokens, cache, start_pos, cfg: DecoderConfig, route):
+    """:func:`decoder_forward` of a latent attention model (DeepSeek-V2)
+    over a :class:`PagedKV` with ``latent`` entries, on one device."""
+    from outline_rag_tpu_torch.models import mla, moe  # noqa: PLC0415
+
+    check_latent_options(cfg, paged=isinstance(cache, PagedKV) and cache.latent is not None,
+                         mesh=params.get("mesh"))
+    dt = cfg.dtype
+    t = tokens.shape[1]
+    x = params["embed"][tokens.long()].to(dt)
+    start_pos = start_pos.to(x.device, torch.int32)
+    at = mla.walk(params["rope_freq"], cache.table, start_pos, t, cache.page, cache.span, cfg)
+    if route is None:
+        route = torch.zeros((cfg.moe_layers, cfg.moe.experts), dtype=torch.int64,
+                            device=x.device)
+    for li, layer in enumerate(params["layers"]):
+        h = _rms_norm(x, layer["ln1"], cfg.norm_eps)
+        x = x + _mm(mla.attend(h, layer, cache.latent[li], at, cfg), layer["wo"], dt)
+        h = _rms_norm(x, layer["ln2"], cfg.norm_eps)
+        if "router" in layer:
+            x = x + moe.forward(h, layer, cfg, route[li - cfg.moe.first_dense])
+        else:
+            x = x + _mm(_gate_up(h, layer, cfg), layer["wd"], dt)
+    x = _rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return _mm(x, params["lm_head"], dt).float(), cache
 
 
 # ---------------------------------------------------------------------------

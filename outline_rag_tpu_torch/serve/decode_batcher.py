@@ -60,6 +60,17 @@ by ``decode.stage`` (admissions and their prefill chunks), ``decode.idle``
 launch; ``rows`` live, ``steps``), ``decode.fetch`` (the chunk's tokens to
 the host) and ``decode.emit`` (the host state, each row's tokens, finishes
 and cancels), so no time of the loop lies outside a span.
+
+An expert model (``cfg.moe``, DeepSeek-V2) adds one ``moe.route`` record a
+decode chunk and a paged prefill chunk, with the ends of its
+``decode.launch`` or ``decode.prefill``: ``kind`` ("decode" or "prefill"),
+``rows`` (live) and ``steps``; ``pairs`` (routed token-expert pairs, padding
+and idle rows included, as the expert product computes them),
+``experts_hit`` (distinct experts touched) summed over expert layers and
+steps, and ``expert_tokens_max`` (the most pairs one expert took in one
+layer-step). They are reduced on the device from the per-expert counts the
+grouping makes and fetched with the next decode chunk's tokens, so a record
+may close after later spans.
 """
 
 from __future__ import annotations
@@ -78,8 +89,8 @@ import torch
 
 from outline_rag_tpu_torch.device import resolve_device
 from outline_rag_tpu_torch.models.decoder import (
-    PagedKV,
     _sample_one,
+    check_latent_options,
     decoder_forward,
     generate_chunk_spec,
     init_cache,
@@ -125,6 +136,8 @@ class DecodeBatcher:
         mesh=None,  # TP mesh (parallel/tp.py): pools shard on KvH, tables replicate
         device: str | torch.device = "cuda",
     ):
+        check_latent_options(cfg, paged=int(kv_pages) > 0, spec_k=spec_k, kv_int8=kv_int8,
+                             mesh=mesh)
         if mesh is not None:
             if params.get("mesh") != mesh:
                 raise ValueError(
@@ -224,6 +237,11 @@ class DecodeBatcher:
             torch.zeros((slots, cfg.max_cache), dtype=torch.int32, device=self.device)
             if self.spec_k > 0 else None
         )
+        # expert models: each forward's per-expert pair counts, reduced to a
+        # chunk's moe.route fields on the device (None otherwise); records
+        # (kind, t0, t1, rows, steps, fields [3] int32) await the next fetch
+        self._chunk_route: torch.Tensor | None = None
+        self._routes: list[tuple] = []
 
         self._thread = threading.Thread(target=self._run, daemon=True)
         self._thread.start()
@@ -250,13 +268,51 @@ class DecodeBatcher:
         via its table; attention walks shared prefix pages read-only
         (``start`` lies past their span). The pools are the batcher's own,
         updated in place."""
-        cache = self.cache
-        row_view = PagedKV(
-            cache.k, cache.v, row_table[None], cache.k_scale, cache.v_scale, cache.mesh
-        )
+        row_view = dataclasses.replace(self.cache, table=row_table[None])
+        if row_view.latent is not None:
+            row_view.span = self._span(start + toks.shape[1])
         pos = torch.full((1,), start, dtype=torch.int32, device=self.device)
-        logits, _ = decoder_forward(self.params, toks, row_view, pos, self.cfg)
+        route = self._route_counts(1)
+        logits, _ = decoder_forward(self.params, toks, row_view, pos, self.cfg,
+                                    route=None if route is None else route[0])
+        self._chunk_route = self._route_fields(route)
         return logits
+
+    def _span(self, end: int) -> int:
+        """Table columns holding every position below ``end``."""
+        return min(self._maxp, -(-end // self.page_size))
+
+    def _route_counts(self, steps: int) -> torch.Tensor | None:
+        """Zeroed per-expert pair counts ``[steps, expert layers, experts]``
+        of an expert model, else None."""
+        moe = self.cfg.moe
+        if moe is None:
+            return None
+        return torch.zeros((steps, self.cfg.moe_layers, moe.experts), dtype=torch.int64,
+                           device=self.device)
+
+    @staticmethod
+    def _route_fields(counts: torch.Tensor | None) -> torch.Tensor | None:
+        """``pairs``, ``experts_hit``, ``expert_tokens_max`` of a chunk's
+        counts, int32 [3] on the device."""
+        if counts is None:
+            return None
+        return torch.stack([counts.sum(), (counts > 0).sum(), counts.amax()]).to(torch.int32)
+
+    def _fetch(self, parts: list[torch.Tensor]) -> np.ndarray:
+        """The chunk's ``parts`` side by side on the host, with every
+        pending ``moe.route`` record's fields in the same copy; records
+        them."""
+        block = torch.cat(parts, dim=1)
+        if not self._routes:
+            return block.cpu().numpy()
+        flat = torch.cat([block.flatten()] + [r[-1] for r in self._routes]).cpu().numpy()
+        fields = flat[block.numel():].reshape(-1, 3)
+        for (kind, t0, t1, rows, steps, _), (pairs, hit, most) in zip(self._routes, fields):
+            metrics.add("moe.route", t0, t1, kind=kind, rows=rows, steps=steps, pairs=int(pairs),
+                        experts_hit=int(hit), expert_tokens_max=int(most))
+        self._routes = []
+        return flat[: block.numel()].reshape(block.shape)
 
     def _step_chunk(self, tok, pos, seeds, temp, tp, active):
         """``chunk_tokens`` decode steps over every slot with no host
@@ -267,9 +323,16 @@ class DecodeBatcher:
         base = make_key(seeds, self.device)
         done = ~active
         out = []
-        for _ in range(self.chunk_tokens):
-            logits, self.cache = decoder_forward(
-                self.params, tok[:, None], self.cache, pos, self.cfg
+        cache = self.cache
+        if self.cfg.mla is not None:  # the latent pool's pages the chunk reaches
+            ends = [int(self.pos[i]) + self.chunk_tokens
+                    for i, r in enumerate(self.active) if r is not None]
+            cache = dataclasses.replace(cache, span=self._span(max(ends, default=1)))
+        route = self._route_counts(self.chunk_tokens)
+        for i in range(self.chunk_tokens):
+            logits, _ = decoder_forward(
+                self.params, tok[:, None], cache, pos, self.cfg,
+                route=None if route is None else route[i],
             )
             nxt = sample_token(logits[:, -1, :], key_at(base, pos + 1), temp, tp)
             nxt = torch.where(done, torch.full_like(nxt, self.eos_id), nxt)
@@ -277,6 +340,7 @@ class DecodeBatcher:
             pos = (pos + 1).clamp(max=cap)
             tok = nxt
             out.append(nxt)
+        self._chunk_route = self._route_fields(route)
         return torch.stack(out, dim=1), tok, pos
 
     def _step_spec(self, tok, pos, seeds, temp, tp, active):
@@ -363,6 +427,7 @@ class DecodeBatcher:
             out.update(
                 pages_total=self.kv_pages - 1,  # page 0 is scratch
                 kv_dtype="int8" if self.kv_int8 else str(self.cfg.dtype).removeprefix("torch."),
+                kv_bytes_per_token=self.cache.bytes_per_token,
                 pages_free=len(self._free_pages),
                 pages_cached=len(self._prefix_map),
                 prefix_hits=self.prefix_hits,
@@ -608,10 +673,11 @@ class DecodeBatcher:
         try:
             chunk = req.prompt_ids[c0:c0 + pfc]
             with metrics.span("decode.prefill", rid=req.rid, parent=adm["span"], start=c0,
-                              tokens=len(chunk)):
+                              tokens=len(chunk)) as span:
                 logits = self._prefill_paged(
                     adm["table"], self._tokens(chunk + [0] * (pfc - len(chunk))), c0
                 )
+            self._route_record("prefill", span, 1, 1)
             adm["c0"] = c0 + pfc
             adm["chunks"] += 1
             if adm["c0"] < t:
@@ -701,8 +767,8 @@ class DecodeBatcher:
 
             try:
                 active_mask = np.asarray([r is not None for r in self.active], bool)
-                with metrics.span("decode.launch", rows=int(active_mask.sum()),
-                                  steps=self.chunk_tokens):
+                rows = int(active_mask.sum())
+                with metrics.span("decode.launch", rows=rows, steps=self.chunk_tokens) as span:
                     dev = self.device
                     state = (
                         torch.from_numpy(self.tok).to(dev),
@@ -720,8 +786,9 @@ class DecodeBatcher:
                         toks, tok_dev, pos_dev = self._step_chunk(*state)
                         # one fetch a chunk: [slots, chunk + 2]
                         parts = [toks, tok_dev[:, None], pos_dev[:, None]]
+                self._route_record("decode", span, rows, self.chunk_tokens)
                 with metrics.span("decode.fetch"):
-                    fetched = torch.cat(parts, dim=1).cpu().numpy()
+                    fetched = self._fetch(parts)
                 with metrics.span("decode.emit"):
                     self._emit(fetched, active_mask)
             except Exception as e:  # device/runtime failure: fail every
@@ -729,6 +796,13 @@ class DecodeBatcher:
                 return
         # normal stop: the worker owns the final drain (see _drain_done)
         self._drain_done()
+
+    def _route_record(self, kind: str, span, rows: int, steps: int) -> None:
+        """Queue the chunk just run's ``moe.route`` record (expert models)
+        with the ends of its ``span``."""
+        if self._chunk_route is not None:
+            self._routes.append((kind, span.t0, span.t1, rows, steps, self._chunk_route))
+            self._chunk_route = None
 
     def _schedule(self) -> bool:
         """Stage admissions and advance the staged one; False when a failed

@@ -21,6 +21,12 @@ or, single-stream, in :meth:`LocalChatProvider._generate_spec`.
 ``tp_devices`` of ``devices`` (``parallel/tp.py``), with the JAX package's
 refusals: heads or KV heads not divisible by ``tp_devices``, int8 weights
 in any mode but w8a8, and prequantized trees raise ``ValueError``.
+
+A DeepSeek-V2 decoder (latent attention and routed experts, ``cfg.mla`` /
+``cfg.moe``) serves through the batcher's paged latent pool, in the model
+dtype: without ``batch_slots > 1`` and ``kv_pages > 0``, or with
+``kv_int8``, quantized weights, ``spec_k`` or ``tp_devices > 1``, it raises
+``ValueError`` naming the option.
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ import torch
 from outline_rag_tpu_torch.device import resolve_device
 from outline_rag_tpu_torch.models.decoder import (
     cast_decoder_params,
+    check_latent_options,
     decoder_forward,
     fold_in,
     fuse_decoder_params,
@@ -269,6 +276,11 @@ class LocalChatProvider:
                 "int8_weights and int4_weights are mutually exclusive "
                 "(pick one weight quantization)"
             )
+        check_latent_options(
+            cfg, paged=bool(batch_slots and batch_slots > 1 and kv_pages > 0), kv_int8=kv_int8,
+            int8_weights=int8_weights, int4_weights=int4_weights, prequantized=prequantized,
+            spec_k=spec_k, tp_devices=tp_devices if tp_devices and int(tp_devices) > 1 else 0,
+        )
         self.cfg = cfg
         self.mesh = None
         if tp_devices and int(tp_devices) > 1:

@@ -1562,3 +1562,76 @@ def test_pageable_host_plane_with_card_indices_raises(cuda):
         make_host_append()(plane, torch.zeros((1, 16), dtype=torch.int8, device=cuda), [0])
     with pytest.raises(ValueError, match="one device"):
         gather_rows(plane.to(cuda), torch.zeros((2, 3), dtype=torch.int32))
+
+
+def _deepseek_v2_lite(layers: int) -> dict:
+    """DeepSeek-V2-Lite's published configuration, cut to ``layers`` (its
+    dense layer, then expert layers)."""
+    import json
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "portbench/configs/deepseek-v2-lite.local-rag.json"
+    return dict(json.loads(path.read_text()), num_hidden_layers=layers)
+
+
+def test_grouped_expert_product_matches_the_per_expert_path(cuda):
+    """``torch._grouped_mm`` (gate and up as one product, then down) against
+    the loop over experts at DeepSeek-V2-Lite's widths, 64 rows x top-6
+    pairs with experts that take none: the same bf16 products, summed in
+    another order."""
+    from outline_rag_tpu_torch.models import moe
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    idx = torch.randint(0, 64, (64 * 6,), generator=g, device=cuda)
+    idx[(idx == 5) | (idx == 63)] = 6  # two experts without a pair, the last among them
+    counts = torch.bincount(idx, minlength=64)
+    xs = torch.randn(idx.numel(), 2048, generator=g, device=cuda).bfloat16()
+    gu = (torch.randn(64, 2 * 1408, 2048, generator=g, device=cuda) * 0.02).bfloat16()
+    down = (torch.randn(64, 2048, 1408, generator=g, device=cuda) * 0.02).bfloat16()
+    got = moe.experts_grouped(xs, counts, gu, down).float()
+    want = moe.experts_plain(xs, counts, gu, down).float()
+    assert (got - want).abs().max() <= 2e-2 * want.abs().max()  # a few bf16 ulps of the largest
+
+
+def test_a_deepseek_v2_decode_step_adds_no_host_sync(cuda):
+    """One decode step of ``decoder_forward`` at 64 rows over the latent
+    pool, at DeepSeek-V2-Lite's widths (its dense layer and one expert
+    layer, bf16), under ``set_sync_debug_mode("error")``; its logits are
+    the per-expert path's within bf16 rounding."""
+    from portbench import weights
+    from portbench.arch import deepseek_v2 as arch
+
+    from outline_rag_tpu_torch.models import moe
+    from outline_rag_tpu_torch.models.decoder import (
+        decoder_forward,
+        fuse_decoder_params,
+        init_paged_cache,
+    )
+
+    cfg = _deepseek_v2_lite(2)
+    sd = weights.draw(arch.layout(cfg), cuda, torch.bfloat16, 1, "decoder")
+    params, mcfg = arch.build(cfg, sd, cuda, torch.bfloat16)
+    params = fuse_decoder_params(params)
+    cache = init_paged_cache(mcfg, 64, 64 * 4 + 1, 128, device=cuda)
+    cache.table[:, :4] = torch.arange(1, 257, dtype=torch.int32, device=cuda).view(64, 4)
+    cache.span = 4
+    g = torch.Generator(device=cuda).manual_seed(2)
+    cache.latent.normal_(generator=g)
+    tokens = torch.randint(0, 102400, (64, 1), generator=g, device=cuda, dtype=torch.int32)
+    pos = torch.randint(200, 500, (64,), generator=g, device=cuda, dtype=torch.int32)
+    with torch.inference_mode():
+        decoder_forward(params, tokens, cache, pos, mcfg)  # allocations and handles first
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            logits, _ = decoder_forward(params, tokens, cache, pos, mcfg)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        grouped = moe.experts_grouped
+        moe.experts_grouped = moe.experts_plain
+        try:
+            plain, _ = decoder_forward(params, tokens, cache, pos, mcfg)
+        finally:
+            moe.experts_grouped = grouped
+    assert torch.isfinite(logits).all()
+    assert (logits - plain).abs().max() <= 2e-2 * plain.abs().max()
